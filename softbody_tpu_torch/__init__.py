@@ -1,0 +1,42 @@
+"""softbody_tpu_torch — the PyTorch/CUDA port of softbody_tpu.
+
+A second package beside the JAX reference (``softbody_tpu/``), for one NVIDIA
+H100.  It imports torch and numpy, never jax and nothing of ``softbody_tpu``:
+every host-side helper it needs is its own copy.  Module paths mirror the JAX
+package's, so each module's counterpart is found under the same name.
+
+What is ported: the forward episode of the sparse backend on the Warp pairing
+(the "stretch" inverse-design scenario) —
+
+  config          — SimConfig + parity presets, torch dtype / device helpers
+  geometry        — procedural bodies
+  scenarios       — the stretch / drop scenario constants and helpers
+  native          — g++/ctypes CSR neighbour builder
+  topology        — rest neighbours, sparse candidate-group layout
+  ops             — SPH kernels, 3x3 algebra, collision, the two pair
+                    kernels (hand-written CUDA in csrc/, plain torch beside)
+  sim             — sparse scene build, elastic forces, episode runner
+  opt             — target generation
+  convert         — JAX-built scene (as numpy) -> port objects
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from .config import SimConfig, taichi_parity, warp_parity
+from .core.types import Materials, ParticleState, Scene
+from .sim.rollout import initial_state, rollout, step
+from .sim.sparse import build_sparse_scene, elastic_forces_sparse
+
+__all__ = [
+    "SimConfig",
+    "warp_parity",
+    "taichi_parity",
+    "Materials",
+    "ParticleState",
+    "Scene",
+    "build_sparse_scene",
+    "elastic_forces_sparse",
+    "rollout",
+    "step",
+    "initial_state",
+]

@@ -1,0 +1,199 @@
+"""Sparse-bucketed scene building and elastic forces (counterpart of
+``softbody_tpu/sim/sparse.py``).
+
+Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
+
+  pos (n_slots, 3) -> posT (3, n_slots)
+    -> [per bucket: K1 moments_v4]            -> ayT (18, m)
+    -> A, Y components -> mid-section (polar, F, S, M; plain torch)
+    -> f9T (9, m), per-slot record srT (15, n_slots) = [S_6 | R^T_9]
+    -> [per bucket: K2 forces_warp_v4]        -> termjT (3, m)
+    -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
+
+Both kernels launch once per bucket (8 buckets at the ~112k stretch scene),
+the JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
+contiguous column range of every lane-major array and the per-bucket results
+concatenate straight into tile order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import SimConfig, resolve_device, torch_dtype
+from ..core.types import DevBucket, Materials, Scene, SparseBlocked
+from ..ops.pair_kernels import KERNELS, PairOps
+from ..topology.neighbors import rest_density_and_corr
+from ..topology.sparse import GROUP, build_sparse_layout
+from .blocked import mid_section
+from .scene import lame_parameters
+
+
+def far_grid(n: int, start: float, spacing: float) -> np.ndarray:
+    """n unique positions, pairwise >= spacing apart, far from the body
+    (rest positions of empty slots, so every pair term with them vanishes)."""
+    k = int(np.ceil(n ** (1.0 / 3.0))) + 1
+    ax = np.arange(k, dtype=np.float64) * spacing
+    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1).reshape(-1, 3)
+    return g[:n] + start
+
+
+def build_sparse_scene(
+    points: np.ndarray,
+    cfg: SimConfig,
+    out_num: int | None = None,
+    rows: int = 32,
+    max_buckets: int = 8,
+    dirichlet_mask: np.ndarray | None = None,
+    external_force: np.ndarray | None = None,
+    group: int = GROUP,
+    device=None,
+):
+    """Returns (scene, slot_of_particle (numpy)).
+
+    Host side in numpy f64 (layout, rest density, rest correction, static
+    row sums), then every array moves to ``device`` in ``cfg.dtype``.
+    ``device=None`` means CUDA, and raises when there is none."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    rest = np.asarray(points, dtype=np.float64)
+    n = rest.shape[0]
+    layout = build_sparse_layout(rest, 2.0 * cfg.h, rows=rows,
+                                 max_buckets=max_buckets, group=group)
+    rows = layout.rows
+    ns = layout.n_slots
+    sop = layout.slot_of_particle
+    n_tiles = layout.n_tiles
+    m = n_tiles * rows
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    span = float(np.abs(rest).max()) + 1.0
+    rest_slots = far_grid(ns, start=span + 100.0 * cfg.h, spacing=4.0 * cfg.h)
+    rest_slots[sop] = rest
+    real = layout.particle_of_slot >= 0
+
+    mass = np.where(real, cfg.mass, 0.0)
+    mass_integ = np.where(real, cfg.mass, 1.0)
+    mu0, lam0 = lame_parameters(cfg.youngs_modulus, cfg.poisson_ratio)
+    mu = np.where(real, mu0, 0.0)
+    lam = np.where(real, lam0, 0.0)
+    free = np.zeros((ns, 3))
+    free[sop] = 1.0 if dirichlet_mask is None else np.asarray(dirichlet_mask, np.float64)
+    ext = np.zeros((ns, 3))
+    ext[sop] = (
+        np.asarray(cfg.external_force, np.float64)
+        if external_force is None
+        else np.asarray(external_force, np.float64)
+    )
+
+    # density, volume, rest correction Y(rest) and the static row sums over
+    # the TRUE pair list (C++ CSR hash grid), host f64
+    rho_p, vol_p, corr_p, scx_p, svnw_p = rest_density_and_corr(
+        rest, np.full(n, cfg.mass), cfg, rowsums=True)
+    volume = np.zeros(ns)
+    volume[sop] = vol_p
+    rest_corr9 = np.zeros((m, 9))
+    rest_corr9[sop] = corr_p.reshape(n, 9)  # sop < m: every particle slot is in a tile
+    rs6 = np.zeros((m, 6))
+    rs6[sop, 0:3] = scx_p
+    rs6[sop, 3:6] = svnw_p
+
+    gsz = int(layout.group)
+    buckets = []
+    for b in layout.buckets:
+        sl = (b.group_ids.astype(np.int64)[:, :, None] * gsz
+              + np.arange(gsz)[None, None, :]).reshape(b.group_ids.shape[0], -1)
+        tid = b.tile_ids.astype(np.int64)                  # contiguous range
+        rr = rest_slots[tid[:, None] * rows + np.arange(rows)[None, :]]
+        static = np.concatenate([
+            np.swapaxes(rest_slots[sl], 1, 2),             # (t_b, 3, S)
+            mass[sl][:, None, :],
+            volume[sl][:, None, :],
+        ], axis=1)
+        buckets.append(DevBucket(
+            gidx8=dev(b.group_ids, torch.int32),
+            restT_rows=dev(np.swapaxes(rr, 1, 2)),
+            static_slab=dev(static),
+            tile_start=int(tid[0]),
+            rows=rows,
+            slab_len=int(sl.shape[1]),
+        ))
+
+    sb = SparseBlocked(buckets=tuple(buckets), rs6T=dev(rs6.T), rows=rows,
+                       n_tiles=n_tiles, n_slots=ns, group=gsz)
+    mats = Materials(
+        mass=dev(mass_integ), volume=dev(volume), mu=dev(mu), lam=dev(lam),
+        free=dev(free), external=dev(ext),
+    )
+    scene = Scene(
+        rest_position=dev(rest_slots),
+        materials=mats,
+        out_num=int(out_num if out_num is not None else n),
+        blocked=sb,
+        rest_corr=dev(rest_corr9.reshape(m, 3, 3)).permute(1, 2, 0).contiguous(),
+        slot_of_particle=dev(sop, torch.int64),
+    )
+    return scene, sop
+
+
+def _unsupported(cfg: SimConfig):
+    if cfg.pair_def_grad != "i":
+        raise NotImplementedError(
+            'pair_def_grad="j" (Taichi separable forces) is not ported yet: '
+            "ROADMAP queue 1, item 6")
+    if cfg.fused_mid:
+        raise NotImplementedError(
+            "fused_mid (the fused K1 + mid-section kernel) is not ported yet: "
+            "ROADMAP queue 1, item 8")
+    if cfg.pair_dtype == "bfloat16":
+        raise NotImplementedError(
+            'pair_dtype="bfloat16" is not ported yet: ROADMAP queue 1, item 8')
+
+
+def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
+                          scene: Scene, cfg: SimConfig,
+                          pair_ops: PairOps = KERNELS):
+    """Elastic forces (n_slots, 3) of the sparse scene, Warp pairing.
+
+    ``pair_ops``: :data:`~softbody_tpu_torch.ops.pair_kernels.KERNELS`
+    (default: the CUDA kernels on the card, the plain versions on the CPU)
+    or ``PLAIN`` (the plain versions on any device — the card-side
+    yardstick)."""
+    _unsupported(cfg)
+    sb: SparseBlocked = scene.blocked
+    m = sb.n_tiles * sb.rows
+    posT = pos_slots.T.contiguous()                            # (3, n_slots)
+
+    ayT = torch.cat([
+        pair_ops.moments(b.restT_rows, b.static_slab, posT,
+                         posT[:, b.row_start:b.row_start + b.n_tiles * sb.rows],
+                         b.gidx8, cfg.h)
+        for b in sb.buckets], dim=1)                           # (18, m)
+    # ayT row 3b+a is the final A / Y component [a][b]
+    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
+    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
+    R, F, S, M, vol_m = mid_section(A, Y, ratio_slots, mats, scene, cfg, m)
+
+    f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])  # (9, m)
+    srT = torch.zeros((15, sb.n_slots), dtype=pos_slots.dtype,
+                      device=pos_slots.device)
+    srT[:, :m] = torch.stack(
+        [S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
+        + [R[a][c] for c in range(3) for a in range(3)])
+    termjT = torch.cat([
+        pair_ops.forces(b.restT_rows, b.static_slab,
+                        f9T[:, b.row_start:b.row_start + b.n_tiles * sb.rows],
+                        srT, b.gidx8, cfg.h)
+        for b in sb.buckets], dim=1)                           # (3, m)
+    rs6T = sb.rs6T
+    f_comp = [
+        0.5 * vol_m * (termjT[a]
+                       + sum(M[a][b_] * rs6T[3 + b_] for b_ in range(3)))
+        for a in range(3)
+    ]
+    out = torch.zeros_like(pos_slots)
+    out[:m] = torch.stack(f_comp, dim=1)
+    return out

@@ -1,0 +1,109 @@
+"""PyTorch port on the card: the hand-written CUDA kernels against their
+plain versions (marker ``cuda``; they skip without a card — the kernels have
+no CPU mode).  This file imports nothing of JAX, so it runs on a machine
+with only the port's dependencies:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
+full width are chip_smoke.py phases 3-4."""
+
+import numpy as np
+import pytest
+import torch
+
+from softbody_tpu_torch import warp_parity
+from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
+from softbody_tpu_torch.ops import pair_kernels as pk
+from softbody_tpu_torch.ops.elasticity import compute_ratio
+from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask
+from softbody_tpu_torch.sim.rollout import rollout
+from softbody_tpu_torch.sim.sparse import build_sparse_scene, elastic_forces_sparse
+
+pytestmark = pytest.mark.cuda
+
+TOL = {"float32": 1e-4, "float64": 1e-12}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _scene(dtype, dev):
+    pts, out_num = inflatable_sphere(n_outer=600)
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype=dtype,
+                                frames=20, target_frames=2, **STRETCH)
+    scene, sop = build_sparse_scene(pts, cfg, out_num=out_num,
+                                    dirichlet_mask=dirichlet_mask(pts, "stretch"),
+                                    device=dev)
+    rng = np.random.default_rng(0)
+    pos = scene.rest_position.clone()
+    noise = rng.normal(scale=0.05 * cfg.h, size=(len(pts), 3))
+    pos[scene.slot_of_particle] += torch.as_tensor(noise, dtype=pos.dtype, device=dev)
+    x = torch.as_tensor(rng.normal(scale=0.5, size=scene.blocked.n_slots),
+                        dtype=pos.dtype, device=dev)
+    return cfg, scene, pos, compute_ratio(x, cfg)
+
+
+def _rel(a, b):
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kernels_match_plain_per_bucket(dtype):
+    dev = _card()
+    cfg, scene, pos, _ = _scene(dtype, dev)
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(1)
+    f9T = torch.as_tensor(rng.normal(size=(9, m)), dtype=pos.dtype, device=dev)
+    srT = torch.as_tensor(rng.normal(size=(15, sb.n_slots)), dtype=pos.dtype, device=dev)
+    srT[:, m:] = 0
+    posT = pos.T.contiguous()
+    pk.reset_launch_counts()
+    for b in sb.buckets:
+        r0, mb = b.row_start, b.n_tiles * sb.rows
+        a1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb], b.gidx8, cfg.h)
+        a2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
+        assert _rel(pk.moments_v4(*a1), pk.moments_v4_plain(*a1)) <= TOL[dtype]
+        assert _rel(pk.forces_warp_v4(*a2), pk.forces_warp_v4_plain(*a2)) <= TOL[dtype]
+    assert pk.moments_v4.launches == pk.forces_warp_v4.launches == len(sb.buckets)
+
+
+def test_forces_kernel_path_matches_plain_and_is_deterministic():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    f1 = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg)
+    f2 = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg)
+    fp = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg,
+                               pair_ops=pk.PLAIN)
+    assert torch.equal(f1, f2)              # fixed-order sums, no atomics
+    assert _rel(f1, fp) <= TOL["float32"]
+
+
+def test_short_episode_kernel_path_tracks_plain():
+    # 300 steps, as chip_smoke.py phase 6: after fewer the displacement is
+    # within a few f32 roundings of the positions themselves
+    dev = _card()
+    cfg, scene, _, ratio = _scene("float32", dev)
+    x = torch.zeros(scene.blocked.n_slots, device=dev)
+    _, fin_k, _ = rollout(x, scene, cfg, n_steps=300)
+    _, fin_p, _ = rollout(x, scene, cfg, n_steps=300, pair_ops=pk.PLAIN)
+    disp = torch.max(torch.abs(fin_p.position - scene.rest_position))
+    assert torch.max(torch.abs(fin_k.position - fin_p.position)) <= 1e-3 * disp
+
+
+def test_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, _ = _scene("float32", dev)
+    b = scene.blocked.buckets[0]
+    posT = pos.T.contiguous()
+    mb = b.n_tiles * scene.blocked.rows
+    with pytest.raises(TypeError, match="dtype"):
+        pk.moments_v4(b.restT_rows, b.static_slab, posT.double(),
+                      posT[:, :mb], b.gidx8, cfg.h)
+    with pytest.raises(ValueError, match="lanes"):
+        pk.moments_v4(b.restT_rows, b.static_slab, pos.T, posT[:, :mb],
+                      b.gidx8, cfg.h)
