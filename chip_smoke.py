@@ -19,9 +19,28 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      max |dpos| <= 1e-3 max |pos - rest|
   7  quiet body: no load, x = 0, 3000 steps, rms drift from rest < 1e-6 m
   8  the launch counts of phase 5 against the launches the path implies
+     (phases 5-7 run fewer steps when they would exceed TIME_BUDGET_S;
+     the cut is printed)
+  9  per bucket: the K1 backward and the two K2 backward passes, each
+     composed with the fixed-order slab_to_slots scatter, kernel vs plain
+     (<= 1e-4 of max |plain|), ms per launch, the work's bound
+ 10  one VJP of elastic_forces_sparse wrt (positions, x), kernel path vs
+     plain path (<= 1e-4), and bitwise equal across two kernel-path calls
+ 11  the episode gradient at full width: episode_value_and_grad_chunked over
+     GRAD_STEPS steps at x = 0 against targets from x*; fwd+bwd ms/step,
+     particle-steps/s, peak device memory, the profiler's busy share; two
+     kernel-path gradients bitwise equal; kernel vs plain path over the
+     first PREFIX_STEPS steps in f64 (loss <= 1e-5 relative, max |dg| <=
+     1e-3 max |g_plain|; the f32 values are printed, not gated)
+ 12  the product loop: optimize_lbfgs from x = 0, maxiter 2, EVAL_CHUNKS
+     chunks, into a temporary directory: the losses strictly decrease,
+     x.npy / losses.json / distances.json exist, every gradient is finite
+ 13  the launch counts of phases 11 and 12 against the launches the
+     gradient path implies
 
-Then one JSON line with every kernel's numbers, the card line, and the last
-line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+Then one JSON line with every kernel's numbers (``launches`` from phase 12,
+the product loop), the card line, and the last line
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
 of JAX.
 
@@ -39,10 +58,16 @@ import time
 TOL = 1e-4                 # f32, another summation order over <= 1024 entries
 STEPS = 3000
 FRAMES = 100
-TIME_BUDGET_S = 400.0      # cut the episodes' steps if phases 5-7 would exceed it
+TIME_BUDGET_S = 200.0      # cut the episodes' steps if phases 5-7 would exceed it
+GRAD_STEPS = 300           # depth of the gradient phases 11-12 (100 frames, interval 3)
+PREFIX_STEPS = 99          # kernel vs plain gradient prefix (33 of those frames)
+EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-FLOPS_PER_PAIR = {"moments_v4": 78, "forces_warp_v4": 75}  # as the kernels do them
+FLOPS_PER_PAIR = {"moments_v4": 78, "forces_warp_v4": 75,   # as the kernels do them
+                  "moments_v4_bwd": 72, "forces_warp_v4_bwd_rows": 75,
+                  "forces_warp_v4_bwd_slab": 123}
+T_START = time.perf_counter()
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time, longer than any timed batch's enqueue
 
 
@@ -99,6 +124,32 @@ def rel_err(a, b):
     import torch
 
     return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def summarize(key, s, launches, tag):
+    """Bound of the summed work of one evaluation, and its report line."""
+    s["bound_ms"] = max(s["flops"] / PEAK_FP32, s["bytes"] / PEAK_BYTES) * 1e3
+    s["bound_by"] = ("operations" if s["flops"] / PEAK_FP32
+                     >= s["bytes"] / PEAK_BYTES else "bytes")
+    say(f"    {key}: {s['ms']:.4f} ms device per evaluation ({launches} "
+        f"launches; {s['launch_ms']:.4f} ms host-paced) vs bound "
+        f"{s['bound_ms']:.4f} ms ({s['bound_by']}: "
+        f"{s['flops'] / 1e9:.2f} GFLOP, {s['bytes'] / 1e6:.1f} MB); plain "
+        f"{s['plain_ms']:.3f} ms {tag}")
+
+
+def record(s, out_k, out_p, what):
+    """Hold one kernel output against its plain version; keep the errors."""
+    import torch
+
+    if not bool(torch.isfinite(out_k).all()):
+        fail(f"{what}: non-finite kernel output")
+    err = rel_err(out_k, out_p)
+    if not err <= TOL:
+        fail(f"{what}: kernel vs plain error {err:.3e} > {TOL}")
+    s["max_abs_err"] = max(s["max_abs_err"], float(torch.max(torch.abs(out_k - out_p))))
+    s["max_rel_err"] = max(s["max_rel_err"], err)
+    return err
 
 
 def main():
@@ -171,10 +222,7 @@ def main():
     pos_np[sop] = body
     pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
     posT = pos.T.contiguous()
-    ayT = torch.cat([pk.moments_v4_plain(
-        b.restT_rows, b.static_slab, posT,
-        posT[:, b.row_start:b.row_start + b.n_tiles * sb.rows], b.gidx8, cfg.h)
-        for b in sb.buckets], dim=1)
+    ayT = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN)
     A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
     Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
     R, F, S, M, _ = mid_section(A, Y, ratio, scene.materials, scene, cfg, m)
@@ -186,15 +234,16 @@ def main():
     # ---- 3 kernel vs plain, per bucket
     say(f"[3] per bucket, kernel vs plain on the card {tag}")
     stats = {k: {"ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
-                 "max_abs_err": 0.0, "max_rel_err": 0.0}
-             for k in FLOPS_PER_PAIR}
+                 "max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None}
+             for k in list(FLOPS_PER_PAIR) + ["slab_to_slots"]}
     f32 = 4
     for i, b in enumerate(sb.buckets):
         t, slab = b.n_tiles, b.slab_len
         mb = t * sb.rows
         r0 = b.row_start
         uniq = int(torch.unique(b.gidx8).numel()) * sb.group   # slots this bucket reads
-        args1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb], b.gidx8, cfg.h)
+        args1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb],
+                 sb.rs6T[:, r0:r0 + mb], b.gidx8, cfg.h)
         args2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
         static_bytes = (t * 3 * sb.rows + t * 5 * slab + t * slab // sb.group) * f32
         work = {
@@ -230,15 +279,8 @@ def main():
             line.append(f"{key} err {err:.2e} {ms:.4f} ms (host-paced "
                         f"{launch_ms:.4f}, plain {plain_ms:.3f}, bound {bound:.4f})")
         say(" | ".join(line))
-    for key, s in stats.items():
-        s["bound_ms"] = max(s["flops"] / PEAK_FP32, s["bytes"] / PEAK_BYTES) * 1e3
-        s["bound_by"] = ("operations" if s["flops"] / PEAK_FP32
-                         >= s["bytes"] / PEAK_BYTES else "bytes")
-        say(f"    {key}: {s['ms']:.4f} ms device per evaluation ({len(sb.buckets)} "
-            f"launches; {s['launch_ms']:.4f} ms host-paced) vs bound "
-            f"{s['bound_ms']:.4f} ms ({s['bound_by']}: "
-            f"{s['flops'] / 1e9:.2f} GFLOP, {s['bytes'] / 1e6:.1f} MB); plain "
-            f"{s['plain_ms']:.3f} ms {tag}")
+    for key in ("moments_v4", "forces_warp_v4"):
+        summarize(key, stats[key], len(sb.buckets), tag)
 
     # ---- 4 one full force evaluation, kernel path vs plain path
     f_k = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg)
@@ -299,8 +341,7 @@ def main():
                           acc_pair=True, device=dev)
     loss = acc_float(acc)
     t_loss = time.perf_counter() - t1
-    launches_path = {"moments_v4": pk.moments_v4.launches,
-                     "forces_warp_v4": pk.forces_warp_v4.launches}
+    launches_fwd = pk.launch_counts()
     ms_ep = (t_targets + t_loss) * 1e3 / (2 * steps)
     say(f"[5] episode: {steps} steps x 2 (targets from x*: {t_targets:.1f} s "
         f"incl. {FRAMES} frames to disk; loss of x=0: {t_loss:.1f} s) -> "
@@ -309,9 +350,9 @@ def main():
     if not (math.isfinite(loss) and loss > 0
             and bool(torch.isfinite(fin.position).all())):
         fail("episode produced a non-finite or zero loss / state")
-    for key, s in stats.items():
-        say(f"    {key}: {s['ms'] / len(sb.buckets):.4f} ms/launch (mean over "
-            f"buckets, CUDA events) {tag}")
+    for key in ("moments_v4", "forces_warp_v4"):
+        say(f"    {key}: {stats[key]['ms'] / len(sb.buckets):.4f} ms/launch (mean "
+            f"over buckets, CUDA events) {tag}")
 
     # ---- 6 kernel path vs plain path, 300 steps
     _, fin_k, _ = rollout(x_star, scene, cfg, n_steps=300, device=dev)
@@ -340,13 +381,14 @@ def main():
     # ---- 8 launch counts of the main path (phase 5)
     evals = 2 * steps      # symplectic: one force evaluation per step, none at start
     want = len(sb.buckets) * evals
-    say(f"[8] launches on the main path: " + ", ".join(
-        f"{k} {v}" for k, v in launches_path.items())
-        + f" (expected {want} each = {len(sb.buckets)} buckets x {evals} "
-        "force evaluations)")
-    for k, v in launches_path.items():
-        if v != want:
-            fail(f"{k} launched {v} times on the main path, expected {want}")
+    say(f"[8] launches on the forward path: " + ", ".join(
+        f"{k} {v}" for k, v in launches_fwd.items())
+        + f" (expected {want} for each forward kernel = {len(sb.buckets)} "
+        f"buckets x {evals} force evaluations, 0 for the backward ones)")
+    for k, v in launches_fwd.items():
+        expect = want if k in ("moments_v4", "forces_warp_v4") else 0
+        if v != expect:
+            fail(f"{k} launched {v} times on the forward path, expected {expect}")
 
     # device busy share of a steady window (after every timed phase: the
     # profiler's tracing must not slow what the phases above measured)
@@ -371,27 +413,312 @@ def main():
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
 
+    kernels = phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats,
+                         pos, pts, out_num)
+    say(f"    total {time.perf_counter() - T_START:.0f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
+               pts, out_num):
+    """Phases 9-13: the gradient path, its kernels, and the product loop."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.scenarios import dirichlet_mask
+    from softbody_tpu_torch.sim.sparse import build_sparse_scene
+    from softbody_tpu_torch.opt import driver
+    from softbody_tpu_torch.sim.rollout import episode_value_and_grad_chunked, rollout
+    from softbody_tpu_torch.sim.sparse import elastic_forces_sparse
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    nb = len(sb.buckets)
+    n = len(sop)
+    f32 = 4
+    rng = np.random.default_rng(9)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    # ---- 9 backward kernels vs plain, per bucket, each composed with the scatter
+    say(f"[9] per bucket, backward kernels vs plain on the card {tag}")
+    dayT, dfT = rand(18, m), rand(3, m)
+    f9T = torch.eye(3, device=dev).reshape(9, 1) + 0.1 * rand(9, m)
+    srT = rand(15, sb.n_slots)
+    srT[:, m:] = 0
+    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    index_bytes = (sb.slab_idx.numel() + sb.slab_ptr.numel()) * 4
+    kept = sb.slab_idx.numel() * sb.group     # entries the scatter reads
+    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    e0 = 0
+    for i, b in enumerate(sb.buckets):
+        t, slab = b.n_tiles, b.slab_len
+        mb = t * sb.rows
+        c = slice(b.row_start, b.row_start + mb)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
+        tile_bytes = (t * 3 * sb.rows + t * 5 * slab + t * slab // sb.group) * f32
+        pairs = t * sb.rows * slab
+        a1 = (b.restT_rows, b.static_slab, dayT[:, c], sb.rs6T[:, c], cfg.h)
+        a2 = (b.restT_rows, b.static_slab, f9T[:, c], srT, b.gidx8, dfT[:, c], cfg.h)
+
+        def slots(d, k, scatter):
+            """The bucket's per-entry output alone in the all-bucket buffer,
+            added into slots."""
+            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
+            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
+            return scatter(buf, *to_slots)
+
+        work = {
+            "moments_v4_bwd": (
+                lambda: pk.moments_v4_bwd(*a1), lambda: pk.moments_v4_bwd_plain(*a1),
+                lambda o, sc: (o[1], slots(o[0], 3, sc)),
+                tile_bytes + (18 * mb + 6 * mb + 3 * t * slab + 3 * mb) * f32),
+            "forces_warp_v4_bwd_rows": (
+                lambda: pk.forces_warp_v4_bwd_rows(*a2),
+                lambda: pk.forces_warp_v4_bwd_plain(*a2)[0],
+                lambda o, sc: (o,),
+                tile_bytes + (15 * uniq + 3 * mb + 9 * mb) * f32),
+            "forces_warp_v4_bwd_slab": (
+                lambda: pk.forces_warp_v4_bwd_slab(*a2),
+                lambda: pk.forces_warp_v4_bwd_plain(*a2)[1],
+                lambda o, sc: (slots(o, 15, sc),),
+                tile_bytes + (9 * mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
+        }
+        line = [f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+        for key, (kern, plain, outs, nbytes) in work.items():
+            got = outs(kern(), pk.slab_to_slots)
+            want = outs(plain(), pk.slab_to_slots_plain)
+            torch.cuda.synchronize()
+            err = max(record(stats[key], g, w, f"{key} bucket {i}")
+                      for g, w in zip(got, want))
+            st = stats[key]
+            ms = cuda_ms(kern, 20)
+            st["ms"] += ms
+            st["launch_ms"] += host_ms(kern, 20)
+            st["plain_ms"] += cuda_ms(plain, 2)
+            st["flops"] += FLOPS_PER_PAIR[key] * pairs
+            st["bytes"] += nbytes
+            line.append(f"{key} err {err:.2e} {ms:.4f} ms")
+        say(" | ".join(line))
+    # the scatter: once for K1's 3 fields and once for K2's 15 per evaluation.
+    # Its library counterpart is one index_add_ over every entry's slot
+    # (float atomics, so not bitwise repeatable; it also adds the padding
+    # group's readers, which the CSR index leaves out); timed, never used.
+    st = stats["slab_to_slots"]
+    st["library_ms"] = 0.0
+    entry_slots = torch.cat([pk.slab_slots(b.gidx8, b.slab_len).reshape(-1)
+                             for b in sb.buckets])
+    for k in (3, 15):
+        buf = rand(k, n_entries)
+        record(st, pk.slab_to_slots(buf, *to_slots), pk.slab_to_slots_plain(buf, *to_slots),
+               f"slab_to_slots k={k}")
+        st["ms"] += cuda_ms(lambda: pk.slab_to_slots(buf, *to_slots), 20)
+        st["launch_ms"] += host_ms(lambda: pk.slab_to_slots(buf, *to_slots), 20)
+        st["plain_ms"] += cuda_ms(lambda: pk.slab_to_slots_plain(buf, *to_slots), 2)
+        st["library_ms"] += cuda_ms(lambda: torch.zeros(
+            (k, sb.n_slots), device=dev).index_add_(1, entry_slots, buf), 20)
+        st["flops"] += k * kept
+        st["bytes"] += (k * kept + k * sb.n_slots) * f32 + index_bytes
+    for key in ("moments_v4_bwd", "forces_warp_v4_bwd_rows",
+                "forces_warp_v4_bwd_slab"):
+        summarize(key, stats[key], nb, tag)
+    summarize("slab_to_slots", st, 2, tag)
+    say(f"    slab_to_slots library counterpart (index_add_, 2 calls): "
+        f"{st['library_ms']:.4f} ms {tag}")
+    say(f"    (each K2 pass's plain time is the whole plain K2 backward: the "
+        f"plain version computes both outputs at once)")
+
+    # ---- 10 one VJP of the elastic forces, kernel path vs plain path
+    ct = torch.zeros_like(pos)
+    ct[scene.slot_of_particle] = rand(n, 3)
+
+    def vjp(ops):
+        p = pos.clone().requires_grad_()
+        xv = x_star.clone().requires_grad_()
+        f = elastic_forces_sparse(p, compute_ratio(xv, cfg), scene.materials,
+                                  scene, cfg, ops)
+        return torch.autograd.grad(f, (p, xv), ct)
+
+    k1, k2, pl = vjp(pk.KERNELS), vjp(pk.KERNELS), vjp(pk.PLAIN)
+    errs = [rel_err(a, b) for a, b in zip(k1, pl)]
+    same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    say(f"[10] VJP of elastic_forces_sparse wrt (pos, x), kernel vs plain: "
+        f"{errs[0]:.3e}, {errs[1]:.3e} of max |plain| (tol {TOL}); two kernel-path "
+        f"calls bitwise equal: {same}")
+    if not (max(errs) <= TOL and same
+            and all(bool(torch.isfinite(a).all()) for a in k1)):
+        fail("the force VJP's kernel path disagrees with the plain path or "
+             "does not repeat")
+
+    # ---- 11 the episode gradient at full width
+    S = GRAD_STEPS
+    cfg_g = cfg.replace(frames=S, target_frames=FRAMES)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S,
+                                 record_every=S // FRAMES, device=dev)
+    torch.cuda.synchronize()
+    t_tp = time.perf_counter() - t0
+    x0 = torch.zeros(sb.n_slots, device=dev)
+    vg = episode_value_and_grad_chunked(scene, cfg_g, EVAL_CHUNKS, S)
+    pk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1 = vg(x0, tp, tv)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    counts_grad = pk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss2, g2 = vg(x0, tp, tv)
+    ms_grad = t_grad * 1e3 / S
+    gmax = float(torch.max(torch.abs(g1)))
+    say(f"[11] episode gradient: {S} steps, {FRAMES} frames, {EVAL_CHUNKS} "
+        f"chunks, x = 0 (targets from x*: {t_tp:.1f} s forward): loss "
+        f"{loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd {t_grad:.1f} s = {ms_grad:.3f} "
+        f"ms/step, {n * S / t_grad:.4g} particle-steps/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB {tag}")
+    repeat = loss1 == loss2 and torch.equal(g1, g2)
+    say(f"    second kernel-path gradient bitwise equal: {repeat}")
+    if not (math.isfinite(loss1) and loss1 > 0 and gmax > 0 and repeat
+            and bool(torch.isfinite(g1).all())):
+        fail("the full-width gradient is not finite, is zero, or does not repeat")
+    # kernel vs plain path over a prefix, in f64: in f32 two summation
+    # orders give trajectories apart by ~4e-4 of the displacement after 300
+    # steps (phase 6), and a loss against x*'s targets is the square of the
+    # small x*-vs-x0 difference, so any two f32 evaluations differ by ~5e-3
+    # (f32 vs f64 on the CPU at 2k particles, 99 steps).  In f64 the gates
+    # measure the kernels and their wiring.  The f32 values are printed.
+    P = PREFIX_STEPS
+    cfg64 = cfg_g.replace(dtype="float64")
+    scene64, _ = build_sparse_scene(pts, cfg64, out_num=out_num, device=dev,
+                                    dirichlet_mask=dirichlet_mask(pts, "stretch"))
+    with torch.no_grad():
+        _, _, (tp64, tv64) = rollout(x_star.double(), scene64, cfg64, n_steps=P,
+                                     record_every=S // FRAMES, device=dev)
+    x64 = torch.zeros(sb.n_slots, dtype=torch.float64, device=dev)
+    n_tp = P // (S // FRAMES)
+    prefix = {}
+    for label, sc, c, x_, a, b in (("f64", scene64, cfg64, x64, tp64, tv64),
+                                   ("f32", scene, cfg_g, x0, tp[:n_tp], tv[:n_tp])):
+        for ops in (pk.KERNELS, pk.PLAIN):
+            prefix[label, ops is pk.PLAIN] = episode_value_and_grad_chunked(
+                sc, c, 1, P, ops)(x_, a, b)
+    for label in ("f64", "f32"):
+        (lk, gk), (lp, gp) = prefix[label, False], prefix[label, True]
+        dl, dg = abs(lk - lp) / lp, rel_err(gk, gp)
+        gate = "(tol 1e-5 and 1e-3)" if label == "f64" else "(not gated)"
+        say(f"    first {P} steps in {label}, kernel vs plain path: loss {lk:.12g} "
+            f"vs {lp:.12g} (rel {dl:.3e}); max |dg| / max |g_plain| {dg:.3e} {gate}")
+        if label == "f64" and not (dl <= 1e-5 and dg <= 1e-3):
+            fail("the gradient's kernel path disagrees with its plain path")
+    # device busy share of a gradient (a 10-step chunk, after the timed runs)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    short = episode_value_and_grad_chunked(scene, cfg_g, 1, 10)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        short(x0, tp[:3], tv[:3])
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
+    ours = sum(e.time_range.elapsed_us() for e in on_card
+               if "_v4_" in e.name or "slab_to_slots" in e.name) / 1e3 / 10
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step of fwd+bwd in "
+            f"{len(on_card) / 10:.0f} device activities per step, of which the "
+            f"pair and scatter kernels {ours:.3f} ms; idle share "
+            f"{1 - busy / ms_grad:.3f} of the gradient's {ms_grad:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+
+    # ---- 12 the product loop: two L-BFGS iterations at full width
+    grads_ok = []
+    chunked = driver.episode_value_and_grad_chunked
+
+    def watched(*args, **kw):
+        f = chunked(*args, **kw)
+
+        def g(*a):
+            loss, grad = f(*a)
+            grads_ok.append(math.isfinite(loss) and bool(torch.isfinite(grad).all()))
+            return loss, grad
+        return g
+
+    driver.episode_value_and_grad_chunked = watched
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, hist = driver.optimize_lbfgs(
+            scene, cfg_g, np.zeros(sb.n_slots), tp, tv, opt_dir=tmp,
+            x_target=x_star.cpu().numpy(), maxiter=2, n_steps=S, plot=False,
+            eval_chunks=EVAL_CHUNKS)
+        written = sorted(os.listdir(tmp))
+    t_opt = time.perf_counter() - t0
+    driver.episode_value_and_grad_chunked = chunked
+    counts_opt = pk.launch_counts()
+    losses = hist["losses"]
+    say(f"[12] L-BFGS from x = 0, maxiter 2: {res.nit} iterations, {res.nfev} "
+        f"evaluations in {t_opt:.1f} s ({t_opt / res.nfev:.1f} s per evaluation, "
+        f"scipy: {res.message}); "
+        f"losses {[loss1] + losses} (first: x = 0); distances "
+        f"{hist['distances']}; artifacts {written} {tag}")
+    if not (len(losses) == 2 and losses[0] < loss1 and losses[1] < losses[0]):
+        fail("two L-BFGS iterations did not strictly lower the loss")
+    if not {"x.npy", "losses.json", "distances.json"} <= set(written):
+        fail("the L-BFGS artifacts were not written")
+    if not (grads_ok and all(grads_ok)):
+        fail("a gradient of the product loop is not finite")
+
+    # ---- 13 launch counts of the gradient path
+    # symplectic: one force evaluation per step.  One gradient evaluation
+    # runs each step's forces 3 times (the no-grad forward keeping chunk
+    # boundaries, the chunk's recompute under autograd, the per-step
+    # checkpoint's recompute in the backward) and backward once:
+    #   K1, K2 forward:               buckets x 3 S
+    #   K1 bwd, K2 bwd rows and slab: buckets x S
+    #   slab_to_slots:                2 S (one after K1's, one after K2's)
+    per_eval = {"moments_v4": 3 * nb * S, "forces_warp_v4": 3 * nb * S,
+                "moments_v4_bwd": nb * S, "forces_warp_v4_bwd_rows": nb * S,
+                "forces_warp_v4_bwd_slab": nb * S, "slab_to_slots": 2 * S}
+    say(f"[13] launches of one gradient (phase 11): {counts_grad}; of the "
+        f"L-BFGS run (phase 12, {res.nfev} evaluations): {counts_opt}; "
+        f"expected per evaluation {per_eval}")
+    for k, v in per_eval.items():
+        if counts_grad[k] != v or counts_opt[k] != res.nfev * v:
+            fail(f"{k}: {counts_grad[k]} / {counts_opt[k]} launches, expected "
+                 f"{v} / {res.nfev * v}")
+
+    replaces = {
+        "moments_v4": "softbody_tpu/ops/pallas/pair_kernels.py:505",
+        "forces_warp_v4": "softbody_tpu/ops/pallas/pair_kernels.py:879",
+        "moments_v4_bwd": "softbody_tpu/ops/pallas/pair_kernels.py:564",
+        "forces_warp_v4_bwd_rows": "softbody_tpu/ops/pallas/pair_kernels.py:1038",
+        "forces_warp_v4_bwd_slab": "softbody_tpu/ops/pallas/pair_kernels.py:1038",
+        "slab_to_slots": "softbody_tpu/ops/pallas/packed.py:212",
+    }
     kernels = []
     for key, s in stats.items():
         kernels.append({
             "name": key,
             "route": "cuda",
             "source": "softbody_tpu_torch/csrc/pair_kernels.cu",
-            "replaces": {"moments_v4": "softbody_tpu/ops/pallas/pair_kernels.py:505",
-                         "forces_warp_v4": "softbody_tpu/ops/pallas/pair_kernels.py:879"}[key],
-            "launches": launches_path[key],
+            "replaces": replaces[key],
+            "launches": counts_opt[key],
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"],
-            "library_ms": None,
+            "library_ms": s["library_ms"],
         })
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
-        flush=True)
+    return kernels
 
 
 if __name__ == "__main__":

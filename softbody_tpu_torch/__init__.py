@@ -5,19 +5,24 @@ H100.  It imports torch and numpy, never jax and nothing of ``softbody_tpu``:
 every host-side helper it needs is its own copy.  Module paths mirror the JAX
 package's, so each module's counterpart is found under the same name.
 
-What is ported: the forward episode of the sparse backend on the Warp pairing
-(the "stretch" inverse-design scenario) —
+What is ported: stretch inverse design on the sparse backend (Warp pairing):
+the forward episode, its gradient and the L-BFGS driver —
 
   config          — SimConfig + parity presets, torch dtype / device helpers
   geometry        — procedural bodies
   scenarios       — the stretch / drop scenario constants and helpers
   native          — g++/ctypes CSR neighbour builder
   topology        — rest neighbours, sparse candidate-group layout
-  ops             — SPH kernels, 3x3 algebra, collision, the two pair
-                    kernels (hand-written CUDA in csrc/, plain torch beside)
-  sim             — sparse scene build, elastic forces, episode runner
-  opt             — target generation
+  ops             — SPH kernels, 3x3 algebra (polar with its clamped VJP),
+                    collision, the pair kernels forward and backward and
+                    their fixed-order scatter (hand-written CUDA in csrc/,
+                    plain torch beside)
+  sim             — sparse scene build, elastic forces, episode runner with
+                    remat and the chunked value-and-grad
+  opt             — target generation, L-BFGS-B, grad check
+  utils           — checkpoint / resume (the JAX package's file formats)
   convert         — JAX-built scene (as numpy) -> port objects
+  inverse_design  — the product entry point (python -m ...)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

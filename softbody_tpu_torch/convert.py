@@ -5,7 +5,8 @@ materials, rest correction, row sums) and the inflation field ``x``.
 :func:`scene_from_numpy` takes them as a flat dict of numpy arrays and ints —
 every leaf of a ``softbody_tpu`` sparse ``Scene`` plus the bucket metadata —
 and returns the port's objects, so both packages compute from identical
-state.  :func:`scene_to_numpy` is its inverse (same keys, no ``x``).
+state.  The backward's scatter index is derived from the ``gidx8`` arrays, so
+it needs no key of its own.  :func:`scene_to_numpy` is its inverse (same keys, no ``x``).
 
 Keys: ``rest_position, mass, volume, mu, lam, free, external, rest_corr
 (3,3,m), slot_of_particle, rs6T (6,m), out_num, rows, n_tiles, n_slots,
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .core.types import DevBucket, Materials, Scene, SparseBlocked
+from .ops.pair_kernels import slab_inverse
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
 
@@ -44,9 +46,14 @@ def scene_from_numpy(d: dict, device):
             slab_len=int(np.asarray(d[f"bucket{k}.static_slab"]).shape[2]),
         )
         for k in range(int(d["n_buckets"])))
+    n_slots, group = int(d["n_slots"]), int(d["group"])
+    ptr, idx = slab_inverse(
+        [d[f"bucket{k}.gidx8"] for k in range(int(d["n_buckets"]))],
+        n_slots, group)
     sb = SparseBlocked(buckets=buckets, rs6T=dev("rs6T"), rows=rows,
-                       n_tiles=int(d["n_tiles"]), n_slots=int(d["n_slots"]),
-                       group=int(d["group"]))
+                       n_tiles=int(d["n_tiles"]), n_slots=n_slots, group=group,
+                       slab_ptr=torch.from_numpy(ptr).to(device),
+                       slab_idx=torch.from_numpy(idx).to(device))
     scene = Scene(
         rest_position=dev("rest_position"),
         materials=Materials(*(dev(k) for k in _MATERIALS)),

@@ -70,7 +70,11 @@ class SparseBlocked:
     ``rs6T`` holds the static rest row sums, lane-major: rows 0:3 are
     sum_j w_ij m_j (X_j - X_i) and rows 3:6 sum_j V_j grad W_ij, host-built
     in f64 over the true pairs.  The forward path reads only rows 3:6, in
-    the K2 ``term_i`` epilogue."""
+    the K2 ``term_i`` epilogue, and the K1 backward reads all six.
+
+    ``slab_ptr`` / ``slab_idx`` are the CSR inverse of the buckets' ``gidx8``
+    (``ops.pair_kernels.slab_inverse``): the fixed-order index through which
+    the backward adds per-slab-entry gradients into slots."""
 
     buckets: tuple             # tuple[DevBucket, ...]
     rs6T: torch.Tensor         # (6, n_tiles * rows)
@@ -78,6 +82,8 @@ class SparseBlocked:
     n_tiles: int
     n_slots: int
     group: int
+    slab_ptr: torch.Tensor     # (n_slots / group + 1,) int32
+    slab_idx: torch.Tensor     # (sum_b t_b slab_b / group,) int32
 
 
 class Scene(NamedTuple):

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (csrc/pair_kernels.cu).
+"""Build and load the hand-written CUDA kernels (csrc/pair_kernels.cu: the
+K1/K2 forward and backward kernels and the fixed-order scatter).
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into the package's git-ignored build directory, at first use, from the
@@ -82,13 +83,23 @@ def library() -> ctypes.CDLL:
                    f64, f64, f64, p]
         forces = [p, p, p, i64, p, i64, p, p, i64, i32, i32, i32,
                   f64, f64, p]
-        for name, args in (("sb_moments_v4_f32", moments),
-                           ("sb_moments_v4_f64", moments),
-                           ("sb_forces_warp_v4_f32", forces),
-                           ("sb_forces_warp_v4_f64", forces)):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = i32
+        moments_bwd = [p, p, p, i64, p, i64, p, i64, p, i64, i32, i32,
+                       f64, f64, f64, p]
+        forces_bwd_rows = [p, p, p, i64, p, p, i64, p, i64, i32, i32, i32,
+                           f64, f64, p]
+        forces_bwd_slab = [p, p, p, i64, p, i64, p, p, i64, p, i64, i32, i32,
+                           i32, f64, f64, p]
+        to_slots = [p, i64, p, p, p, i64, i32, i32, i32, p]
+        for name, args in (("moments_v4", moments),
+                           ("forces_warp_v4", forces),
+                           ("moments_v4_bwd", moments_bwd),
+                           ("forces_warp_v4_bwd_rows", forces_bwd_rows),
+                           ("forces_warp_v4_bwd_slab", forces_bwd_slab),
+                           ("slab_to_slots", to_slots)):
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"sb_{name}_{suffix}")
+                fn.argtypes = args
+                fn.restype = i32
         if lib.sb_rows() != ROWS:
             raise RuntimeError(f"kernel library takes rows={lib.sb_rows()}, "
                                f"the wrappers expect {ROWS}")

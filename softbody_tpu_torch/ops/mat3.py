@@ -8,13 +8,17 @@ op ever contracts over a size-3 axis and the batch axis stays dense.
 layout of the public functions.
 
 Includes the cyclic-Jacobi eigensolver, the SVD built on it, and the polar
-rotation R = U V^T.  Only the forward is ported here; the clamped analytic
-VJP of ``polar3`` belongs to the gradient path (ROADMAP queue 1, item 2).
+rotation R = U V^T with the JAX package's clamped analytic VJP
+(``softbody_tpu/ops/mat3.py:245-272``) as a ``torch.autograd.Function``:
+autograd never runs through the Jacobi sweeps, whose ``where`` branches and
+sort network are a different function of the input (and give NaN at
+degenerate singular values).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _PAIRS = ((0, 1), (0, 2), (1, 2))
 
@@ -180,12 +184,34 @@ def svd3(A: torch.Tensor, sweeps: int = 8):
     return pack(U), pack_vec(sigma), pack(V)
 
 
-def polar3_components(a, sweeps: int = 8):
-    """Rotation part R = U V^T of the polar decomposition, on components."""
-    U, _, V = _svd3_components(a, sweeps)
-    return _mmt(U, V)
+class _Polar3(torch.autograd.Function):
+    """R = U V^T; backward G -> U H V^T with G' = U^T G V and
+    H_ij = (G'_ij - G'_ji) / max(sigma_i + sigma_j, 1e-6)."""
+
+    @staticmethod
+    def forward(ctx, A, sweeps):
+        U, sigma, V = _svd3_components(unpack(A), sweeps)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(pack(U), pack_vec(sigma), pack(V))
+        return pack(_mmt(U, V))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, G):
+        U, sigma, V = ctx.saved_tensors
+        Uu, Vu, su = unpack(U), unpack(V), list(sigma)
+        Gp = _mm(_mtm(Uu, unpack(G)), Vu)
+        H = [[(Gp[i][j] - Gp[j][i]) / torch.clamp(su[i] + su[j], min=1e-6)
+              for j in range(3)] for i in range(3)]
+        return pack(_mmt(_mm(Uu, H), Vu)), None
 
 
 def polar3(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
-    """Rotation part of the polar decomposition; leading-axis layout (3,3,*)."""
-    return pack(polar3_components(unpack(A), sweeps))
+    """Rotation part of the polar decomposition; leading-axis layout (3,3,*).
+    Differentiable through the clamped analytic VJP."""
+    return _Polar3.apply(A, sweeps)
+
+
+def polar3_components(a, sweeps: int = 8):
+    """:func:`polar3` on components (the mid-section's form)."""
+    return unpack(polar3(pack(a), sweeps))

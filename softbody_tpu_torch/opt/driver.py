@@ -1,20 +1,32 @@
-"""Target generation (counterpart of ``generate_targets`` / ``load_targets``
-in ``softbody_tpu/opt/driver.py``; the L-BFGS / Adam drivers and the grad
-check are the gradient path, ROADMAP queue 1, item 5).
+"""Inverse-design drivers (counterpart of ``softbody_tpu/opt/driver.py``).
 
-Targets use the reference's layout: ``position_i.npy`` / ``velocity_i.npy``
-for i = 1..target_frames, each (N, 3) (sim.py:363-369).
+* target generation: a forward episode dumping ``position_i.npy`` /
+  ``velocity_i.npy`` for i = 1..target_frames, each (N, 3) (sim.py:363-369);
+* scipy L-BFGS-B over the episode's (loss, dloss/dx), writing the
+  reference's per-iteration artifacts (x.npy, losses.json, distances.json,
+  optional convergence plots) and resuming through utils/checkpoint.py
+  (sim.py:449-461);
+* the analytic-vs-central-difference gradient check (sim.py:418-436), the
+  callback's distance metric and the warm start.
+
+The JAX package's on-device Adam (``optimize_adam``) is not ported yet
+(ROADMAP queue 1, item 5).  Everything runs on the scene's device.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..config import SimConfig, resolve_device
 from ..core.types import Scene
-from ..sim.rollout import rollout
+from ..sim.rollout import (episode_value_and_grad_chunked, loss_fn, rollout,
+                           value_and_grad_fn)
+from ..utils import checkpoint as ckpt
 
 
 def generate_targets(x, scene: Scene, cfg: SimConfig, out_dir, n_steps=None,
@@ -52,3 +64,196 @@ def load_targets(target_dir, target_frames: int):
     pos = np.stack([np.load(d / f"position_{i}.npy") for i in range(1, target_frames + 1)])
     vel = np.stack([np.load(d / f"velocity_{i}.npy") for i in range(1, target_frames + 1)])
     return pos, vel
+
+
+def ratio_distance(x_opt, x_target, cfg: SimConfig) -> float:
+    """||ratio(x) - ratio(x*)||_2 in f64 — the callback's convergence metric
+    (sim.py:408-410)."""
+    def ratio(x):
+        return 0.5 * np.tanh(cfg.tanh_gain * np.asarray(x, np.float64)) + 0.5
+
+    return float(np.linalg.norm(ratio(x_opt) - ratio(x_target)))
+
+
+class _Budget:
+    """The result of a resumed run whose iteration budget is spent."""
+
+    def __init__(self, x):
+        self.x = np.asarray(x, np.float64)
+        self.nit = 0
+        self.nfev = 0
+        self.message = "resume: budget exhausted"
+
+
+def _save_plots(opt_dir: Path, history: dict, verbose: bool):
+    """loss.png / distance.png; skipped with one line where matplotlib is
+    missing (every json/npy artifact is written regardless)."""
+    try:
+        import matplotlib
+    except ImportError:
+        if verbose:
+            print("matplotlib is not installed: convergence plots skipped")
+        return
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    if history["distances"]:
+        plt.plot(history["distances"])
+        plt.savefig(opt_dir / "distance.png")
+        plt.clf()
+    plt.plot(history["losses"])
+    plt.savefig(opt_dir / "loss.png")
+    plt.clf()
+
+
+def optimize_lbfgs(
+    scene: Scene,
+    cfg: SimConfig,
+    x0,
+    target_p,
+    target_v,
+    opt_dir=None,
+    x_target=None,
+    maxiter: int = 1000,
+    n_steps=None,
+    verbose: bool = True,
+    plot: bool = True,
+    on_eval=None,
+    eval_chunks: int = 0,
+    resume_dir=None,
+    resume: bool = False,
+):
+    """scipy L-BFGS-B over the episode's value and gradient (sim.py:449-461:
+    maxiter, ftol = gtol = 1e-10, per-iteration x.npy + losses/distances
+    json, plots when ``plot`` and matplotlib is installed).
+
+    ``on_eval(x_opt)`` runs after every loss evaluation.  ``eval_chunks > 1``
+    takes each gradient from :func:`episode_value_and_grad_chunked`, else
+    from :func:`value_and_grad_fn` (cut as ``cfg.remat_chunk`` says).
+    ``resume_dir``: every iteration saves (x, iteration count, histories)
+    there; with ``resume=True`` and a checkpoint present, the run restarts
+    from the saved iterate with the histories preloaded and spends only the
+    rest of ``maxiter`` (which counts iterations across restarts).  scipy's
+    curvature memory is not saved, so a resumed run rebuilds it.
+
+    Returns (result, history dict)."""
+    import scipy.optimize
+
+    dev, dtype = scene.device, scene.dtype
+    tp = torch.as_tensor(target_p).to(device=dev, dtype=dtype)
+    tv = torch.as_tensor(target_v).to(device=dev, dtype=dtype)
+    if eval_chunks and eval_chunks > 1:
+        vg = episode_value_and_grad_chunked(scene, cfg, eval_chunks, n_steps)
+    else:
+        vg = value_and_grad_fn(scene, cfg, n_steps)
+
+    history = {"losses": [], "distances": [], "xk": []}
+    state = {"last_loss": 0.0, "last_grad": np.zeros(np.shape(x0))}
+    if opt_dir is not None:
+        opt_dir = Path(opt_dir)
+        opt_dir.mkdir(parents=True, exist_ok=True)
+
+    iters_done = 0
+    if resume_dir is not None and resume and (Path(resume_dir) / "x.npy").exists():
+        saved = ckpt.load_opt_state(resume_dir)
+        x0 = saved["x"]
+        iters_done = int(saved["meta"].get("step") or 0)
+        hist_file = Path(resume_dir) / "history.json"
+        if hist_file.exists():
+            h = json.loads(hist_file.read_text())
+            history["losses"] = list(h.get("losses", []))
+            history["distances"] = list(h.get("distances", []))
+        if verbose:
+            print(f"resuming from {resume_dir}: iteration {iters_done}, "
+                  f"{len(history['losses'])} logged losses")
+    if maxiter - iters_done <= 0:
+        return _Budget(x0), history
+
+    def loss(x_opt):
+        t0 = time.perf_counter()
+        val, grad = vg(torch.as_tensor(x_opt).to(device=dev, dtype=dtype), tp, tv)
+        state["last_loss"] = float(val)
+        state["last_grad"] = grad.detach().cpu().numpy().astype(np.float64)
+        if verbose:
+            print(f"loss:  {state['last_loss']}   "
+                  f"[eval {time.perf_counter() - t0:.1f}s]", flush=True)
+        if on_eval is not None:
+            on_eval(np.asarray(x_opt))
+        return state["last_loss"]
+
+    def jac(x_opt):
+        return state["last_grad"]
+
+    def callback(x_opt):
+        history["losses"].append(state["last_loss"])
+        history["xk"].append(np.asarray(x_opt).copy())
+        if x_target is not None:
+            d = ratio_distance(x_opt, x_target, cfg)
+            history["distances"].append(d)
+            if verbose:
+                print("distance: ", d)
+        if opt_dir is not None:
+            np.save(opt_dir / "x.npy", x_opt)
+            (opt_dir / "distances.json").write_text(json.dumps(history["distances"]))
+            (opt_dir / "losses.json").write_text(json.dumps(history["losses"]))
+        if resume_dir is not None:
+            step = iters_done + len(history["xk"])
+            ckpt.save_opt_state(resume_dir, x_opt, cfg=cfg, step=step)
+            (Path(resume_dir) / "history.json").write_text(json.dumps(
+                {"losses": history["losses"],
+                 "distances": history["distances"]}))
+
+    result = scipy.optimize.minimize(
+        loss, np.asarray(x0, np.float64), jac=jac, callback=callback,
+        method="L-BFGS-B",
+        options={"maxiter": maxiter - iters_done, "ftol": 1e-10, "gtol": 1e-10},
+    )
+    if opt_dir is not None:
+        np.save(opt_dir / "x.npy", result.x)
+        if plot:
+            _save_plots(opt_dir, history, verbose)
+    return result, history
+
+
+def grad_check(scene: Scene, cfg: SimConfig, x0, deltas, target_p, target_v,
+               index=None, n_steps=None, verbose=True):
+    """Analytic vs central finite differences (grad_check, sim.py:418-436),
+    at the largest |g| unless ``index`` is given.
+
+    Returns a list of (delta, analytic, numeric)."""
+    dev, dtype = scene.device, scene.dtype
+    tp = torch.as_tensor(target_p).to(device=dev, dtype=dtype)
+    tv = torch.as_tensor(target_v).to(device=dev, dtype=dtype)
+
+    def f(x):
+        with torch.no_grad():
+            return float(loss_fn(torch.as_tensor(x).to(device=dev, dtype=dtype),
+                                 scene, cfg, tp, tv, n_steps))
+
+    _, g = value_and_grad_fn(scene, cfg, n_steps)(
+        torch.as_tensor(np.asarray(x0)).to(device=dev, dtype=dtype), tp, tv)
+    grad = g.cpu().numpy()
+    i = int(np.argmax(np.abs(grad))) if index is None else index
+    out = []
+    for delta in deltas:
+        xp = np.asarray(x0, np.float64).copy()
+        xp[i] += delta
+        l1 = f(xp)
+        xp[i] -= 2 * delta
+        l2 = f(xp)
+        num = (l1 - l2) / (2 * delta)
+        if verbose:
+            print("grad ana: ", grad[i], "; grad num: ", num)
+        out.append((delta, float(grad[i]), num))
+    return out
+
+
+def warm_start_x0(n: int, warm_path=None, noise: float = 1e-2, seed: int = 0):
+    """Reference warm-start semantics (sim.py:454): load a previous x and add
+    uniform noise; fall back to zeros when no file exists."""
+    rng = np.random.default_rng(seed)
+    if warm_path is not None and Path(warm_path).exists():
+        x0 = np.load(warm_path)
+        if len(x0) == n:
+            return x0 + rng.random(n) * noise
+    return np.zeros(n)

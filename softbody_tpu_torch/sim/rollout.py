@@ -1,4 +1,4 @@
-"""Forward episode runner (counterpart of ``softbody_tpu/sim/rollout.py``).
+"""Differentiable episode runner (counterpart of ``softbody_tpu/sim/rollout.py``).
 
 The JAX ``lax.scan`` becomes a plain Python loop over steps; the loss
 sampling follows ``_episode_body`` exactly: at frame f (1-based) the target
@@ -8,13 +8,26 @@ f // interval <= n_targets (or only at the last frame for ``loss_mode
 "final"``).  The JAX body adds ``where(hit, term, 0)`` every step; adding 0
 leaves (hi, lo) unchanged, so the loop evaluates the term on hit frames only.
 
-Forward only: no checkpointing or remat (the gradient path is ROADMAP queue
-1, item 4).
+Gradients.  With ``cfg.remat`` each step runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``) whenever autograd is
+recording, as ``jax.checkpoint`` wraps the JAX step: the backward recomputes
+each step's internals from its (pos, vel, f_el) input.  Every gradient
+entry point (:func:`value_and_grad_fn`, :func:`episode_value_and_grad_chunked`)
+goes through one mechanism, :func:`_value_and_grad`: a no-grad forward that
+keeps the state at each chunk boundary, then per chunk in reverse a
+recompute under autograd and ``torch.autograd.grad`` seeded with the next
+chunk's state cotangent and 1 on the chunk loss's ``hi`` term (the ``lo``
+compensation is a rounding residual, not part of the loss).  The losses of
+the chunks are added on the host in f64.  ``value_and_grad_fn`` cuts the
+episode as ``cfg.remat_chunk`` says (sqrt-nested remat: chunks of c steps
+and a tail; one chunk for linear remat), so peak memory holds O(T/c)
+boundary states plus one chunk's per-step inputs.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SimConfig, resolve_device
 from ..core.types import Materials, ParticleState, Scene
@@ -122,10 +135,60 @@ def acc_float(acc) -> float:
     return float(acc[0]) + float(acc[1])
 
 
+def _step_fn(scene: Scene, cfg: SimConfig, pair_ops: PairOps):
+    """``step`` as the episode runs it: under a per-step checkpoint when
+    ``cfg.remat`` is set and autograd is recording."""
+
+    def plain(state, ratio):
+        return step(state, ratio, scene, cfg, pair_ops)
+
+    if not cfg.remat:
+        return plain
+
+    def fn(pos, vel, f_el, ratio):
+        return tuple(plain(ParticleState(pos, vel, f_el), ratio))
+
+    def remat(state, ratio):
+        if not torch.is_grad_enabled():
+            return plain(state, ratio)
+        return ParticleState(*checkpoint(fn, *state, ratio, use_reentrant=False,
+                                         preserve_rng_state=False))
+
+    return remat
+
+
+def _run_steps(state, acc, ratio, step_fn, k0: int, length: int, tp, tv,
+               cfg: SimConfig, n_steps: int, on_frame=None):
+    """``length`` steps from global step ``k0`` (the JAX ``_episode_body``),
+    adding each sampled frame's loss term to ``acc`` when targets are given.
+    ``on_frame(frame, state)`` runs after every step."""
+    n_targets = 1 if tp is None else tp.shape[0]
+    interval = max(n_steps // n_targets, 1)
+    for f in range(k0, k0 + length):
+        state = step_fn(state, ratio)
+        frame = f + 1
+        if tp is not None:
+            if cfg.loss_mode == "final":
+                hit = frame == n_steps
+            else:
+                hit = frame % interval == 0 and frame // interval <= n_targets
+            if hit:
+                t_idx = min(max(frame // interval - 1, 0), n_targets - 1)
+                acc = acc_add(acc, frame_loss(state, tp[t_idx], tv[t_idx], cfg))
+        if on_frame is not None:
+            on_frame(frame, state)
+    return state, acc
+
+
+def _to_scene(scene: Scene, a):
+    return torch.as_tensor(a).to(device=scene.device, dtype=scene.dtype)
+
+
 def rollout(x, scene: Scene, cfg: SimConfig, target_p=None, target_v=None,
             n_steps=None, record_every: int | None = None, acc_pair=False,
             device=None, pair_ops: PairOps = KERNELS):
-    """Run an episode.
+    """Run an episode.  Differentiable wrt ``x`` (per-step checkpoint under
+    ``cfg.remat``).
 
     Returns (loss, final_state, recorded): ``recorded`` is (positions,
     velocities) stacked every ``record_every`` steps, (n_rec, n_slots, 3)
@@ -138,39 +201,165 @@ def rollout(x, scene: Scene, cfg: SimConfig, target_p=None, target_v=None,
         raise ValueError(f"the scene lives on {scene.device}, the episode "
                          f"was asked to run on {device}")
     n_steps = cfg.frames if n_steps is None else n_steps
-    dtype = scene.dtype
-    x = torch.as_tensor(x).to(device=device, dtype=dtype)
+    x = _to_scene(scene, x)
     ratio = compute_ratio(x, cfg)
     state = initial_state(scene, ratio, cfg, pair_ops)
-
-    have_targets = target_p is not None
-    if have_targets:
-        target_p = torch.as_tensor(target_p).to(device=device, dtype=dtype)
-        target_v = torch.as_tensor(target_v).to(device=device, dtype=dtype)
-        n_targets = target_p.shape[0]
-    else:
-        n_targets = 1
-    interval = max(n_steps // n_targets, 1)
+    if target_p is not None:
+        target_p = _to_scene(scene, target_p)
+        target_v = _to_scene(scene, target_v)
     if record_every and n_steps % record_every:
         raise ValueError(f"n_steps={n_steps} is not a multiple of "
                          f"record_every={record_every}")
-
-    acc = acc_init(dtype, device)
     rec_p, rec_v = [], []
-    for f in range(n_steps):
-        state = step(state, ratio, scene, cfg, pair_ops)
-        frame = f + 1
-        if have_targets:
-            if cfg.loss_mode == "final":
-                hit = frame == n_steps
-            else:
-                hit = frame % interval == 0 and frame // interval <= n_targets
-            if hit:
-                t_idx = min(max(frame // interval - 1, 0), n_targets - 1)
-                acc = acc_add(acc, frame_loss(state, target_p[t_idx],
-                                              target_v[t_idx], cfg))
+
+    def record(frame, st):
         if record_every and frame % record_every == 0:
-            rec_p.append(state.position)
-            rec_v.append(state.velocity)
+            rec_p.append(st.position)
+            rec_v.append(st.velocity)
+
+    state, acc = _run_steps(state, acc_init(scene.dtype, device), ratio,
+                            _step_fn(scene, cfg, pair_ops), 0, n_steps,
+                            target_p, target_v, cfg, n_steps, record)
     recorded = (torch.stack(rec_p), torch.stack(rec_v)) if record_every else None
     return (acc if acc_pair else acc_scalar(acc)), state, recorded
+
+
+def _chunk_primal(state, x, k0: int, tp, tv, scene: Scene, cfg: SimConfig,
+                  length: int, n_steps: int, pair_ops: PairOps = KERNELS):
+    """One episode chunk: ``length`` steps from global step ``k0``.  Returns
+    (state_out, chunk loss (hi, lo) pair).  Differentiable wrt (state, x)."""
+    ratio = compute_ratio(x, cfg)
+    return _run_steps(state, acc_init(scene.dtype, scene.device), ratio,
+                      _step_fn(scene, cfg, pair_ops), k0, length, tp, tv, cfg,
+                      n_steps)
+
+
+def _grad_of(outputs, cotangents, inputs):
+    """``torch.autograd.grad`` over the outputs that depend on the inputs;
+    an input nothing depends on gets a zero gradient."""
+    pairs = [(o, c) for o, c in zip(outputs, cotangents) if o.requires_grad]
+    if not pairs:
+        return [torch.zeros_like(i) for i in inputs]
+    grads = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                [c for _, c in pairs], allow_unused=True)
+    return [torch.zeros_like(i) if g is None else g
+            for g, i in zip(grads, inputs)]
+
+
+def _value_and_grad(x, tp, tv, scene: Scene, cfg: SimConfig, sizes,
+                    n_steps: int, pair_ops: PairOps):
+    """(loss as a host f64 float, dloss/dx) of an episode cut into chunks of
+    ``sizes`` steps (see the module docstring)."""
+    x = _to_scene(scene, x).detach()
+    tp, tv = _to_scene(scene, tp), _to_scene(scene, tv)
+    k0s = [sum(sizes[:i]) for i in range(len(sizes))]
+    with torch.no_grad():
+        state = initial_state(scene, compute_ratio(x, cfg), cfg, pair_ops)
+        states, loss = [], 0.0       # host f64 keeps the compensated precision
+        for k0, length in zip(k0s, sizes):
+            states.append(state)
+            state, acc = _chunk_primal(state, x, k0, tp, tv, scene, cfg,
+                                       length, n_steps, pair_ops)
+            loss = loss + acc_float(acc)
+    cot = [torch.zeros_like(t) for t in state]
+    grad = torch.zeros_like(x)
+    for k0, length, s_in in reversed(list(zip(k0s, sizes, states))):
+        leaves = [t.detach().requires_grad_() for t in s_in]
+        x_leaf = x.detach().requires_grad_()
+        with torch.enable_grad():
+            out, (hi, _) = _chunk_primal(ParticleState(*leaves), x_leaf, k0,
+                                         tp, tv, scene, cfg, length, n_steps,
+                                         pair_ops)
+            *cot, dx = _grad_of(list(out) + [hi], cot + [torch.ones_like(hi)],
+                                leaves + [x_leaf])
+        grad = grad + dx
+    x_leaf = x.detach().requires_grad_()
+    with torch.enable_grad():
+        state0 = initial_state(scene, compute_ratio(x_leaf, cfg), cfg, pair_ops)
+        (dx,) = _grad_of(list(state0), cot, [x_leaf])
+    return loss, grad + dx
+
+
+def episode_value_and_grad_chunked(scene: Scene, cfg: SimConfig,
+                                   n_chunks: int, n_steps=None,
+                                   pair_ops: PairOps = KERNELS):
+    """The episode's (loss, dloss/dx) in ``n_chunks`` chunks of near-equal
+    length (the first n_steps % n_chunks one step longer), each recomputed
+    and differentiated on its own; only the chunk-boundary states are kept.
+    Mathematically ``value_and_grad_fn``; the loss is a host f64 float.
+    Returns ``f(x, target_p, target_v) -> (loss, grad)``."""
+    n_steps = cfg.frames if n_steps is None else n_steps
+    n_chunks = max(1, min(int(n_chunks), n_steps))
+    base = n_steps // n_chunks
+    sizes = [base + (1 if i < n_steps % n_chunks else 0) for i in range(n_chunks)]
+
+    def f(x, target_p, target_v):
+        return _value_and_grad(x, target_p, target_v, scene, cfg, sizes,
+                               n_steps, pair_ops)
+
+    return f
+
+
+def forward_chunked(x, scene: Scene, cfg: SimConfig, n_steps, chunk_len,
+                    record_every=None):
+    """Forward episode in chunks of ``chunk_len`` steps, without autograd.
+    Returns (final_state, the positions at every ``record_every`` boundary
+    and at the end; record_every must be a chunk_len multiple)."""
+    n_steps = cfg.frames if n_steps is None else n_steps
+    chunk_len = max(1, min(int(chunk_len), n_steps))
+    if record_every and record_every % chunk_len:
+        raise ValueError(f"record_every={record_every} is not a multiple of "
+                         f"chunk_len={chunk_len}")
+    x = _to_scene(scene, x)
+    recorded = []
+    with torch.no_grad():
+        ratio = compute_ratio(x, cfg)
+        state = initial_state(scene, ratio, cfg)
+        step_fn = _step_fn(scene, cfg, KERNELS)
+        done = 0
+        while done < n_steps:
+            length = min(chunk_len, n_steps - done)
+            state, _ = _run_steps(state, None, ratio, step_fn, done, length,
+                                  None, None, cfg, n_steps)
+            done += length
+            if record_every and (done % record_every == 0 or done == n_steps):
+                recorded.append(state.position)
+    return state, recorded
+
+
+def _remat_chunk(cfg: SimConfig, n_steps: int) -> int:
+    """Resolve cfg.remat_chunk: 0 = linear remat, >0 = explicit chunk length,
+    -1 = auto (~sqrt(T) once the episode is long enough for the linear-remat
+    residuals to threaten device memory)."""
+    if not cfg.remat or cfg.remat_chunk == 0:
+        return 0
+    if cfg.remat_chunk > 0:
+        return min(cfg.remat_chunk, n_steps)
+    return round(n_steps ** 0.5) if n_steps >= 2048 else 0
+
+
+def loss_fn(x, scene: Scene, cfg: SimConfig, target_p, target_v, n_steps=None):
+    """Scalar episode loss — the quantity L-BFGS minimizes (sim.py:379-396).
+    Runs on the scene's device."""
+    loss, _, _ = rollout(x, scene, cfg, target_p, target_v, n_steps=n_steps,
+                         device=scene.device)
+    return loss
+
+
+def value_and_grad_fn(scene: Scene, cfg: SimConfig, n_steps=None,
+                      pair_ops: PairOps = KERNELS):
+    """(loss, dloss/dx) closure — replaces diff_sim + tape.backward
+    (sim.py:341-372).  The loss is a host float combining the compensated
+    (hi, lo) accumulators in f64; the episode is cut as ``cfg.remat_chunk``
+    says (see :func:`_remat_chunk`)."""
+    n_steps = cfg.frames if n_steps is None else n_steps
+    c = _remat_chunk(cfg, n_steps)
+    sizes = [c] * (n_steps // c) if c else []
+    if n_steps - sum(sizes):
+        sizes.append(n_steps - sum(sizes))
+
+    def g(x, target_p, target_v):
+        return _value_and_grad(x, target_p, target_v, scene, cfg, sizes,
+                               n_steps, pair_ops)
+
+    return g

@@ -4,16 +4,19 @@
 Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
 
   pos (n_slots, 3) -> posT (3, n_slots)
-    -> [per bucket: K1 moments_v4]            -> ayT (18, m)
+    -> [moments_all: K1 moments_v4 per bucket] -> ayT (18, m)
     -> A, Y components -> mid-section (polar, F, S, M; plain torch)
     -> f9T (9, m), per-slot record srT (15, n_slots) = [S_6 | R^T_9]
-    -> [per bucket: K2 forces_warp_v4]        -> termjT (3, m)
+    -> [forces_all: K2 forces_warp_v4 per bucket] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
 Both kernels launch once per bucket (8 buckets at the ~112k stretch scene),
 the JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
 contiguous column range of every lane-major array and the per-bucket results
-concatenate straight into tile order.
+concatenate straight into tile order.  The VJP runs backwards through the
+same chain: per bucket the K2 and K1 backward kernels, each followed by one
+fixed-order ``slab_to_slots`` into the slots, and autograd through the
+mid-section (the polar through its clamped analytic VJP).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from ..config import SimConfig, resolve_device, torch_dtype
 from ..core.types import DevBucket, Materials, Scene, SparseBlocked
-from ..ops.pair_kernels import KERNELS, PairOps
+from ..ops.pair_kernels import (KERNELS, PairOps, forces_all, moments_all,
+                                slab_inverse)
 from ..topology.neighbors import rest_density_and_corr
 from ..topology.sparse import GROUP, build_sparse_layout
 from .blocked import mid_section
@@ -122,8 +126,10 @@ def build_sparse_scene(
             slab_len=int(sl.shape[1]),
         ))
 
+    ptr, idx = slab_inverse([b.group_ids for b in layout.buckets], ns, gsz)
     sb = SparseBlocked(buckets=tuple(buckets), rs6T=dev(rs6.T), rows=rows,
-                       n_tiles=n_tiles, n_slots=ns, group=gsz)
+                       n_tiles=n_tiles, n_slots=ns, group=gsz,
+                       slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32))
     mats = Materials(
         mass=dev(mass_integ), volume=dev(volume), mu=dev(mu), lam=dev(lam),
         free=dev(free), external=dev(ext),
@@ -167,11 +173,7 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     m = sb.n_tiles * sb.rows
     posT = pos_slots.T.contiguous()                            # (3, n_slots)
 
-    ayT = torch.cat([
-        pair_ops.moments(b.restT_rows, b.static_slab, posT,
-                         posT[:, b.row_start:b.row_start + b.n_tiles * sb.rows],
-                         b.gidx8, cfg.h)
-        for b in sb.buckets], dim=1)                           # (18, m)
+    ayT = moments_all(posT, posT[:, :m], sb, cfg.h, pair_ops)  # (18, m)
     # ayT row 3b+a is the final A / Y component [a][b]
     A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
     Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
@@ -183,11 +185,7 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     srT[:, :m] = torch.stack(
         [S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
         + [R[a][c] for c in range(3) for a in range(3)])
-    termjT = torch.cat([
-        pair_ops.forces(b.restT_rows, b.static_slab,
-                        f9T[:, b.row_start:b.row_start + b.n_tiles * sb.rows],
-                        srT, b.gidx8, cfg.h)
-        for b in sb.buckets], dim=1)                           # (3, m)
+    termjT = forces_all(f9T, srT, sb, cfg.h, pair_ops)         # (3, m)
     rs6T = sb.rs6T
     f_comp = [
         0.5 * vol_m * (termjT[a]

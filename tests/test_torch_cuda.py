@@ -6,7 +6,7 @@ with only the port's dependencies:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
-full width are chip_smoke.py phases 3-4."""
+full width are chip_smoke.py phases 3-4 (forward) and 9-11 (backward)."""
 
 import numpy as np
 import pytest
@@ -17,7 +17,7 @@ from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
 from softbody_tpu_torch.ops import pair_kernels as pk
 from softbody_tpu_torch.ops.elasticity import compute_ratio
 from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask
-from softbody_tpu_torch.sim.rollout import rollout
+from softbody_tpu_torch.sim.rollout import rollout, value_and_grad_fn
 from softbody_tpu_torch.sim.sparse import build_sparse_scene, elastic_forces_sparse
 
 pytestmark = pytest.mark.cuda
@@ -65,7 +65,8 @@ def test_kernels_match_plain_per_bucket(dtype):
     pk.reset_launch_counts()
     for b in sb.buckets:
         r0, mb = b.row_start, b.n_tiles * sb.rows
-        a1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb], b.gidx8, cfg.h)
+        a1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb],
+              sb.rs6T[:, r0:r0 + mb], b.gidx8, cfg.h)
         a2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
         assert _rel(pk.moments_v4(*a1), pk.moments_v4_plain(*a1)) <= TOL[dtype]
         assert _rel(pk.forces_warp_v4(*a2), pk.forces_warp_v4_plain(*a2)) <= TOL[dtype]
@@ -101,9 +102,109 @@ def test_kernels_refuse_bad_operands():
     b = scene.blocked.buckets[0]
     posT = pos.T.contiguous()
     mb = b.n_tiles * scene.blocked.rows
+    rs6 = scene.blocked.rs6T[:, :mb]
     with pytest.raises(TypeError, match="dtype"):
         pk.moments_v4(b.restT_rows, b.static_slab, posT.double(),
-                      posT[:, :mb], b.gidx8, cfg.h)
+                      posT[:, :mb], rs6, b.gidx8, cfg.h)
     with pytest.raises(ValueError, match="lanes"):
         pk.moments_v4(b.restT_rows, b.static_slab, pos.T, posT[:, :mb],
-                      b.gidx8, cfg.h)
+                      rs6, b.gidx8, cfg.h)
+
+
+def _bwd_inputs(cfg, scene, pos, seed):
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=pos.dtype,
+                               device=pos.device)
+
+    f9T = rand(9, m)
+    srT = rand(15, sb.n_slots)
+    srT[:, m:] = 0
+    return f9T, srT, rand(18, m), rand(3, m)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_backward_kernels_match_plain_per_bucket(dtype):
+    dev = _card()
+    cfg, scene, pos, _ = _scene(dtype, dev)
+    sb = scene.blocked
+    f9T, srT, dayT, dfT = _bwd_inputs(cfg, scene, pos, 2)
+    pk.reset_launch_counts()
+    for b in sb.buckets:
+        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
+        k1 = pk.moments_v4_bwd(b.restT_rows, b.static_slab, dayT[:, c],
+                               sb.rs6T[:, c], cfg.h)
+        p1 = pk.moments_v4_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c],
+                                     sb.rs6T[:, c], cfg.h)
+        k2 = pk.forces_warp_v4_bwd(b.restT_rows, b.static_slab, f9T[:, c], srT,
+                                   b.gidx8, dfT[:, c], cfg.h)
+        p2 = pk.forces_warp_v4_bwd_plain(b.restT_rows, b.static_slab, f9T[:, c],
+                                         srT, b.gidx8, dfT[:, c], cfg.h)
+        for got, want in zip(k1 + k2, p1 + p2):
+            assert got.shape == want.shape
+            assert _rel(got, want) <= TOL[dtype]
+    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    buf = torch.as_tensor(np.random.default_rng(3).normal(size=(15, n_entries)),
+                          dtype=pos.dtype, device=dev)
+    args = (buf, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    assert _rel(pk.slab_to_slots(*args), pk.slab_to_slots_plain(*args)) <= TOL[dtype]
+    n = len(sb.buckets)
+    assert pk.launch_counts() == {
+        "moments_v4": 0, "forces_warp_v4": 0, "moments_v4_bwd": n,
+        "forces_warp_v4_bwd_rows": n, "forces_warp_v4_bwd_slab": n,
+        "slab_to_slots": 1}
+
+
+def _episode_grad(dtype, dev, pair_ops):
+    # targets: the rest body jittered; 40 steps, so that the clamped body
+    # strains enough for x to move the loss well above its roundings (after
+    # 8 steps F - I ~ 1e-9 and two summation orders differ by ~2e-9 of g)
+    cfg, scene, pos, _ = _scene(dtype, dev)
+    sop = scene.slot_of_particle
+    rng = np.random.default_rng(4)
+    tp = scene.rest_position.repeat(2, 1, 1)
+    tp[:, sop] += torch.as_tensor(rng.normal(scale=1e-4, size=(2, len(sop), 3)),
+                                  dtype=pos.dtype, device=dev)
+    tv = torch.zeros_like(tp)
+    x0 = torch.as_tensor(rng.normal(scale=0.5, size=scene.blocked.n_slots),
+                         dtype=pos.dtype, device=dev)
+    return value_and_grad_fn(scene, cfg, n_steps=40, pair_ops=pair_ops)(x0, tp, tv)
+
+
+def test_episode_gradient_kernel_path_matches_plain_f64():
+    dev = _card()
+    loss_k, g_k = _episode_grad("float64", dev, pk.KERNELS)
+    loss_p, g_p = _episode_grad("float64", dev, pk.PLAIN)
+    assert loss_p > 0 and float(torch.max(torch.abs(g_p))) > 0
+    assert abs(loss_k - loss_p) <= 1e-10 * loss_p
+    assert _rel(g_k, g_p) <= 1e-10
+
+
+def test_episode_gradient_is_bitwise_repeatable():
+    dev = _card()
+    pk.reset_launch_counts()
+    loss1, g1 = _episode_grad("float32", dev, pk.KERNELS)
+    counts = pk.launch_counts()
+    loss2, g2 = _episode_grad("float32", dev, pk.KERNELS)
+    assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
+    assert all(v > 0 for v in counts.values()), counts
+
+
+def test_backward_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, _ = _scene("float32", dev)
+    sb = scene.blocked
+    b = sb.buckets[0]
+    f9T, srT, dayT, dfT = _bwd_inputs(cfg, scene, pos, 5)
+    mb = b.n_tiles * sb.rows
+    with pytest.raises(ValueError, match="18"):
+        pk.moments_v4_bwd(b.restT_rows, b.static_slab, dayT[:17, :mb],
+                          sb.rs6T[:, :mb], cfg.h)
+    with pytest.raises(TypeError, match="dtype"):
+        pk.forces_warp_v4_bwd(b.restT_rows, b.static_slab, f9T[:, :mb], srT,
+                              b.gidx8, dfT[:, :mb].double(), cfg.h)
+    with pytest.raises(ValueError, match="entries"):
+        pk.slab_to_slots(srT, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)

@@ -16,6 +16,13 @@ from softbody_tpu_torch.convert import scene_from_numpy
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
 
+# The port's tests run thousands of small eager ops.  Under pytest-xdist each
+# worker shares the cores with the others, and torch's intra-op thread pool
+# then spends its time waiting for them (the same four gradient tests took
+# 195 s instead of 12 s beside five busy processes), so every process that
+# imports this harness runs torch on one thread.
+torch.set_num_threads(1)
+
 
 def small_body():
     """(points, out_num, h) of the small parity body."""

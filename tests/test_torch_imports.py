@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import softbody_tpu_torch
-from softbody_tpu_torch import warp_parity
+from softbody_tpu_torch import inverse_design, warp_parity
 from softbody_tpu_torch.config import resolve_device
 from softbody_tpu_torch.opt.driver import generate_targets
 from softbody_tpu_torch.sim.rollout import rollout
@@ -26,6 +26,9 @@ import softbody_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
+for name in ("softbody_tpu_torch.utils.checkpoint",
+             "softbody_tpu_torch.inverse_design", "softbody_tpu_torch.opt.driver"):
+    assert name in mods, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "softbody_tpu" or m.startswith("softbody_tpu."))
@@ -39,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_softbody_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.split(maxsplit=1)
-    assert int(n_mods) >= 17 and bad.strip() == "[]"
+    assert int(n_mods) >= 20 and bad.strip() == "[]"
 
 
 def test_entry_points_default_to_cuda():
@@ -59,6 +62,10 @@ def test_entry_points_default_to_cuda():
         rollout(x, scene, cfg, n_steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate_targets(x, scene, cfg, REPO / "_never_written")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inverse_design.main(["--particles", "300", "--steps", "2",
+                             "--target-frames", "1", "--out",
+                             str(REPO / "_never_written")])
     assert not (REPO / "_never_written").exists()
     # asked for the CPU, they run there
     _, fin, _ = rollout(x, scene, cfg, n_steps=1, device="cpu")

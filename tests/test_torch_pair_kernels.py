@@ -60,7 +60,8 @@ def test_plain_kernels_match_jax_per_bucket(dtype):
                                       b.gidx8, cfg.h, True)
         rr, st = to_torch(b.restT_rows, dtype), to_torch(b.static_slab, dtype)
         gi = torch.as_tensor(np.array(b.gidx8))
-        got1 = pk.moments_v4(rr, st, posT, posT[:, r0:r0 + mb], gi, cfg.h)
+        rs6 = to_torch(np.asarray(sb.rs6T)[:, r0:r0 + mb], dtype)
+        got1 = pk.moments_v4(rr, st, posT, posT[:, r0:r0 + mb], rs6, gi, cfg.h)
         got2 = pk.forces_warp_v4(rr, st, f9_t[:, r0:r0 + mb], sr_t, gi, cfg.h)
         assert got1.shape == (18, mb) and got2.shape == (3, mb)
         assert got1.dtype == got2.dtype == to_torch(0.0, dtype).dtype
@@ -85,9 +86,11 @@ def test_self_pair_and_far_grid_vanish():
 def test_wrappers_refuse_other_devices_and_count_nothing_on_cpu():
     cfg, scene_j, pos, f9, sr = _inputs("float32")
     b = scene_j.blocked.buckets[0]
-    args = [to_torch(b.restT_rows, "float32"), to_torch(b.static_slab, "float32"),
-            to_torch(pos.T, "float32"), None, torch.as_tensor(np.array(b.gidx8))]
     mb = b.n_tiles * scene_j.blocked.rows
+    args = [to_torch(b.restT_rows, "float32"), to_torch(b.static_slab, "float32"),
+            to_torch(pos.T, "float32"), None,
+            to_torch(np.asarray(scene_j.blocked.rs6T)[:, :mb], "float32"),
+            torch.as_tensor(np.array(b.gidx8))]
     args[3] = args[2][:, :mb]
     pk.reset_launch_counts()
     pk.moments_v4(*args, cfg.h)
@@ -97,4 +100,4 @@ def test_wrappers_refuse_other_devices_and_count_nothing_on_cpu():
         pk.moments_v4(*meta, cfg.h)
     with pytest.raises(ValueError, match="cpu or cuda"):
         pk.forces_warp_v4(meta[0], meta[1], to_torch(f9[:, :mb], "float32").to("meta"),
-                          to_torch(sr, "float32").to("meta"), meta[4], cfg.h)
+                          to_torch(sr, "float32").to("meta"), meta[5], cfg.h)
