@@ -38,8 +38,34 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  13  the launch counts of phases 11 and 12 against the launches the
      gradient path implies
 
-Then one JSON line with every kernel's numbers (``launches`` from phase 12,
-the product loop), the card line, and the last line
+ 14  the fused K1 + mid-section path (cfg.fused_mid), per bucket: the fused
+     moments_mid, K2 forces_warp_v2, the raw K1 backward moments_raw_bwd
+     and the two K2 v2 backward passes (each backward composed with
+     slab_to_slots), kernel vs plain (<= 1e-4 of max |plain|, the records'
+     parts F, M, V, S, R each on its own), ms per launch, the work's bound
+ 15  one fused force evaluation vs the unfused kernel path and vs the plain
+     fused path (<= 1e-4), its VJP wrt (positions, x) vs the plain fused
+     VJP (<= 1e-4); forces and VJP bitwise equal across two calls
+ 16  the fused forward episode, as phase 5: generate_targets from x* and
+     the sampled loss of x = 0, STEPS steps each; ms/step,
+     particle-steps/s, the profiler's device activities per step and idle
+     share, beside phase 5's unfused numbers
+ 17  quiet body on the fused path, STEPS steps: rms drift from rest < 1e-6 m
+     (phases 16-17 run fewer steps when they would exceed FUSED_BUDGET_S;
+     the cut is printed)
+ 18  300-step fused rollout vs phase 6's unfused kernel-path rollout:
+     max |dpos| <= 1e-3 max |pos - rest|
+ 19  the fused episode gradient: GRAD_STEPS steps in EVAL_CHUNKS chunks;
+     fwd+bwd ms/step, peak memory, busy share; bitwise repeat; kernel vs
+     plain fused path over PREFIX_STEPS steps in f64 (phase 11's gates)
+ 20  the launch counts of phases 16 and 19 against what the fused path
+     implies (none of the v4 kernels, K1/K2 and their backwards)
+
+Each phase's first line ends with the seconds since the start.  Then one
+JSON line with every kernel's numbers (``launches`` from phase 12, the
+product loop, for the v4 path's kernels and the scatter; from phase 19, one
+fused gradient evaluation, for the fused path's), the card line, and the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
 of JAX.
@@ -58,7 +84,8 @@ import time
 TOL = 1e-4                 # f32, another summation order over <= 1024 entries
 STEPS = 3000
 FRAMES = 100
-TIME_BUDGET_S = 200.0      # cut the episodes' steps if phases 5-7 would exceed it
+TIME_BUDGET_S = 60.0       # cut the episodes' steps if phases 5-7 would exceed it
+FUSED_BUDGET_S = 60.0      # the same for the fused phases 16-17
 GRAD_STEPS = 300           # depth of the gradient phases 11-12 (100 frames, interval 3)
 PREFIX_STEPS = 99          # kernel vs plain gradient prefix (33 of those frames)
 EVAL_CHUNKS = 3
@@ -66,7 +93,13 @@ PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLOPS_PER_PAIR = {"moments_v4": 78, "forces_warp_v4": 75,   # as the kernels do them
                   "moments_v4_bwd": 72, "forces_warp_v4_bwd_rows": 75,
-                  "forces_warp_v4_bwd_slab": 123}
+                  "forces_warp_v4_bwd_slab": 123,
+                  "moments_mid": 78, "forces_warp_v2": 78, "moments_raw_bwd": 72,
+                  "forces_warp_v2_bwd_rows": 78, "forces_warp_v2_bwd_slab": 123}
+# moments_mid's per-row epilogue, counted from csrc/fused_kernels.cu: A | Y
+# from the warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the
+# SVD's U and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
+MID_FLOPS_PER_ROW = 2250
 T_START = time.perf_counter()
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time, longer than any timed batch's enqueue
 
@@ -77,6 +110,8 @@ def fail(msg):
 
 
 def say(msg):
+    if msg.startswith("["):
+        msg = f"{msg}  [t={time.perf_counter() - T_START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -179,15 +214,18 @@ def main():
     say(f"[1] card: {card}")
     tag = f"({card})"
 
-    # ---- 2 build
+    # ---- 2 build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    say(f"[2] kernels built from {os.path.relpath(_build.SRC)} in "
-        f"{time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say(f"    ptxas: {line.strip()}")
+    libs = _build.build()
+    for source in libs:
+        _build.library(source)
+    say(f"[2] kernels built from {', '.join(f'csrc/{s}.cu' for s in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s -> "
+        + ", ".join(p.name for p in libs.values()))
+    for source, lib_path in libs.items():
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say(f"    ptxas {source}: {line.strip()}")
 
     # ---- scene
     t0 = time.perf_counter()
@@ -413,8 +451,13 @@ def main():
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
 
-    kernels = phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats,
-                         pos, pts, out_num)
+    ctx = phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats,
+                     pos, pts, out_num)
+    ctx.update(ratio=ratio, loss=loss, ms_ep=ms_ep, steps=steps, fin_k=fin_k,
+               busy_ms=busy_ms, activities=len(on_card) / 10)
+    counts_fused = phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats,
+                               pos, ctx)
+    kernels = kernel_json(stats, ctx["counts_opt"], counts_fused)
     say(f"    total {time.perf_counter() - T_START:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -427,6 +470,7 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
                pts, out_num):
     """Phases 9-13: the gradient path, its kernels, and the product loop."""
     from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.pair_common import slab_slots
     from softbody_tpu_torch.scenarios import dirichlet_mask
     from softbody_tpu_torch.sim.sparse import build_sparse_scene
     from softbody_tpu_torch.opt import driver
@@ -512,7 +556,7 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     # group's readers, which the CSR index leaves out); timed, never used.
     st = stats["slab_to_slots"]
     st["library_ms"] = 0.0
-    entry_slots = torch.cat([pk.slab_slots(b.gidx8, b.slab_len).reshape(-1)
+    entry_slots = torch.cat([slab_slots(b.gidx8, b.slab_len).reshape(-1)
                              for b in sb.buckets])
     for k in (3, 15):
         buf = rand(k, n_entries)
@@ -690,27 +734,372 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     say(f"[13] launches of one gradient (phase 11): {counts_grad}; of the "
         f"L-BFGS run (phase 12, {res.nfev} evaluations): {counts_opt}; "
         f"expected per evaluation {per_eval}")
-    for k, v in per_eval.items():
+    for k in counts_grad:
+        v = per_eval.get(k, 0)      # the fused path's kernels: none
         if counts_grad[k] != v or counts_opt[k] != res.nfev * v:
             fail(f"{k}: {counts_grad[k]} / {counts_opt[k]} launches, expected "
                  f"{v} / {res.nfev * v}")
 
-    replaces = {
-        "moments_v4": "softbody_tpu/ops/pallas/pair_kernels.py:505",
-        "forces_warp_v4": "softbody_tpu/ops/pallas/pair_kernels.py:879",
-        "moments_v4_bwd": "softbody_tpu/ops/pallas/pair_kernels.py:564",
-        "forces_warp_v4_bwd_rows": "softbody_tpu/ops/pallas/pair_kernels.py:1038",
-        "forces_warp_v4_bwd_slab": "softbody_tpu/ops/pallas/pair_kernels.py:1038",
-        "slab_to_slots": "softbody_tpu/ops/pallas/packed.py:212",
+    return {"counts_opt": counts_opt, "cfg_g": cfg_g, "tp_g": tp, "tv_g": tv,
+            "x0": x0, "loss_g": loss1, "g_g": g1, "ms_grad": ms_grad,
+            "scene64": scene64, "cfg64": cfg64, "tp64": tp64, "tv64": tv64,
+            "x64": x64}
+
+
+def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
+    """Phases 14-20: the fused K1 + mid-section path (cfg.fused_mid) at full
+    width.  Returns the launch counts of one fused gradient (phase 19)."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.opt.driver import generate_targets, load_targets
+    from softbody_tpu_torch.sim.rollout import (acc_float, episode_value_and_grad_chunked,
+                                                initial_state, rollout, step)
+    from softbody_tpu_torch.sim.sparse import elastic_forces_sparse
+
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    nb = len(sb.buckets)
+    n = len(scene.slot_of_particle)
+    f32 = 4
+    cfg_f = cfg.replace(fused_mid=True)
+    ratio = ctx["ratio"]
+    rng = np.random.default_rng(14)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    # ---- 14 the fused kernels vs plain, per bucket (backwards composed
+    # with the scatter)
+    say(f"[14] fused path, per bucket, kernels vs plain on the card {tag}")
+    posT = pos.T.contiguous()
+    rs = fk.row_static(sb, scene.materials, scene.rest_corr)
+    scale = cfg.stiffness_scale(ratio[:m])
+    fmT, srT = fk.moments_mid_all(posT, posT[:, :m], scale, sb, rs, cfg.h,
+                                  cfg.corotated, pk.PLAIN)
+    dayT, dfT = rand(18, m), rand(3, m)
+    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    parts = {"F": slice(0, 9), "M": slice(9, 18), "V": slice(18, 19)}
+    e0 = 0
+    for i, b in enumerate(sb.buckets):
+        t, slab = b.n_tiles, b.slab_len
+        mb = t * sb.rows
+        c = slice(b.row_start, b.row_start + mb)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
+        tile_bytes = (t * 3 * sb.rows + t * 5 * slab) * f32
+        gidx_bytes = t * slab // sb.group * 4
+        pairs = t * sb.rows * slab
+        a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c), scale[c],
+                 b.gidx8, cfg.h, cfg.corotated)
+        a_k2 = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
+        a_k6 = (b.restT_rows, b.static_slab, dayT[:, c], cfg.h)
+
+        def slots(d, k, scatter, seg=seg):
+            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
+            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
+            return scatter(buf, *to_slots)
+
+        def mid_parts(o, sc):
+            fm_, sr_ = o[0], o[1]
+            return ([fm_[p] for p in parts.values()]
+                    + [sr_[0:6], sr_[6:15]])
+
+        work = {   # key: (kernel, plain, outputs compared, flops, bytes)
+            "moments_mid": (
+                lambda: fk.moments_mid(*a_mid), lambda: fk.moments_mid_plain(*a_mid),
+                mid_parts, FLOPS_PER_PAIR["moments_mid"] * pairs + MID_FLOPS_PER_ROW * mb,
+                tile_bytes + gidx_bytes
+                + (3 * uniq + 3 * mb + 6 * mb + 3 * mb + 9 * mb + mb + 19 * mb
+                   + 15 * mb) * f32),
+            "forces_warp_v2": (
+                lambda: fk.forces_warp_v2(*a_k2, cfg.h),
+                lambda: fk.forces_warp_v2_plain(*a_k2, cfg.h), lambda o, sc: (o,),
+                FLOPS_PER_PAIR["forces_warp_v2"] * pairs,
+                tile_bytes + gidx_bytes + (19 * mb + 15 * uniq + 3 * mb) * f32),
+            "moments_raw_bwd": (
+                lambda: fk.moments_raw_bwd(*a_k6), lambda: fk.moments_raw_bwd_plain(*a_k6),
+                lambda o, sc: (slots(o, 3, sc),),
+                FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
+                tile_bytes + (18 * mb + 3 * t * slab) * f32),
+            "forces_warp_v2_bwd_rows": (
+                lambda: fk.forces_warp_v2_bwd_rows(*a_k2, dfT[:, c], cfg.h),
+                lambda: fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)[0],
+                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2_bwd_rows"] * pairs,
+                tile_bytes + gidx_bytes + (15 * uniq + mb + 3 * mb + 19 * mb) * f32),
+            "forces_warp_v2_bwd_slab": (
+                lambda: fk.forces_warp_v2_bwd_slab(*a_k2, dfT[:, c], cfg.h),
+                lambda: fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)[1],
+                lambda o, sc: (slots(o, 15, sc),),
+                FLOPS_PER_PAIR["forces_warp_v2_bwd_slab"] * pairs,
+                tile_bytes + gidx_bytes
+                + (9 * mb + mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
+        }
+        line = [f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+        for key, (kern, plain, outs, flops, nbytes) in work.items():
+            got = outs(kern(), pk.slab_to_slots)
+            want = outs(plain(), pk.slab_to_slots_plain)
+            torch.cuda.synchronize()
+            err = max(record(stats[key], g, w, f"{key} bucket {i}")
+                      for g, w in zip(got, want))
+            st = stats[key]
+            ms = cuda_ms(kern, 20)
+            st["ms"] += ms
+            st["launch_ms"] += host_ms(kern, 20)
+            st["plain_ms"] += cuda_ms(plain, 2)
+            st["flops"] += flops
+            st["bytes"] += nbytes
+            line.append(f"{key} err {err:.2e} {ms:.4f} ms")
+        say(" | ".join(line))
+    for key in ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
+                "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab"):
+        summarize(key, stats[key], nb, tag)
+    say("    (moments_mid is timed as the forward runs it, without the A | Y rows "
+        "the gradient's recompute also stores; each K2 v2 pass's plain time is "
+        "the whole plain K2 v2 backward)")
+
+    # ---- 15 one fused force evaluation and its VJP
+    mats = scene.materials
+    f_k = elastic_forces_sparse(pos, ratio, mats, scene, cfg_f)
+    f_k2 = elastic_forces_sparse(pos, ratio, mats, scene, cfg_f)
+    f_p = elastic_forces_sparse(pos, ratio, mats, scene, cfg_f, pair_ops=pk.PLAIN)
+    f_u = elastic_forces_sparse(pos, ratio, mats, scene, cfg)
+    err_u, err_p = rel_err(f_k, f_u), rel_err(f_k, f_p)
+    ct = torch.zeros_like(pos)
+    ct[scene.slot_of_particle] = rand(n, 3)
+
+    def vjp(ops):
+        p = pos.clone().requires_grad_()
+        xv = x_star.clone().requires_grad_()
+        f = elastic_forces_sparse(p, compute_ratio(xv, cfg_f), mats, scene, cfg_f, ops)
+        return torch.autograd.grad(f, (p, xv), ct)
+
+    k1, k2, pl = vjp(pk.KERNELS), vjp(pk.KERNELS), vjp(pk.PLAIN)
+    errs = [rel_err(a, b) for a, b in zip(k1, pl)]
+    same = torch.equal(f_k, f_k2) and all(torch.equal(a, b) for a, b in zip(k1, k2))
+    say(f"[15] fused elastic_forces_sparse: vs the unfused kernel path {err_u:.3e}, "
+        f"vs the plain fused path {err_p:.3e}; its VJP wrt (pos, x) vs the plain "
+        f"fused VJP {errs[0]:.3e}, {errs[1]:.3e} (of max |plain|, tol {TOL}); two "
+        f"kernel-path calls bitwise equal (forces and VJP): {same}")
+    if not (max([err_u, err_p] + errs) <= TOL and same
+            and bool(torch.isfinite(f_k).all())
+            and all(bool(torch.isfinite(a).all()) for a in k1)):
+        fail("the fused force evaluation or its VJP disagrees or does not repeat")
+
+    # ---- 16 the fused forward episode
+    state = initial_state(scene, ratio, cfg)
+    rounds = {
+        "fused step": lambda: step(state, ratio, scene, cfg_f),
+        "fused forces": lambda: elastic_forces_sparse(state.position, ratio, mats,
+                                                      scene, cfg_f),
+        "unfused step": lambda: step(state, ratio, scene, cfg),
     }
+    best = {k: math.inf for k in rounds}
+    for _ in range(5):
+        for k, fn in rounds.items():
+            best[k] = min(best[k], host_ms(fn, 5))
+    steps = STEPS
+    projected = 3 * STEPS * best["fused step"] / 1e3
+    if projected > FUSED_BUDGET_S:
+        steps = max(FRAMES, int(STEPS * FUSED_BUDGET_S / projected) // FRAMES * FRAMES)
+        say(f"    CUT: fused episodes run {steps} steps, not {STEPS} (projected "
+            f"{projected:.0f} s > {FUSED_BUDGET_S:.0f} s)")
+    cfg_f = cfg_f.replace(frames=steps)
+    sop = scene.slot_of_particle.cpu().numpy()
+    rest = scene.rest_position
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_targets(x_star, scene, cfg_f, tmp, particle_index=sop, device=dev)
+        t_targets = time.perf_counter() - t0
+        tp_p, tv_p = load_targets(tmp, FRAMES)
+    tp = np.tile(rest.cpu().numpy(), (FRAMES, 1, 1))
+    tv = np.zeros_like(tp) + np.asarray(cfg.initial_velocity)
+    tp[:, sop], tv[:, sop] = tp_p, tv_p
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    acc, fin, _ = rollout(torch.zeros(sb.n_slots), scene, cfg_f, tp, tv,
+                          acc_pair=True, device=dev)
+    loss_f = acc_float(acc)
+    t_loss = time.perf_counter() - t1
+    counts_fwd = pk.launch_counts()
+    ms_f = (t_targets + t_loss) * 1e3 / (2 * steps)
+    say(f"[16] fused episode: {steps} steps x 2 (targets from x*: {t_targets:.1f} s "
+        f"incl. {FRAMES} frames to disk; loss of x=0: {t_loss:.1f} s) -> "
+        f"{ms_f:.3f} ms/step, {n * 1e3 / ms_f:.4g} particle-steps/s; unfused "
+        f"(phase 5, {ctx['steps']} steps) {ctx['ms_ep']:.3f} ms/step, "
+        f"{n * 1e3 / ctx['ms_ep']:.4g} particle-steps/s {tag}")
+    same_depth = (f"vs the unfused {ctx['loss']:.9g} (rel "
+                  f"{abs(loss_f - ctx['loss']) / ctx['loss']:.3e}, f32 summation "
+                  f"orders; not gated)" if steps == ctx["steps"] else
+                  f"(phase 5 ran {ctx['steps']} steps: not comparable)")
+    say(f"    loss(x=0 vs x* targets) = {loss_f:.9g} {same_depth}; one step (fastest "
+        f"of 5 rounds): fused {best['fused step']:.3f} ms wall, of which forces "
+        f"{best['fused forces']:.3f} ms; unfused {best['unfused step']:.3f} ms")
+    if not (math.isfinite(loss_f) and loss_f > 0 and np.isfinite(tp).all()
+            and bool(torch.isfinite(fin.position).all())):
+        fail("the fused episode produced a non-finite or zero loss / state")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    st_p = initial_state(scene, ratio, cfg_f)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            st_p = step(st_p, ratio, scene, cfg_f)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
+    ours = sum(e.time_range.elapsed_us() for e in on_card
+               if "moments_mid_kernel" in e.name
+               or "forces_warp_v2_kernel" in e.name) / 1e3 / 10
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in "
+            f"{len(on_card) / 10:.0f} device activities per step, of which the two "
+            f"fused pair kernels {ours:.3f} ms; idle share {1 - busy / ms_f:.3f} of "
+            f"the fused episode's {ms_f:.3f} ms/step (unfused: {ctx['busy_ms']:.3f} "
+            f"ms in {ctx['activities']:.0f} activities) {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+
+    # ---- 17 quiet body on the fused path
+    quiet = cfg_f.replace(external_force=(0.0, 0.0, 0.0))
+    q_scene = scene._replace(materials=mats._replace(
+        external=torch.zeros_like(mats.external)))
+    _, fin_q, _ = rollout(torch.zeros(sb.n_slots), q_scene, quiet, n_steps=steps,
+                          device=dev)
+    d = (fin_q.position - scene.rest_position)[scene.slot_of_particle]
+    drift = float(torch.sqrt(torch.mean(torch.sum(d * d, dim=1))))
+    say(f"[17] fused quiet body, {steps} steps: rms drift from rest {drift:.3e} m "
+        f"(tol 1e-6)")
+    if not drift < 1e-6:
+        fail("a quiet body drifts on the fused path")
+
+    # ---- 18 fused rollout vs the unfused kernel path (phase 6), 300 steps
+    _, fin_fk, _ = rollout(x_star, scene, cfg_f, n_steps=300, device=dev)
+    fin_k = ctx["fin_k"]
+    dpos = float(torch.max(torch.abs(fin_fk.position - fin_k.position)))
+    disp = float(torch.max(torch.abs(fin_k.position - scene.rest_position)))
+    say(f"[18] 300-step rollout fused vs unfused kernel path: max|dpos| = "
+        f"{dpos:.3e}, max|pos - rest| = {disp:.3e}, ratio {dpos / disp:.3e} "
+        f"(tol 1e-3)")
+    if not dpos <= 1e-3 * disp:
+        fail("the fused rollout drifts from the unfused one")
+
+    # ---- 19 the fused episode gradient
+    S = GRAD_STEPS
+    cfg_gf = ctx["cfg_g"].replace(fused_mid=True)
+    tp, tv, x0 = ctx["tp_g"], ctx["tv_g"], ctx["x0"]
+    vg = episode_value_and_grad_chunked(scene, cfg_gf, EVAL_CHUNKS, S)
+    pk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1 = vg(x0, tp, tv)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    counts_grad = pk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss2, g2 = vg(x0, tp, tv)
+    ms_grad = t_grad * 1e3 / S
+    gmax = float(torch.max(torch.abs(g1)))
+    say(f"[19] fused episode gradient: {S} steps, {EVAL_CHUNKS} chunks, x = 0: loss "
+        f"{loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd {t_grad:.1f} s = {ms_grad:.3f} "
+        f"ms/step, {n * S / t_grad:.4g} particle-steps/s (unfused, phase 11: "
+        f"{ctx['ms_grad']:.3f} ms/step); peak device memory {peak / 2**30:.3f} GiB "
+        f"{tag}")
+    say(f"    vs the unfused gradient (phase 11, f32, not gated): loss rel "
+        f"{abs(loss1 - ctx['loss_g']) / ctx['loss_g']:.3e}, max |dg| / max |g| "
+        f"{rel_err(g1, ctx['g_g']):.3e}")
+    repeat = loss1 == loss2 and torch.equal(g1, g2)
+    say(f"    second fused gradient bitwise equal: {repeat}")
+    if not (math.isfinite(loss1) and loss1 > 0 and gmax > 0 and repeat
+            and bool(torch.isfinite(g1).all())):
+        fail("the fused gradient is not finite, is zero, or does not repeat")
+    P = PREFIX_STEPS
+    cfg64 = ctx["cfg64"].replace(fused_mid=True)
+    n_tp = P // (S // FRAMES)
+    prefix = {ops is pk.PLAIN: episode_value_and_grad_chunked(
+        ctx["scene64"], cfg64, 1, P, ops)(ctx["x64"], ctx["tp64"], ctx["tv64"])
+        for ops in (pk.KERNELS, pk.PLAIN)}
+    (lk, gk), (lp, gp) = prefix[False], prefix[True]
+    dl, dg = abs(lk - lp) / lp, rel_err(gk, gp)
+    say(f"    first {P} steps ({n_tp} targets) in f64, fused kernel vs plain path: "
+        f"loss {lk:.12g} vs {lp:.12g} (rel {dl:.3e}); max |dg| / max |g_plain| "
+        f"{dg:.3e} (tol 1e-5 and 1e-3)")
+    if not (dl <= 1e-5 and dg <= 1e-3):
+        fail("the fused gradient's kernel path disagrees with its plain path")
+    short = episode_value_and_grad_chunked(scene, cfg_gf, 1, 10)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        short(x0, tp[:3], tv[:3])
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
+    ours = sum(e.time_range.elapsed_us() for e in on_card
+               if any(k in e.name for k in ("moments_mid", "forces_warp_v2",
+                                             "moments_raw_bwd", "slab_to_slots"))
+               ) / 1e3 / 10
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step of fused fwd+bwd in "
+            f"{len(on_card) / 10:.0f} device activities per step, of which the "
+            f"fused pair and scatter kernels {ours:.3f} ms; idle share "
+            f"{1 - busy / ms_grad:.3f} of the gradient's {ms_grad:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+
+    # ---- 20 launch counts of the fused path
+    # forward: one fused K1 + mid-section and one K2 v2 per bucket and step,
+    # two episodes.
+    # Gradient (as phase 13): forward kernels 3 times per step, backward
+    # kernels once, slab_to_slots twice (after the raw K1 and the K2 v2
+    # backward); none of the v4 kernels.
+    fwd = {"moments_mid": 2 * nb * steps, "forces_warp_v2": 2 * nb * steps}
+    per_eval = {"moments_mid": 3 * nb * S, "forces_warp_v2": 3 * nb * S,
+                "moments_raw_bwd": nb * S, "forces_warp_v2_bwd_rows": nb * S,
+                "forces_warp_v2_bwd_slab": nb * S, "slab_to_slots": 2 * S}
+    say(f"[20] fused launches: forward episode (phase 16) {counts_fwd}; one "
+        f"gradient (phase 19) {counts_grad}; expected {fwd} / {per_eval}, every "
+        f"other kernel 0")
+    for k in counts_fwd:
+        if counts_fwd[k] != fwd.get(k, 0) or counts_grad[k] != per_eval.get(k, 0):
+            fail(f"{k}: {counts_fwd[k]} / {counts_grad[k]} launches, expected "
+                 f"{fwd.get(k, 0)} / {per_eval.get(k, 0)}")
+    return counts_grad
+
+
+REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
+    "moments_v4": ("pair_kernels", "pair_kernels.py:505"),
+    "forces_warp_v4": ("pair_kernels", "pair_kernels.py:879"),
+    "moments_v4_bwd": ("pair_kernels", "pair_kernels.py:564"),
+    "forces_warp_v4_bwd_rows": ("pair_kernels", "pair_kernels.py:1038"),
+    "forces_warp_v4_bwd_slab": ("pair_kernels", "pair_kernels.py:1038"),
+    "slab_to_slots": ("pair_kernels", "packed.py:212"),
+    "moments_mid": ("fused_kernels", "pair_kernels.py:602"),
+    "forces_warp_v2": ("fused_kernels", "pair_kernels.py:822"),
+    "moments_raw_bwd": ("fused_kernels", "pair_kernels.py:335"),
+    "forces_warp_v2_bwd_rows": ("fused_kernels", "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_slab": ("fused_kernels", "pair_kernels.py:936"),
+}
+
+
+def kernel_json(stats, counts_opt, counts_fused):
+    """The kernels line: each kernel's numbers, ``launches`` from its path's
+    gradient runs (phase 12's L-BFGS loop for the v4 path, phase 19's
+    gradient for the fused path)."""
     kernels = []
     for key, s in stats.items():
+        source, body = REPLACES[key]
+        counts = counts_fused if source == "fused_kernels" else counts_opt
         kernels.append({
             "name": key,
             "route": "cuda",
-            "source": "softbody_tpu_torch/csrc/pair_kernels.cu",
-            "replaces": replaces[key],
-            "launches": counts_opt[key],
+            "source": f"softbody_tpu_torch/csrc/{source}.cu",
+            "replaces": f"softbody_tpu/ops/pallas/{body}",
+            "launches": counts[key],
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],

@@ -5,8 +5,9 @@ H100.  It imports torch and numpy, never jax and nothing of ``softbody_tpu``:
 every host-side helper it needs is its own copy.  Module paths mirror the JAX
 package's, so each module's counterpart is found under the same name.
 
-What is ported: stretch inverse design on the sparse backend (Warp pairing):
-the forward episode, its gradient and the L-BFGS driver —
+What is ported: stretch inverse design on the sparse backend (Warp pairing),
+also with the fused K1 + mid-section path (``cfg.fused_mid``): the forward
+episode, its gradient and the L-BFGS driver —
 
   config          — SimConfig + parity presets, torch dtype / device helpers
   geometry        — procedural bodies
@@ -14,9 +15,9 @@ the forward episode, its gradient and the L-BFGS driver —
   native          — g++/ctypes CSR neighbour builder
   topology        — rest neighbours, sparse candidate-group layout
   ops             — SPH kernels, 3x3 algebra (polar with its clamped VJP),
-                    collision, the pair kernels forward and backward and
-                    their fixed-order scatter (hand-written CUDA in csrc/,
-                    plain torch beside)
+                    collision, the pair kernels of both paths forward and
+                    backward and their fixed-order scatter (hand-written
+                    CUDA in csrc/, plain torch beside)
   sim             — sparse scene build, elastic forces, episode runner with
                     remat and the chunked value-and-grad
   opt             — target generation, L-BFGS-B, grad check

@@ -70,7 +70,8 @@ class SparseBlocked:
     ``rs6T`` holds the static rest row sums, lane-major: rows 0:3 are
     sum_j w_ij m_j (X_j - X_i) and rows 3:6 sum_j V_j grad W_ij, host-built
     in f64 over the true pairs.  The forward path reads only rows 3:6, in
-    the K2 ``term_i`` epilogue, and the K1 backward reads all six.
+    the K2 ``term_i`` epilogue (the fused path's K2 sums its own), and the
+    K1 backward of either path reads all six.
 
     ``slab_ptr`` / ``slab_idx`` are the CSR inverse of the buckets' ``gidx8``
     (``ops.pair_kernels.slab_inverse``): the fixed-order index through which

@@ -43,26 +43,9 @@
 // cudaGetLastError() of its launch.  Kernels launch on the caller's stream
 // and allocate nothing.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
-
-constexpr int ROWS = 32;               // one lane per tile row
-constexpr int NWARPS = 4;              // warps per tile, splitting the slab
-constexpr int THREADS = 32 * NWARPS;
-constexpr int CHUNK = THREADS;         // slab entries staged per pass
-
-template <typename T> __device__ __forceinline__ T rsqrt_t(T x);
-template <> __device__ __forceinline__ float rsqrt_t<float>(float x) { return rsqrtf(x); }
-template <> __device__ __forceinline__ double rsqrt_t<double>(double x) { return rsqrt(x); }
-
-template <typename T> __device__ __forceinline__ T relu(T x) { return x > T(0) ? x : T(0); }
-
-// K1 slab entry: rest_3, mass, volume, pos - c (8 values).
-template <typename T> struct alignas(16) K1Entry { T v[8]; };
-// K2 slab entry: rest_3, volume, S_6, R^T_9, pad (20 values).
-template <typename T> struct alignas(16) K2Entry { T v[20]; };
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -80,84 +63,17 @@ moments_v4_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   __shared__ T red[NWARPS][24][ROWS];
 
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  const T c0 = rr[0], c1 = rr[ROWS], c2 = rr[2 * ROWS];
-  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  const int32_t* gi = gidx + (int64_t)tile * (slab / group);
-
-  T acc[6][4];
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) acc[k][a] = T(0);
-
-  for (int base = 0; base < slab; base += CHUNK) {
-    const int n = min(CHUNK, slab - base);
-    // Each thread stages one entry; warp w consumes entries [32w, 32w+32),
-    // exactly the ones its own lanes staged, so a warp barrier suffices.
-    const int e = threadIdx.x;
-    if (e < n) {
-      const int s = base + e;
-      const int64_t slot = (int64_t)gi[s / group] * group + (s % group);
-      K1Entry<T> x;
-      x.v[0] = st[s];
-      x.v[1] = st[slab + s];
-      x.v[2] = st[2 * slab + s];
-      x.v[3] = st[3 * slab + s];
-      x.v[4] = st[4 * slab + s];
-      x.v[5] = posT[slot] - c0;
-      x.v[6] = posT[ld_pos + slot] - c1;
-      x.v[7] = posT[2 * ld_pos + slot] - c2;
-      ent[e] = x;
-    }
-    __syncwarp();
-    const int e1 = min(warp * 32 + 32, n);
-    for (int j = warp * 32; j < e1; ++j) {
-      const K1Entry<T> x = ent[j];
-      const T dx0 = xi0 - x.v[0], dx1 = xi1 - x.v[1], dx2 = xi2 - x.v[2];
-      const T r2 = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-      const T rs = rsqrt_t(r2 + T(1e-30));
-      const T q = r2 * rs * inv_h;
-      const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-      const T tq2 = tq * tq, oq2 = oq * oq;
-      const T w = c4 * (tq2 * tq - T(4) * oq2 * oq);
-      const T gfac = c4h * (T(12) * oq2 - T(3) * tq2) * rs;
-      const T cA = w * x.v[3], gv = gfac * x.v[4];
-      const T L[6] = {-cA * dx0, -cA * dx1, -cA * dx2, gv * dx0, gv * dx1, gv * dx2};
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        acc[k][0] += x.v[5] * L[k];
-        acc[k][1] += x.v[6] * L[k];
-        acc[k][2] += x.v[7] * L[k];
-        acc[k][3] += L[k];
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) red[warp][4 * k + a][lane] = acc[k][a];
-  __syncthreads();
-
-  // 18 output rows x 32 lanes, warps summed in a fixed order.
-  const T cc[3] = {c0, c1, c2};
+  const T c[3] = {rr[0], rr[ROWS], rr[2 * ROWS]};   // the tile's first rest row
+  k1_tile_sums(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
+               gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
+               c, ent, red);
+  // 18 output rows x 32 lanes
   for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS) {
-    const int r = o % ROWS, row = o / ROWS;
-    const int k = row / 3, a = row % 3;
-    T dot = T(0), rowsum = T(0);
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      dot += red[w][4 * k + a][r];
-      rowsum += red[w][4 * k + 3][r];
-    }
+    const int r = o % ROWS, row = o / ROWS, a = row % 3;
     const int64_t col = (int64_t)tile * ROWS + r;
-    const T pi = posT_rows[a * ld_rows + col] - cc[a];
-    ayT[row * ld_out + col] = dot - pi * rowsum;
+    const T pi = posT_rows[a * ld_rows + col] - c[a];
+    ayT[row * ld_out + col] = k1_moment(red, row / 3, a, r, pi);
   }
 }
 
@@ -177,66 +93,14 @@ forces_warp_v4_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   __shared__ T red[NWARPS][3][ROWS];
 
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  const int32_t* gi = gidx + (int64_t)tile * (slab / group);
-  const int64_t col = (int64_t)tile * ROWS + lane;
+  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
   T F[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) F[k] = f9T[k * ld_f9 + col];
-
-  T acc0 = T(0), acc1 = T(0), acc2 = T(0);
-  for (int base = 0; base < slab; base += CHUNK) {
-    const int n = min(CHUNK, slab - base);
-    const int e = threadIdx.x;
-    if (e < n) {
-      const int s = base + e;
-      const int64_t slot = (int64_t)gi[s / group] * group + (s % group);
-      K2Entry<T> x;
-      x.v[0] = st[s];
-      x.v[1] = st[slab + s];
-      x.v[2] = st[2 * slab + s];
-      x.v[3] = st[4 * slab + s];
-#pragma unroll
-      for (int f = 0; f < 15; ++f) x.v[4 + f] = srT[f * ld_sr + slot];
-      x.v[19] = T(0);
-      ent[e] = x;
-    }
-    __syncwarp();
-    const int e1 = min(warp * 32 + 32, n);
-    for (int j = warp * 32; j < e1; ++j) {
-      const K2Entry<T> x = ent[j];
-      const T dx0 = xi0 - x.v[0], dx1 = xi1 - x.v[1], dx2 = xi2 - x.v[2];
-      const T r2 = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-      const T rs = rsqrt_t(r2 + T(1e-30));
-      const T q = r2 * rs * inv_h;
-      const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-      const T gv = c4h * (T(12) * oq * oq - T(3) * tq * tq) * rs * x.v[3];
-      const T nw0 = gv * dx0, nw1 = gv * dx1, nw2 = gv * dx2;
-      // S_6 = [s00 s01 s02 s11 s12 s22] at v[4..9]
-      const T* S = x.v + 4;
-      const T z0 = nw0 * S[0] + nw1 * S[1] + nw2 * S[2];
-      const T z1 = nw0 * S[1] + nw1 * S[3] + nw2 * S[4];
-      const T z2 = nw0 * S[2] + nw1 * S[4] + nw2 * S[5];
-      const T u0 = F[0] * z0 + F[1] * z1 + F[2] * z2;
-      const T u1 = F[3] * z0 + F[4] * z1 + F[5] * z2;
-      const T u2 = F[6] * z0 + F[7] * z1 + F[8] * z2;
-      // R^T_9 at v[10..18]: v[10 + 3c + a] = R[a][c]
-      const T* Rt = x.v + 10;
-      acc0 += Rt[0] * u0 + Rt[3] * u1 + Rt[6] * u2;
-      acc1 += Rt[1] * u0 + Rt[4] * u1 + Rt[7] * u2;
-      acc2 += Rt[2] * u0 + Rt[5] * u1 + Rt[8] * u2;
-    }
-    __syncwarp();
-  }
-
-  red[warp][0][lane] = acc0;
-  red[warp][1][lane] = acc1;
-  red[warp][2][lane] = acc2;
-  __syncthreads();
+  k2_tile_sums<false>(restT_rows + (int64_t)tile * 3 * ROWS,
+                      static_slab + (int64_t)tile * 5 * slab, F, srT, ld_sr,
+                      gidx + (int64_t)tile * (slab / group), slab, group, inv_h,
+                      c4h, ent, red);
   for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
     const int r = o % ROWS, a = o / ROWS;
     T sum = T(0);
@@ -299,53 +163,16 @@ moments_v4_bwd_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
                       T* __restrict__ dprow,              // (3, ld_row)
                       int64_t ld_row,
                       int slab, T inv_h, T c4, T c4h) {
-  __shared__ T xr[3][ROWS];
-  __shared__ T ct[18][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col0 = (int64_t)tile * ROWS;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) xr[o / ROWS][o % ROWS] = rr[o];
-  for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS)
-    ct[o / ROWS][o % ROWS] = dayT[(o / ROWS) * ld_day + col0 + o % ROWS];
-  __syncthreads();
-
+  const int64_t col0 = (int64_t)blockIdx.x * ROWS;
   for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
     const int a = o / ROWS, r = o % ROWS;
     T acc = T(0);
 #pragma unroll
-    for (int blk = 0; blk < 6; ++blk) acc += ct[3 * blk + a][r] * rs6T[blk * ld_rs6 + col0 + r];
+    for (int blk = 0; blk < 6; ++blk)
+      acc += dayT[(3 * blk + a) * ld_day + col0 + r] * rs6T[blk * ld_rs6 + col0 + r];
     dprow[a * ld_row + col0 + r] = -acc;
   }
-
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  for (int s = threadIdx.x; s < slab; s += THREADS) {
-    const T xj0 = st[s], xj1 = st[slab + s], xj2 = st[2 * slab + s];
-    const T mj = st[3 * slab + s], vj = st[4 * slab + s];
-    T g0 = T(0), g1 = T(0), g2 = T(0);
-    for (int r = 0; r < ROWS; ++r) {
-      const T dx0 = xr[0][r] - xj0, dx1 = xr[1][r] - xj1, dx2 = xr[2][r] - xj2;
-      const T r2 = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-      const T rs = rsqrt_t(r2 + T(1e-30));
-      const T q = r2 * rs * inv_h;
-      const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-      const T tq2 = tq * tq, oq2 = oq * oq;
-      const T w = c4 * (tq2 * tq - T(4) * oq2 * oq);
-      const T gfac = c4h * (T(12) * oq2 - T(3) * tq2) * rs;
-      const T cA = w * mj, gv = gfac * vj;
-      const T L[6] = {-cA * dx0, -cA * dx1, -cA * dx2, gv * dx0, gv * dx1, gv * dx2};
-#pragma unroll
-      for (int blk = 0; blk < 6; ++blk) {
-        g0 += ct[3 * blk][r] * L[blk];
-        g1 += ct[3 * blk + 1][r] * L[blk];
-        g2 += ct[3 * blk + 2][r] * L[blk];
-      }
-    }
-    const int64_t e = (int64_t)tile * slab + s;
-    dps[e] = g0;
-    dps[ld_ps + e] = g1;
-    dps[2 * ld_ps + e] = g2;
-  }
+  k1_bwd_slab(restT_rows, static_slab, dayT, ld_day, dps, ld_ps, slab, inv_h, c4, c4h);
 }
 
 template <typename T>
@@ -364,63 +191,12 @@ forces_warp_v4_bwd_rows_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROW
   __shared__ T red[NWARPS][9][ROWS];
 
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  const int32_t* gi = gidx + (int64_t)tile * (slab / group);
-  const int64_t col = (int64_t)tile * ROWS + lane;
-  const T df0 = dfT[col], df1 = dfT[ld_df + col], df2 = dfT[2 * ld_df + col];
-
-  T acc[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc[k] = T(0);
-  for (int base = 0; base < slab; base += CHUNK) {
-    const int n = min(CHUNK, slab - base);
-    const int e = threadIdx.x;
-    if (e < n) {
-      const int s = base + e;
-      const int64_t slot = (int64_t)gi[s / group] * group + (s % group);
-      K2Entry<T> x;
-      x.v[0] = st[s];
-      x.v[1] = st[slab + s];
-      x.v[2] = st[2 * slab + s];
-      x.v[3] = st[4 * slab + s];
-#pragma unroll
-      for (int f = 0; f < 15; ++f) x.v[4 + f] = srT[f * ld_sr + slot];
-      x.v[19] = T(0);
-      ent[e] = x;
-    }
-    __syncwarp();
-    const int e1 = min(warp * 32 + 32, n);
-    for (int j = warp * 32; j < e1; ++j) {
-      const K2Entry<T> x = ent[j];
-      const T dx0 = xi0 - x.v[0], dx1 = xi1 - x.v[1], dx2 = xi2 - x.v[2];
-      const T r2 = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-      const T rs = rsqrt_t(r2 + T(1e-30));
-      const T q = r2 * rs * inv_h;
-      const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-      const T gv = c4h * (T(12) * oq * oq - T(3) * tq * tq) * rs * x.v[3];
-      const T nw0 = gv * dx0, nw1 = gv * dx1, nw2 = gv * dx2;
-      const T* S = x.v + 4;
-      const T z[3] = {nw0 * S[0] + nw1 * S[1] + nw2 * S[2],
-                      nw0 * S[1] + nw1 * S[3] + nw2 * S[4],
-                      nw0 * S[2] + nw1 * S[4] + nw2 * S[5]};
-      const T* Rt = x.v + 10;   // Rt[3c + a] = R[a][c]
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T wp = df0 * Rt[3 * c] + df1 * Rt[3 * c + 1] + df2 * Rt[3 * c + 2];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) acc[3 * c + d] += z[d] * wp;
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int k = 0; k < 9; ++k) red[warp][k][lane] = acc[k];
-  __syncthreads();
+  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
+  k2_bwd_row_sums<false>(restT_rows + (int64_t)tile * 3 * ROWS,
+                         static_slab + (int64_t)tile * 5 * slab, srT, ld_sr,
+                         gidx + (int64_t)tile * (slab / group), slab, group, inv_h,
+                         c4h, dfT[col], dfT[ld_df + col], dfT[2 * ld_df + col], ent,
+                         red);
   for (int o = threadIdx.x; o < 9 * ROWS; o += THREADS) {
     const int r = o % ROWS, k = o / ROWS;
     T sum = T(0);
@@ -444,75 +220,8 @@ forces_warp_v4_bwd_slab_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROW
                                T* __restrict__ dsr,                // (15, ld_out), column tile*slab + s
                                int64_t ld_out,
                                int slab, int group, T inv_h, T c4h) {
-  __shared__ T xr[3][ROWS];
-  __shared__ T F[9][ROWS];
-  __shared__ T df[3][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col0 = (int64_t)tile * ROWS;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
-    xr[o / ROWS][o % ROWS] = rr[o];
-    df[o / ROWS][o % ROWS] = dfT[(o / ROWS) * ld_df + col0 + o % ROWS];
-  }
-  for (int o = threadIdx.x; o < 9 * ROWS; o += THREADS)
-    F[o / ROWS][o % ROWS] = f9T[(o / ROWS) * ld_f9 + col0 + o % ROWS];
-  __syncthreads();
-
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  const int32_t* gi = gidx + (int64_t)tile * (slab / group);
-  for (int s = threadIdx.x; s < slab; s += THREADS) {
-    const int64_t slot = (int64_t)gi[s / group] * group + (s % group);
-    const T xj0 = st[s], xj1 = st[slab + s], xj2 = st[2 * slab + s];
-    const T vj = st[4 * slab + s];
-    T S[6], Rt[9];
-#pragma unroll
-    for (int f = 0; f < 6; ++f) S[f] = srT[f * ld_sr + slot];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) Rt[f] = srT[(6 + f) * ld_sr + slot];
-    T dS[6], dRt[9];
-#pragma unroll
-    for (int f = 0; f < 6; ++f) dS[f] = T(0);
-#pragma unroll
-    for (int f = 0; f < 9; ++f) dRt[f] = T(0);
-    for (int r = 0; r < ROWS; ++r) {
-      const T dx0 = xr[0][r] - xj0, dx1 = xr[1][r] - xj1, dx2 = xr[2][r] - xj2;
-      const T r2 = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-      const T rs = rsqrt_t(r2 + T(1e-30));
-      const T q = r2 * rs * inv_h;
-      const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-      const T gv = c4h * (T(12) * oq * oq - T(3) * tq * tq) * rs * vj;
-      const T nw[3] = {gv * dx0, gv * dx1, gv * dx2};
-      const T z[3] = {nw[0] * S[0] + nw[1] * S[1] + nw[2] * S[2],
-                      nw[0] * S[1] + nw[1] * S[3] + nw[2] * S[4],
-                      nw[0] * S[2] + nw[1] * S[4] + nw[2] * S[5]};
-      const T d[3] = {df[0][r], df[1][r], df[2][r]};
-      T wp[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T u = F[3 * c][r] * z[0] + F[3 * c + 1][r] * z[1] + F[3 * c + 2][r] * z[2];
-#pragma unroll
-        for (int a = 0; a < 3; ++a) dRt[3 * c + a] += d[a] * u;
-        wp[c] = d[0] * Rt[3 * c] + d[1] * Rt[3 * c + 1] + d[2] * Rt[3 * c + 2];
-      }
-      T y[3];
-#pragma unroll
-      for (int dd = 0; dd < 3; ++dd)
-        y[dd] = F[dd][r] * wp[0] + F[3 + dd][r] * wp[1] + F[6 + dd][r] * wp[2];
-      // dS_6[SYM6[3d + b]] += nw_b y_d
-      dS[0] += nw[0] * y[0];
-      dS[1] += nw[1] * y[0] + nw[0] * y[1];
-      dS[2] += nw[2] * y[0] + nw[0] * y[2];
-      dS[3] += nw[1] * y[1];
-      dS[4] += nw[2] * y[1] + nw[1] * y[2];
-      dS[5] += nw[2] * y[2];
-    }
-    const int64_t e = (int64_t)tile * slab + s;
-#pragma unroll
-    for (int f = 0; f < 6; ++f) dsr[f * ld_out + e] = dS[f];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) dsr[(6 + f) * ld_out + e] = dRt[f];
-  }
+  k2_bwd_slab(restT_rows, static_slab, f9T, ld_f9, (const T*)nullptr, srT, ld_sr,
+              gidx, dfT, ld_df, dsr, ld_out, slab, group, inv_h, c4h);
 }
 
 constexpr int SCATTER_THREADS = 256;

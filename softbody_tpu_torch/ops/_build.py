@@ -1,14 +1,18 @@
-"""Build and load the hand-written CUDA kernels (csrc/pair_kernels.cu: the
-K1/K2 forward and backward kernels and the fixed-order scatter).
+"""Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
+v4 path: K1/K2 forward and backward, the fixed-order scatter) and
+csrc/fused_kernels.cu (the fused K1 + mid-section path), both including
+csrc/common.cuh.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into the package's git-ignored build directory, at first use, from the
-sources in the repository only; the library has a plain C interface and is
-loaded with ctypes.  The output name carries a hash of the source and flags,
-so an edited source is rebuilt, and the build writes a temporary file and
-renames it, so concurrent first uses cannot load a half-written library.
-``ptxas -v`` output (registers, shared memory, spills per kernel) is kept
-beside the library as ``<name>.log``.
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
+one library per source, into the package's git-ignored build directory at
+first use, from the sources in the repository only; the missing libraries
+are compiled by one nvcc process each, all started together.  The libraries
+have a plain C interface and are loaded with ctypes.  A library's name
+carries a hash of its source, the shared header and the flags, so an edited
+source is rebuilt, and the build writes a temporary file and renames it, so
+concurrent first uses cannot load a half-written library.  ``ptxas -v``
+output (registers, shared memory, spills per kernel) is kept beside each
+library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -21,14 +25,46 @@ import subprocess
 import threading
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent.parent / "csrc" / "pair_kernels.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("pair_kernels", "fused_kernels")
+HEADER = CSRC / "common.cuh"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# ctypes argument types of each entry point sb_<name>_<f32|f64>
+_P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+_K2_BWD = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32,
+           _F64, _F64, _P]
+SIGNATURES = {
+    "pair_kernels": {
+        "moments_v4": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32,
+                       _F64, _F64, _F64, _P],
+        "forces_warp_v4": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32,
+                           _I32, _F64, _F64, _P],
+        "moments_v4_bwd": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32,
+                           _I32, _F64, _F64, _F64, _P],
+        "forces_warp_v4_bwd_rows": [_P, _P, _P, _I64, _P, _P, _I64, _P, _I64,
+                                    _I32, _I32, _I32, _F64, _F64, _P],
+        "forces_warp_v4_bwd_slab": _K2_BWD,
+        "slab_to_slots": [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+    },
+    "fused_kernels": {
+        "moments_mid": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _P,
+                        _P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _F64,
+                        _F64, _F64, _I32, _I32, _P],
+        "forces_warp_v2": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32,
+                           _I32, _F64, _F64, _P],
+        "moments_raw_bwd": [_P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64,
+                            _F64, _P],
+        "forces_warp_v2_bwd_rows": _K2_BWD,
+        "forces_warp_v2_bwd_slab": _K2_BWD,
+    },
+}
+
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def nvcc() -> str:
@@ -44,64 +80,64 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpair_kernels_{digest.hexdigest()[:16]}.so"
+def source_path(source: str) -> Path:
+    return CSRC / f"{source}.cu"
 
 
-def build() -> Path:
-    """Compile the kernels unless this source's library already exists."""
-    out = library_path()
-    if out.exists():
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(source_path(source).read_bytes() + HEADER.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every source whose library does not exist yet, one nvcc each,
+    all at once.  Returns {source: library path}."""
+    out = {s: library_path(s) for s in SOURCES}
+    missing = [s for s in SOURCES if not out[s].exists()]
+    if not missing:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SRC}:\n"
-                           f"{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    compiler = nvcc()
+    procs = {}
+    for s in missing:
+        tmp = out[s].with_name(f"{out[s].name}.{os.getpid()}.tmp")
+        procs[s] = (tmp, subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(source_path(s))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for s, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on "
+                          f"{source_path(s)}:\n{stderr}")
+            continue
+        out[s].with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out[s])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on the first call)."""
-    global _lib
+def library(source: str = "pair_kernels") -> ctypes.CDLL:
+    """The loaded kernel library of csrc/<source>.cu (every library is built
+    on the first call)."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        p, i64, i32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_double)
+        if source in _libs:
+            return _libs[source]
+        lib = ctypes.CDLL(str(build()[source]))
         lib.sb_rows.argtypes = []
-        lib.sb_rows.restype = i32
-        lib.sb_error_string.argtypes = [i32]
-        lib.sb_error_string.restype = ctypes.c_char_p
-        moments = [p, p, p, i64, p, i64, p, p, i64, i32, i32, i32,
-                   f64, f64, f64, p]
-        forces = [p, p, p, i64, p, i64, p, p, i64, i32, i32, i32,
-                  f64, f64, p]
-        moments_bwd = [p, p, p, i64, p, i64, p, i64, p, i64, i32, i32,
-                       f64, f64, f64, p]
-        forces_bwd_rows = [p, p, p, i64, p, p, i64, p, i64, i32, i32, i32,
-                           f64, f64, p]
-        forces_bwd_slab = [p, p, p, i64, p, i64, p, p, i64, p, i64, i32, i32,
-                           i32, f64, f64, p]
-        to_slots = [p, i64, p, p, p, i64, i32, i32, i32, p]
-        for name, args in (("moments_v4", moments),
-                           ("forces_warp_v4", forces),
-                           ("moments_v4_bwd", moments_bwd),
-                           ("forces_warp_v4_bwd_rows", forces_bwd_rows),
-                           ("forces_warp_v4_bwd_slab", forces_bwd_slab),
-                           ("slab_to_slots", to_slots)):
+        lib.sb_rows.restype = _I32
+        if source == "pair_kernels":
+            lib.sb_error_string.argtypes = [_I32]
+            lib.sb_error_string.restype = ctypes.c_char_p
+        for name, args in SIGNATURES[source].items():
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"sb_{name}_{suffix}")
                 fn.argtypes = args
-                fn.restype = i32
+                fn.restype = _I32
         if lib.sb_rows() != ROWS:
-            raise RuntimeError(f"kernel library takes rows={lib.sb_rows()}, "
-                               f"the wrappers expect {ROWS}")
-        _lib = lib
-        return _lib
+            raise RuntimeError(f"{source} takes rows={lib.sb_rows()}, the "
+                               f"wrappers expect {ROWS}")
+        _libs[source] = lib
+        return lib

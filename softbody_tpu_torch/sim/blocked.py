@@ -27,13 +27,13 @@ def stvk_stress_m3(F, mu, lam, scale):
              for j in range(3)] for i in range(3)]
 
 
-def mid_section(A, Y, ratio_slots, mats: Materials, scene: Scene,
-                cfg: SimConfig, m: int):
-    """A, Y: component lists of (m,) tensors (the K1 moments).  Returns
-    component lists R, F, S, M and vol_m (m,).  (The JAX mid-section also
-    forms G = V M, which only the pair_def_grad="j" forces read.)"""
-    rc = scene.rest_corr
-    if cfg.corotated:
+def mid_rows(A, Y, rc, mu, lam, scale, corotated: bool):
+    """The mid-section on component lists of (k,) tensors: A, Y the K1
+    moments, rc[i, j] the static rest correction, mu / lam / scale (k,).
+    Returns component lists R, F, S, M: the polar rotation of A (identity
+    when not corotated), F = I + (R^T Y - rc)^T, the StVK stress S and
+    M = R F S.  The fused kernel's epilogue computes the same, row by row."""
+    if corotated:
         R = mat3.polar3_components(A)
         RtY = mat3._mtm(R, Y)
         nab = [[RtY[i][j] - rc[i, j] for j in range(3)] for i in range(3)]
@@ -42,7 +42,17 @@ def mid_section(A, Y, ratio_slots, mats: Materials, scene: Scene,
         nab = [[Y[i][j] - rc[i, j] for j in range(3)] for i in range(3)]
     F = [[1.0 + nab[j][i] if i == j else nab[j][i] for j in range(3)]
          for i in range(3)]
-    scale = cfg.stiffness_scale(ratio_slots[:m])
-    S = stvk_stress_m3(F, mats.mu[:m], mats.lam[:m], scale)
+    S = stvk_stress_m3(F, mu, lam, scale)
     M = mat3._mm(R, mat3._mm(F, S))
+    return R, F, S, M
+
+
+def mid_section(A, Y, ratio_slots, mats: Materials, scene: Scene,
+                cfg: SimConfig, m: int):
+    """A, Y: component lists of (m,) tensors (the K1 moments).  Returns
+    component lists R, F, S, M and vol_m (m,).  (The JAX mid-section also
+    forms G = V M, which only the pair_def_grad="j" forces read.)"""
+    scale = cfg.stiffness_scale(ratio_slots[:m])
+    R, F, S, M = mid_rows(A, Y, scene.rest_corr, mats.mu[:m], mats.lam[:m],
+                          scale, cfg.corotated)
     return R, F, S, M, mats.volume[:m]

@@ -10,6 +10,14 @@ Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
     -> [forces_all: K2 forces_warp_v4 per bucket] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
+With ``cfg.fused_mid`` the mid-section moves into the K1 kernel
+(``ops/fused_kernels.py``):
+
+  posT -> [moments_mid_all: fused K1 + mid-section per bucket]
+    -> fmT (19, m) = [F_9 | M_9 | V_i], srT (15, n_slots)
+    -> [forces_v2_all: K2 forces_warp_v2 per bucket, term_i and 0.5 V_i in
+        the kernel] -> fT (3, m) -> forces (n_slots, 3)
+
 Both kernels launch once per bucket (8 buckets at the ~112k stretch scene),
 the JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
 contiguous column range of every lane-major array and the per-bucket results
@@ -26,6 +34,7 @@ import torch
 
 from ..config import SimConfig, resolve_device, torch_dtype
 from ..core.types import DevBucket, Materials, Scene, SparseBlocked
+from ..ops.fused_kernels import forces_v2_all, moments_mid_all, row_static
 from ..ops.pair_kernels import (KERNELS, PairOps, forces_all, moments_all,
                                 slab_inverse)
 from ..topology.neighbors import rest_density_and_corr
@@ -146,14 +155,12 @@ def build_sparse_scene(
 
 
 def _unsupported(cfg: SimConfig):
+    # with pair_def_grad="j" the JAX package's fused_mid falls back to the
+    # "j" branch, so fused_mid does not lift this refusal
     if cfg.pair_def_grad != "i":
         raise NotImplementedError(
             'pair_def_grad="j" (Taichi separable forces) is not ported yet: '
             "ROADMAP queue 1, item 6")
-    if cfg.fused_mid:
-        raise NotImplementedError(
-            "fused_mid (the fused K1 + mid-section kernel) is not ported yet: "
-            "ROADMAP queue 1, item 8")
     if cfg.pair_dtype == "bfloat16":
         raise NotImplementedError(
             'pair_dtype="bfloat16" is not ported yet: ROADMAP queue 1, item 8')
@@ -162,7 +169,8 @@ def _unsupported(cfg: SimConfig):
 def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
                           scene: Scene, cfg: SimConfig,
                           pair_ops: PairOps = KERNELS):
-    """Elastic forces (n_slots, 3) of the sparse scene, Warp pairing.
+    """Elastic forces (n_slots, 3) of the sparse scene, Warp pairing;
+    ``cfg.fused_mid`` takes the fused path (:func:`_fused_forces`).
 
     ``pair_ops``: :data:`~softbody_tpu_torch.ops.pair_kernels.KERNELS`
     (default: the CUDA kernels on the card, the plain versions on the CPU)
@@ -172,6 +180,9 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     sb: SparseBlocked = scene.blocked
     m = sb.n_tiles * sb.rows
     posT = pos_slots.T.contiguous()                            # (3, n_slots)
+    if cfg.fused_mid:
+        return _fused_forces(pos_slots, posT, ratio_slots, mats, scene, cfg,
+                             pair_ops)
 
     ayT = moments_all(posT, posT[:, :m], sb, cfg.h, pair_ops)  # (18, m)
     # ayT row 3b+a is the final A / Y component [a][b]
@@ -194,4 +205,21 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     ]
     out = torch.zeros_like(pos_slots)
     out[:m] = torch.stack(f_comp, dim=1)
+    return out
+
+
+def _fused_forces(pos_slots, posT, ratio_slots, mats: Materials, scene: Scene,
+                  cfg: SimConfig, pair_ops: PairOps):
+    """The fused path (counterpart of ``softbody_tpu/sim/sparse.py:340-381``):
+    per bucket one K1 + mid-section kernel emits the K2 records fmT / srT,
+    then K2 v2 applies term_i and the 0.5 V_i scale itself."""
+    sb: SparseBlocked = scene.blocked
+    m = sb.n_tiles * sb.rows
+    scale = cfg.stiffness_scale(ratio_slots[:m])
+    fmT, srT = moments_mid_all(posT, posT[:, :m], scale, sb,
+                               row_static(sb, mats, scene.rest_corr), cfg.h,
+                               cfg.corotated, pair_ops)
+    fT = forces_v2_all(fmT, srT, sb, cfg.h, pair_ops)          # (3, m)
+    out = torch.zeros_like(pos_slots)
+    out[:m] = fT.T
     return out

@@ -6,7 +6,8 @@ with only the port's dependencies:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
-full width are chip_smoke.py phases 3-4 (forward) and 9-11 (backward)."""
+full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward) and
+14-19 (the fused path, ``cfg.fused_mid``)."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from softbody_tpu_torch import warp_parity
 from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
+from softbody_tpu_torch.ops import fused_kernels as fk
 from softbody_tpu_torch.ops import pair_kernels as pk
 from softbody_tpu_torch.ops.elasticity import compute_ratio
 from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask
@@ -152,17 +154,18 @@ def test_backward_kernels_match_plain_per_bucket(dtype):
     args = (buf, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
     assert _rel(pk.slab_to_slots(*args), pk.slab_to_slots_plain(*args)) <= TOL[dtype]
     n = len(sb.buckets)
-    assert pk.launch_counts() == {
-        "moments_v4": 0, "forces_warp_v4": 0, "moments_v4_bwd": n,
-        "forces_warp_v4_bwd_rows": n, "forces_warp_v4_bwd_slab": n,
-        "slab_to_slots": 1}
+    counts = pk.launch_counts()
+    assert counts == dict.fromkeys(counts, 0) | {
+        "moments_v4_bwd": n, "forces_warp_v4_bwd_rows": n,
+        "forces_warp_v4_bwd_slab": n, "slab_to_slots": 1}
 
 
-def _episode_grad(dtype, dev, pair_ops):
+def _episode_grad(dtype, dev, pair_ops, fused=False):
     # targets: the rest body jittered; 40 steps, so that the clamped body
     # strains enough for x to move the loss well above its roundings (after
     # 8 steps F - I ~ 1e-9 and two summation orders differ by ~2e-9 of g)
     cfg, scene, pos, _ = _scene(dtype, dev)
+    cfg = cfg.replace(fused_mid=fused)
     sop = scene.slot_of_particle
     rng = np.random.default_rng(4)
     tp = scene.rest_position.repeat(2, 1, 1)
@@ -190,7 +193,9 @@ def test_episode_gradient_is_bitwise_repeatable():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    assert all(v > 0 for v in counts.values()), counts
+    fused = {fn.__name__ for fn in fk.COUNTED}
+    assert all(v > 0 for k, v in counts.items() if k not in fused), counts
+    assert not any(counts[k] for k in fused), counts
 
 
 def test_backward_kernels_refuse_bad_operands():
@@ -208,3 +213,107 @@ def test_backward_kernels_refuse_bad_operands():
                               b.gidx8, dfT[:, :mb].double(), cfg.h)
     with pytest.raises(ValueError, match="entries"):
         pk.slab_to_slots(srT, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+
+
+# ------------------------------------------------------------ the fused path
+def _fused_inputs(scene, cfg, pos, ratio, seed):
+    """Per-bucket operands of the four fused kernels, and random
+    cotangents."""
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=pos.dtype,
+                               device=pos.device)
+
+    posT = pos.T.contiguous()
+    rs = fk.row_static(sb, scene.materials, scene.rest_corr)
+    scale = cfg.stiffness_scale(ratio[:m])
+    fmT, srT = fk.moments_mid_all(posT, posT[:, :m], scale, sb, rs, cfg.h,
+                                  cfg.corotated, pk.PLAIN)
+    return posT, rs, scale, fmT, srT, rand(18, m), rand(3, m)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("corotated", [True, False])
+def test_fused_kernels_match_plain_per_bucket(dtype, corotated):
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev)
+    cfg = cfg.replace(corotated=corotated)
+    sb = scene.blocked
+    posT, rs, scale, fmT, srT, dayT, dfT = _fused_inputs(scene, cfg, pos, ratio, 6)
+    pk.reset_launch_counts()
+    for b in sb.buckets:
+        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
+        a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c),
+                 scale[c], b.gidx8, cfg.h, corotated, True)
+        a_k2 = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
+        pairs = [
+            (fk.moments_mid(*a_mid), fk.moments_mid_plain(*a_mid)),
+            ((fk.forces_warp_v2(*a_k2, cfg.h),), (fk.forces_warp_v2_plain(*a_k2, cfg.h),)),
+            ((fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),),
+             (fk.moments_raw_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),)),
+            (fk.forces_warp_v2_bwd(*a_k2, dfT[:, c], cfg.h),
+             fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)),
+        ]
+        for outs_k, outs_p in pairs:
+            for got, want in zip(outs_k, outs_p):
+                assert got.shape == want.shape
+                assert _rel(got, want) <= TOL[dtype], (b.slab_len, _rel(got, want))
+    n = len(sb.buckets)
+    counts = pk.launch_counts()
+    assert counts == dict.fromkeys(counts, 0) | {
+        "moments_mid": n, "forces_warp_v2": n, "moments_raw_bwd": n,
+        "forces_warp_v2_bwd_rows": n, "forces_warp_v2_bwd_slab": n}
+
+
+def test_fused_forces_match_unfused_and_plain():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    fused = cfg.replace(fused_mid=True)
+    f1 = elastic_forces_sparse(pos, ratio, scene.materials, scene, fused)
+    f2 = elastic_forces_sparse(pos, ratio, scene.materials, scene, fused)
+    fp = elastic_forces_sparse(pos, ratio, scene.materials, scene, fused,
+                               pair_ops=pk.PLAIN)
+    fu = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg)
+    assert torch.equal(f1, f2)
+    assert _rel(f1, fp) <= TOL["float32"]
+    assert _rel(f1, fu) <= TOL["float32"]
+
+
+def test_fused_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    sb = scene.blocked
+    b = sb.buckets[0]
+    posT, rs, scale, fmT, srT, dayT, dfT = _fused_inputs(scene, cfg, pos, ratio, 7)
+    c = slice(0, b.n_tiles * sb.rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.moments_mid(b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c),
+                       torch.stack([scale[c], scale[c]], dim=1)[:, 0], b.gidx8,
+                       cfg.h, True)
+    with pytest.raises(TypeError, match="dtype"):
+        fk.forces_warp_v2(b.restT_rows, b.static_slab, fmT[:, c].double(), srT,
+                          b.gidx8, cfg.h)
+    with pytest.raises(ValueError, match="19"):
+        fk.forces_warp_v2_bwd(b.restT_rows, b.static_slab, fmT[:18, c], srT,
+                              b.gidx8, dfT[:, c], cfg.h)
+    with pytest.raises(ValueError, match="18"):
+        fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:17, c], cfg.h)
+
+
+def test_fused_episode_gradient_matches_plain_f64_and_repeats():
+    dev = _card()
+    loss_k, g_k = _episode_grad("float64", dev, pk.KERNELS, fused=True)
+    loss_p, g_p = _episode_grad("float64", dev, pk.PLAIN, fused=True)
+    assert loss_p > 0 and float(torch.max(torch.abs(g_p))) > 0
+    assert abs(loss_k - loss_p) <= 1e-10 * loss_p
+    assert _rel(g_k, g_p) <= 1e-10
+    pk.reset_launch_counts()
+    loss1, g1 = _episode_grad("float32", dev, pk.KERNELS, fused=True)
+    counts = pk.launch_counts()
+    loss2, g2 = _episode_grad("float32", dev, pk.KERNELS, fused=True)
+    assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
+    assert all(counts[fn.__name__] > 0 for fn in fk.COUNTED), counts
+    assert counts["moments_v4"] == counts["forces_warp_v4"] == 0

@@ -19,6 +19,7 @@ from softbody_tpu.ops.pallas import pair_kernels as jpk
 from softbody_tpu.sim.sparse import build_sparse_scene as jax_build
 from softbody_tpu_torch.convert import scene_from_numpy
 from softbody_tpu_torch.ops import pair_kernels as pk
+from softbody_tpu_torch.ops.pair_common import slab_slots
 
 from tests.test_torch_helpers import jax_scene_dict, perturbed, small_body
 
@@ -151,7 +152,7 @@ def test_csr_scatter_matches_numpy_add_at(case):
     want = np.zeros((15, sb.n_slots))
     e0 = 0
     for b in sb.buckets:
-        slots = pk.slab_slots(b.gidx8, b.slab_len).numpy().reshape(-1)
+        slots = slab_slots(b.gidx8, b.slab_len).numpy().reshape(-1)
         np.add.at(want, (slice(None), slots), buf[:, e0:e0 + slots.size])
         e0 += slots.size
     got = pk.slab_to_slots_plain(_t(buf), sb.slab_ptr, sb.slab_idx,

@@ -14,6 +14,7 @@ from softbody_tpu.ops.pallas.packed import (forces_warp_packed_v4,
                                             moments_packed_v4, pack_components)
 from softbody_tpu.sim.sparse import build_sparse_scene as jax_build
 from softbody_tpu_torch.ops import pair_kernels as pk
+from softbody_tpu_torch.ops.pair_common import pair_coeffs
 
 from tests.test_torch_helpers import perturbed, small_body, to_jax, to_torch
 
@@ -77,7 +78,7 @@ def test_self_pair_and_far_grid_vanish():
                         dtype=torch.float32).reshape(3, 2)
     slab = torch.tensor([[0.0, 2.5 * h, 0.5 * h]] + [[0.0, 0.0, 0.0]] * 2,
                         dtype=torch.float32)
-    dx, w, gfac = pk.pair_coeffs(rows, slab, h)
+    dx, w, gfac = pair_coeffs(rows, slab, h)
     assert torch.isfinite(gfac).all() and torch.isfinite(w).all()
     assert gfac[0, 0] == 0.0 and gfac[0, 1] == 0.0 and w[0, 1] == 0.0
     assert gfac[0, 2] != 0.0 and w[0, 0] > w[0, 2] > 0.0

@@ -67,7 +67,7 @@ def test_own_scene_build_gives_the_same_forces(setup):
 
 @pytest.mark.parametrize("override,match", [
     ({"pair_def_grad": "j"}, "item 6"),
-    ({"fused_mid": True}, "item 8"),
+    ({"fused_mid": True, "pair_def_grad": "j"}, "item 6"),
     ({"pair_dtype": "bfloat16"}, "item 8"),
 ])
 def test_unported_options_raise(setup, override, match):
