@@ -27,11 +27,12 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  10  one VJP of elastic_forces_sparse wrt (positions, x), kernel path vs
      plain path (<= 1e-4), and bitwise equal across two kernel-path calls
  11  the episode gradient at full width: episode_value_and_grad_chunked over
-     GRAD_STEPS steps at x = 0 against targets from x*; fwd+bwd ms/step,
-     particle-steps/s, peak device memory, the profiler's busy share; two
-     kernel-path gradients bitwise equal; kernel vs plain path over the
-     first PREFIX_STEPS steps in f64 (loss <= 1e-5 relative, max |dg| <=
-     1e-3 max |g_plain|; the f32 values are printed, not gated)
+     GRAD_STEPS steps (GRAD_FRAMES frames) at x = 0 against targets from
+     x*; fwd+bwd ms/step, particle-steps/s, peak device memory, the
+     profiler's busy share; two kernel-path gradients bitwise equal; kernel
+     vs plain path over the first PREFIX_STEPS steps in f64 (loss <= 1e-5
+     relative, max |dg| <= 1e-3 max |g_plain|; the f32 values are printed,
+     not gated)
  12  the product loop: optimize_lbfgs from x = 0, maxiter 2, EVAL_CHUNKS
      chunks, into a temporary directory: the losses strictly decrease,
      x.npy / losses.json / distances.json exist, every gradient is finite
@@ -61,11 +62,45 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  20  the launch counts of phases 16 and 19 against what the fused path
      implies (none of the v4 kernels, K1/K2 and their backwards)
 
+ 21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene, per
+     bucket: the separable K2 forces_sep and its backward's two passes
+     forces_sep_bwd_rows / _slab (the slab pass composed with
+     slab_to_slots), kernel vs plain (<= 1e-4 of max |plain|), ms per
+     launch, the work's bound
+ 22  one "j" force evaluation and its VJP wrt (positions, x), kernel path
+     vs plain path (<= 1e-4), both bitwise equal across two calls;
+     fused_mid=True with "j" equals "j" bit for bit
+ 23  path A's forward episode (generate_targets from x*, the loss of
+     x = 0): ms/step, particle-steps/s, the profiler's activities per step
+     and idle share; its quiet body, rms drift < 1e-6 m (both cut to
+     NEW_BUDGET_S, the cut printed)
+ 24  path A's gradient, GRAD_STEPS steps in EVAL_CHUNKS chunks: fwd+bwd
+     ms/step, peak memory, a bitwise repeat, the f64 gradient over
+     NEW_PREFIX_STEPS steps kernel vs plain under phase 11's gates
+ 25  path B, the blocked varcol layout of the same body on the pallas
+     backend: its build seconds, n_tiles, run length L, slab_len,
+     candidate pairs per evaluation (beside the sparse scene's) and static
+     bytes; per launch on its tiles the raw K1 moments_raw, forces_warp_v2,
+     forces_sep and their backwards (each backward's slab side composed
+     with slab_to_slots), kernel vs plain (<= 1e-4), ms per launch, bound
+ 26  one path-B evaluation for "i" and "j" against the sparse path at the
+     same particle positions (<= 1e-3 of max |f|: the uncentered f32 raw
+     dots add noise the centered sparse path lacks), and against its own
+     plain path, forces and VJP wrt (positions, x) (<= 1e-4); bitwise
+     repeat; fused_mid is ignored, as in the JAX package
+ 27  path B's forward episode and quiet body, as phase 23, the quiet-body
+     gate rms drift < 1e-4 m (uncentered true-f32 raw dots)
+ 28  path B's gradient, as phase 24
+ 29  the launch counts of phases 23-24 and 27-28 against what each path
+     implies: no kernel of another path runs
+
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
-fused gradient evaluation, for the fused path's), the card line, and the
-last line
+fused gradient evaluation, for the fused path's; from phases 24 and 28, one
+gradient each, for the separable K2 and the raw K1; ms per force
+evaluation: the sparse scene's buckets, the raw K1 on the varcol scene),
+the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
 of JAX.
@@ -84,10 +119,13 @@ import time
 TOL = 1e-4                 # f32, another summation order over <= 1024 entries
 STEPS = 3000
 FRAMES = 100
-TIME_BUDGET_S = 60.0       # cut the episodes' steps if phases 5-7 would exceed it
-FUSED_BUDGET_S = 60.0      # the same for the fused phases 16-17
-GRAD_STEPS = 300           # depth of the gradient phases 11-12 (100 frames, interval 3)
-PREFIX_STEPS = 99          # kernel vs plain gradient prefix (33 of those frames)
+TIME_BUDGET_S = 20.0       # cut the episodes' steps if phases 5-7 would exceed it
+FUSED_BUDGET_S = 15.0      # the same for the fused phases 16-17
+NEW_BUDGET_S = 20.0        # the same for each of the paths A and B (23, 27)
+GRAD_STEPS = 99            # depth of every gradient phase (33 frames, interval 3)
+GRAD_FRAMES = 33
+PREFIX_STEPS = 99          # kernel vs plain f64 gradient prefix, phases 11 and 19
+NEW_PREFIX_STEPS = 30      # the same for the new paths' phases 24 and 28 (10 frames)
 EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -95,7 +133,9 @@ FLOPS_PER_PAIR = {"moments_v4": 78, "forces_warp_v4": 75,   # as the kernels do 
                   "moments_v4_bwd": 72, "forces_warp_v4_bwd_rows": 75,
                   "forces_warp_v4_bwd_slab": 123,
                   "moments_mid": 78, "forces_warp_v2": 78, "moments_raw_bwd": 72,
-                  "forces_warp_v2_bwd_rows": 78, "forces_warp_v2_bwd_slab": 123}
+                  "forces_warp_v2_bwd_rows": 78, "forces_warp_v2_bwd_slab": 123,
+                  "forces_sep": 50, "forces_sep_bwd_rows": 32,
+                  "forces_sep_bwd_slab": 44, "moments_raw": 72}
 # moments_mid's per-row epilogue, counted from csrc/fused_kernels.cu: A | Y
 # from the warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the
 # SVD's U and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
@@ -246,6 +286,13 @@ def main():
         + " ".join(f"{b.slab_len}:{b.n_tiles}" for b in sb.buckets)
         + f") pairs/eval={pairs} host build {time.perf_counter() - t0:.1f} s")
 
+    say(f"    CUT: every gradient phase runs {GRAD_STEPS} of the episode's {STEPS} "
+        f"steps ({GRAD_FRAMES} frames), the f64 kernel-vs-plain gradients "
+        f"{PREFIX_STEPS} steps (phases 11 and 19) and {NEW_PREFIX_STEPS} (phases 24 "
+        f"and 28); the forward phases are cut to budgets of "
+        f"{TIME_BUDGET_S:.0f} s (default path), {FUSED_BUDGET_S:.0f} s (fused) and "
+        f"{NEW_BUDGET_S:.0f} s (each of paths A and B), each cut printed; width "
+        f"is never cut")
     x_star = torch.as_tensor(x_star_bands(pts, sb.n_slots, sop),
                              dtype=torch.float32, device=dev)
     ratio = compute_ratio(x_star, cfg)
@@ -284,39 +331,19 @@ def main():
                  sb.rs6T[:, r0:r0 + mb], b.gidx8, cfg.h)
         args2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
         static_bytes = (t * 3 * sb.rows + t * 5 * slab + t * slab // sb.group) * f32
+        pairs = t * sb.rows * slab
         work = {
-            "moments_v4": (pk.moments_v4, pk.moments_v4_plain, args1,
-                           static_bytes + (3 * mb + 3 * uniq + 18 * mb) * f32),
-            "forces_warp_v4": (pk.forces_warp_v4, pk.forces_warp_v4_plain, args2,
-                               static_bytes + (9 * mb + 15 * uniq + 3 * mb) * f32),
+            "moments_v4": (
+                lambda: pk.moments_v4(*args1), lambda: pk.moments_v4_plain(*args1),
+                lambda o, sc: (o,), FLOPS_PER_PAIR["moments_v4"] * pairs,
+                static_bytes + (3 * mb + 3 * uniq + 18 * mb) * f32),
+            "forces_warp_v4": (
+                lambda: pk.forces_warp_v4(*args2), lambda: pk.forces_warp_v4_plain(*args2),
+                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v4"] * pairs,
+                static_bytes + (9 * mb + 15 * uniq + 3 * mb) * f32),
         }
-        line = [f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-        for key, (kern, plain, args, nbytes) in work.items():
-            out_k = kern(*args)
-            out_p = plain(*args)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(out_k).all()):
-                fail(f"{key} bucket {i}: non-finite kernel output")
-            err = rel_err(out_k, out_p)
-            abs_err = float(torch.max(torch.abs(out_k - out_p)))
-            if not err <= TOL:
-                fail(f"{key} bucket {i}: kernel vs plain error {err:.3e} > {TOL}")
-            ms = cuda_ms(lambda: kern(*args), 20)
-            launch_ms = host_ms(lambda: kern(*args), 20)
-            plain_ms = cuda_ms(lambda: plain(*args), 3)
-            flops = FLOPS_PER_PAIR[key] * t * sb.rows * slab
-            bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
-            s = stats[key]
-            s["ms"] += ms
-            s["launch_ms"] += launch_ms
-            s["plain_ms"] += plain_ms
-            s["flops"] += flops
-            s["bytes"] += nbytes
-            s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-            s["max_rel_err"] = max(s["max_rel_err"], err)
-            line.append(f"{key} err {err:.2e} {ms:.4f} ms (host-paced "
-                        f"{launch_ms:.4f}, plain {plain_ms:.3f}, bound {bound:.4f})")
-        say(" | ".join(line))
+        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+                       + held_per_launch(torch, work, f"bucket {i}", stats)))
     for key in ("moments_v4", "forces_warp_v4"):
         summarize(key, stats[key], len(sb.buckets), tag)
 
@@ -430,22 +457,12 @@ def main():
 
     # device busy share of a steady window (after every timed phase: the
     # profiler's tracing must not slow what the phases above measured)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    state = initial_state(scene, ratio, cfg)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(10):
-            state = step(state, ratio, scene, cfg)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
-    pair_ms = sum(e.time_range.elapsed_us() for e in on_card
-                  if "moments_v4_kernel" in e.name
-                  or "forces_warp_v4_kernel" in e.name) / 1e3 / 10
+    busy_ms, activities, pair_ms = profile_card(
+        torch, ten_steps(initial_state(scene, ratio, cfg), ratio, scene, cfg),
+        ("moments_v4_kernel", "forces_warp_v4_kernel"), 10)
     if busy_ms > 0:
         say(f"    profile: device busy {busy_ms:.3f} ms/step over 10 steps in "
-            f"{len(on_card) / 10:.0f} device activities per step, of which the "
+            f"{activities:.0f} device activities per step, of which the "
             f"two pair kernels {pair_ms:.3f} ms; idle share "
             f"{1 - busy_ms / ms_ep:.3f} of the episode's {ms_ep:.3f} ms/step {tag}")
     else:
@@ -454,10 +471,20 @@ def main():
     ctx = phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats,
                      pos, pts, out_num)
     ctx.update(ratio=ratio, loss=loss, ms_ep=ms_ep, steps=steps, fin_k=fin_k,
-               busy_ms=busy_ms, activities=len(on_card) / 10)
+               busy_ms=busy_ms, activities=activities, pos=pos)
     counts_fused = phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats,
                                pos, ctx)
-    kernels = kernel_json(stats, ctx["counts_opt"], counts_fused)
+    path_a = phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx)
+    path_b = phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star,
+                           stats, body, ctx)
+    phase_counts(path_a, path_b)
+    launches = {**ctx["counts_opt"],
+                **{k: counts_fused[k] for k in REPLACES
+                   if REPLACES[k][0] == "fused_kernels"},
+                **{k: path_a["grad"][k] for k in REPLACES
+                   if REPLACES[k][0] == "separable_kernels"},
+                "moments_raw": path_b["grad"]["moments_raw"]}
+    kernels = kernel_json(stats, launches)
     say(f"    total {time.perf_counter() - T_START:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -534,22 +561,10 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
                 lambda o, sc: (slots(o, 15, sc),),
                 tile_bytes + (9 * mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
         }
-        line = [f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-        for key, (kern, plain, outs, nbytes) in work.items():
-            got = outs(kern(), pk.slab_to_slots)
-            want = outs(plain(), pk.slab_to_slots_plain)
-            torch.cuda.synchronize()
-            err = max(record(stats[key], g, w, f"{key} bucket {i}")
-                      for g, w in zip(got, want))
-            st = stats[key]
-            ms = cuda_ms(kern, 20)
-            st["ms"] += ms
-            st["launch_ms"] += host_ms(kern, 20)
-            st["plain_ms"] += cuda_ms(plain, 2)
-            st["flops"] += FLOPS_PER_PAIR[key] * pairs
-            st["bytes"] += nbytes
-            line.append(f"{key} err {err:.2e} {ms:.4f} ms")
-        say(" | ".join(line))
+        work = {k: (kern, plain, outs, FLOPS_PER_PAIR[k] * pairs, nbytes)
+                for k, (kern, plain, outs, nbytes) in work.items()}
+        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+                       + held_per_launch(torch, work, f"bucket {i}", stats)))
     # the scatter: once for K1's 3 fields and once for K2's 15 per evaluation.
     # Its library counterpart is one index_add_ over every entry's slot
     # (float atomics, so not bitwise repeatable; it also adds the padding
@@ -602,11 +617,11 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
 
     # ---- 11 the episode gradient at full width
     S = GRAD_STEPS
-    cfg_g = cfg.replace(frames=S, target_frames=FRAMES)
+    cfg_g = cfg.replace(frames=S, target_frames=GRAD_FRAMES)
     t0 = time.perf_counter()
     with torch.no_grad():
         _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S,
-                                 record_every=S // FRAMES, device=dev)
+                                 record_every=S // GRAD_FRAMES, device=dev)
     torch.cuda.synchronize()
     t_tp = time.perf_counter() - t0
     x0 = torch.zeros(sb.n_slots, device=dev)
@@ -623,7 +638,7 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     loss2, g2 = vg(x0, tp, tv)
     ms_grad = t_grad * 1e3 / S
     gmax = float(torch.max(torch.abs(g1)))
-    say(f"[11] episode gradient: {S} steps, {FRAMES} frames, {EVAL_CHUNKS} "
+    say(f"[11] episode gradient: {S} steps, {GRAD_FRAMES} frames, {EVAL_CHUNKS} "
         f"chunks, x = 0 (targets from x*: {t_tp:.1f} s forward): loss "
         f"{loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd {t_grad:.1f} s = {ms_grad:.3f} "
         f"ms/step, {n * S / t_grad:.4g} particle-steps/s; peak device memory "
@@ -645,9 +660,9 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
                                     dirichlet_mask=dirichlet_mask(pts, "stretch"))
     with torch.no_grad():
         _, _, (tp64, tv64) = rollout(x_star.double(), scene64, cfg64, n_steps=P,
-                                     record_every=S // FRAMES, device=dev)
+                                     record_every=S // GRAD_FRAMES, device=dev)
     x64 = torch.zeros(sb.n_slots, dtype=torch.float64, device=dev)
-    n_tp = P // (S // FRAMES)
+    n_tp = P // (S // GRAD_FRAMES)
     prefix = {}
     for label, sc, c, x_, a, b in (("f64", scene64, cfg64, x64, tp64, tv64),
                                    ("f32", scene, cfg_g, x0, tp[:n_tp], tv[:n_tp])):
@@ -663,20 +678,12 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
         if label == "f64" and not (dl <= 1e-5 and dg <= 1e-3):
             fail("the gradient's kernel path disagrees with its plain path")
     # device busy share of a gradient (a 10-step chunk, after the timed runs)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     short = episode_value_and_grad_chunked(scene, cfg_g, 1, 10)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        short(x0, tp[:3], tv[:3])
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
-    ours = sum(e.time_range.elapsed_us() for e in on_card
-               if "_v4_" in e.name or "slab_to_slots" in e.name) / 1e3 / 10
+    busy, activities, ours = profile_card(torch, lambda: short(x0, tp[:3], tv[:3]),
+                                          ("_v4_", "slab_to_slots"), 10)
     if busy > 0:
         say(f"    profile: device busy {busy:.3f} ms/step of fwd+bwd in "
-            f"{len(on_card) / 10:.0f} device activities per step, of which the "
+            f"{activities:.0f} device activities per step, of which the "
             f"pair and scatter kernels {ours:.3f} ms; idle share "
             f"{1 - busy / ms_grad:.3f} of the gradient's {ms_grad:.3f} ms/step {tag}")
     else:
@@ -837,22 +844,8 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
                 tile_bytes + gidx_bytes
                 + (9 * mb + mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
         }
-        line = [f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-        for key, (kern, plain, outs, flops, nbytes) in work.items():
-            got = outs(kern(), pk.slab_to_slots)
-            want = outs(plain(), pk.slab_to_slots_plain)
-            torch.cuda.synchronize()
-            err = max(record(stats[key], g, w, f"{key} bucket {i}")
-                      for g, w in zip(got, want))
-            st = stats[key]
-            ms = cuda_ms(kern, 20)
-            st["ms"] += ms
-            st["launch_ms"] += host_ms(kern, 20)
-            st["plain_ms"] += cuda_ms(plain, 2)
-            st["flops"] += flops
-            st["bytes"] += nbytes
-            line.append(f"{key} err {err:.2e} {ms:.4f} ms")
-        say(" | ".join(line))
+        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+                       + held_per_launch(torch, work, f"bucket {i}", stats)))
     for key in ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                 "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab"):
         summarize(key, stats[key], nb, tag)
@@ -942,22 +935,12 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     if not (math.isfinite(loss_f) and loss_f > 0 and np.isfinite(tp).all()
             and bool(torch.isfinite(fin.position).all())):
         fail("the fused episode produced a non-finite or zero loss / state")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    st_p = initial_state(scene, ratio, cfg_f)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(10):
-            st_p = step(st_p, ratio, scene, cfg_f)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
-    ours = sum(e.time_range.elapsed_us() for e in on_card
-               if "moments_mid_kernel" in e.name
-               or "forces_warp_v2_kernel" in e.name) / 1e3 / 10
+    busy, activities, ours = profile_card(
+        torch, ten_steps(initial_state(scene, ratio, cfg_f), ratio, scene, cfg_f),
+        ("moments_mid_kernel", "forces_warp_v2_kernel"), 10)
     if busy > 0:
         say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in "
-            f"{len(on_card) / 10:.0f} device activities per step, of which the two "
+            f"{activities:.0f} device activities per step, of which the two "
             f"fused pair kernels {ours:.3f} ms; idle share {1 - busy / ms_f:.3f} of "
             f"the fused episode's {ms_f:.3f} ms/step (unfused: {ctx['busy_ms']:.3f} "
             f"ms in {ctx['activities']:.0f} activities) {tag}")
@@ -1020,7 +1003,7 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         fail("the fused gradient is not finite, is zero, or does not repeat")
     P = PREFIX_STEPS
     cfg64 = ctx["cfg64"].replace(fused_mid=True)
-    n_tp = P // (S // FRAMES)
+    n_tp = P // (S // GRAD_FRAMES)
     prefix = {ops is pk.PLAIN: episode_value_and_grad_chunked(
         ctx["scene64"], cfg64, 1, P, ops)(ctx["x64"], ctx["tp64"], ctx["tv64"])
         for ops in (pk.KERNELS, pk.PLAIN)}
@@ -1032,20 +1015,12 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     if not (dl <= 1e-5 and dg <= 1e-3):
         fail("the fused gradient's kernel path disagrees with its plain path")
     short = episode_value_and_grad_chunked(scene, cfg_gf, 1, 10)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        short(x0, tp[:3], tv[:3])
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / 10
-    ours = sum(e.time_range.elapsed_us() for e in on_card
-               if any(k in e.name for k in ("moments_mid", "forces_warp_v2",
-                                             "moments_raw_bwd", "slab_to_slots"))
-               ) / 1e3 / 10
+    busy, activities, ours = profile_card(
+        torch, lambda: short(x0, tp[:3], tv[:3]),
+        ("moments_mid", "forces_warp_v2", "moments_raw_bwd", "slab_to_slots"), 10)
     if busy > 0:
         say(f"    profile: device busy {busy:.3f} ms/step of fused fwd+bwd in "
-            f"{len(on_card) / 10:.0f} device activities per step, of which the "
+            f"{activities:.0f} device activities per step, of which the "
             f"fused pair and scatter kernels {ours:.3f} ms; idle share "
             f"{1 - busy / ms_grad:.3f} of the gradient's {ms_grad:.3f} ms/step {tag}")
     else:
@@ -1071,6 +1046,523 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     return counts_grad
 
 
+def ten_steps(state, ratio, scene, cfg):
+    """A function running 10 episode steps from ``state``."""
+    from softbody_tpu_torch.sim.rollout import step
+
+    def run():
+        st = state
+        for _ in range(10):
+            st = step(st, ratio, scene, cfg)
+
+    return run
+
+
+def profile_card(torch, fn, names, per):
+    """(device busy ms, device activities, ms of the kernels whose names
+    contain one of ``names``), each per ``per`` units of ``fn``'s work."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / per
+    ours = sum(e.time_range.elapsed_us() for e in on_card
+               if any(k in e.name for k in names)) / 1e3 / per
+    return busy, len(on_card) / per, ours
+
+
+def forward_phase(torch, np, dev, tag, num, label, scene, cfg_p, x_star,
+                  budget_s, drift_tol, names):
+    """Phases 23 and 27: a path's forward episode (generate_targets from x*,
+    the sampled loss of x = 0 against those targets; ms/step, profile) and
+    its quiet body, cut to ``budget_s``.  Returns (launch counts of the two
+    episodes, steps, ms/step)."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.opt.driver import generate_targets, load_targets
+    from softbody_tpu_torch.sim.rollout import acc_float, initial_state, rollout, step
+
+    n_slots = scene.blocked.n_slots
+    n = len(scene.slot_of_particle)
+    ratio = compute_ratio(x_star, cfg_p)
+    state = initial_state(scene, ratio, cfg_p)
+    one = min(host_ms(lambda: step(state, ratio, scene, cfg_p), 3) for _ in range(3))
+    steps, projected = STEPS, 3 * STEPS * one / 1e3
+    if projected > budget_s:
+        steps = max(FRAMES, int(STEPS * budget_s / projected) // FRAMES * FRAMES)
+        say(f"    CUT: {label} episodes run {steps} steps, not {STEPS} (projected "
+            f"{projected:.0f} s > {budget_s:.0f} s)")
+    cfg_p = cfg_p.replace(frames=steps)
+    sop = scene.slot_of_particle.cpu().numpy()
+    rest = scene.rest_position
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_targets(x_star, scene, cfg_p, tmp, particle_index=sop, device=dev)
+        t_targets = time.perf_counter() - t0
+        tp_p, tv_p = load_targets(tmp, FRAMES)
+    tp = np.tile(rest.cpu().numpy(), (FRAMES, 1, 1))
+    tv = np.zeros_like(tp) + np.asarray(cfg_p.initial_velocity)
+    tp[:, sop], tv[:, sop] = tp_p, tv_p
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    acc, fin, _ = rollout(torch.zeros(n_slots), scene, cfg_p, tp, tv, acc_pair=True,
+                          device=dev)
+    loss = acc_float(acc)
+    t_loss = time.perf_counter() - t1
+    counts = pk.launch_counts()
+    ms = (t_targets + t_loss) * 1e3 / (2 * steps)
+    say(f"[{num}] {label} forward episode: {steps} steps x 2 (targets from x*: "
+        f"{t_targets:.1f} s incl. {FRAMES} frames to disk; loss of x=0: {t_loss:.1f} s)"
+        f" -> {ms:.3f} ms/step, {n * 1e3 / ms:.4g} particle-steps/s; one step "
+        f"{one:.3f} ms wall (fastest of 3 rounds) {tag}")
+    say(f"    loss(x=0 vs x* targets) = {loss:.9g}")
+    if not (math.isfinite(loss) and loss > 0 and np.isfinite(tp).all()
+            and bool(torch.isfinite(fin.position).all())):
+        fail(f"the {label} episode produced a non-finite or zero loss / state")
+    busy, acts, ours = profile_card(
+        torch, ten_steps(initial_state(scene, ratio, cfg_p), ratio, scene, cfg_p),
+        names, 10)
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in {acts:.0f} "
+            f"device activities per step, of which the pair kernels {ours:.3f} ms; "
+            f"idle share {1 - busy / ms:.3f} of the episode's {ms:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+    quiet = cfg_p.replace(external_force=(0.0, 0.0, 0.0))
+    q_scene = scene._replace(materials=scene.materials._replace(
+        external=torch.zeros_like(scene.materials.external)))
+    _, fin_q, _ = rollout(torch.zeros(n_slots), q_scene, quiet, n_steps=steps, device=dev)
+    d = (fin_q.position - rest)[scene.slot_of_particle]
+    drift = float(torch.sqrt(torch.mean(torch.sum(d * d, dim=1))))
+    say(f"    {label} quiet body, {steps} steps: rms drift from rest {drift:.3e} m "
+        f"(tol {drift_tol:g})")
+    if not drift < drift_tol:
+        fail(f"a quiet body drifts on the {label} path")
+    return counts, steps, ms
+
+
+def grad_phase(torch, np, dev, tag, num, label, scene, cfg_g, x_star, scene64,
+               cfg64, names):
+    """Phases 24 and 28: a path's episode gradient, GRAD_STEPS steps in
+    EVAL_CHUNKS chunks at x = 0 against targets from x* (fwd+bwd ms/step,
+    peak memory, a bitwise repeat, the profile) and the f64 gradient over
+    NEW_PREFIX_STEPS steps, kernel vs plain path, under phase 11's gates.
+    Returns (launch counts of one gradient, ms/step)."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.sim.rollout import episode_value_and_grad_chunked, rollout
+
+    S, P = GRAD_STEPS, NEW_PREFIX_STEPS
+    every = S // GRAD_FRAMES
+    n_slots = scene.blocked.n_slots
+    n = len(scene.slot_of_particle)
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S, record_every=every,
+                                 device=dev)
+    x0 = torch.zeros(n_slots, device=dev)
+    vg = episode_value_and_grad_chunked(scene, cfg_g, EVAL_CHUNKS, S)
+    pk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1 = vg(x0, tp, tv)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    counts = pk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss2, g2 = vg(x0, tp, tv)
+    ms = t_grad * 1e3 / S
+    gmax = float(torch.max(torch.abs(g1)))
+    repeat = loss1 == loss2 and torch.equal(g1, g2)
+    say(f"[{num}] {label} episode gradient: {S} steps, {GRAD_FRAMES} frames, "
+        f"{EVAL_CHUNKS} chunks, x = 0: loss {loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd "
+        f"{t_grad:.1f} s = {ms:.3f} ms/step, {n * S / t_grad:.4g} particle-steps/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB; second gradient bitwise equal: "
+        f"{repeat} {tag}")
+    if not (math.isfinite(loss1) and loss1 > 0 and gmax > 0 and repeat
+            and bool(torch.isfinite(g1).all())):
+        fail(f"the {label} gradient is not finite, is zero, or does not repeat")
+    x64 = torch.zeros(n_slots, dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        _, _, (tp64, tv64) = rollout(x_star.double(), scene64, cfg64, n_steps=P,
+                                     record_every=every, device=dev)
+    prefix = {ops is pk.PLAIN: episode_value_and_grad_chunked(
+        scene64, cfg64, 1, P, ops)(x64, tp64, tv64) for ops in (pk.KERNELS, pk.PLAIN)}
+    (lk, gk), (lp, gp) = prefix[False], prefix[True]
+    dl, dg = abs(lk - lp) / lp, rel_err(gk, gp)
+    say(f"    first {P} steps in f64, kernel vs plain path: loss {lk:.12g} vs "
+        f"{lp:.12g} (rel {dl:.3e}); max |dg| / max |g_plain| {dg:.3e} (tol 1e-5 "
+        f"and 1e-3)")
+    if not (dl <= 1e-5 and dg <= 1e-3):
+        fail(f"the {label} gradient's kernel path disagrees with its plain path")
+    short = episode_value_and_grad_chunked(scene, cfg_g, 1, 10)
+    busy, acts, ours = profile_card(torch, lambda: short(x0, tp[:3], tv[:3]),
+                                    names + ("slab_to_slots",), 10)
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step of fwd+bwd in {acts:.0f} "
+            f"device activities per step, of which the pair and scatter kernels "
+            f"{ours:.3f} ms; idle share {1 - busy / ms:.3f} of the gradient's "
+            f"{ms:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+    return counts, ms
+
+
+def held_per_launch(torch, work, prefix, stats=None, reps=20):
+    """Each kernel of ``work`` (key: (kernel, plain, outputs compared,
+    flops, bytes)) against its plain version on the same inputs; its ms per
+    launch, plain ms and bound.  Into ``stats[key]`` when given.  Returns the
+    line's parts."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
+    line = []
+    for key, (kern, plain, outs, flops, nbytes) in work.items():
+        got = outs(kern(), pk.slab_to_slots)
+        want = outs(plain(), pk.slab_to_slots_plain)
+        torch.cuda.synchronize()
+        s = stats[key] if stats is not None else {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        err = max(record(s, g, w, f"{key} {prefix}") for g, w in zip(got, want))
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 1)
+        bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        if stats is not None:
+            s["ms"] += ms
+            s["launch_ms"] += host_ms(kern, reps)
+            s["plain_ms"] += plain_ms
+            s["flops"] += flops
+            s["bytes"] += nbytes
+        line.append(f"{key} err {err:.2e} {ms:.4f} ms (plain {plain_ms:.2f}, bound "
+                    f"{bound:.4f})")
+    return line
+
+
+def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
+    """Phases 21-24: path A, the Taichi pairing (pair_def_grad="j") on the
+    sparse scene.  Returns the launch counts of its forward episodes and of
+    one gradient."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops import separable_kernels as sk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.sim.blocked import mid_section
+    from softbody_tpu_torch.sim.sparse import elastic_forces_sparse, slot_rows
+
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    n = len(scene.slot_of_particle)
+    f32 = 4
+    cfg_j = cfg.replace(pair_def_grad="j")
+    ratio = ctx["ratio"]
+    rng = np.random.default_rng(21)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    # ---- 21 the separable K2 and its backward vs plain, per bucket
+    say(f"[21] Taichi pairing (path A), per bucket, kernels vs plain on the card {tag}")
+    posT = pos.T.contiguous()
+    ayT = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN)
+    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
+    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
+    _, _, _, M, vol_m = mid_section(A, Y, ratio, scene.materials, scene, cfg_j, m)
+    gT = slot_rows([vol_m * M[a][b] for a in range(3) for b in range(3)], sb.n_slots)
+    dfT = rand(3, m)
+    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    e0 = 0
+    for i, b in enumerate(sb.buckets):
+        t, slab = b.n_tiles, b.slab_len
+        mb = t * sb.rows
+        c = slice(b.row_start, b.row_start + mb)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
+        tile_bytes = (t * 3 * sb.rows + t * 5 * slab) * f32
+        gidx_bytes = t * slab // sb.group * 4
+        pairs = t * sb.rows * slab
+        a_f = (b.restT_rows, b.static_slab, gT[:, c], gT, vol_m[c], b.gidx8, cfg.h)
+        a_b = (b.restT_rows, b.static_slab, vol_m[c], dfT[:, c], cfg.h)
+
+        def slots(d, k, scatter, seg=seg):
+            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
+            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
+            return scatter(buf, *to_slots)
+
+        work = {
+            "forces_sep": (
+                lambda: sk.forces_sep(*a_f), lambda: sk.forces_sep_plain(*a_f),
+                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep"] * pairs,
+                tile_bytes + gidx_bytes + (9 * uniq + 9 * mb + mb + 3 * mb) * f32),
+            "forces_sep_bwd_rows": (
+                lambda: sk.forces_sep_bwd_rows(*a_b),
+                lambda: sk.forces_sep_bwd_plain(*a_b)[0], lambda o, sc: (o,),
+                FLOPS_PER_PAIR["forces_sep_bwd_rows"] * pairs,
+                tile_bytes + (mb + 3 * mb + 9 * mb) * f32),
+            "forces_sep_bwd_slab": (
+                lambda: sk.forces_sep_bwd_slab(*a_b),
+                lambda: sk.forces_sep_bwd_plain(*a_b)[1],
+                lambda o, sc: (slots(o, 9, sc),),
+                FLOPS_PER_PAIR["forces_sep_bwd_slab"] * pairs,
+                tile_bytes + (mb + 3 * mb + 9 * t * slab) * f32),
+        }
+        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
+                       + held_per_launch(torch, work, f"bucket {i}", stats)))
+    for key in ("forces_sep", "forces_sep_bwd_rows", "forces_sep_bwd_slab"):
+        summarize(key, stats[key], len(sb.buckets), tag)
+
+    # ---- 22 one "j" force evaluation and its VJP
+    mats = scene.materials
+    f_k = elastic_forces_sparse(pos, ratio, mats, scene, cfg_j)
+    f_k2 = elastic_forces_sparse(pos, ratio, mats, scene, cfg_j)
+    f_p = elastic_forces_sparse(pos, ratio, mats, scene, cfg_j, pair_ops=pk.PLAIN)
+    f_fm = elastic_forces_sparse(pos, ratio, mats, scene, cfg_j.replace(fused_mid=True))
+    err = rel_err(f_k, f_p)
+    ct = torch.zeros_like(pos)
+    ct[scene.slot_of_particle] = rand(n, 3)
+
+    def vjp(ops):
+        p = pos.clone().requires_grad_()
+        xv = x_star.clone().requires_grad_()
+        f = elastic_forces_sparse(p, compute_ratio(xv, cfg_j), mats, scene, cfg_j, ops)
+        return torch.autograd.grad(f, (p, xv), ct)
+
+    k1, k2, pl = vjp(pk.KERNELS), vjp(pk.KERNELS), vjp(pk.PLAIN)
+    errs = [rel_err(a, b) for a, b in zip(k1, pl)]
+    same = torch.equal(f_k, f_k2) and all(torch.equal(a, b) for a, b in zip(k1, k2))
+    fused_same = torch.equal(f_fm, f_k)
+    say(f"[22] Taichi-pairing elastic_forces_sparse kernel vs plain: {err:.3e}; its "
+        f"VJP wrt (pos, x) {errs[0]:.3e}, {errs[1]:.3e} (of max |plain|, tol {TOL}); "
+        f"two kernel-path calls bitwise equal (forces and VJP): {same}; "
+        f"fused_mid=True + \"j\" equals \"j\": {fused_same}")
+    if not (max([err] + errs) <= TOL and same and fused_same
+            and bool(torch.isfinite(f_k).all())
+            and all(bool(torch.isfinite(a).all()) for a in k1)):
+        fail("the Taichi-pairing force evaluation or its VJP disagrees or does not repeat")
+
+    # ---- 23, 24 path A's forward episode, quiet body and gradient
+    names = ("moments_v4", "forces_sep")
+    counts_fwd, steps, ms = forward_phase(torch, np, dev, tag, 23, "Taichi-pairing",
+                                          scene, cfg_j, x_star, NEW_BUDGET_S, 1e-6,
+                                          names)
+    counts_grad, ms_grad = grad_phase(
+        torch, np, dev, tag, 24, "Taichi-pairing", scene, ctx["cfg_g"].replace(
+            pair_def_grad="j"), x_star, ctx["scene64"],
+        ctx["cfg64"].replace(pair_def_grad="j"), names)
+    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps,
+            "nb": len(sb.buckets)}
+
+
+def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
+                  body, ctx):
+    """Phases 25-28: path B, the blocked varcol layout on the pallas
+    backend, at the same body.  Returns the launch counts of its forward
+    episodes and of one gradient."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops import separable_kernels as sk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.scenarios import dirichlet_mask, x_star_bands
+    from softbody_tpu_torch.sim.blocked import (build_blocked_scene,
+                                                elastic_forces_pallas, mid_section)
+    from softbody_tpu_torch.sim.sparse import elastic_forces_sparse, slot_rows
+
+    f32 = 4
+    rng = np.random.default_rng(25)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    # ---- 25 the varcol scene, its kernels per launch
+    t0 = time.perf_counter()
+    scene_b, sop_b = build_blocked_scene(pts, cfg, out_num=out_num, device=dev,
+                                         dirichlet_mask=dirichlet_mask(pts, "stretch"))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    blk = scene_b.blocked
+    b = blk.bucket
+    t, slab, rows = blk.n_tiles, blk.slab_len, blk.rows
+    m = t * rows
+    pairs = t * rows * slab
+    sparse_pairs = sum(bb.n_tiles * scene.blocked.rows * bb.slab_len
+                       for bb in scene.blocked.buckets)
+    static = [b.restT_rows, b.static_slab, b.gidx8, blk.slab_start, blk.rs6T,
+              blk.slab_ptr, blk.slab_idx, scene_b.rest_corr, scene_b.rest_position,
+              *scene_b.materials]
+    static_bytes = sum(x.numel() * x.element_size() for x in static)
+    say(f"[25] varcol scene of the same body: build {t_build:.1f} s; n_tiles {t} "
+        f"(of {rows} rows), run length L {blk.run_len}, slab_len {slab}, slots "
+        f"{blk.n_slots}, candidate pairs per evaluation {pairs} (sparse scene: "
+        f"{sparse_pairs}, x{pairs / sparse_pairs:.2f}), static bytes "
+        f"{static_bytes / 1e6:.1f} MB, scatter index {blk.slab_idx.numel()} live "
+        f"group entries of {b.gidx8.numel()} {tag}")
+    x_b = torch.as_tensor(x_star_bands(pts, blk.n_slots, sop_b), dtype=torch.float32,
+                          device=dev)
+    ratio_b = compute_ratio(x_b, cfg)
+    pos_b = scene_b.rest_position.clone()
+    pos_b[scene_b.slot_of_particle] = torch.as_tensor(body, dtype=torch.float32,
+                                                      device=dev)
+    posT = pos_b.T.contiguous()
+    ayT = fk.moments_raw_all(posT, blk, cfg.h, pk.PLAIN)
+    p = posT[:, :m]
+    A = [[ayT[3 * bb + a] - p[a] * blk.rs6T[bb] for bb in range(3)] for a in range(3)]
+    Y = [[ayT[9 + 3 * bb + a] - p[a] * blk.rs6T[3 + bb] for bb in range(3)]
+         for a in range(3)]
+    R, F, S, M, vol_m = mid_section(A, Y, ratio_b, scene_b.materials, scene_b, cfg, m)
+    fmT = torch.stack([F[a][c] for a in range(3) for c in range(3)]
+                      + [M[a][c] for a in range(3) for c in range(3)] + [vol_m])
+    srT = slot_rows([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
+                    + [R[a][c] for c in range(3) for a in range(3)], blk.n_slots)
+    gT = slot_rows([vol_m * M[a][c] for a in range(3) for c in range(3)], blk.n_slots)
+    dayT, dfT = rand(18, m), rand(3, m)
+    to_slots = (blk.slab_ptr, blk.slab_idx, blk.n_slots, blk.group)
+    uniq = int(torch.unique(b.gidx8).numel()) * blk.group
+    tile_bytes = (t * 3 * rows + t * 5 * slab) * f32
+    gidx_bytes = t * slab // blk.group * 4
+    rr, st, gi, h = b.restT_rows, b.static_slab, b.gidx8, cfg.h
+
+    def slots(k):
+        return lambda d, sc: (sc(d.permute(1, 0, 2).reshape(k, -1), *to_slots),)
+
+    work = {
+        "moments_raw": (
+            lambda: fk.moments_raw(rr, st, posT, gi, h),
+            lambda: fk.moments_raw_plain(rr, st, posT, gi, h), lambda o, sc: (o,),
+            FLOPS_PER_PAIR["moments_raw"] * pairs,
+            tile_bytes + gidx_bytes + (3 * uniq + 18 * m) * f32),
+        "moments_raw_bwd": (
+            lambda: fk.moments_raw_bwd(rr, st, dayT, h),
+            lambda: fk.moments_raw_bwd_plain(rr, st, dayT, h), slots(3),
+            FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
+            tile_bytes + (18 * m + 3 * t * slab) * f32),
+        "forces_warp_v2": (
+            lambda: fk.forces_warp_v2(rr, st, fmT, srT, gi, h),
+            lambda: fk.forces_warp_v2_plain(rr, st, fmT, srT, gi, h),
+            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2"] * pairs,
+            tile_bytes + gidx_bytes + (19 * m + 15 * uniq + 3 * m) * f32),
+        "forces_warp_v2_bwd_rows": (
+            lambda: fk.forces_warp_v2_bwd_rows(rr, st, fmT, srT, gi, dfT, h),
+            lambda: fk.forces_warp_v2_bwd_plain(rr, st, fmT, srT, gi, dfT, h)[0],
+            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2_bwd_rows"] * pairs,
+            tile_bytes + gidx_bytes + (15 * uniq + m + 3 * m + 19 * m) * f32),
+        "forces_warp_v2_bwd_slab": (
+            lambda: fk.forces_warp_v2_bwd_slab(rr, st, fmT, srT, gi, dfT, h),
+            lambda: fk.forces_warp_v2_bwd_plain(rr, st, fmT, srT, gi, dfT, h)[1],
+            slots(15), FLOPS_PER_PAIR["forces_warp_v2_bwd_slab"] * pairs,
+            tile_bytes + gidx_bytes + (10 * m + 15 * uniq + 3 * m + 15 * t * slab) * f32),
+        "forces_sep": (
+            lambda: sk.forces_sep(rr, st, gT[:, :m], gT, vol_m, gi, h),
+            lambda: sk.forces_sep_plain(rr, st, gT[:, :m], gT, vol_m, gi, h),
+            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep"] * pairs,
+            tile_bytes + gidx_bytes + (9 * uniq + 9 * m + m + 3 * m) * f32),
+        "forces_sep_bwd_rows": (
+            lambda: sk.forces_sep_bwd_rows(rr, st, vol_m, dfT, h),
+            lambda: sk.forces_sep_bwd_plain(rr, st, vol_m, dfT, h)[0],
+            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep_bwd_rows"] * pairs,
+            tile_bytes + (m + 3 * m + 9 * m) * f32),
+        "forces_sep_bwd_slab": (
+            lambda: sk.forces_sep_bwd_slab(rr, st, vol_m, dfT, h),
+            lambda: sk.forces_sep_bwd_plain(rr, st, vol_m, dfT, h)[1], slots(9),
+            FLOPS_PER_PAIR["forces_sep_bwd_slab"] * pairs,
+            tile_bytes + (m + 3 * m + 9 * t * slab) * f32),
+    }
+    say(f"    per launch on the varcol tiles, kernel vs plain {tag}:")
+    for key in work:
+        one = {key: work[key]}
+        into = stats if key == "moments_raw" else None
+        say("      " + held_per_launch(torch, one, "varcol", into, reps=10)[0])
+    if stats["moments_raw"]["ms"]:
+        summarize("moments_raw", stats["moments_raw"], 1, tag)
+    n_entries = t * slab
+    line = []
+    for k in (3, 9, 15):
+        buf = rand(k, n_entries)
+        err = rel_err(pk.slab_to_slots(buf, *to_slots), pk.slab_to_slots_plain(buf, *to_slots))
+        if not err <= TOL:
+            fail(f"slab_to_slots on the varcol index, k={k}: error {err:.3e}")
+        line.append(f"k={k} err {err:.2e} {cuda_ms(lambda: pk.slab_to_slots(buf, *to_slots), 10):.4f} ms")
+    say("      slab_to_slots on the varcol index: " + ", ".join(line))
+
+    # ---- 26 one path-B evaluation against the sparse path, and its VJP
+    ratio_s = ctx["ratio"]
+    mats = scene_b.materials
+    ct = torch.zeros_like(pos_b)
+    ct[scene_b.slot_of_particle] = rand(len(sop_b), 3)
+    sop_s, sop_bt = scene.slot_of_particle, scene_b.slot_of_particle
+    for pdg in ("i", "j"):
+        c = cfg.replace(pair_def_grad=pdg)
+        f_b = elastic_forces_pallas(pos_b, ratio_b, mats, scene_b, c)
+        f_b2 = elastic_forces_pallas(pos_b, ratio_b, mats, scene_b, c)
+        f_bp = elastic_forces_pallas(pos_b, ratio_b, mats, scene_b, c, pk.PLAIN)
+        f_s = elastic_forces_sparse(ctx["pos"], ratio_s, scene.materials, scene, c)
+        cross = rel_err(f_b[sop_bt], f_s[sop_s])
+        own = rel_err(f_b, f_bp)
+
+        def vjp(ops):
+            pp = pos_b.clone().requires_grad_()
+            xv = x_b.clone().requires_grad_()
+            f = elastic_forces_pallas(pp, compute_ratio(xv, c), mats, scene_b, c, ops)
+            return torch.autograd.grad(f, (pp, xv), ct)
+
+        k1, pl = vjp(pk.KERNELS), vjp(pk.PLAIN)
+        errs = [rel_err(a, bb) for a, bb in zip(k1, pl)]
+        ignored = (torch.equal(elastic_forces_pallas(pos_b, ratio_b, mats, scene_b,
+                                                     c.replace(fused_mid=True)), f_b)
+                   if pdg == "i" else True)
+        say(f"[26] path B (varcol, pallas) \"{pdg}\": vs the sparse path at the same "
+            f"particle positions {cross:.3e} of max |f| (tol 1e-3); kernel vs plain "
+            f"{own:.3e}, VJP wrt (pos, x) {errs[0]:.3e}, {errs[1]:.3e} (tol {TOL}); "
+            f"bitwise repeat {torch.equal(f_b, f_b2)}"
+            + ("; fused_mid ignored (bitwise equal forces): " + str(ignored)
+               if pdg == "i" else ""))
+        if not (cross <= 1e-3 and max([own] + errs) <= TOL and torch.equal(f_b, f_b2)
+                and ignored and bool(torch.isfinite(f_b).all())
+                and all(bool(torch.isfinite(a).all()) for a in k1)):
+            fail(f"path B \"{pdg}\" disagrees with the sparse path or its plain path")
+
+    # ---- 27, 28 path B's forward episode, quiet body and gradient
+    names = ("moments_raw", "forces_warp_v2")
+    counts_fwd, steps, ms = forward_phase(torch, np, dev, tag, 27, "varcol",
+                                          scene_b, cfg, x_b, NEW_BUDGET_S, 1e-4, names)
+    cfg64 = ctx["cfg64"]
+    scene_b64, _ = build_blocked_scene(pts, cfg64, out_num=out_num, device=dev,
+                                       dirichlet_mask=dirichlet_mask(pts, "stretch"))
+    counts_grad, ms_grad = grad_phase(torch, np, dev, tag, 28, "varcol", scene_b,
+                                      ctx["cfg_g"], x_b, scene_b64, cfg64, names)
+    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps}
+
+
+def phase_counts(a, b):
+    """Phase 29: the launch counts of phases 23-24 (path A) and 27-28 (path
+    B) against what each path implies; every other kernel 0."""
+    S, nb = GRAD_STEPS, a["nb"]
+    # symplectic: one force evaluation per step, two forward episodes; one
+    # gradient runs the forward kernels 3 times per step and the backward
+    # ones once (phase 13)
+    want = {
+        ("A", "fwd"): {"moments_v4": 2 * nb * a["steps"], "forces_sep": 2 * nb * a["steps"]},
+        ("A", "grad"): {"moments_v4": 3 * nb * S, "forces_sep": 3 * nb * S,
+                        "moments_v4_bwd": nb * S, "forces_sep_bwd_rows": nb * S,
+                        "forces_sep_bwd_slab": nb * S, "slab_to_slots": 2 * S},
+        ("B", "fwd"): {"moments_raw": 2 * b["steps"], "forces_warp_v2": 2 * b["steps"]},
+        ("B", "grad"): {"moments_raw": 3 * S, "forces_warp_v2": 3 * S,
+                        "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S,
+                        "forces_warp_v2_bwd_slab": S, "slab_to_slots": 2 * S},
+    }
+    got = {("A", "fwd"): a["fwd"], ("A", "grad"): a["grad"],
+           ("B", "fwd"): b["fwd"], ("B", "grad"): b["grad"]}
+    say(f"[29] launches: path A forward (phase 23) {a['fwd']}; path A gradient "
+        f"(phase 24) {a['grad']}; path B forward (phase 27) {b['fwd']}; path B "
+        f"gradient (phase 28) {b['grad']}; expected "
+        + "; ".join(f"{p} {k}: {w}" for (p, k), w in want.items()) + "; every other 0")
+    for run, counts in got.items():
+        for k, v in counts.items():
+            if v != want[run].get(k, 0):
+                fail(f"{run}: {k} launched {v} times, expected {want[run].get(k, 0)}")
+
+
 REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "moments_v4": ("pair_kernels", "pair_kernels.py:505"),
     "forces_warp_v4": ("pair_kernels", "pair_kernels.py:879"),
@@ -1083,23 +1575,27 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "moments_raw_bwd": ("fused_kernels", "pair_kernels.py:335"),
     "forces_warp_v2_bwd_rows": ("fused_kernels", "pair_kernels.py:936"),
     "forces_warp_v2_bwd_slab": ("fused_kernels", "pair_kernels.py:936"),
+    "forces_sep": ("separable_kernels", "pair_kernels.py:690"),
+    "forces_sep_bwd_rows": ("separable_kernels", "pair_kernels.py:716"),
+    "forces_sep_bwd_slab": ("separable_kernels", "pair_kernels.py:716"),
+    "moments_raw": ("fused_kernels", "pair_kernels.py:307"),
 }
 
 
-def kernel_json(stats, counts_opt, counts_fused):
+def kernel_json(stats, launches):
     """The kernels line: each kernel's numbers, ``launches`` from its path's
     gradient runs (phase 12's L-BFGS loop for the v4 path, phase 19's
-    gradient for the fused path)."""
+    gradient for the fused path, phase 24's for the separable K2, phase
+    28's for the raw K1)."""
     kernels = []
     for key, s in stats.items():
         source, body = REPLACES[key]
-        counts = counts_fused if source == "fused_kernels" else counts_opt
         kernels.append({
             "name": key,
             "route": "cuda",
             "source": f"softbody_tpu_torch/csrc/{source}.cu",
             "replaces": f"softbody_tpu/ops/pallas/{body}",
-            "launches": counts[key],
+            "launches": launches[key],
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],

@@ -6,23 +6,27 @@ every host-side helper it needs is its own copy.  Module paths mirror the JAX
 package's, so each module's counterpart is found under the same name.
 
 What is ported: stretch inverse design on the sparse backend (Warp pairing),
-also with the fused K1 + mid-section path (``cfg.fused_mid``): the forward
+also with the fused K1 + mid-section path (``cfg.fused_mid``) and with the
+Taichi pairing (``pair_def_grad="j"``), and on the blocked (varcol / cells)
+layout (``build_blocked_scene``; ``backend="pallas"`` runs its pair
+kernels, ``backend="blocked"`` its plain torch reference): the forward
 episode, its gradient and the L-BFGS driver —
 
   config          — SimConfig + parity presets, torch dtype / device helpers
   geometry        — procedural bodies
   scenarios       — the stretch / drop scenario constants and helpers
   native          — g++/ctypes CSR neighbour builder
-  topology        — rest neighbours, sparse candidate-group layout
+  topology        — rest neighbours, sparse candidate-group layout, the
+                    blocked column layouts
   ops             — SPH kernels, 3x3 algebra (polar with its clamped VJP),
                     collision, the pair kernels of both paths forward and
                     backward and their fixed-order scatter (hand-written
                     CUDA in csrc/, plain torch beside)
-  sim             — sparse scene build, elastic forces, episode runner with
-                    remat and the chunked value-and-grad
+  sim             — sparse and blocked scene builds, elastic forces,
+                    episode runner with remat and the chunked value-and-grad
   opt             — target generation, L-BFGS-B, grad check
   utils           — checkpoint / resume (the JAX package's file formats)
-  convert         — JAX-built scene (as numpy) -> port objects
+  convert         — JAX-built scene (as numpy) <-> port objects
   inverse_design  — the product entry point (python -m ...)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
@@ -30,6 +34,7 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 from .config import SimConfig, taichi_parity, warp_parity
 from .core.types import Materials, ParticleState, Scene
+from .sim.blocked import build_blocked_scene, elastic_forces_pallas
 from .sim.rollout import initial_state, rollout, step
 from .sim.sparse import build_sparse_scene, elastic_forces_sparse
 
@@ -41,7 +46,9 @@ __all__ = [
     "ParticleState",
     "Scene",
     "build_sparse_scene",
+    "build_blocked_scene",
     "elastic_forces_sparse",
+    "elastic_forces_pallas",
     "rollout",
     "step",
     "initial_state",

@@ -1,17 +1,23 @@
-"""Carry a scene built by the JAX package into the port.
+"""Carry a scene built by the JAX package into the port, and back.
 
 This system's parameters are the static scene (layout, rest geometry,
 materials, rest correction, row sums) and the inflation field ``x``.
 :func:`scene_from_numpy` takes them as a flat dict of numpy arrays and ints —
-every leaf of a ``softbody_tpu`` sparse ``Scene`` plus the bucket metadata —
-and returns the port's objects, so both packages compute from identical
-state.  The backward's scatter index is derived from the ``gidx8`` arrays, so
-it needs no key of its own.  :func:`scene_to_numpy` is its inverse (same keys, no ``x``).
+every leaf of a ``softbody_tpu`` sparse or blocked ``Scene`` plus the
+layout's metadata — and returns the port's objects, so both packages
+compute from identical state.  The backward's scatter index is derived from
+the ``gidx8`` arrays and ``slot_of_particle``, so it needs no key of its
+own.  :func:`scene_to_numpy` is its inverse (same keys, no ``x``).
 
-Keys: ``rest_position, mass, volume, mu, lam, free, external, rest_corr
-(3,3,m), slot_of_particle, rs6T (6,m), out_num, rows, n_tiles, n_slots,
-group, n_buckets``, per bucket k ``bucket{k}.gidx8 / .restT_rows /
-.static_slab / .tile_start``, and optionally ``x`` (n_slots,).
+Keys of every scene: ``rest_position, mass, volume, mu, lam, free,
+external, rest_corr (3,3,m), slot_of_particle, rs6T (6,m), out_num, rows,
+n_tiles, n_slots, group``, and optionally ``x`` (n_slots,).  A sparse scene
+adds ``n_buckets`` and per bucket k ``bucket{k}.gidx8 / .restT_rows /
+.static_slab / .tile_start``.  A blocked scene (``Blocked``) adds
+``run_len`` and ``blocked.slab_start (t,9) / .gidx8 (t,slab/8) /
+.restT_rows (t,3,rows) / .static_slab (t,5,slab)``, its rs6T being the JAX
+``Blocked.rs6`` transposed; tiles of more than 32 rows (the ``cells``
+layout's tz * C) are cut into 32-row tiles sharing their slab.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.types import DevBucket, Materials, Scene, SparseBlocked
+from .core.types import Blocked, DevBucket, Materials, Scene, SparseBlocked
+from .ops._build import ROWS
 from .ops.pair_kernels import slab_inverse
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
@@ -35,6 +42,32 @@ def scene_from_numpy(d: dict, device):
     def dev(key, dt=dtype):
         return torch.from_numpy(np.array(d[key])).to(device=device, dtype=dt)
 
+    real = np.zeros(int(d["n_slots"]), bool)
+    real[np.asarray(d["slot_of_particle"])] = True
+    if "blocked.gidx8" in d:
+        layout = _blocked_from_numpy(d, real, device, dtype)
+    else:
+        layout = _sparse_from_numpy(d, real, device, dtype)
+    scene = Scene(
+        rest_position=dev("rest_position"),
+        materials=Materials(*(dev(k) for k in _MATERIALS)),
+        out_num=int(d["out_num"]),
+        blocked=layout,
+        rest_corr=dev("rest_corr"),
+        slot_of_particle=dev("slot_of_particle", torch.int64),
+    )
+    x = dev("x") if "x" in d else None
+    return scene, x
+
+
+def _tensor(a, device, dt):
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
+
+
+def _sparse_from_numpy(d, real, device, dtype):
+    def dev(key, dt=dtype):
+        return _tensor(d[key], device, dt)
+
     rows = int(d["rows"])
     buckets = tuple(
         DevBucket(
@@ -46,24 +79,38 @@ def scene_from_numpy(d: dict, device):
             slab_len=int(np.asarray(d[f"bucket{k}.static_slab"]).shape[2]),
         )
         for k in range(int(d["n_buckets"])))
-    n_slots, group = int(d["n_slots"]), int(d["group"])
+    n_slots, group = len(real), int(d["group"])
     ptr, idx = slab_inverse(
         [d[f"bucket{k}.gidx8"] for k in range(int(d["n_buckets"]))],
-        n_slots, group)
-    sb = SparseBlocked(buckets=buckets, rs6T=dev("rs6T"), rows=rows,
-                       n_tiles=int(d["n_tiles"]), n_slots=n_slots, group=group,
-                       slab_ptr=torch.from_numpy(ptr).to(device),
-                       slab_idx=torch.from_numpy(idx).to(device))
-    scene = Scene(
-        rest_position=dev("rest_position"),
-        materials=Materials(*(dev(k) for k in _MATERIALS)),
-        out_num=int(d["out_num"]),
-        blocked=sb,
-        rest_corr=dev("rest_corr"),
-        slot_of_particle=dev("slot_of_particle", torch.int64),
-    )
-    x = dev("x") if "x" in d else None
-    return scene, x
+        n_slots, group, real)
+    return SparseBlocked(buckets=buckets, rs6T=dev("rs6T"), rows=rows,
+                         n_tiles=int(d["n_tiles"]), n_slots=n_slots, group=group,
+                         slab_ptr=torch.from_numpy(ptr).to(device),
+                         slab_idx=torch.from_numpy(idx).to(device))
+
+
+def _blocked_from_numpy(d, real, device, dtype):
+    rows, t = int(d["rows"]), int(d["n_tiles"])
+    split = rows // ROWS
+    if rows % ROWS:
+        raise ValueError(f"tiles of {rows} rows: the kernels take multiples of {ROWS}")
+    rr = np.asarray(d["blocked.restT_rows"])                      # (t, 3, rows)
+    rr = rr.reshape(t, 3, split, ROWS).transpose(0, 2, 1, 3).reshape(-1, 3, ROWS)
+    static = np.repeat(np.asarray(d["blocked.static_slab"]), split, axis=0)
+    gidx8 = np.repeat(np.asarray(d["blocked.gidx8"], np.int32), split, axis=0)
+    n_slots, group = len(real), int(d["group"])
+    ptr, idx = slab_inverse([gidx8], n_slots, group, real)
+    return Blocked(
+        bucket=DevBucket(gidx8=_tensor(gidx8, device, torch.int32),
+                         restT_rows=_tensor(rr, device, dtype),
+                         static_slab=_tensor(static, device, dtype), tile_start=0,
+                         rows=ROWS, slab_len=static.shape[2]),
+        slab_start=_tensor(np.repeat(np.asarray(d["blocked.slab_start"]), split,
+                                     axis=0), device, torch.int64),
+        rs6T=_tensor(d["rs6T"], device, dtype), run_len=int(d["run_len"]),
+        n_slots=n_slots, group=group,
+        slab_ptr=torch.from_numpy(ptr).to(device),
+        slab_idx=torch.from_numpy(idx).to(device))
 
 
 def scene_to_numpy(scene: Scene) -> dict:
@@ -83,10 +130,16 @@ def scene_to_numpy(scene: Scene) -> dict:
         "n_tiles": sb.n_tiles,
         "n_slots": sb.n_slots,
         "group": sb.group,
-        "n_buckets": len(sb.buckets),
     }
     for k, name in enumerate(_MATERIALS):
         d[name] = host(scene.materials[k])
+    if isinstance(sb, Blocked):
+        d["run_len"] = sb.run_len
+        d["blocked.slab_start"] = host(sb.slab_start)
+        for key in ("gidx8", "restT_rows", "static_slab"):
+            d[f"blocked.{key}"] = host(getattr(sb.bucket, key))
+        return d
+    d["n_buckets"] = len(sb.buckets)
     for k, b in enumerate(sb.buckets):
         d[f"bucket{k}.gidx8"] = host(b.gidx8)
         d[f"bucket{k}.restT_rows"] = host(b.restT_rows)

@@ -1,7 +1,8 @@
 """Core state and scene records.
 
-Counterpart of ``softbody_tpu/core/types.py`` and of the sparse-layout records
-of ``softbody_tpu/sim/sparse.py`` (``DevBucket``, ``SparseBlocked``).  JAX
+Counterpart of ``softbody_tpu/core/types.py``, of the sparse-layout records
+of ``softbody_tpu/sim/sparse.py`` (``DevBucket``, ``SparseBlocked``) and of
+the blocked layout's ``Blocked`` (``softbody_tpu/ops/blocked.py``).  JAX
 pytrees become NamedTuples / frozen dataclasses of torch tensors; every
 tensor of one scene lives on one device and has one floating dtype.
 """
@@ -87,6 +88,51 @@ class SparseBlocked:
     slab_idx: torch.Tensor     # (sum_b t_b slab_b / group,) int32
 
 
+@dataclasses.dataclass(frozen=True)
+class Blocked:
+    """Blocked (column-dense slot) topology (lives in ``Scene.blocked``),
+    from ``topology/blocks.py``: tile t's rows are slots [32 t, 32 t + 32)
+    (the tiles partition the slot prefix), its slab 9 runs of ``run_len``
+    slots starting at ``slab_start[t]`` (one per neighbour column; an
+    absent column points at the layout's empty run).
+
+    To the pair kernels it is ONE bucket of the sparse machinery
+    (``bucket``: restT_rows (t, 3, 32), static_slab (t, 5, 9 run_len) =
+    [rest_3 | mass | vol], gidx8 (t, slab / 8), tile_start 0), so the
+    per-bucket ops serve it unchanged, with its own CSR scatter index
+    ``slab_ptr`` / ``slab_idx``.  ``rs6T`` (6, m) holds the raw K1's row
+    sums on an all-ones RHS (rows 0:3 sum_j w m_j (-dx), rows 3:6 sum_j
+    gfac V_j dx, from the same kernel and coefficients as the forward's
+    dots), which the forward subtracts as pos_i * rs6.  The JAX layout's
+    ``cells`` tiles of tz * C rows are cut into 32-row tiles sharing their
+    slab."""
+
+    bucket: DevBucket
+    slab_start: torch.Tensor   # (n_tiles, 9) int64 first slot of each run
+    rs6T: torch.Tensor         # (6, n_tiles * rows)
+    run_len: int
+    n_slots: int
+    group: int
+    slab_ptr: torch.Tensor     # (n_slots / group + 1,) int32
+    slab_idx: torch.Tensor     # (n_tiles * slab / group,) int32, live groups only
+
+    @property
+    def buckets(self) -> tuple:
+        return (self.bucket,)
+
+    @property
+    def rows(self) -> int:
+        return self.bucket.rows
+
+    @property
+    def n_tiles(self) -> int:
+        return self.bucket.n_tiles
+
+    @property
+    def slab_len(self) -> int:
+        return self.bucket.slab_len
+
+
 class Scene(NamedTuple):
     """Everything an episode needs except the design variable ``x``.
 
@@ -97,7 +143,7 @@ class Scene(NamedTuple):
     rest_position: torch.Tensor        # (N, 3)
     materials: Materials
     out_num: int                       # outer-shell particles (sim.py:53)
-    blocked: SparseBlocked
+    blocked: SparseBlocked | Blocked
     rest_corr: torch.Tensor            # (3, 3, m) static nabla_u rest term
     slot_of_particle: torch.Tensor     # (n_particles,) int64
     obstacles: object = None

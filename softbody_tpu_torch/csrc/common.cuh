@@ -58,27 +58,29 @@ __device__ __forceinline__ T spline_gfac(T r2, T inv_h, T c4h) {
 }
 
 // ------------------------------------------------------------ forward sums
-// K1's tile sums: red[w][4k + a][lane] holds warp w's share of
-// sum_j p_a L_k (a < 3) and sum_j L_k (a = 3) for row `lane`, with
-// L = [-w m_j dx ; gfac V_j dx] and p = pos_j - c, c the tile's first rest
-// row, which the caller keeps in registers for its epilogue (re-reading it
-// there cost K1 v4 8%).  rr (3, ROWS), st (5, slab) and gi are the tile's
-// own.  Ends with a block barrier.
-template <typename T>
+// K1's tile sums: red[w][NA k + a][lane] holds warp w's share of
+// sum_j p_a L_k (a < 3) and, with ROWSUM (NA = 4), sum_j L_k (a = 3) for
+// row `lane`, with L = [-w m_j dx ; gfac V_j dx] and p = pos_j - c, c the
+// tile's first rest row, which the caller keeps in registers for its
+// epilogue (re-reading it there cost K1 v4 8%).  Without ROWSUM (NA = 3)
+// the row sums are neither formed nor stored.  rr (3, ROWS), st (5, slab)
+// and gi are the tile's own.  Ends with a block barrier.
+template <bool ROWSUM, typename T>
 __device__ __forceinline__ void k1_tile_sums(
     const T* __restrict__ rr, const T* __restrict__ st,
     const T* __restrict__ posT, int64_t ld_pos, const int32_t* __restrict__ gi,
     int slab, int group, T inv_h, T c4, T c4h, const T (&c)[3], K1Entry<T>* ent,
-    T (*red)[24][ROWS]) {
+    T (*red)[ROWSUM ? 24 : 18][ROWS]) {
+  constexpr int NA = ROWSUM ? 4 : 3;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const T c0 = c[0], c1 = c[1], c2 = c[2];
   const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  T acc[6][4];
+  T acc[6][NA];
 #pragma unroll
   for (int k = 0; k < 6; ++k)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) acc[k][a] = T(0);
+    for (int a = 0; a < NA; ++a) acc[k][a] = T(0);
 
   for (int base = 0; base < slab; base += CHUNK) {
     const int n = min(CHUNK, slab - base);
@@ -111,7 +113,7 @@ __device__ __forceinline__ void k1_tile_sums(
         acc[k][0] += x.v[5] * L[k];
         acc[k][1] += x.v[6] * L[k];
         acc[k][2] += x.v[7] * L[k];
-        acc[k][3] += L[k];
+        if constexpr (ROWSUM) acc[k][3] += L[k];
       }
     }
     __syncwarp();
@@ -120,7 +122,7 @@ __device__ __forceinline__ void k1_tile_sums(
 #pragma unroll
   for (int k = 0; k < 6; ++k)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) red[warp][4 * k + a][lane] = acc[k][a];
+    for (int a = 0; a < NA; ++a) red[warp][NA * k + a][lane] = acc[k][a];
   __syncthreads();
 }
 

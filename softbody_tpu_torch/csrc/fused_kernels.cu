@@ -13,6 +13,19 @@
 // forces_warp_v2_bwd_slab_kernel     launches (pair_kernels.py ::
 //                                    _forces_warp_bwd_impl, from packed.py ::
 //                                    _forces_warp_packed_vjp_bwd)
+// moments_raw_kernel              :: _moments_kernel (pair_kernels.py ::
+//                                    _moments_fwd_impl, from packed.py ::
+//                                    moments_packed: the blocked layout's
+//                                    K1) and the inner kernel of
+//                                    _moments_fwd_manual, the same function
+//                                    with the slab staged by manual
+//                                    double-buffered DMA (TPU only); its
+//                                    Hopper form, cp.async / TMA double
+//                                    buffering of the slab, is a tuning item
+//
+// The blocked layout's K2 is forces_warp_v2 (Warp pairing) or
+// separable_kernels.cu's forces_sep (Taichi pairing); its raw K1's
+// backward is moments_raw_bwd.
 //
 // What they compute (tile of ROWS = 32 rows against its candidate slab,
 // slot = gidx[tile, e / group] * group + e % group; lane-major operands):
@@ -296,9 +309,9 @@ moments_mid_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   const int tile = blockIdx.x;
   const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
   const T c[3] = {rr[0], rr[ROWS], rr[2 * ROWS]};   // the tile's first rest row
-  k1_tile_sums(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
-               gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
-               c, ent, red);
+  k1_tile_sums<true>(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
+                     gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
+                     c, ent, red);
   if (threadIdx.x >= ROWS) return;   // no barrier follows
 
   // stage 2: the mid-section, one thread per row
@@ -335,6 +348,42 @@ moments_mid_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   srT[3 * ld_sr + col] = S[1][1];
   srT[4 * ld_sr + col] = S[1][2];
   srT[5 * ld_sr + col] = S[2][2];
+}
+
+// moments_raw_kernel: K1's tile sums against the ABSOLUTE positions (the
+// shift c = 0): row 3 blk + a of ayT is sum_j lhs_blk pos_j[a], the raw,
+// uncentered dots of _moments_kernel.  The caller subtracts
+// pos_i[a] rs6[blk] with rs6 from this same kernel on an all-ones RHS (the
+// blocked scene's build), so the correction cancels against sums of the
+// same f32 coefficients; centering here would change the output that the
+// build and the SPMD shards read raw.  The row sums are not formed
+// (k1_tile_sums<false>): 72 flops per pair, not K1 v4's 78.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+moments_raw_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
+                   const T* __restrict__ static_slab,  // (t, 5, slab)
+                   const T* __restrict__ posT,         // (3, ld_pos)
+                   int64_t ld_pos,
+                   const int32_t* __restrict__ gidx,   // (t, slab / group)
+                   T* __restrict__ ayT,                // (18, ld_out)
+                   int64_t ld_out,
+                   int slab, int group, T inv_h, T c4, T c4h) {
+  __shared__ K1Entry<T> ent[CHUNK];
+  __shared__ T red[NWARPS][18][ROWS];
+
+  const int tile = blockIdx.x;
+  const T zero[3] = {T(0), T(0), T(0)};
+  k1_tile_sums<false>(restT_rows + (int64_t)tile * 3 * ROWS,
+                      static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
+                      gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
+                      zero, ent, red);
+  for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS) {
+    const int r = o % ROWS, row = o / ROWS;
+    T dot = T(0);
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) dot += red[w][row][r];
+    ayT[row * ld_out + (int64_t)tile * ROWS + r] = dot;
+  }
 }
 
 template <typename T>
@@ -484,6 +533,17 @@ int sb_rows() { return ROWS; }
         (const T*)lam, (const T*)vol, (const T*)rcT, ld_rc, (const T*)scale,   \
         (T*)fmT, ld_fm, (T*)srT, ld_sr, (T*)ayT, ld_ay, slab, group,           \
         (T)inv_h, (T)c4, (T)c4h, corotated, sweeps);                           \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  int sb_moments_raw_##SUF(                                                    \
+      const void* restT_rows, const void* static_slab, const void* posT,       \
+      int64_t ld_pos, const void* gidx, void* ayT, int64_t ld_out, int t,      \
+      int slab, int group, double inv_h, double c4, double c4h,                \
+      void* stream) {                                                          \
+    moments_raw_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(            \
+        (const T*)restT_rows, (const T*)static_slab, (const T*)posT, ld_pos,   \
+        (const int32_t*)gidx, (T*)ayT, ld_out, slab, group, (T)inv_h, (T)c4,   \
+        (T)c4h);                                                               \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   int sb_forces_warp_v2_##SUF(                                                 \

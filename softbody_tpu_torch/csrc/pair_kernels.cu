@@ -65,9 +65,9 @@ moments_v4_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   const int tile = blockIdx.x;
   const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
   const T c[3] = {rr[0], rr[ROWS], rr[2 * ROWS]};   // the tile's first rest row
-  k1_tile_sums(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
-               gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
-               c, ent, red);
+  k1_tile_sums<true>(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
+                     gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
+                     c, ent, red);
   // 18 output rows x 32 lanes
   for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS) {
     const int r = o % ROWS, row = o / ROWS, a = row % 3;

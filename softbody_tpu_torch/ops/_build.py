@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
-v4 path: K1/K2 forward and backward, the fixed-order scatter) and
-csrc/fused_kernels.cu (the fused K1 + mid-section path), both including
-csrc/common.cuh.
+v4 path: K1/K2 forward and backward, the fixed-order scatter),
+csrc/fused_kernels.cu (the fused K1 + mid-section path, K2 v2 and the raw
+K1 of the blocked layout) and csrc/separable_kernels.cu (the Taichi
+pairing's separable K2 and its backward), each including csrc/common.cuh.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
 one library per source, into the package's git-ignored build directory at
@@ -26,7 +27,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pair_kernels", "fused_kernels")
+SOURCES = ("pair_kernels", "fused_kernels", "separable_kernels")
 HEADER = CSRC / "common.cuh"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
@@ -37,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 _K2_BWD = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32,
            _F64, _F64, _P]
+_SEP_BWD = [_P, _P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64, _P]
 SIGNATURES = {
     "pair_kernels": {
         "moments_v4": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32,
@@ -60,6 +62,14 @@ SIGNATURES = {
                             _F64, _P],
         "forces_warp_v2_bwd_rows": _K2_BWD,
         "forces_warp_v2_bwd_slab": _K2_BWD,
+        "moments_raw": [_P, _P, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _F64,
+                        _F64, _F64, _P],
+    },
+    "separable_kernels": {
+        "forces_sep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _I64, _I32, _I32,
+                       _I32, _F64, _F64, _P],
+        "forces_sep_bwd_rows": _SEP_BWD,
+        "forces_sep_bwd_slab": _SEP_BWD,
     },
 }
 

@@ -20,6 +20,14 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
   (launched by ``_forces_warp_bwd_impl``): dfT -> dfmT (19, m) =
   [dF_9 | dM_9 | 0] and dsrT (t, 15, slab); on the card two kernels, the
   row pass and the slab pass.
+* :func:`moments_raw` replaces ``_moments_kernel`` (launched by
+  ``_moments_fwd_impl`` from ``packed.moments_packed``) and the inner
+  kernel of ``_moments_fwd_manual`` (the same function, TPU-only manual
+  DMA): the raw, uncentered K1 dots ayT (18, m) of the blocked layout.
+  The caller subtracts pos_i * rs6 with rs6 from this same kernel on an
+  all-ones RHS (``sim/blocked.build_blocked_scene``), never with a host
+  row sum; its backward is :func:`moments_raw_bwd`.  K2 v2 and the raw K1
+  are also the blocked layout's pair kernels (``sim/blocked.py``).
 
 The JAX layouts fm (t, rows, 19) / sr (t, rows, 16) become lane-major
 (19, m) / (15, n_slots), the layouts of the v4 path, so srT is the v4
@@ -49,11 +57,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..sim.blocked import mid_rows
-from .pair_common import (SR_FIELDS, bucket_cols, centered_moments,
+from .pair_common import (SR_FIELDS, _no_tf32, bucket_cols, centered_moments,
                           check_lane_major, check_tiles, check_vector, entry,
-                          flat_entries, on, raise_on, raw_moments_bwd,
-                          spline_constants, stream, warp_nw, warp_termj,
-                          warp_termj_bwd)
+                          flat_entries, k1_lhs, on, raise_on, raw_moments_bwd,
+                          slab_slots, spline_constants, stream, tile_chunked,
+                          warp_nw, warp_termj, warp_termj_bwd)
 
 FM_FIELDS = 19     # rows of fmT: F_9 | M_9 | V_i
 SWEEPS = 8         # Jacobi sweeps of the polar (mat3.polar3's default)
@@ -114,6 +122,7 @@ def _svnw(restT_rows, static_slab, h):
     return [n.sum(dim=2).reshape(-1) for n in warp_nw(restT_rows, static_slab, h)]
 
 
+@tile_chunked(tile_args=(0, 1, 4), row_args=(2,))
 def forces_warp_v2_plain(restT_rows, static_slab, fmT, srT, gidx8, h):
     """Plain K2 v2: fT (3, t*rows), f_a = 0.5 V_i (termj_a +
     sum_b M_i[a][b] svnw_b) with termj the Warp pairing sum of
@@ -126,12 +135,26 @@ def forces_warp_v2_plain(restT_rows, static_slab, fmT, srT, gidx8, h):
         for a in range(3)])
 
 
+@tile_chunked(tile_args=(0, 1, 3), row_args=())
+def moments_raw_plain(restT_rows, static_slab, posT, gidx8, h):
+    """Plain raw K1 (``_moments_kernel``): the uncentered dots ayT
+    (18, t*rows), row 3 blk + a = sum_j lhs_blk pos_j[a] with lhs =
+    [-w m_j dx ; gfac V_j dx]; posT (3, n_slots)."""
+    _no_tf32()
+    t, _, rows = restT_rows.shape
+    pos_slab = posT[:, slab_slots(gidx8, static_slab.shape[2])]   # (3, t, slab)
+    lhs = k1_lhs(restT_rows, static_slab, h)                      # (t, 6, rows, slab)
+    return torch.einsum("ats,tbrs->batr", pos_slab, lhs).reshape(18, t * rows)
+
+
+@tile_chunked(tile_args=(0, 1), row_args=(2,))
 def moments_raw_bwd_plain(restT_rows, static_slab, dayT, h):
     """Plain K1 raw backward (``_moments_bwd_kernel``): dayT (18, t*rows) ->
     dpsT (t, 3, slab) (:func:`~.pair_common.raw_moments_bwd`)."""
     return raw_moments_bwd(restT_rows, static_slab, dayT, h)
 
 
+@tile_chunked(tile_args=(0, 1, 4), row_args=(2, 5))
 def forces_warp_v2_bwd_plain(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
     """Plain K2 v2 backward (``_forces_warp_bwd_kernel_v2``): dfT (3, t*rows)
     -> dfmT (19, t*rows) = [dF_9 | dM_9 | 0] and dsrT (t, 15, slab).  With
@@ -202,6 +225,23 @@ def _launch_forces_v2(restT_rows, static_slab, fmT, srT, gidx8, h):
         t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v2")
     forces_warp_v2.launches += 1
+    return out
+
+
+def _launch_moments_raw(restT_rows, static_slab, posT, gidx8, h):
+    device, dtype = restT_rows.device, restT_rows.dtype
+    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
+    check_lane_major("posT", posT, dtype, device, 3)
+    out = torch.empty((18, t * rows), dtype=dtype, device=device)
+    if t == 0:
+        return out
+    inv_h, c4, c4h = spline_constants(h, dtype)
+    rc = entry("fused_kernels", "moments_raw", dtype)(
+        restT_rows.data_ptr(), static_slab.data_ptr(), posT.data_ptr(),
+        posT.stride(0), gidx8.data_ptr(), out.data_ptr(), out.stride(0),
+        t, slab, slab // gidx8.shape[1], inv_h, c4, c4h, stream())
+    raise_on(rc, "moments_raw")
+    moments_raw.launches += 1
     return out
 
 
@@ -277,6 +317,13 @@ def forces_warp_v2(restT_rows, static_slab, fmT, srT, gidx8, h):
     return fn(restT_rows, static_slab, fmT, srT, gidx8, h)
 
 
+def moments_raw(restT_rows, static_slab, posT, gidx8, h):
+    """Raw K1 of one bucket: the uncentered dots ayT (18, t*rows); see
+    :func:`moments_raw_plain`."""
+    fn = on("moments_raw", posT, moments_raw_plain, _launch_moments_raw)
+    return fn(restT_rows, static_slab, posT, gidx8, h)
+
+
 def moments_raw_bwd(restT_rows, static_slab, dayT, h):
     """K1 raw backward of one bucket: dpsT (t, 3, slab); see
     :func:`moments_raw_bwd_plain`."""
@@ -309,7 +356,7 @@ def forces_warp_v2_bwd(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
 
 
 COUNTED = (moments_mid, forces_warp_v2, moments_raw_bwd, forces_warp_v2_bwd_rows,
-           forces_warp_v2_bwd_slab)
+           forces_warp_v2_bwd_slab, moments_raw)
 
 
 # ------------------------------------------------------- differentiable ops
@@ -363,6 +410,32 @@ class _MomentsMid(torch.autograd.Function):
         return dposT, dprow, dscale, None, None, None, None, None
 
 
+class _MomentsRaw(torch.autograd.Function):
+    """Raw K1 over every bucket: posT (3, n_slots) -> the uncentered dots
+    ayT (18, m).  The rows' own positions enter only through the caller's
+    - pos_i * rs6 correction, so the backward is the slab side alone: the
+    raw K1 backward per bucket, then one ``slab_to_slots`` (the JAX VJP of
+    ``packed.moments_packed``, packed.py:283-309)."""
+
+    @staticmethod
+    def forward(ctx, posT, sb, h, ops):
+        ctx.sb, ctx.h, ctx.ops = sb, h, ops
+        return torch.cat([ops.moments_raw(b.restT_rows, b.static_slab, posT,
+                                          b.gidx8, h) for b in sb.buckets], dim=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dayT):
+        sb, ops = ctx.sb, ctx.ops
+        dayT = dayT.contiguous()
+        dps = [ops.moments_raw_bwd(b.restT_rows, b.static_slab,
+                                   dayT[:, bucket_cols(b, sb.rows)], ctx.h)
+               for b in sb.buckets]
+        dposT = ops.to_slots(flat_entries(dps, 3), sb.slab_ptr, sb.slab_idx,
+                             sb.n_slots, sb.group)
+        return dposT, None, None, None
+
+
 class _ForcesWarpV2(torch.autograd.Function):
     """K2 v2 over every bucket: (fmT (19, m), srT (15, n_slots)) -> fT (3, m)."""
 
@@ -399,6 +472,13 @@ def moments_mid_all(posT, posT_rows, scale, sb, rs: RowStatic, h, corotated, ops
     mid-section from the saved A | Y under autograd, then runs the raw K1
     backward per bucket and one ``slab_to_slots``."""
     return _MomentsMid.apply(posT, posT_rows, scale, sb, rs, h, corotated, ops)
+
+
+def moments_raw_all(posT, sb, h, ops):
+    """Differentiable raw K1 over every bucket of ``sb``: ayT (18, m), the
+    uncentered dots.  Its backward runs the raw K1 backward per bucket,
+    then one ``slab_to_slots``."""
+    return _MomentsRaw.apply(posT, sb, h, ops)
 
 
 def forces_v2_all(fmT, srT, sb, h, ops):

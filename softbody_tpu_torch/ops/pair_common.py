@@ -23,6 +23,7 @@ measured to destabilise the episode on the TPU (pair_kernels.py:191-242).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -108,6 +109,50 @@ def flat_entries(parts, k):
     """(t_b, k, slab_b) per bucket -> the (k, sum_b t_b slab_b) buffer of
     per-slab-entry values that ``slab_to_slots`` reads."""
     return torch.cat([p.permute(1, 0, 2).reshape(k, -1) for p in parts], dim=1)
+
+
+# A plain version materialises (rows, slab) per tile and per intermediate;
+# over a whole blocked-layout scene (288 M pairs at ~112k) that is tens of
+# GB, so it runs over chunks of tiles of at most this many pairs.  Every
+# sparse bucket at ~112k holds fewer (at most 28.8 M), so it runs whole.
+PLAIN_PAIRS = 1 << 25
+
+
+def tile_chunked(tile_args, row_args):
+    """Decorate a plain version ``fn(restT_rows, static_slab, ...)`` to run
+    over chunks of tiles of at most :data:`PLAIN_PAIRS` pairs.  The
+    arguments at ``tile_args`` are tile-major (first axis t), those at
+    ``row_args`` lane-major over the tile rows (last axis t*rows); the rest
+    pass whole.  Outputs (or each of a tuple of them) join by kind: 2-D
+    lane-major ones along their last axis, 3-D per-tile ones along their
+    first; None stays None.  Per tile the arithmetic is the same."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            t, _, rows = args[0].shape
+            per = max(1, PLAIN_PAIRS // max(1, rows * args[1].shape[2]))
+            if t <= per:
+                return fn(*args)
+            outs = []
+            for a in range(0, t, per):
+                b = min(a + per, t)
+                sub = list(args)
+                for i in tile_args:
+                    sub[i] = args[i][a:b]
+                for i in row_args:
+                    sub[i] = args[i][..., a * rows:b * rows]
+                outs.append(fn(*sub))
+
+            def join(parts):
+                if parts[0] is None:
+                    return None
+                return torch.cat(parts, dim=1 if parts[0].dim() == 2 else 0)
+
+            if isinstance(outs[0], tuple):
+                return tuple(join(list(p)) for p in zip(*outs))
+            return join(outs)
+        return run
+    return deco
 
 
 # ------------------------------------------------------------ plain pair sums

@@ -34,11 +34,12 @@ buckets of a scene: one ``torch.autograd.Function`` each, whose forward and
 backward go through a :class:`PairOps` — :data:`KERNELS` (the wrappers:
 plain on the CPU, kernels on the card) or :data:`PLAIN` (the plain versions
 on any device, the yardstick the kernels are held against on the card).
-The two tables also carry the fused path's functions
-(``ops/fused_kernels.py``), and :func:`launch_counts` counts both paths'
-kernels.  The kernels read their slab operands themselves through
-``gidx8`` (slot = gidx8[tile, g] * group + k), so the (t, 3, slab) /
-(t, 16, slab) gathered copies the TPU path materialised
+The two tables also carry the fused path's functions and the blocked
+layout's raw K1 (``ops/fused_kernels.py``) and the Taichi pairing's
+separable K2 (``ops/separable_kernels.py``), and :func:`launch_counts`
+counts every path's kernels.  The kernels read their slab operands
+themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
+(t, 3, slab) / (t, 16, slab) gathered copies the TPU path materialised
 (``packed.gather_packed_T``) do not exist here.
 """
 
@@ -51,6 +52,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import fused_kernels as fk
+from . import separable_kernels as sk
 from .pair_common import (SR_FIELDS, bucket_cols, centered_moments, check,
                           check_lane_major, check_tiles, entry, flat_entries,
                           on, raise_on, raw_moments_bwd, spline_constants,
@@ -95,7 +97,7 @@ def forces_warp_v4_bwd_plain(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
 
 
 # --------------------------------------------------- fixed-order scatter-reduce
-def slab_inverse(gidx8s, n_slots: int, group: int):
+def slab_inverse(gidx8s, n_slots: int, group: int, real):
     """CSR inverse of the buckets' candidate groups (host, numpy).
 
     The per-slab-entry buffers of all buckets lie end to end, bucket-major
@@ -105,20 +107,23 @@ def slab_inverse(gidx8s, n_slots: int, group: int):
     slab_idx (int32)): the positions p that read slot group k are
     slab_idx[slab_ptr[k]:slab_ptr[k + 1]], ascending.
 
-    The last group is the layout's all-empty group (topology/sparse.py):
-    every slab pads with it, and its slots sit on the far grid with zero
-    mass and volume, so every pair term with them is exactly zero and so is
-    their cotangent.  Its readers are left out: they are every slab's
-    padding (7,144 of the 52,608 group entries at 20k particles, against at
-    most 26 for any other group), and walking them would serialize the
-    scatter."""
+    Only the readers of groups that hold a real particle are kept.  Every
+    other slot sits on the far grid with zero mass and volume, so every
+    pair term with it is exactly zero and so is its cotangent: the scatter
+    writes 0 there.  Those groups are what every slab pads with: the sparse
+    layout's all-empty last group (7,144 of the 52,608 group entries at 20k
+    particles, against at most 26 for any other group) and a blocked
+    layout's empty run, which every absent neighbour column points at, and
+    its column padding; walking their readers would serialize the scatter.
+    ``real`` (n_slots,) marks the particle slots."""
     if n_slots % group:
         raise ValueError(f"n_slots={n_slots} is not a multiple of group={group}")
     n_groups = n_slots // group
     flat = np.concatenate([np.asarray(g, np.int64).reshape(-1) for g in gidx8s])
     if flat.size and (flat.min() < 0 or flat.max() >= n_groups):
         raise ValueError("gidx8 names a group outside the scene")
-    keep = flat < n_groups - 1
+    live = np.asarray(real, bool).reshape(n_groups, group).any(axis=1)
+    keep = live[flat]
     order = np.flatnonzero(keep)[np.argsort(flat[keep], kind="stable")]
     ptr = np.zeros(n_groups + 1, np.int64)
     np.cumsum(np.bincount(flat[keep], minlength=n_groups), out=ptr[1:])
@@ -331,7 +336,7 @@ def slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
 
 
 COUNTED = (moments_v4, forces_warp_v4, moments_v4_bwd, forces_warp_v4_bwd_rows,
-           forces_warp_v4_bwd_slab, slab_to_slots) + fk.COUNTED
+           forces_warp_v4_bwd_slab, slab_to_slots) + fk.COUNTED + sk.COUNTED
 
 
 def reset_launch_counts():
@@ -340,7 +345,7 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}, both paths' kernels."""
+    """{kernel name: launches since the last reset}, every path's kernels."""
     return {fn.__name__: fn.launches for fn in COUNTED}
 
 
@@ -350,9 +355,11 @@ reset_launch_counts()
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
     """The per-bucket pair functions an evaluation goes through, of the v4
-    path and of the fused path (``ops/fused_kernels.py``): :data:`KERNELS`
-    (device dispatch) or :data:`PLAIN` (the plain versions on any device,
-    the yardstick the kernels are held against on the card)."""
+    path, the fused path and the blocked layout's raw K1
+    (``ops/fused_kernels.py``) and the Taichi pairing's separable K2
+    (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
+    :data:`PLAIN` (the plain versions on any device, the yardstick the
+    kernels are held against on the card)."""
 
     moments: Callable
     forces: Callable
@@ -363,15 +370,20 @@ class PairOps(NamedTuple):
     forces_v2: Callable
     moments_raw_bwd: Callable
     forces_v2_bwd: Callable
+    moments_raw: Callable
+    forces_sep: Callable
+    forces_sep_bwd: Callable
 
 
 KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
                   forces_warp_v4_bwd, slab_to_slots, fk.moments_mid,
-                  fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd)
+                  fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd,
+                  fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd)
 PLAIN = PairOps(moments_v4_plain, forces_warp_v4_plain, moments_v4_bwd_plain,
                 forces_warp_v4_bwd_plain, slab_to_slots_plain,
                 fk.moments_mid_plain, fk.forces_warp_v2_plain,
-                fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_plain)
+                fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_plain,
+                fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
 
 
 class _MomentsV4(torch.autograd.Function):

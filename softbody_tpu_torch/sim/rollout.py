@@ -30,11 +30,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import SimConfig, resolve_device
-from ..core.types import Materials, ParticleState, Scene
+from ..core.types import Blocked, Materials, ParticleState, Scene
 from ..ops.collision import ground_penalty
 from ..ops.elasticity import compute_ratio
 from ..ops.pair_kernels import KERNELS, PairOps
-from .sparse import elastic_forces_sparse
+from .blocked import elastic_forces_blocked, elastic_forces_pallas
+
+
+def elastic_forces(pos, ratio, scene: Scene, cfg: SimConfig,
+                   pair_ops: PairOps = KERNELS):
+    """Backend dispatch of the elastic-force evaluation
+    (``softbody_tpu/sim/rollout.py:29-42``): ``"pallas"`` runs the pair
+    kernels on a sparse or a blocked scene, ``"blocked"`` the plain torch
+    reference on a blocked scene (``pair_ops`` unused)."""
+    if cfg.backend == "pallas":
+        return elastic_forces_pallas(pos, ratio, scene.materials, scene, cfg,
+                                     pair_ops)
+    if cfg.backend == "blocked":
+        if not isinstance(scene.blocked, Blocked):
+            raise ValueError('backend="blocked" needs a scene from build_blocked_scene')
+        return elastic_forces_blocked(pos, ratio, scene.materials, scene, cfg)
+    if cfg.backend == "gather":
+        raise NotImplementedError(
+            'backend="gather" (the (N, K) neighbour-table forces) is not '
+            "ported yet: ROADMAP queue 1, item 6")
+    raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
 def total_force(pos, vel, f_el, mats: Materials, cfg: SimConfig,
@@ -65,7 +85,7 @@ def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
     pos, vel, f_el = state
 
     def el(p):
-        return elastic_forces_sparse(p, ratio, mats, scene, cfg, pair_ops)
+        return elastic_forces(p, ratio, scene, cfg, pair_ops)
 
     if cfg.integrator == "trapezoidal":
         force1 = total_force(pos, vel, f_el, mats, cfg, scene)
@@ -90,8 +110,7 @@ def initial_state(scene: Scene, ratio, cfg: SimConfig,
     vel = torch.tensor(cfg.initial_velocity, dtype=pos.dtype,
                        device=pos.device).expand_as(pos).contiguous()
     if cfg.integrator == "trapezoidal":
-        f_el = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg,
-                                     pair_ops)
+        f_el = elastic_forces(pos, ratio, scene, cfg, pair_ops)
     else:
         f_el = torch.zeros_like(pos)
     return ParticleState(pos, vel, f_el)

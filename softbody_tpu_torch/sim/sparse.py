@@ -10,8 +10,16 @@ Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
     -> [forces_all: K2 forces_warp_v4 per bucket] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
-With ``cfg.fused_mid`` the mid-section moves into the K1 kernel
-(``ops/fused_kernels.py``):
+With the Taichi pairing (``pair_def_grad="j"``) the mid-section also forms
+G = V M per slot and the separable K2 (``ops/separable_kernels.py``)
+applies term_i and the 0.5 V_i scale itself:
+
+  ayT -> mid-section -> gT (9, n_slots) = G, row 3a+b
+    -> [forces_sep_all: K2 forces_sep per bucket] -> fT (3, m)
+
+With ``cfg.fused_mid`` (Warp pairing only: with ``"j"`` it runs the
+``"j"`` branch above, as the JAX package does) the mid-section moves into
+the K1 kernel (``ops/fused_kernels.py``):
 
   posT -> [moments_mid_all: fused K1 + mid-section per bucket]
     -> fmT (19, m) = [F_9 | M_9 | V_i], srT (15, n_slots)
@@ -34,22 +42,15 @@ import torch
 
 from ..config import SimConfig, resolve_device, torch_dtype
 from ..core.types import DevBucket, Materials, Scene, SparseBlocked
+from ..ops.blocked import far_grid
 from ..ops.fused_kernels import forces_v2_all, moments_mid_all, row_static
 from ..ops.pair_kernels import (KERNELS, PairOps, forces_all, moments_all,
                                 slab_inverse)
+from ..ops.separable_kernels import forces_sep_all
 from ..topology.neighbors import rest_density_and_corr
 from ..topology.sparse import GROUP, build_sparse_layout
 from .blocked import mid_section
 from .scene import lame_parameters
-
-
-def far_grid(n: int, start: float, spacing: float) -> np.ndarray:
-    """n unique positions, pairwise >= spacing apart, far from the body
-    (rest positions of empty slots, so every pair term with them vanishes)."""
-    k = int(np.ceil(n ** (1.0 / 3.0))) + 1
-    ax = np.arange(k, dtype=np.float64) * spacing
-    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1).reshape(-1, 3)
-    return g[:n] + start
 
 
 def build_sparse_scene(
@@ -135,7 +136,7 @@ def build_sparse_scene(
             slab_len=int(sl.shape[1]),
         ))
 
-    ptr, idx = slab_inverse([b.group_ids for b in layout.buckets], ns, gsz)
+    ptr, idx = slab_inverse([b.group_ids for b in layout.buckets], ns, gsz, real)
     sb = SparseBlocked(buckets=tuple(buckets), rs6T=dev(rs6.T), rows=rows,
                        n_tiles=n_tiles, n_slots=ns, group=gsz,
                        slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32))
@@ -154,13 +155,8 @@ def build_sparse_scene(
     return scene, sop
 
 
-def _unsupported(cfg: SimConfig):
-    # with pair_def_grad="j" the JAX package's fused_mid falls back to the
-    # "j" branch, so fused_mid does not lift this refusal
-    if cfg.pair_def_grad != "i":
-        raise NotImplementedError(
-            'pair_def_grad="j" (Taichi separable forces) is not ported yet: '
-            "ROADMAP queue 1, item 6")
+def unsupported(cfg: SimConfig):
+    """Raise for the options the port does not run yet."""
     if cfg.pair_dtype == "bfloat16":
         raise NotImplementedError(
             'pair_dtype="bfloat16" is not ported yet: ROADMAP queue 1, item 8')
@@ -169,18 +165,19 @@ def _unsupported(cfg: SimConfig):
 def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
                           scene: Scene, cfg: SimConfig,
                           pair_ops: PairOps = KERNELS):
-    """Elastic forces (n_slots, 3) of the sparse scene, Warp pairing;
-    ``cfg.fused_mid`` takes the fused path (:func:`_fused_forces`).
+    """Elastic forces (n_slots, 3) of the sparse scene: Warp pairing, the
+    Taichi pairing with ``pair_def_grad="j"``; ``cfg.fused_mid`` with the
+    Warp pairing takes the fused path (:func:`_fused_forces`).
 
     ``pair_ops``: :data:`~softbody_tpu_torch.ops.pair_kernels.KERNELS`
     (default: the CUDA kernels on the card, the plain versions on the CPU)
     or ``PLAIN`` (the plain versions on any device — the card-side
     yardstick)."""
-    _unsupported(cfg)
+    unsupported(cfg)
     sb: SparseBlocked = scene.blocked
     m = sb.n_tiles * sb.rows
     posT = pos_slots.T.contiguous()                            # (3, n_slots)
-    if cfg.fused_mid:
+    if cfg.fused_mid and cfg.pair_def_grad == "i":
         return _fused_forces(pos_slots, posT, ratio_slots, mats, scene, cfg,
                              pair_ops)
 
@@ -189,6 +186,8 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
     Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
     R, F, S, M, vol_m = mid_section(A, Y, ratio_slots, mats, scene, cfg, m)
+    if cfg.pair_def_grad == "j":
+        return separable_forces(pos_slots, M, vol_m, sb, cfg, pair_ops)
 
     f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])  # (9, m)
     srT = torch.zeros((15, sb.n_slots), dtype=pos_slots.dtype,
@@ -205,6 +204,27 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     ]
     out = torch.zeros_like(pos_slots)
     out[:m] = torch.stack(f_comp, dim=1)
+    return out
+
+
+def slot_rows(comps, n_slots: int):
+    """Component list of (m,) tensors -> (k, n_slots) lane-major, zero past
+    the tile rows."""
+    rows = torch.stack(comps)
+    pad = rows.new_zeros((rows.shape[0], n_slots - rows.shape[1]))
+    return torch.cat([rows, pad], dim=1)
+
+
+def separable_forces(pos_slots, M, vol_m, sb, cfg: SimConfig, pair_ops: PairOps):
+    """The Taichi pairing's K2 (``softbody_tpu/sim/sparse.py:398-406``):
+    from M (component lists) and vol_m (m,) to the forces (n_slots, 3)
+    through the separable kernel on G = V M, term_i and the 0.5 V_i scale
+    in the kernel.  Shared with the blocked layout
+    (``sim/blocked.elastic_forces_pallas``)."""
+    gT = slot_rows([vol_m * M[a][b] for a in range(3) for b in range(3)], sb.n_slots)
+    fT = forces_sep_all(gT, vol_m, sb, cfg.h, pair_ops)        # (3, m)
+    out = torch.zeros_like(pos_slots)
+    out[:fT.shape[1]] = fT.T
     return out
 
 

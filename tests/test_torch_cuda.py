@@ -6,8 +6,9 @@ with only the port's dependencies:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
-full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward) and
-14-19 (the fused path, ``cfg.fused_mid``)."""
+full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
+14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
+separable K2) and 25-28 (the blocked layout's raw K1)."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,10 @@ from softbody_tpu_torch import warp_parity
 from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
 from softbody_tpu_torch.ops import fused_kernels as fk
 from softbody_tpu_torch.ops import pair_kernels as pk
+from softbody_tpu_torch.ops import separable_kernels as sk
 from softbody_tpu_torch.ops.elasticity import compute_ratio
 from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask
+from softbody_tpu_torch.sim.blocked import build_blocked_scene, elastic_forces_pallas
 from softbody_tpu_torch.sim.rollout import rollout, value_and_grad_fn
 from softbody_tpu_torch.sim.sparse import build_sparse_scene, elastic_forces_sparse
 
@@ -33,13 +36,13 @@ def _card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _scene(dtype, dev):
+def _scene(dtype, dev, blocked=False):
     pts, out_num = inflatable_sphere(n_outer=600)
-    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype=dtype,
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype=dtype, backend="pallas",
                                 frames=20, target_frames=2, **STRETCH)
-    scene, sop = build_sparse_scene(pts, cfg, out_num=out_num,
-                                    dirichlet_mask=dirichlet_mask(pts, "stretch"),
-                                    device=dev)
+    build = build_blocked_scene if blocked else build_sparse_scene
+    scene, sop = build(pts, cfg, out_num=out_num,
+                       dirichlet_mask=dirichlet_mask(pts, "stretch"), device=dev)
     rng = np.random.default_rng(0)
     pos = scene.rest_position.clone()
     noise = rng.normal(scale=0.05 * cfg.h, size=(len(pts), 3))
@@ -160,12 +163,13 @@ def test_backward_kernels_match_plain_per_bucket(dtype):
         "forces_warp_v4_bwd_slab": n, "slab_to_slots": 1}
 
 
-def _episode_grad(dtype, dev, pair_ops, fused=False):
+def _episode_grad(dtype, dev, pair_ops, fused=False, pair_def_grad="i",
+                  blocked=False):
     # targets: the rest body jittered; 40 steps, so that the clamped body
     # strains enough for x to move the loss well above its roundings (after
     # 8 steps F - I ~ 1e-9 and two summation orders differ by ~2e-9 of g)
-    cfg, scene, pos, _ = _scene(dtype, dev)
-    cfg = cfg.replace(fused_mid=fused)
+    cfg, scene, pos, _ = _scene(dtype, dev, blocked)
+    cfg = cfg.replace(fused_mid=fused, pair_def_grad=pair_def_grad)
     sop = scene.slot_of_particle
     rng = np.random.default_rng(4)
     tp = scene.rest_position.repeat(2, 1, 1)
@@ -193,9 +197,9 @@ def test_episode_gradient_is_bitwise_repeatable():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    fused = {fn.__name__ for fn in fk.COUNTED}
-    assert all(v > 0 for k, v in counts.items() if k not in fused), counts
-    assert not any(counts[k] for k in fused), counts
+    others = {fn.__name__ for fn in fk.COUNTED + sk.COUNTED}
+    assert all(v > 0 for k, v in counts.items() if k not in others), counts
+    assert all(counts[k] == 0 for k in others), counts
 
 
 def test_backward_kernels_refuse_bad_operands():
@@ -315,5 +319,99 @@ def test_fused_episode_gradient_matches_plain_f64_and_repeats():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS, fused=True)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    assert all(counts[fn.__name__] > 0 for fn in fk.COUNTED), counts
-    assert counts["moments_v4"] == counts["forces_warp_v4"] == 0
+    fused = [fn for fn in fk.COUNTED if fn is not fk.moments_raw]
+    assert all(counts[fn.__name__] > 0 for fn in fused), counts
+    assert counts["moments_v4"] == counts["forces_warp_v4"] == counts["moments_raw"] == 0
+
+
+# ------------------------------------------------ Taichi pairing, blocked layout
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_separable_kernels_match_plain_per_bucket(dtype):
+    dev = _card()
+    cfg, scene, pos, _ = _scene(dtype, dev)
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(8)
+    gT = torch.as_tensor(rng.normal(size=(9, sb.n_slots)), dtype=pos.dtype, device=dev)
+    gT[:, m:] = 0
+    dfT = torch.as_tensor(rng.normal(size=(3, m)), dtype=pos.dtype, device=dev)
+    vol = scene.materials.volume[:m]
+    pk.reset_launch_counts()
+    for b in sb.buckets:
+        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
+        fa = (b.restT_rows, b.static_slab, gT[:, c], gT, vol[c], b.gidx8, cfg.h)
+        ba = (b.restT_rows, b.static_slab, vol[c], dfT[:, c], cfg.h)
+        assert _rel(sk.forces_sep(*fa), sk.forces_sep_plain(*fa)) <= TOL[dtype]
+        rows, slab = sk.forces_sep_bwd(*ba)
+        rows_p, slab_p = sk.forces_sep_bwd_plain(*ba)
+        assert _rel(rows, rows_p) <= TOL[dtype]
+        assert _rel(slab, slab_p) <= TOL[dtype]
+    counts = pk.launch_counts()
+    assert counts["forces_sep"] == counts["forces_sep_bwd_rows"] == \
+        counts["forces_sep_bwd_slab"] == len(sb.buckets)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_moments_raw_and_blocked_forces_match_plain(dtype):
+    """The raw K1 per launch on a blocked scene, then one path-B force
+    evaluation and its VJP for both pairings, kernel path vs plain path;
+    bitwise repeatable."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked=True)
+    blk = scene.blocked
+    b = blk.bucket
+    posT = pos.T.contiguous()
+    pk.reset_launch_counts()
+    raw = fk.moments_raw(b.restT_rows, b.static_slab, posT, b.gidx8, cfg.h)
+    assert _rel(raw, fk.moments_raw_plain(b.restT_rows, b.static_slab, posT, b.gidx8,
+                                          cfg.h)) <= TOL[dtype]
+    assert pk.launch_counts()["moments_raw"] == 1
+    tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
+    ct = torch.as_tensor(np.random.default_rng(9).normal(size=tuple(pos.shape)),
+                         dtype=pos.dtype, device=dev)
+    for pdg in ("i", "j"):
+        c = cfg.replace(pair_def_grad=pdg)
+
+        def run(ops):
+            p = pos.clone().requires_grad_()
+            f = elastic_forces_pallas(p, ratio, scene.materials, scene, c, ops)
+            return f, torch.autograd.grad(f, p, ct)[0]
+
+        (f1, g1), (f2, g2), (fp, gp) = [
+            (f.detach(), g) for f, g in (run(pk.KERNELS), run(pk.KERNELS), run(pk.PLAIN))]
+        assert torch.equal(f1, f2) and torch.equal(g1, g2)
+        assert _rel(f1, fp) <= tol and _rel(g1, gp) <= tol
+
+
+def test_separable_and_raw_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, _ = _scene("float32", dev)
+    sb = scene.blocked
+    b = sb.buckets[0]
+    mb = b.n_tiles * sb.rows
+    gT = torch.zeros((9, sb.n_slots), device=dev)
+    vol = scene.materials.volume[:mb]
+    with pytest.raises(ValueError, match="9"):
+        sk.forces_sep(b.restT_rows, b.static_slab, gT[:8, :mb], gT, vol, b.gidx8, cfg.h)
+    with pytest.raises(ValueError, match="vol_rows"):
+        sk.forces_sep_bwd_rows(b.restT_rows, b.static_slab, vol[:-1],
+                               torch.zeros((3, mb), device=dev), cfg.h)
+    with pytest.raises(TypeError, match="dtype"):
+        fk.moments_raw(b.restT_rows, b.static_slab, pos.T.contiguous().double(),
+                       b.gidx8, cfg.h)
+
+
+@pytest.mark.parametrize("path", ["taichi_sparse", "blocked_warp", "blocked_taichi"])
+def test_new_paths_episode_gradient_matches_plain_f64_and_repeats(path):
+    dev = _card()
+    kw = {"taichi_sparse": dict(pair_def_grad="j"),
+          "blocked_warp": dict(blocked=True),
+          "blocked_taichi": dict(blocked=True, pair_def_grad="j")}[path]
+    loss_k, g_k = _episode_grad("float64", dev, pk.KERNELS, **kw)
+    loss_p, g_p = _episode_grad("float64", dev, pk.PLAIN, **kw)
+    assert loss_p > 0 and float(torch.max(torch.abs(g_p))) > 0
+    assert abs(loss_k - loss_p) <= 1e-10 * loss_p
+    assert _rel(g_k, g_p) <= 1e-10
+    loss1, g1 = _episode_grad("float32", dev, pk.KERNELS, **kw)
+    loss2, g2 = _episode_grad("float32", dev, pk.KERNELS, **kw)
+    assert loss1 == loss2 and torch.equal(g1, g2)

@@ -191,7 +191,8 @@ def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(case):
                          fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], cfg.h)):
         assert torch.equal(got, want)
     assert fk_counts == {"moments_mid", "forces_warp_v2", "moments_raw_bwd",
-                         "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab"}
+                         "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab",
+                         "moments_raw"}
     assert all(fn.launches == 0 for fn in fk.COUNTED)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fk.forces_warp_v2(*a[:3], srT.to("meta"), a[4], cfg.h)

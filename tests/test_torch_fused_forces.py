@@ -120,7 +120,7 @@ def test_fused_path_goes_through_the_fused_ops(setup, monkeypatch):
         assert set(seen) == want
 
 
-@pytest.mark.parametrize("override", [{"pair_def_grad": "j"},
+@pytest.mark.parametrize("override", [{"pair_def_grad": "j", "pair_dtype": "bfloat16"},
                                       {"pair_dtype": "bfloat16"}])
 def test_fused_path_keeps_the_unported_refusals(setup, override):
     cfg, _, scene_t, pos, x, _ = setup

@@ -112,7 +112,8 @@ def test_plain_backward_matches_autograd_of_plain_forward(case):
     for b in sb.buckets:
         cols, (day_b, df_b, f9_b) = _bucket_args(scene_t, b, (day, df, f9))
         inv = [torch.as_tensor(a) for a in
-               pk.slab_inverse([b.gidx8.numpy()], sb.n_slots, sb.group)]
+               pk.slab_inverse([b.gidx8.numpy()], sb.n_slots, sb.group,
+                               np.arange(sb.n_slots) < sb.n_slots - sb.group)]
         posT = _t(pos.T).requires_grad_()
         prow = _t(pos.T)[:, cols].requires_grad_()
         ay = pk.moments_v4_plain(b.restT_rows, b.static_slab, posT, prow,
@@ -170,13 +171,13 @@ def test_csr_scatter_matches_numpy_add_at(case):
 
 def test_slab_inverse_refuses_bad_layouts():
     g = np.array([[0, 3, 2], [1, 2, 3]], np.int32)   # group 3: the padding
-    ptr, idx = pk.slab_inverse([g], n_slots=32, group=8)
+    ptr, idx = pk.slab_inverse([g], 32, 8, np.arange(32) < 24)
     np.testing.assert_array_equal(ptr, [0, 1, 2, 4, 4])
     np.testing.assert_array_equal(idx, [0, 3, 2, 4])
     with pytest.raises(ValueError, match="multiple"):
-        pk.slab_inverse([g], n_slots=20, group=8)
+        pk.slab_inverse([g], 20, 8, np.ones(20, bool))
     with pytest.raises(ValueError, match="outside"):
-        pk.slab_inverse([g], n_slots=24, group=8)
+        pk.slab_inverse([g], 24, 8, np.ones(24, bool))
 
 
 @pytest.mark.parametrize("op", ["moments_all", "forces_all"])

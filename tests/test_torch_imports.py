@@ -27,7 +27,9 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 for name in ("softbody_tpu_torch.utils.checkpoint",
-             "softbody_tpu_torch.inverse_design", "softbody_tpu_torch.opt.driver"):
+             "softbody_tpu_torch.inverse_design", "softbody_tpu_torch.opt.driver",
+             "softbody_tpu_torch.ops.separable_kernels", "softbody_tpu_torch.ops.blocked",
+             "softbody_tpu_torch.topology.blocks", "softbody_tpu_torch.sim.blocked"):
     assert name in mods, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -58,6 +60,8 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_sparse_scene(pts, cfg, out_num=out_num)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        softbody_tpu_torch.build_blocked_scene(pts, cfg, out_num=out_num)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rollout(x, scene, cfg, n_steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
