@@ -7,10 +7,12 @@ top-15% Dirichlet clamp, f32) — and holds every hand-written kernel on that
 path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
-  2  kernel build (nvcc, from csrc/ in this checkout)
-  3  per bucket: K1 moments_v4 and K2 forces_warp_v4, kernel vs plain on the
-     card (max error relative to max |plain| <= 1e-4), ms per launch,
-     the work's bound
+  2  kernel build (nvcc, from csrc/ in this checkout); the two ragged
+     kernels' registers, shared memory, spills and resident blocks per SM
+  3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
+     every bucket: each bucket's columns vs that bucket's plain version on
+     the card (max error relative to max |plain| <= 1e-4), a bitwise
+     repeat, ms per evaluation, the work's bound
   4  one elastic_forces_sparse call, kernel path vs plain path (<= 1e-4)
   5  the forward episode: generate_targets (x*, 3000 steps, 100 frames) and
      the sampled loss of x = 0 against those targets; ms/step and
@@ -19,6 +21,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      max |dpos| <= 1e-3 max |pos - rest|
   7  quiet body: no load, x = 0, 3000 steps, rms drift from rest < 1e-6 m
   8  the launch counts of phase 5 against the launches the path implies
+     (K1 and K2: one per force evaluation)
      (phases 5-7 run fewer steps when they would exceed TIME_BUDGET_S;
      the cut is printed)
   9  per bucket: the K1 backward and the two K2 backward passes, each
@@ -99,7 +102,8 @@ JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; ms per force
-evaluation: the sparse scene's buckets, the raw K1 on the varcol scene),
+evaluation: one launch for K1 and K2 v4, the sum over the sparse scene's
+buckets for the other kernels, the raw K1 on the varcol scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -129,7 +133,7 @@ NEW_PREFIX_STEPS = 30      # the same for the new paths' phases 24 and 28 (10 fr
 EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-FLOPS_PER_PAIR = {"moments_v4": 78, "forces_warp_v4": 75,   # as the kernels do them
+FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do them
                   "moments_v4_bwd": 72, "forces_warp_v4_bwd_rows": 75,
                   "forces_warp_v4_bwd_slab": 123,
                   "moments_mid": 78, "forces_warp_v2": 78, "moments_raw_bwd": 72,
@@ -266,6 +270,12 @@ def main():
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"    ptxas {source}: {line.strip()}")
+    for (key, dt), a in pk.ragged_info().items():
+        warps = a["threads"] // 32 * a["blocks_per_sm"]
+        say(f"    {key} {dt}: {a['registers']} registers, {a['local_bytes']} B local "
+            f"(stack and spills), {a['static_smem']} B static + {a['dynamic_smem']} B "
+            f"dynamic shared memory per block of {a['threads']} threads, "
+            f"{a['blocks_per_sm']} blocks ({warps} of 64 warps) resident per SM")
 
     # ---- scene
     t0 = time.perf_counter()
@@ -316,36 +326,54 @@ def main():
     srT[:, :m] = torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
                              + [R[a][c] for c in range(3) for a in range(3)])
 
-    # ---- 3 kernel vs plain, per bucket
-    say(f"[3] per bucket, kernel vs plain on the card {tag}")
+    # ---- 3 the two ragged kernels: one launch per evaluation, each bucket's
+    # columns held against that bucket's plain version
+    say(f"[3] K1 and K2, one launch each over all {sb.n_tiles} tiles, kernel vs plain "
+        f"per bucket on the card {tag}")
     stats = {k: {"ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
                  "max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None}
              for k in list(FLOPS_PER_PAIR) + ["slab_to_slots"]}
     f32 = 4
+    k1 = pk.moments_v4(sb, posT, posT[:, :m], cfg.h)
+    k2 = pk.forces_warp_v4(sb, f9T, srT, cfg.h)
+    torch.cuda.synchronize()
     for i, b in enumerate(sb.buckets):
-        t, slab = b.n_tiles, b.slab_len
-        mb = t * sb.rows
-        r0 = b.row_start
-        uniq = int(torch.unique(b.gidx8).numel()) * sb.group   # slots this bucket reads
-        args1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb],
-                 sb.rs6T[:, r0:r0 + mb], b.gidx8, cfg.h)
-        args2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
-        static_bytes = (t * 3 * sb.rows + t * 5 * slab + t * slab // sb.group) * f32
-        pairs = t * sb.rows * slab
-        work = {
-            "moments_v4": (
-                lambda: pk.moments_v4(*args1), lambda: pk.moments_v4_plain(*args1),
-                lambda o, sc: (o,), FLOPS_PER_PAIR["moments_v4"] * pairs,
-                static_bytes + (3 * mb + 3 * uniq + 18 * mb) * f32),
-            "forces_warp_v4": (
-                lambda: pk.forces_warp_v4(*args2), lambda: pk.forces_warp_v4_plain(*args2),
-                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v4"] * pairs,
-                static_bytes + (9 * mb + 15 * uniq + 3 * mb) * f32),
-        }
-        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-                       + held_per_launch(torch, work, f"bucket {i}", stats)))
-    for key in ("moments_v4", "forces_warp_v4"):
-        summarize(key, stats[key], len(sb.buckets), tag)
+        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
+        a1 = (b.restT_rows, b.static_slab, posT, posT[:, c], sb.rs6T[:, c], b.gidx8,
+              cfg.h)
+        a2 = (b.restT_rows, b.static_slab, f9T[:, c], srT, b.gidx8, cfg.h)
+        p1, p2 = pk.moments_v4_plain(*a1), pk.forces_warp_v4_plain(*a2)
+        e1 = record(stats["moments_v4"], k1[:, c], p1, f"moments_v4 bucket {i}")
+        e2 = record(stats["forces_warp_v4"], k2[:, c], p2, f"forces_warp_v4 bucket {i}")
+        ms1 = cuda_ms(lambda: pk.moments_v4_plain(*a1), 1)
+        ms2 = cuda_ms(lambda: pk.forces_warp_v4_plain(*a2), 1)
+        stats["moments_v4"]["plain_ms"] += ms1
+        stats["forces_warp_v4"]["plain_ms"] += ms2
+        say(f"    bucket {i}: slab {b.slab_len:4d} tiles {b.n_tiles:4d} | moments_v4 "
+            f"err {e1:.2e} (plain {ms1:.2f} ms) | forces_warp_v4 err {e2:.2e} (plain "
+            f"{ms2:.2f} ms)")
+    same = (torch.equal(k1, pk.moments_v4(sb, posT, posT[:, :m], cfg.h))
+            and torch.equal(k2, pk.forces_warp_v4(sb, f9T, srT, cfg.h)))
+    say(f"    second launch of each bitwise equal: {same}")
+    if not same:
+        fail("a ragged kernel does not repeat bit for bit")
+    pairs = sum(b.n_tiles * sb.rows * b.slab_len for b in sb.buckets)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
+    static_bytes = (sb.rest_rows.numel() + sb.static_all.numel()
+                    + sb.gidx_all.numel() + sb.schedule.numel() * 2) * f32
+    work = {
+        "moments_v4": (lambda: pk.moments_v4(sb, posT, posT[:, :m], cfg.h),
+                       static_bytes + (3 * uniq + 3 * m + 18 * m) * f32),
+        "forces_warp_v4": (lambda: pk.forces_warp_v4(sb, f9T, srT, cfg.h),
+                           static_bytes + (9 * m + 15 * uniq + 3 * m) * f32),
+    }
+    for key, (fn, nbytes) in work.items():
+        st = stats[key]
+        st["ms"] = cuda_ms(fn, 50)
+        st["launch_ms"] = host_ms(fn, 50)
+        st["flops"] = FLOPS_PER_PAIR[key] * pairs
+        st["bytes"] = nbytes
+        summarize(key, st, 1, tag)
 
     # ---- 4 one full force evaluation, kernel path vs plain path
     f_k = elastic_forces_sparse(pos, ratio, scene.materials, scene, cfg)
@@ -416,8 +444,8 @@ def main():
             and bool(torch.isfinite(fin.position).all())):
         fail("episode produced a non-finite or zero loss / state")
     for key in ("moments_v4", "forces_warp_v4"):
-        say(f"    {key}: {stats[key]['ms'] / len(sb.buckets):.4f} ms/launch (mean "
-            f"over buckets, CUDA events) {tag}")
+        say(f"    {key}: {stats[key]['ms']:.4f} ms per evaluation, one launch (CUDA "
+            f"events) {tag}")
 
     # ---- 6 kernel path vs plain path, 300 steps
     _, fin_k, _ = rollout(x_star, scene, cfg, n_steps=300, device=dev)
@@ -445,11 +473,11 @@ def main():
 
     # ---- 8 launch counts of the main path (phase 5)
     evals = 2 * steps      # symplectic: one force evaluation per step, none at start
-    want = len(sb.buckets) * evals
+    want = evals           # one launch of each ragged kernel per evaluation
     say(f"[8] launches on the forward path: " + ", ".join(
         f"{k} {v}" for k, v in launches_fwd.items())
-        + f" (expected {want} for each forward kernel = {len(sb.buckets)} "
-        f"buckets x {evals} force evaluations, 0 for the backward ones)")
+        + f" (expected {want} for each forward kernel = one launch x {evals} force "
+        f"evaluations, 0 for the backward ones)")
     for k, v in launches_fwd.items():
         expect = want if k in ("moments_v4", "forces_warp_v4") else 0
         if v != expect:
@@ -732,10 +760,10 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     # runs each step's forces 3 times (the no-grad forward keeping chunk
     # boundaries, the chunk's recompute under autograd, the per-step
     # checkpoint's recompute in the backward) and backward once:
-    #   K1, K2 forward:               buckets x 3 S
+    #   K1, K2 forward:               3 S (one launch over every tile)
     #   K1 bwd, K2 bwd rows and slab: buckets x S
     #   slab_to_slots:                2 S (one after K1's, one after K2's)
-    per_eval = {"moments_v4": 3 * nb * S, "forces_warp_v4": 3 * nb * S,
+    per_eval = {"moments_v4": 3 * S, "forces_warp_v4": 3 * S,
                 "moments_v4_bwd": nb * S, "forces_warp_v4_bwd_rows": nb * S,
                 "forces_warp_v4_bwd_slab": nb * S, "slab_to_slots": 2 * S}
     say(f"[13] launches of one gradient (phase 11): {counts_grad}; of the "
@@ -1542,8 +1570,8 @@ def phase_counts(a, b):
     # gradient runs the forward kernels 3 times per step and the backward
     # ones once (phase 13)
     want = {
-        ("A", "fwd"): {"moments_v4": 2 * nb * a["steps"], "forces_sep": 2 * nb * a["steps"]},
-        ("A", "grad"): {"moments_v4": 3 * nb * S, "forces_sep": 3 * nb * S,
+        ("A", "fwd"): {"moments_v4": 2 * a["steps"], "forces_sep": 2 * nb * a["steps"]},
+        ("A", "grad"): {"moments_v4": 3 * S, "forces_sep": 3 * nb * S,
                         "moments_v4_bwd": nb * S, "forces_sep_bwd_rows": nb * S,
                         "forces_sep_bwd_slab": nb * S, "slab_to_slots": 2 * S},
         ("B", "fwd"): {"moments_raw": 2 * b["steps"], "forces_warp_v2": 2 * b["steps"]},

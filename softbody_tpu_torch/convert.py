@@ -25,9 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.types import Blocked, DevBucket, Materials, Scene, SparseBlocked
+from .core.types import Blocked, DevBucket, Materials, Scene
 from .ops._build import ROWS
-from .ops.pair_kernels import slab_inverse
+from .ops.pair_kernels import slab_inverse, sparse_blocked
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
 
@@ -65,28 +65,15 @@ def _tensor(a, device, dt):
 
 
 def _sparse_from_numpy(d, real, device, dtype):
-    def dev(key, dt=dtype):
-        return _tensor(d[key], device, dt)
-
-    rows = int(d["rows"])
-    buckets = tuple(
-        DevBucket(
-            gidx8=dev(f"bucket{k}.gidx8", torch.int32),
-            restT_rows=dev(f"bucket{k}.restT_rows"),
-            static_slab=dev(f"bucket{k}.static_slab"),
-            tile_start=int(d[f"bucket{k}.tile_start"]),
-            rows=rows,
-            slab_len=int(np.asarray(d[f"bucket{k}.static_slab"]).shape[2]),
-        )
-        for k in range(int(d["n_buckets"])))
-    n_slots, group = len(real), int(d["group"])
-    ptr, idx = slab_inverse(
-        [d[f"bucket{k}.gidx8"] for k in range(int(d["n_buckets"]))],
-        n_slots, group, real)
-    return SparseBlocked(buckets=buckets, rs6T=dev("rs6T"), rows=rows,
-                         n_tiles=int(d["n_tiles"]), n_slots=n_slots, group=group,
-                         slab_ptr=torch.from_numpy(ptr).to(device),
-                         slab_idx=torch.from_numpy(idx).to(device))
+    parts = [(np.asarray(d[f"bucket{k}.gidx8"]), np.asarray(d[f"bucket{k}.restT_rows"]),
+              np.asarray(d[f"bucket{k}.static_slab"]), int(d[f"bucket{k}.tile_start"]))
+             for k in range(int(d["n_buckets"]))]
+    sb = sparse_blocked(parts, np.asarray(d["rs6T"]), len(real), int(d["group"]),
+                        real, device, dtype, int(d["rows"]))
+    if sb.n_tiles != int(d["n_tiles"]):
+        raise ValueError(f"the buckets hold {sb.n_tiles} tiles, n_tiles is "
+                         f"{int(d['n_tiles'])}")
+    return sb
 
 
 def _blocked_from_numpy(d, real, device, dtype):

@@ -76,7 +76,16 @@ class SparseBlocked:
 
     ``slab_ptr`` / ``slab_idx`` are the CSR inverse of the buckets' ``gidx8``
     (``ops.pair_kernels.slab_inverse``): the fixed-order index through which
-    the backward adds per-slab-entry gradients into slots."""
+    the backward adds per-slab-entry gradients into slots.
+
+    The buckets' arrays are views of three scene-wide ones, so that one
+    kernel launch reaches every tile (``ops.pair_kernels.sparse_blocked``
+    builds them): ``rest_rows`` (n_tiles, 3, rows) in tile order,
+    ``static_all`` the buckets' (t_b, 5, slab_b) static slabs end to end and
+    ``gidx_all`` their (t_b, slab_b / group) gidx8.  ``schedule`` lists every
+    tile once, longest slab first: [tile, slab, offset of its (5, slab)
+    block in static_all, offset of its gidx8 row in gidx_all]
+    (``ops.pair_kernels.tile_schedule``)."""
 
     buckets: tuple             # tuple[DevBucket, ...]
     rs6T: torch.Tensor         # (6, n_tiles * rows)
@@ -86,6 +95,10 @@ class SparseBlocked:
     group: int
     slab_ptr: torch.Tensor     # (n_slots / group + 1,) int32
     slab_idx: torch.Tensor     # (sum_b t_b slab_b / group,) int32
+    rest_rows: torch.Tensor    # (n_tiles, 3, rows)
+    static_all: torch.Tensor   # (sum_b t_b 5 slab_b,)
+    gidx_all: torch.Tensor     # (sum_b t_b slab_b / group,) int32
+    schedule: torch.Tensor     # (n_tiles, 4) int64
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,11 +11,12 @@
 //
 // What they compute (per tile of ROWS = 32 slot rows against its candidate
 // slab of `slab` slots, slot = gidx[tile, e / group] * group + e % group):
-//   K1: lhs = [-w m_j dx ; gfac V_j dx] (6 blocks), p = pos_j - c with c the
-//       tile's first rest row; out row 3*blk + a =
-//       sum_j p_a lhs_blk - (pos_i[a] - c_a) * sum_j lhs_blk.
-//       The rowsum comes from the SAME in-kernel coefficients as the dots
-//       (a host-f64 rowsum here was measured to destabilise a quiet body).
+//   K1: lhs = [-w m_j dx ; gfac V_j dx] (6 blocks); out row 3*blk + a =
+//       sum_j (pos_j - pos_i)_a lhs_blk, the moments centered on each row's
+//       own position.  (The TPU kernel and the plain version form
+//       sum_j (pos_j - c)_a lhs_blk - (pos_i - c)_a sum_j lhs_blk with c the
+//       tile's first rest row: the same sums, one subtraction per pair
+//       instead of 6 row sums and 6 accumulators.)
 //   K2: nw = gfac V_j dx, Z_d = sum_b nw_b S_j[d, b], u = F_i Z,
 //       out row a = sum_j (R_j u)_a.  (The TPU kernel summed D = R^T Z over
 //       the slab and applied F_i after; applying F_i per pair needs 3
@@ -25,19 +26,47 @@
 //   mask; padding slots sit on a far grid, so their coefficients vanish.
 //
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
-//   both kernels are OPERATION-bound.  Per pair K1 does 78 flops and K2 75;
-//   per slab entry K1 stages 8 values and K2 19, each serving all 32 rows
-//   of the tile: 78 (K1) and 32 (K2) flops per byte staged, above the
-//   card's 20 FP32 flops per byte of device memory.  At the ~112k stretch
-//   scene (72.4 M candidate pairs per force evaluation) that is ~0.08 ms
-//   per evaluation for each kernel (chip_smoke.py computes the exact bound
-//   from the run's shapes).
-// What the design does about it: plain FP32 FMAs (never TF32 — a reduced-
-//   precision dot destabilised the episode on the TPU), one lane per tile
-//   row so every per-pair value stays in registers, the slab staged through
-//   shared memory and read back as broadcasts (every lane of a warp reads
-//   the same entry), four warps per tile splitting the slab, then a
-//   fixed-order cross-warp reduction: no atomics, deterministic.
+//   both kernels are OPERATION-bound.  Per pair K1 does 72 flops and K2 74
+//   (in about 51 and 56 issued instructions, softbody_tpu_torch/
+//   pair_times.py counts them); per slab entry K1 stages 8 values and K2
+//   19, each serving all 32 rows of the tile.  At the ~112k stretch scene
+//   (72.4 M candidate pairs per force evaluation) that is ~0.08 ms per
+//   evaluation for each kernel, and ~0.11-0.12 ms of instruction issue at
+//   4 warp-instructions per clock per SM at 1.98 GHz (chip_smoke.py
+//   computes the exact bound from the run's shapes).
+// What the design does about it:
+//   * One launch per force evaluation over every tile of every bucket (the
+//     sparse layout's 8 buckets used to be 8 launches, two of them with
+//     fewer tiles than the card has SMs).  A host-built schedule
+//     (SparseBlocked.schedule: tile, slab, offsets into the scene's flat
+//     static slab and gidx arrays) lists the tiles longest slab first, so
+//     the long tiles start first and the short ones fill the tail.
+//   * Balanced blocks: one block of RG_WARPS = 4 warps per tile, one lane
+//     per tile row, the warps splitting the slab in CH = 32-entry chunks.
+//     Slabs are multiples of 128 entries, so every warp of a block walks
+//     the same number of chunks (no warp idles at the block's end), and no
+//     block walks more than 1.7x the mean (slab 1024 against a mean of
+//     599); 4 warps per tile ran faster on the card than 8 (more, smaller
+//     blocks per SM: at 96 registers 5 blocks, 20 warps, fit on an SM; a
+//     tighter register bound spilled and ran slower), and with one launch
+//     the few long tiles start first instead of forming a launch of their
+//     own.  The warps' partial sums
+//     meet in shared memory and add in warp order: fixed order, no
+//     atomics, bitwise repeatable.
+//   * Asynchronous staging: each warp keeps a ring of NSTAGE = 2 stages of
+//     CH slab entries in shared memory, fields side by side, filled by
+//     16-byte cp.async copies (the tile's static slab rows, and through
+//     gidx the 8-slot groups of the gathered fields: 32 contiguous bytes
+//     per group in f32, 64 in f64) while the warp computes the previous
+//     stage; cp.async.wait_group and a warp barrier order the ring.  The
+//     stage is read back as 16-byte broadcasts of 4 entries per field.
+//   * Fewer instructions per pair: K1 centers per lane (p = pos_j - pos_i)
+//     and folds cA and gv into p, 24 multiply-adds per pair where 30 were;
+//     a prep pass per stage puts the spline constants into m_j and V_j
+//     (once per entry, not per pair); rsqrt without its denormal wrapper
+//     (its argument is always normal); K2's sums as multiply-add chains.
+//   * Plain FP32 FMAs (never TF32 — a reduced-precision dot destabilised
+//     the episode on the TPU).
 //
 // Entry points have a plain C interface for ctypes; each returns
 // cudaGetLastError() of its launch.  Kernels launch on the caller's stream
@@ -47,67 +76,365 @@
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-moments_v4_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                  const T* __restrict__ static_slab,  // (t, 5, slab)
-                  const T* __restrict__ posT,         // (3, ld_pos)
-                  int64_t ld_pos,
-                  const T* __restrict__ posT_rows,    // (3, ld_rows), column tile*ROWS + r
-                  int64_t ld_rows,
-                  const int32_t* __restrict__ gidx,   // (t, slab / group)
-                  T* __restrict__ ayT,                // (18, ld_out)
-                  int64_t ld_out,
-                  int slab, int group, T inv_h, T c4, T c4h) {
-  __shared__ K1Entry<T> ent[CHUNK];
-  __shared__ T red[NWARPS][24][ROWS];
+// ------------------------------------------------------- ragged forward K1/K2
+constexpr int RG_WARPS = 4;                  // warps per tile (block)
+constexpr int RG_THREADS = 32 * RG_WARPS;
+constexpr int CH = 32;                       // slab entries per stage
+constexpr int NSTAGE = 2;                    // stages per warp's ring
+constexpr int K1_FIELDS = 8;                 // rest_3, m, V | pos_3
+constexpr int K2_FIELDS = 19;                // rest_3, V | S_6, R^T_9
+constexpr int K1_OUT = 18;
+constexpr int K2_OUT = 3;
 
-  const int tile = blockIdx.x;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  const T c[3] = {rr[0], rr[ROWS], rr[2 * ROWS]};   // the tile's first rest row
-  k1_tile_sums<true>(rr, static_slab + (int64_t)tile * 5 * slab, posT, ld_pos,
-                     gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4, c4h,
-                     c, ent, red);
-  // 18 output rows x 32 lanes
-  for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS) {
-    const int r = o % ROWS, row = o / ROWS, a = row % 3;
-    const int64_t col = (int64_t)tile * ROWS + r;
-    const T pi = posT_rows[a * ld_rows + col] - c[a];
-    ayT[row * ld_out + col] = k1_moment(red, row / 3, a, r, pi);
+template <typename T>
+constexpr size_t ragged_smem(int fields, int outs) {
+  // the rings, then (aliasing them) the warps' partial sums
+  return sizeof(T) * (size_t)(RG_WARPS * (NSTAGE * fields * CH > outs * ROWS
+                                              ? NSTAGE * fields * CH
+                                              : outs * ROWS));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {   // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rsqrt of a normal float without the denormal-input wrapper (a compare
+// and two predicated multiplies per pair): every argument here is
+// r2 + 1e-30 >= 1e-30, a normal float, for which both give the same bits.
+template <typename T> __device__ __forceinline__ T rsqrt_normal(T x) { return rsqrt(x); }
+template <> __device__ __forceinline__ float rsqrt_normal<float>(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The cubic-spline pair polynomials without their constants: with
+// rs = rsqrt(r2 + 1e-30) and q = r2 rs / h, w0 = (2-q)+^3 - 4 (1-q)+^3 and
+// g0 = (4 (1-q)+^2 - (2-q)+^2) rs, so that w = c4 w0 and gfac = 3 c4h g0
+// (common.cuh's spline_w_gfac; K1's prep pass puts c4 into m_j and 3 c4h
+// into V_j, once per entry instead of once per pair).  K2 keeps
+// g12 = (12 (1-q)+^2 - 3 (2-q)+^2) rs = 3 g0 with c4h in V_j: with the
+// factor 3 folded, its loop needed more registers, spilled and ran slower
+// on the card.
+template <typename T>
+__device__ __forceinline__ void pair_poly(T r2, T inv_h, T& w0, T& g0) {
+  const T rs = rsqrt_normal(r2 + T(1e-30));
+  const T q = r2 * rs * inv_h;
+  const T tq = relu(T(2) - q), oq = relu(T(1) - q);
+  const T tq2 = tq * tq, oq2 = oq * oq;
+  w0 = tq2 * tq - T(4) * oq2 * oq;
+  g0 = (T(4) * oq2 - tq2) * rs;
+}
+
+template <typename T>
+__device__ __forceinline__ T pair_g12(T r2, T inv_h) {
+  const T rs = rsqrt_normal(r2 + T(1e-30));
+  const T q = r2 * rs * inv_h;
+  const T tq = relu(T(2) - q), oq = relu(T(1) - q);
+  return (T(12) * oq * oq - T(3) * tq * tq) * rs;
+}
+
+// Four consecutive stage entries of one field: one 16-byte (f32) or two
+// (f64) shared-memory broadcasts.
+template <typename T> struct alignas(4 * sizeof(T)) Four { T v[4]; };
+
+template <typename T>
+__device__ __forceinline__ Four<T> four(const T* buf, int field, int j) {
+  return *reinterpret_cast<const Four<T>*>(buf + field * CH + j);
+}
+
+// One stage of a warp's ring: slab entries [e0, e0 + CH) of the tile, field
+// f at buf[f * CH + e - e0].  Fields 0..NS-1 are the static slab's rows
+// srow[f] (each contiguous in the tile's (5, slab) block); the NG after
+// them are rows of the lane-major `src` (stride ld) at the entries' slots,
+// gathered per slot group.  Lane l < CH / group holds gval = the gidx of
+// the stage's group l.  Every copy is 16 bytes.
+template <typename T, int NS, int NG>
+__device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
+                                            int slab, const int (&srow)[NS],
+                                            const T* __restrict__ src, int64_t ld,
+                                            int e0, int32_t gval, int group,
+                                            int lane) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER = CH / VEC;              // 16-byte copies per field
+  for (int q = lane; q < NS * PER; q += 32) {
+    const int f = q / PER, k = q % PER;
+    cp_async16(buf + f * CH + k * VEC, st + (int64_t)srow[f] * slab + e0 + k * VEC);
+  }
+  const int gpc = group / VEC;               // copies per group and field
+  for (int q0 = 0; q0 < NG * PER; q0 += 32) {   // uniform trip count: shfl below
+    const int q = q0 + lane;
+    const int k = q % PER;
+    const int32_t g = __shfl_sync(0xffffffffu, gval, k / gpc);
+    if (q < NG * PER)
+      cp_async16(buf + (NS + q / PER) * CH + k * VEC,
+                 src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC);
+  }
+}
+
+// The pipelined walk of one warp over chunks [c0, c1) of its tile: once a
+// stage has landed, prep(buf) rescales its entries in place (lane l its
+// entries l, l + 32, ...), then stage(buf) consumes it.  gi is the tile's
+// gidx row.
+template <typename T, int NS, int NG, int FIELDS, typename Prep, typename Stage>
+__device__ __forceinline__ void walk_chunks(T* ring, const T* __restrict__ st,
+                                            int slab, const int (&srow)[NS],
+                                            const T* __restrict__ src, int64_t ld,
+                                            const int32_t* __restrict__ gi,
+                                            int group, int c0, int c1, int lane,
+                                            Prep prep, Stage stage) {
+  if (c0 >= c1) return;
+  const int ngr = CH / group;
+  int32_t g = lane < ngr ? gi[c0 * ngr + lane] : 0;
+  issue_stage<T, NS, NG>(ring, st, slab, srow, src, ld, c0 * CH, g, group, lane);
+  cp_async_commit();
+  g = (lane < ngr && c0 + 1 < c1) ? gi[(c0 + 1) * ngr + lane] : 0;
+  for (int c = c0; c < c1; ++c) {
+    if (c + 1 < c1)
+      issue_stage<T, NS, NG>(ring + ((c + 1 - c0) % NSTAGE) * (FIELDS * CH), st,
+                             slab, srow, src, ld, (c + 1) * CH, g, group, lane);
+    cp_async_commit();                       // (empty on the last chunk)
+    if (lane < ngr && c + 2 < c1) g = gi[(c + 2) * ngr + lane];   // in flight
+    cp_async_wait_prev();                    // this lane's copies of chunk c
+    __syncwarp();                            // ... and every other lane's
+    T* buf = ring + ((c - c0) % NSTAGE) * (FIELDS * CH);
+    prep(buf);
+    __syncwarp();
+    stage(buf);
+    __syncwarp();                            // read before it is refilled
+  }
+}
+
+// K1's sums of one landed stage for row (xi, pi): acc[3 blk + a] +=
+// (pos_j - pos_i)_a lhs_blk, with blocks 0-2 accumulated as +cA p_a dx_k
+// (negated in the epilogue).  The stage's m and V fields hold c4 m_j and
+// 3 c4h V_j.
+template <typename T>
+__device__ __forceinline__ void k1_stage(const T* buf, T xi0, T xi1, T xi2,
+                                         T pi0, T pi1, T pi2, T inv_h,
+                                         T (&acc)[K1_OUT]) {
+#pragma unroll 2
+  for (int j = 0; j < CH; j += 4) {
+    const Four<T> X0 = four(buf, 0, j), X1 = four(buf, 1, j), X2 = four(buf, 2, j);
+    const Four<T> Ms = four(buf, 3, j), Vs = four(buf, 4, j);
+    const Four<T> P0 = four(buf, 5, j), P1 = four(buf, 6, j), P2 = four(buf, 7, j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T d[3] = {xi0 - X0.v[u], xi1 - X1.v[u], xi2 - X2.v[u]};
+      T w0, g0;
+      pair_poly(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], inv_h, w0, g0);
+      const T cA = w0 * Ms.v[u], gv = g0 * Vs.v[u];
+      const T p[3] = {P0.v[u] - pi0, P1.v[u] - pi1, P2.v[u] - pi2};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const T q = cA * p[a], g = gv * p[a];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          acc[3 * k + a] += q * d[k];
+          acc[9 + 3 * k + a] += g * d[k];
+        }
+      }
+    }
+  }
+}
+
+// K2's sums of one landed stage for row xi, its F_i given; the stage's V
+// field holds c4h V_j.  Each accumulator takes its three terms as one
+// multiply-add chain.
+template <typename T>
+__device__ __forceinline__ void k2_stage(const T* buf, T xi0, T xi1, T xi2,
+                                         const T (&F)[9], T inv_h,
+                                         T (&acc)[K2_OUT]) {
+#pragma unroll 1
+  for (int j = 0; j < CH; j += 4) {
+    const Four<T> X0 = four(buf, 0, j), X1 = four(buf, 1, j), X2 = four(buf, 2, j);
+    const Four<T> Vs = four(buf, 3, j);
+    Four<T> S[6], Rt[9];                     // S_6 = [s00 s01 s02 s11 s12 s22]
+#pragma unroll
+    for (int f = 0; f < 6; ++f) S[f] = four(buf, 4 + f, j);
+#pragma unroll
+    for (int f = 0; f < 9; ++f) Rt[f] = four(buf, 10 + f, j);   // Rt[3c + a] = R[a][c]
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T dx0 = xi0 - X0.v[u], dx1 = xi1 - X1.v[u], dx2 = xi2 - X2.v[u];
+      const T gv = pair_g12(dx0 * dx0 + dx1 * dx1 + dx2 * dx2, inv_h) * Vs.v[u];
+      const T nw0 = gv * dx0, nw1 = gv * dx1, nw2 = gv * dx2;
+      const T z0 = nw0 * S[0].v[u] + nw1 * S[1].v[u] + nw2 * S[2].v[u];
+      const T z1 = nw0 * S[1].v[u] + nw1 * S[3].v[u] + nw2 * S[4].v[u];
+      const T z2 = nw0 * S[2].v[u] + nw1 * S[4].v[u] + nw2 * S[5].v[u];
+      const T u0 = F[0] * z0 + F[1] * z1 + F[2] * z2;
+      const T u1 = F[3] * z0 + F[4] * z1 + F[5] * z2;
+      const T u2 = F[6] * z0 + F[7] * z1 + F[8] * z2;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        acc[a] = fma(Rt[a].v[u], u0, acc[a]);
+        acc[a] = fma(Rt[3 + a].v[u], u1, acc[a]);
+        acc[a] = fma(Rt[6 + a].v[u], u2, acc[a]);
+      }
+    }
+  }
+}
+
+// The scheduled tile of this block: (tile, its slab, its static (5, slab)
+// block, its gidx row); warp w takes chunks [c0, c1) of the slab.
+struct Sched {
+  int64_t tile;
+  int slab, c0, c1;
+  int64_t st_off, gi_off;
+};
+
+__device__ __forceinline__ Sched sched_of(const int64_t* __restrict__ sched, int warp) {
+  const int64_t* s = sched + 4 * (int64_t)blockIdx.x;
+  Sched r;
+  r.tile = s[0];
+  r.slab = (int)s[1];
+  r.st_off = s[2];
+  r.gi_off = s[3];
+  const int nch = r.slab / CH;
+  r.c0 = warp * nch / RG_WARPS;
+  r.c1 = (warp + 1) * nch / RG_WARPS;
+  return r;
+}
+
+// Each warp's partial sums into shared memory (over its ring), then the
+// fixed-order sum over warps: out[k * ld_out + tile * ROWS + r]; rows
+// below `negate` are stored negated.
+template <typename T, int K>
+__device__ __forceinline__ void reduce_store(T* smem, const T (&acc)[K], T* out,
+                                             int64_t ld_out, int64_t tile,
+                                             int negate) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();                           // every ring read: smem is free
+#pragma unroll
+  for (int k = 0; k < K; ++k) smem[(warp * K + k) * ROWS + lane] = acc[k];
+  __syncthreads();
+  for (int o = threadIdx.x; o < K * ROWS; o += RG_THREADS) {
+    const int k = o / ROWS, r = o % ROWS;
+    T sum = T(0);
+#pragma unroll
+    for (int w = 0; w < RG_WARPS; ++w) sum += smem[(w * K + k) * ROWS + r];
+    out[k * ld_out + tile * ROWS + r] = k < negate ? -sum : sum;
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v4_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                      const T* __restrict__ static_slab,  // (t, 5, slab)
-                      const T* __restrict__ f9T,          // (9, ld_f9), column tile*ROWS + r
-                      int64_t ld_f9,
-                      const T* __restrict__ srT,          // (15, ld_sr): S_6 | R^T_9
-                      int64_t ld_sr,
-                      const int32_t* __restrict__ gidx,   // (t, slab / group)
-                      T* __restrict__ fT,                 // (3, ld_out)
-                      int64_t ld_out,
-                      int slab, int group, T inv_h, T c4h) {
-  __shared__ K2Entry<T> ent[CHUNK];
-  __shared__ T red[NWARPS][3][ROWS];
+__global__ void __launch_bounds__(RG_THREADS, 5)
+moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                  const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                  const T* __restrict__ static_all,      // per tile (5, slab)
+                  const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                  const T* __restrict__ posT, int64_t ld_pos,        // (3, ld_pos)
+                  const T* __restrict__ posT_rows, int64_t ld_rows,  // (3, ld_rows)
+                  T* __restrict__ ayT, int64_t ld_out,   // (18, ld_out)
+                  int group, T inv_h, T c4, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const int64_t col = s.tile * ROWS + lane;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
+  const T pi0 = posT_rows[col], pi1 = posT_rows[ld_rows + col],
+          pi2 = posT_rows[2 * ld_rows + col];
+  T acc[K1_OUT];
+#pragma unroll
+  for (int k = 0; k < K1_OUT; ++k) acc[k] = T(0);
+  const int srow[5] = {0, 1, 2, 3, 4};
+  const T c4h3 = T(3) * c4h;
+  walk_chunks<T, 5, 3, K1_FIELDS>(
+      smem + warp * (NSTAGE * K1_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+      posT, ld_pos, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
+      [&](T* buf) {
+        for (int e = lane; e < CH; e += 32) {
+          buf[3 * CH + e] *= c4;
+          buf[4 * CH + e] *= c4h3;
+        }
+      },
+      [&](const T* buf) { k1_stage(buf, xi0, xi1, xi2, pi0, pi1, pi2, inv_h, acc); });
+  reduce_store<T, K1_OUT>(smem, acc, ayT, ld_out, s.tile, 9);
+}
 
-  const int tile = blockIdx.x;
-  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
+template <typename T>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+forces_warp_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                      const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                      const T* __restrict__ static_all,      // per tile (5, slab)
+                      const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                      const T* __restrict__ f9T, int64_t ld_f9,  // (9, ld_f9)
+                      const T* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr): S_6 | R^T_9
+                      T* __restrict__ fT, int64_t ld_out,        // (3, ld_out)
+                      int group, T inv_h, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const int64_t col = s.tile * ROWS + lane;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
   T F[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) F[k] = f9T[k * ld_f9 + col];
-  k2_tile_sums<false>(restT_rows + (int64_t)tile * 3 * ROWS,
-                      static_slab + (int64_t)tile * 5 * slab, F, srT, ld_sr,
-                      gidx + (int64_t)tile * (slab / group), slab, group, inv_h,
-                      c4h, ent, red);
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
-    const int r = o % ROWS, a = o / ROWS;
-    T sum = T(0);
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) sum += red[w][a][r];
-    fT[a * ld_out + (int64_t)tile * ROWS + r] = sum;
-  }
+  T acc[K2_OUT] = {T(0), T(0), T(0)};
+  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
+  walk_chunks<T, 4, 15, K2_FIELDS>(
+      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
+      [&](T* buf) {
+        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h;
+      },
+      [&](const T* buf) { k2_stage(buf, xi0, xi1, xi2, F, inv_h, acc); });
+  reduce_store<T, K2_OUT>(smem, acc, fT, ld_out, s.tile, 0);
+}
+
+// Dynamic shared memory above 48 KB (K2's f64 rings) needs the opt-in,
+// once per kernel instantiation.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <typename T>
+int launch_moments(const void* sched, int n_sched, const void* rest_rows,
+                   const void* static_all, const void* gidx_all, const void* posT,
+                   int64_t ld_pos, const void* posT_rows, int64_t ld_rows,
+                   void* ayT, int64_t ld_out, int group, double inv_h, double c4,
+                   double c4h, void* stream) {
+  constexpr size_t smem = ragged_smem<T>(K1_FIELDS, K1_OUT);
+  static const cudaError_t attr = allow_smem(moments_v4_kernel<T>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  moments_v4_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)posT, ld_pos, (const T*)posT_rows,
+      ld_rows, (T*)ayT, ld_out, group, (T)inv_h, (T)c4, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_forces(const void* sched, int n_sched, const void* rest_rows,
+                  const void* static_all, const void* gidx_all, const void* f9T,
+                  int64_t ld_f9, const void* srT, int64_t ld_sr, void* fT,
+                  int64_t ld_out, int group, double inv_h, double c4h,
+                  void* stream) {
+  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v4_kernel<T>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  forces_warp_v4_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const T*)srT, ld_sr,
+      (T*)fT, ld_out, group, (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- backward
@@ -246,32 +573,6 @@ slab_to_slots_kernel(const T* __restrict__ buf,          // (k, ld_buf)
 }
 
 template <typename T>
-int launch_moments(const void* restT_rows, const void* static_slab,
-                   const void* posT, int64_t ld_pos, const void* posT_rows,
-                   int64_t ld_rows, const void* gidx, void* ayT, int64_t ld_out,
-                   int t, int slab, int group, double inv_h, double c4,
-                   double c4h, void* stream) {
-  moments_v4_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)restT_rows, (const T*)static_slab, (const T*)posT, ld_pos,
-      (const T*)posT_rows, ld_rows, (const int32_t*)gidx, (T*)ayT, ld_out,
-      slab, group, (T)inv_h, (T)c4, (T)c4h);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_forces(const void* restT_rows, const void* static_slab,
-                  const void* f9T, int64_t ld_f9, const void* srT,
-                  int64_t ld_sr, const void* gidx, void* fT, int64_t ld_out,
-                  int t, int slab, int group, double inv_h, double c4h,
-                  void* stream) {
-  forces_warp_v4_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)restT_rows, (const T*)static_slab, (const T*)f9T, ld_f9,
-      (const T*)srT, ld_sr, (const int32_t*)gidx, (T*)fT, ld_out,
-      slab, group, (T)inv_h, (T)c4h);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_moments_bwd(const void* restT_rows, const void* static_slab,
                        const void* dayT, int64_t ld_day, const void* rs6T,
                        int64_t ld_rs6, void* dps, int64_t ld_ps, void* dprow,
@@ -323,9 +624,40 @@ int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
   return (int)cudaGetLastError();
 }
 
+// The ragged kernel `which` (0: K1 moments_v4, 1: K2 forces_warp_v4) in f32
+// or f64: [registers per thread, static shared bytes, local (stack and
+// spill) bytes, dynamic shared bytes, resident blocks per SM, threads per
+// block] into out.
+template <typename T>
+int ragged_info(int which, int* out) {
+  const void* fn = which == 0 ? (const void*)moments_v4_kernel<T>
+                              : (const void*)forces_warp_v4_kernel<T>;
+  const size_t smem = which == 0 ? ragged_smem<T>(K1_FIELDS, K1_OUT)
+                                 : ragged_smem<T>(K2_FIELDS, K2_OUT);
+  cudaError_t rc = which == 0 ? allow_smem(moments_v4_kernel<T>, smem)
+                              : allow_smem(forces_warp_v4_kernel<T>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return (int)rc;
+  int blocks = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, RG_THREADS, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = blocks;
+  out[5] = RG_THREADS;
+  return (int)rc;
+}
+
 }  // namespace
 
 extern "C" {
+
+int sb_ragged_info(int which, int f64, int* out) {
+  return f64 ? ragged_info<double>(which, out) : ragged_info<float>(which, out);
+}
 
 int sb_rows() { return ROWS; }
 
@@ -333,45 +665,31 @@ const char* sb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int sb_moments_v4_f32(const void* restT_rows, const void* static_slab,
-                      const void* posT, int64_t ld_pos, const void* posT_rows,
-                      int64_t ld_rows, const void* gidx, void* ayT,
-                      int64_t ld_out, int t, int slab, int group, double inv_h,
-                      double c4, double c4h, void* stream) {
-  return launch_moments<float>(restT_rows, static_slab, posT, ld_pos,
-                               posT_rows, ld_rows, gidx, ayT, ld_out, t, slab,
-                               group, inv_h, c4, c4h, stream);
-}
+#define SB_FWD_ENTRIES(SUF, T)                                                 \
+  int sb_moments_v4_##SUF(const void* sched, int n_sched,                      \
+                          const void* rest_rows, const void* static_all,       \
+                          const void* gidx_all, const void* posT,              \
+                          int64_t ld_pos, const void* posT_rows,               \
+                          int64_t ld_rows, void* ayT, int64_t ld_out,          \
+                          int group, double inv_h, double c4, double c4h,      \
+                          void* stream) {                                      \
+    return launch_moments<T>(sched, n_sched, rest_rows, static_all, gidx_all,  \
+                             posT, ld_pos, posT_rows, ld_rows, ayT, ld_out,    \
+                             group, inv_h, c4, c4h, stream);                   \
+  }                                                                            \
+  int sb_forces_warp_v4_##SUF(const void* sched, int n_sched,                  \
+                              const void* rest_rows, const void* static_all,   \
+                              const void* gidx_all, const void* f9T,           \
+                              int64_t ld_f9, const void* srT, int64_t ld_sr,   \
+                              void* fT, int64_t ld_out, int group,             \
+                              double inv_h, double c4h, void* stream) {        \
+    return launch_forces<T>(sched, n_sched, rest_rows, static_all, gidx_all,   \
+                            f9T, ld_f9, srT, ld_sr, fT, ld_out, group, inv_h,  \
+                            c4h, stream);                                      \
+  }
 
-int sb_moments_v4_f64(const void* restT_rows, const void* static_slab,
-                      const void* posT, int64_t ld_pos, const void* posT_rows,
-                      int64_t ld_rows, const void* gidx, void* ayT,
-                      int64_t ld_out, int t, int slab, int group, double inv_h,
-                      double c4, double c4h, void* stream) {
-  return launch_moments<double>(restT_rows, static_slab, posT, ld_pos,
-                                posT_rows, ld_rows, gidx, ayT, ld_out, t, slab,
-                                group, inv_h, c4, c4h, stream);
-}
-
-int sb_forces_warp_v4_f32(const void* restT_rows, const void* static_slab,
-                          const void* f9T, int64_t ld_f9, const void* srT,
-                          int64_t ld_sr, const void* gidx, void* fT,
-                          int64_t ld_out, int t, int slab, int group,
-                          double inv_h, double c4h, void* stream) {
-  return launch_forces<float>(restT_rows, static_slab, f9T, ld_f9, srT, ld_sr,
-                              gidx, fT, ld_out, t, slab, group, inv_h, c4h,
-                              stream);
-}
-
-int sb_forces_warp_v4_f64(const void* restT_rows, const void* static_slab,
-                          const void* f9T, int64_t ld_f9, const void* srT,
-                          int64_t ld_sr, const void* gidx, void* fT,
-                          int64_t ld_out, int t, int slab, int group,
-                          double inv_h, double c4h, void* stream) {
-  return launch_forces<double>(restT_rows, static_slab, f9T, ld_f9, srT, ld_sr,
-                               gidx, fT, ld_out, t, slab, group, inv_h, c4h,
-                               stream);
-}
+SB_FWD_ENTRIES(f32, float)
+SB_FWD_ENTRIES(f64, double)
 
 #define SB_BWD_ENTRIES(SUF, T)                                                 \
   int sb_moments_v4_bwd_##SUF(const void* restT_rows, const void* static_slab, \

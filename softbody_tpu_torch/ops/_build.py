@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
-v4 path: K1/K2 forward and backward, the fixed-order scatter),
+v4 path: K1/K2 forward, one ragged launch per evaluation, and backward, the
+fixed-order scatter),
 csrc/fused_kernels.cu (the fused K1 + mid-section path, K2 v2 and the raw
 K1 of the blocked layout) and csrc/separable_kernels.cu (the Taichi
 pairing's separable K2 and its backward), each including csrc/common.cuh.
@@ -41,9 +42,9 @@ _K2_BWD = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32,
 _SEP_BWD = [_P, _P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64, _P]
 SIGNATURES = {
     "pair_kernels": {
-        "moments_v4": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32, _I32,
+        "moments_v4": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64, _I32,
                        _F64, _F64, _F64, _P],
-        "forces_warp_v4": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32,
+        "forces_warp_v4": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
                            _I32, _F64, _F64, _P],
         "moments_v4_bwd": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32,
                            _I32, _F64, _F64, _F64, _P],
@@ -141,6 +142,8 @@ def library(source: str = "pair_kernels") -> ctypes.CDLL:
         if source == "pair_kernels":
             lib.sb_error_string.argtypes = [_I32]
             lib.sb_error_string.restype = ctypes.c_char_p
+            lib.sb_ragged_info.argtypes = [_I32, _I32, _P]
+            lib.sb_ragged_info.restype = _I32
         for name, args in SIGNATURES[source].items():
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"sb_{name}_{suffix}")

@@ -10,6 +10,12 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
 * :func:`forces_warp_v4` replaces ``_forces_warp_kernel_v4`` (launched by
   ``packed.forces_warp_packed_v4``): per tile row, the Warp pairing sum
   termj_a = sum_j (R_j F_i S_j nw_ij)_a, fT (3, m).
+
+  Both take a whole scene and launch once per force evaluation over every
+  tile of every bucket, in the order of the scene's :func:`tile_schedule`
+  (longest slab first); their plain versions stay per bucket
+  (``*_v4_plain``), and ``*_v4_scene_plain`` concatenates them over the
+  buckets.
 * :func:`moments_v4_bwd` replaces ``_moments_bwd_kernel_v4``: dayT ->
   dpsT (t, 3, slab) per slab entry and dprowT (3, t*rows), the centering
   term's gradient against the STATIC row sums rs6T_rows.
@@ -45,12 +51,15 @@ themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core.types import DevBucket, SparseBlocked
+from . import _build
 from . import fused_kernels as fk
 from . import separable_kernels as sk
 from .pair_common import (SR_FIELDS, bucket_cols, centered_moments, check,
@@ -66,6 +75,16 @@ def moments_v4_plain(restT_rows, static_slab, posT, posT_rows, rs6T_rows,
     (:func:`~.pair_common.centered_moments`); rs6T_rows (6, t*rows), the
     static row sums, only the backward reads."""
     return centered_moments(restT_rows, static_slab, posT, posT_rows, gidx8, h)
+
+
+def moments_v4_scene_plain(sb, posT, posT_rows, h):
+    """Plain K1 over a whole scene: the per-bucket :func:`moments_v4_plain`
+    concatenated in tile order, ayT (18, m)."""
+    return torch.cat([
+        moments_v4_plain(b.restT_rows, b.static_slab, posT,
+                         posT_rows[:, bucket_cols(b, sb.rows)],
+                         sb.rs6T[:, bucket_cols(b, sb.rows)], b.gidx8, h)
+        for b in sb.buckets], dim=1)
 
 
 def moments_v4_bwd_plain(restT_rows, static_slab, dayT, rs6T_rows, h):
@@ -87,6 +106,15 @@ def forces_warp_v4_plain(restT_rows, static_slab, f9T, srT, gidx8, h):
     """Plain K2: Warp-pairing termj fT (3, t*rows)
     (:func:`~.pair_common.warp_termj`)."""
     return warp_termj(restT_rows, static_slab, f9T, srT, gidx8, h)
+
+
+def forces_warp_v4_scene_plain(sb, f9T, srT, h):
+    """Plain K2 over a whole scene: the per-bucket
+    :func:`forces_warp_v4_plain` concatenated in tile order, fT (3, m)."""
+    return torch.cat([
+        forces_warp_v4_plain(b.restT_rows, b.static_slab,
+                             f9T[:, bucket_cols(b, sb.rows)], srT, b.gidx8, h)
+        for b in sb.buckets], dim=1)
 
 
 def forces_warp_v4_bwd_plain(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
@@ -130,6 +158,73 @@ def slab_inverse(gidx8s, n_slots: int, group: int, real):
     return ptr.astype(np.int32), order.astype(np.int32)
 
 
+def tile_schedule(n_tiles, slab_lens, tile_starts, group: int):
+    """The ragged kernels' schedule (host, numpy): one row per tile of every
+    bucket, [tile, slab, offset of its (5, slab) static block in the
+    buckets' static slabs laid end to end, offset of its gidx8 row in their
+    gidx8 laid end to end], int64, longest slab first (tile order within
+    one slab length), so that the long tiles start first and the short ones
+    fill the tail.  Per bucket: its tile count, slab length and first
+    tile."""
+    parts, st_off, gi_off = [], 0, 0
+    for t, slab, t0 in zip(n_tiles, slab_lens, tile_starts):
+        if slab % group:
+            raise ValueError(f"slab {slab} is not a multiple of group={group}")
+        k = np.arange(t, dtype=np.int64)
+        parts.append(np.stack([t0 + k, np.full(t, slab, np.int64),
+                               st_off + 5 * slab * k, gi_off + slab // group * k],
+                              axis=1))
+        st_off += 5 * slab * t
+        gi_off += slab // group * t
+    sched = np.concatenate(parts)
+    return sched[np.argsort(-sched[:, 1], kind="stable")]
+
+
+def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
+                   rows: int = _build.ROWS) -> SparseBlocked:
+    """A :class:`SparseBlocked` on ``device`` from host buckets ``parts``:
+    per bucket (gidx8 (t_b, slab_b / group), restT_rows (t_b, 3, rows),
+    static_slab (t_b, 5, slab_b), tile_start), numpy, holding tiles
+    [0, n_tiles) in order; rs6T (6, n_tiles * rows); ``real`` (n_slots,)
+    marks the particle slots (:func:`slab_inverse`).  The buckets' arrays
+    are views of the scene-wide ``rest_rows`` / ``static_all`` /
+    ``gidx_all``, which the ragged kernels read through ``schedule``."""
+    counts = [np.shape(p[1])[0] for p in parts]
+    starts = [int(p[3]) for p in parts]
+    if starts != [int(x) for x in np.cumsum([0] + counts[:-1])]:
+        raise ValueError(f"buckets must hold consecutive tiles in order: "
+                         f"starts {starts}, counts {counts}")
+
+    def dev(a, dt):
+        a = np.require(a, requirements=["C", "W"])
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    rest_rows = dev(np.concatenate([np.asarray(p[1]) for p in parts]), dtype)
+    static_all = dev(np.concatenate([np.asarray(p[2]).reshape(-1) for p in parts]),
+                     dtype)
+    gidx_all = dev(np.concatenate([np.asarray(p[0]).reshape(-1) for p in parts]),
+                   torch.int32)
+    buckets, st_off, gi_off = [], 0, 0
+    for (gi, _, st, t0), t in zip(parts, counts):
+        gshape, sshape = np.shape(gi), np.shape(st)
+        g_n, s_n = int(np.prod(gshape)), int(np.prod(sshape))
+        buckets.append(DevBucket(
+            gidx8=gidx_all[gi_off:gi_off + g_n].view(gshape),
+            restT_rows=rest_rows[t0:t0 + t],
+            static_slab=static_all[st_off:st_off + s_n].view(sshape),
+            tile_start=t0, rows=rows, slab_len=int(sshape[2])))
+        gi_off += g_n
+        st_off += s_n
+    ptr, idx = slab_inverse([p[0] for p in parts], n_slots, group, real)
+    sched = tile_schedule(counts, [b.slab_len for b in buckets], starts, group)
+    return SparseBlocked(
+        buckets=tuple(buckets), rs6T=dev(rs6T, dtype), rows=rows,
+        n_tiles=sum(counts), n_slots=n_slots, group=group,
+        slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32),
+        rest_rows=rest_rows, static_all=static_all, gidx_all=gidx_all,
+        schedule=dev(sched, torch.int64))
+
+
 def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
     """Plain scatter-reduce: buf (k, n_entries) per slab entry ->
     (k, n_slots), each slot summing the entries that read it: the entries
@@ -144,42 +239,102 @@ def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
 
 
 # ------------------------------------------------------------ kernel launches
-def _launch_moments(restT_rows, static_slab, posT, posT_rows, rs6T_rows,
-                    gidx8, h):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
-    check_lane_major("posT", posT, dtype, device, 3)
-    check_lane_major("posT_rows", posT_rows, dtype, device, 3, t * rows)
-    check_lane_major("rs6T_rows", rs6T_rows, dtype, device, 6, t * rows)
-    out = torch.empty((18, t * rows), dtype=dtype, device=device)
-    if t == 0:
+# The ragged kernels' stage: slab entries copied per pass, in 16-byte pieces.
+RAGGED_CHUNK = 32
+
+
+def _aligned(name, x, lane_major=False):
+    """The ragged kernels copy 16-byte pieces: a 16-byte base and, for a
+    lane-major operand, a row stride of a multiple of 4 elements."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary "
+                         f"(address {x.data_ptr():#x})")
+    if lane_major and x.stride(0) % 4:
+        raise ValueError(f"{name}'s leading dimension must be a multiple of 4 "
+                         f"elements, got {x.stride(0)}")
+
+
+def _check_scene(sb, dtype, device):
+    """Operand checks of one ragged launch over ``sb``."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32 or float64, got {dtype}")
+    check("rest_rows", sb.rest_rows, dtype, device, 3)
+    check("static_all", sb.static_all, dtype, device, 1)
+    check("gidx_all", sb.gidx_all, torch.int32, device, 1)
+    check("schedule", sb.schedule, torch.int64, device, 2)
+    if (tuple(sb.rest_rows.shape) != (sb.n_tiles, 3, _build.ROWS)
+            or tuple(sb.schedule.shape) != (sb.n_tiles, 4)):
+        raise ValueError(f"rest_rows {tuple(sb.rest_rows.shape)} and schedule "
+                         f"{tuple(sb.schedule.shape)} must cover {sb.n_tiles} "
+                         f"tiles of {_build.ROWS} rows")
+    for name in ("rest_rows", "static_all", "gidx_all", "schedule"):
+        if not getattr(sb, name).is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    piece = 16 // sb.static_all.element_size()
+    if sb.group % piece or RAGGED_CHUNK % sb.group:
+        raise ValueError(f"slot groups of {sb.group}: the kernels copy "
+                         f"{piece}-element pieces of {RAGGED_CHUNK}-entry stages")
+    odd = [b.slab_len for b in sb.buckets if b.slab_len % RAGGED_CHUNK]
+    if odd:
+        raise ValueError(f"slabs {odd} are not multiples of {RAGGED_CHUNK}")
+    _aligned("static_all", sb.static_all)
+    _aligned("gidx_all", sb.gidx_all)
+
+
+def ragged_info() -> dict:
+    """What the card gives the two ragged kernels: {(kernel, dtype):
+    {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
+    threads}} (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a card."""
+    lib = _build.library("pair_kernels")
+    keys = ("registers", "static_smem", "local_bytes", "dynamic_smem",
+            "blocks_per_sm", "threads")
+    out = {}
+    for which, name in enumerate(("moments_v4", "forces_warp_v4")):
+        for f64, dtype in enumerate(("float32", "float64")):
+            buf = (ctypes.c_int * len(keys))()
+            raise_on(lib.sb_ragged_info(which, f64, buf), f"{name} attributes")
+            out[name, dtype] = dict(zip(keys, buf))
+    return out
+
+
+def _launch_moments(sb, posT, posT_rows, h):
+    device, dtype = posT.device, posT.dtype
+    _check_scene(sb, dtype, device)
+    m = sb.n_tiles * sb.rows
+    check_lane_major("posT", posT, dtype, device, 3, sb.n_slots)
+    check_lane_major("posT_rows", posT_rows, dtype, device, 3, m)
+    _aligned("posT", posT, lane_major=True)
+    out = torch.empty((18, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
         return out
     inv_h, c4, c4h = spline_constants(h, dtype)
     rc = entry("pair_kernels", "moments_v4", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
-        posT.data_ptr(), posT.stride(0),
-        posT_rows.data_ptr(), posT_rows.stride(0),
-        gidx8.data_ptr(), out.data_ptr(), out.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4, c4h, stream())
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
+        posT.data_ptr(), posT.stride(0), posT_rows.data_ptr(), posT_rows.stride(0),
+        out.data_ptr(), out.stride(0), sb.group, inv_h, c4, c4h, stream())
     raise_on(rc, "moments_v4")
     moments_v4.launches += 1
     return out
 
 
-def _launch_forces(restT_rows, static_slab, f9T, srT, gidx8, h):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
-    check_lane_major("f9T", f9T, dtype, device, 9, t * rows)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS)
-    out = torch.empty((3, t * rows), dtype=dtype, device=device)
-    if t == 0:
+def _launch_forces(sb, f9T, srT, h):
+    device, dtype = srT.device, srT.dtype
+    _check_scene(sb, dtype, device)
+    m = sb.n_tiles * sb.rows
+    check_lane_major("f9T", f9T, dtype, device, 9, m)
+    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
+    _aligned("srT", srT, lane_major=True)
+    out = torch.empty((3, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
         return out
     inv_h, _, c4h = spline_constants(h, dtype)
     rc = entry("pair_kernels", "forces_warp_v4", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         f9T.data_ptr(), f9T.stride(0), srT.data_ptr(), srT.stride(0),
-        gidx8.data_ptr(), out.data_ptr(), out.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
+        out.data_ptr(), out.stride(0), sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4")
     forces_warp_v4.launches += 1
     return out
@@ -282,21 +437,24 @@ def _launch_slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
     return out
 
 
+# ------------------------------------------------------------ device dispatch
+def moments_v4(sb, posT, posT_rows, h):
+    """K1 over every tile of the scene ``sb``: centered moments ayT (18, m)
+    from posT (3, n_slots) and the tile rows' posT_rows (3, m); one launch
+    on the card, :func:`moments_v4_scene_plain` on the CPU."""
+    fn = on("moments_v4", posT, moments_v4_scene_plain, _launch_moments)
+    return fn(sb, posT, posT_rows, h)
+
+
+def forces_warp_v4(sb, f9T, srT, h):
+    """K2 over every tile of the scene ``sb``: Warp-pairing termj fT (3, m)
+    from f9T (9, m) and srT (15, n_slots); one launch on the card,
+    :func:`forces_warp_v4_scene_plain` on the CPU."""
+    fn = on("forces_warp_v4", srT, forces_warp_v4_scene_plain, _launch_forces)
+    return fn(sb, f9T, srT, h)
+
+
 # ------------------------------------------------ per-bucket device dispatch
-def moments_v4(restT_rows, static_slab, posT, posT_rows, rs6T_rows, gidx8, h):
-    """K1 of one bucket: centered moments ayT (18, t*rows); see
-    :func:`moments_v4_plain`."""
-    fn = on("moments_v4", posT, moments_v4_plain, _launch_moments)
-    return fn(restT_rows, static_slab, posT, posT_rows, rs6T_rows, gidx8, h)
-
-
-def forces_warp_v4(restT_rows, static_slab, f9T, srT, gidx8, h):
-    """K2 of one bucket: Warp-pairing termj fT (3, t*rows); see
-    :func:`forces_warp_v4_plain`."""
-    fn = on("forces_warp_v4", srT, forces_warp_v4_plain, _launch_forces)
-    return fn(restT_rows, static_slab, f9T, srT, gidx8, h)
-
-
 def moments_v4_bwd(restT_rows, static_slab, dayT, rs6T_rows, h):
     """K1 backward of one bucket: (dpsT (t, 3, slab), dprowT (3, t*rows));
     see :func:`moments_v4_bwd_plain`."""
@@ -354,7 +512,8 @@ reset_launch_counts()
 
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
-    """The per-bucket pair functions an evaluation goes through, of the v4
+    """The pair functions an evaluation goes through (K1 and K2 of the v4
+    path over the whole scene, every other one per bucket), of the v4
     path, the fused path and the blocked layout's raw K1
     (``ops/fused_kernels.py``) and the Taichi pairing's separable K2
     (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
@@ -379,8 +538,8 @@ KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
                   forces_warp_v4_bwd, slab_to_slots, fk.moments_mid,
                   fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd,
                   fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd)
-PLAIN = PairOps(moments_v4_plain, forces_warp_v4_plain, moments_v4_bwd_plain,
-                forces_warp_v4_bwd_plain, slab_to_slots_plain,
+PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
+                moments_v4_bwd_plain, forces_warp_v4_bwd_plain, slab_to_slots_plain,
                 fk.moments_mid_plain, fk.forces_warp_v2_plain,
                 fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_plain,
                 fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
@@ -394,13 +553,7 @@ class _MomentsV4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, posT, posT_rows, sb, h, ops):
         ctx.sb, ctx.h, ctx.ops = sb, h, ops
-        r = sb.rows
-        return torch.cat([
-            ops.moments(b.restT_rows, b.static_slab, posT,
-                        posT_rows[:, bucket_cols(b, r)],
-                        sb.rs6T[:, bucket_cols(b, r)],
-                        b.gidx8, h)
-            for b in sb.buckets], dim=1)
+        return ops.moments(sb, posT, posT_rows, h)
 
     @staticmethod
     @once_differentiable
@@ -426,10 +579,7 @@ class _ForcesWarpV4(torch.autograd.Function):
     def forward(ctx, f9T, srT, sb, h, ops):
         ctx.sb, ctx.h, ctx.ops = sb, h, ops
         ctx.save_for_backward(f9T, srT)
-        return torch.cat([
-            ops.forces(b.restT_rows, b.static_slab,
-                       f9T[:, bucket_cols(b, sb.rows)], srT, b.gidx8, h)
-            for b in sb.buckets], dim=1)
+        return ops.forces(sb, f9T, srT, h)
 
     @staticmethod
     @once_differentiable
@@ -451,12 +601,13 @@ class _ForcesWarpV4(torch.autograd.Function):
 
 def moments_all(posT, posT_rows, sb, h, ops: PairOps = KERNELS):
     """Differentiable K1 over every bucket of ``sb`` (a SparseBlocked):
-    ayT (18, m).  Its backward runs the K1 backward per bucket, then one
-    :func:`slab_to_slots`."""
+    ayT (18, m), one K1 launch on the card.  Its backward runs the K1
+    backward per bucket, then one :func:`slab_to_slots`."""
     return _MomentsV4.apply(posT, posT_rows, sb, h, ops)
 
 
 def forces_all(f9T, srT, sb, h, ops: PairOps = KERNELS):
-    """Differentiable K2 over every bucket of ``sb``: termjT (3, m).  Its
-    backward runs the K2 backward per bucket, then one :func:`slab_to_slots`."""
+    """Differentiable K2 over every bucket of ``sb``: termjT (3, m), one K2
+    launch on the card.  Its backward runs the K2 backward per bucket, then
+    one :func:`slab_to_slots`."""
     return _ForcesWarpV4.apply(f9T, srT, sb, h, ops)

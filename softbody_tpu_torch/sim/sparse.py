@@ -4,10 +4,10 @@
 Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
 
   pos (n_slots, 3) -> posT (3, n_slots)
-    -> [moments_all: K1 moments_v4 per bucket] -> ayT (18, m)
+    -> [moments_all: K1 moments_v4, one launch] -> ayT (18, m)
     -> A, Y components -> mid-section (polar, F, S, M; plain torch)
     -> f9T (9, m), per-slot record srT (15, n_slots) = [S_6 | R^T_9]
-    -> [forces_all: K2 forces_warp_v4 per bucket] -> termjT (3, m)
+    -> [forces_all: K2 forces_warp_v4, one launch] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
 With the Taichi pairing (``pair_def_grad="j"``) the mid-section also forms
@@ -26,8 +26,11 @@ the K1 kernel (``ops/fused_kernels.py``):
     -> [forces_v2_all: K2 forces_warp_v2 per bucket, term_i and 0.5 V_i in
         the kernel] -> fT (3, m) -> forces (n_slots, 3)
 
-Both kernels launch once per bucket (8 buckets at the ~112k stretch scene),
-the JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
+K1 and K2 of the default path (and K1 of the Taichi pairing) launch once
+per force evaluation over every tile of every bucket, in the scene's tile
+schedule (``SparseBlocked.schedule``, longest slab first); the other
+kernels launch once per bucket (8 buckets at the ~112k stretch scene), the
+JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
 contiguous column range of every lane-major array and the per-bucket results
 concatenate straight into tile order.  The VJP runs backwards through the
 same chain: per bucket the K2 and K1 backward kernels, each followed by one
@@ -41,11 +44,11 @@ import numpy as np
 import torch
 
 from ..config import SimConfig, resolve_device, torch_dtype
-from ..core.types import DevBucket, Materials, Scene, SparseBlocked
+from ..core.types import Materials, Scene, SparseBlocked
 from ..ops.blocked import far_grid
 from ..ops.fused_kernels import forces_v2_all, moments_mid_all, row_static
 from ..ops.pair_kernels import (KERNELS, PairOps, forces_all, moments_all,
-                                slab_inverse)
+                                sparse_blocked)
 from ..ops.separable_kernels import forces_sep_all
 from ..topology.neighbors import rest_density_and_corr
 from ..topology.sparse import GROUP, build_sparse_layout
@@ -116,7 +119,7 @@ def build_sparse_scene(
     rs6[sop, 3:6] = svnw_p
 
     gsz = int(layout.group)
-    buckets = []
+    parts = []
     for b in layout.buckets:
         sl = (b.group_ids.astype(np.int64)[:, :, None] * gsz
               + np.arange(gsz)[None, None, :]).reshape(b.group_ids.shape[0], -1)
@@ -127,19 +130,8 @@ def build_sparse_scene(
             mass[sl][:, None, :],
             volume[sl][:, None, :],
         ], axis=1)
-        buckets.append(DevBucket(
-            gidx8=dev(b.group_ids, torch.int32),
-            restT_rows=dev(np.swapaxes(rr, 1, 2)),
-            static_slab=dev(static),
-            tile_start=int(tid[0]),
-            rows=rows,
-            slab_len=int(sl.shape[1]),
-        ))
-
-    ptr, idx = slab_inverse([b.group_ids for b in layout.buckets], ns, gsz, real)
-    sb = SparseBlocked(buckets=tuple(buckets), rs6T=dev(rs6.T), rows=rows,
-                       n_tiles=n_tiles, n_slots=ns, group=gsz,
-                       slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32))
+        parts.append((b.group_ids, np.swapaxes(rr, 1, 2), static, int(tid[0])))
+    sb = sparse_blocked(parts, rs6.T, ns, gsz, real, device, dtype, rows)
     mats = Materials(
         mass=dev(mass_integ), volume=dev(volume), mu=dev(mu), lam=dev(lam),
         free=dev(free), external=dev(ext),

@@ -58,6 +58,9 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_kernels_match_plain_per_bucket(dtype):
+    """K1 and K2 launch once over the whole scene; each bucket's columns
+    match that bucket's plain version, and a second launch repeats the
+    first bit for bit."""
     dev = _card()
     cfg, scene, pos, _ = _scene(dtype, dev)
     sb = scene.blocked
@@ -68,14 +71,31 @@ def test_kernels_match_plain_per_bucket(dtype):
     srT[:, m:] = 0
     posT = pos.T.contiguous()
     pk.reset_launch_counts()
+    k1 = pk.moments_v4(sb, posT, posT[:, :m], cfg.h)
+    k2 = pk.forces_warp_v4(sb, f9T, srT, cfg.h)
+    assert pk.moments_v4.launches == pk.forces_warp_v4.launches == 1
+    assert len(sb.buckets) >= 2
     for b in sb.buckets:
-        r0, mb = b.row_start, b.n_tiles * sb.rows
-        a1 = (b.restT_rows, b.static_slab, posT, posT[:, r0:r0 + mb],
-              sb.rs6T[:, r0:r0 + mb], b.gidx8, cfg.h)
-        a2 = (b.restT_rows, b.static_slab, f9T[:, r0:r0 + mb], srT, b.gidx8, cfg.h)
-        assert _rel(pk.moments_v4(*a1), pk.moments_v4_plain(*a1)) <= TOL[dtype]
-        assert _rel(pk.forces_warp_v4(*a2), pk.forces_warp_v4_plain(*a2)) <= TOL[dtype]
-    assert pk.moments_v4.launches == pk.forces_warp_v4.launches == len(sb.buckets)
+        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
+        p1 = pk.moments_v4_plain(b.restT_rows, b.static_slab, posT, posT[:, c],
+                                 sb.rs6T[:, c], b.gidx8, cfg.h)
+        p2 = pk.forces_warp_v4_plain(b.restT_rows, b.static_slab, f9T[:, c], srT,
+                                     b.gidx8, cfg.h)
+        assert _rel(k1[:, c], p1) <= TOL[dtype], b.slab_len
+        assert _rel(k2[:, c], p2) <= TOL[dtype], b.slab_len
+    assert torch.equal(k1, pk.moments_v4(sb, posT, posT[:, :m], cfg.h))
+    assert torch.equal(k2, pk.forces_warp_v4(sb, f9T, srT, cfg.h))
+
+
+def test_one_launch_of_each_ragged_kernel_per_force_evaluation():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    for c in (cfg, cfg.replace(pair_def_grad="j")):
+        pk.reset_launch_counts()
+        elastic_forces_sparse(pos, ratio, scene.materials, scene, c)
+        counts = pk.launch_counts()
+        assert counts["moments_v4"] == 1, counts
+        assert counts["forces_warp_v4"] == (1 if c.pair_def_grad == "i" else 0), counts
 
 
 def test_forces_kernel_path_matches_plain_and_is_deterministic():
@@ -104,16 +124,25 @@ def test_short_episode_kernel_path_tracks_plain():
 def test_kernels_refuse_bad_operands():
     dev = _card()
     cfg, scene, pos, _ = _scene("float32", dev)
-    b = scene.blocked.buckets[0]
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
     posT = pos.T.contiguous()
-    mb = b.n_tiles * scene.blocked.rows
-    rs6 = scene.blocked.rs6T[:, :mb]
+    srT = torch.zeros((15, sb.n_slots), device=dev)
+    f9T = torch.zeros((9, m), device=dev)
     with pytest.raises(TypeError, match="dtype"):
-        pk.moments_v4(b.restT_rows, b.static_slab, posT.double(),
-                      posT[:, :mb], rs6, b.gidx8, cfg.h)
+        pk.moments_v4(sb, posT.double(), posT[:, :m].double(), cfg.h)
     with pytest.raises(ValueError, match="lanes"):
-        pk.moments_v4(b.restT_rows, b.static_slab, pos.T, posT[:, :mb],
-                      rs6, b.gidx8, cfg.h)
+        pk.moments_v4(sb, pos.T, posT[:, :m], cfg.h)
+    # the kernels copy 16-byte pieces: a misaligned base or row stride raises
+    shifted = torch.empty(3 * sb.n_slots + 1, device=dev)[1:].view(3, sb.n_slots)
+    shifted.copy_(posT)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.moments_v4(sb, shifted, posT[:, :m], cfg.h)
+    wide = torch.zeros((15, sb.n_slots + 2), device=dev)[:, :sb.n_slots]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pk.forces_warp_v4(sb, f9T, wide, cfg.h)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        pk.forces_warp_v4(sb, f9T, srT.to(torch.int32), cfg.h)
 
 
 def _bwd_inputs(cfg, scene, pos, seed):
