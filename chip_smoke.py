@@ -7,8 +7,9 @@ top-15% Dirichlet clamp, f32) — and holds every hand-written kernel on that
 path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
-  2  kernel build (nvcc, from csrc/ in this checkout); the two ragged
-     kernels' registers, shared memory, spills and resident blocks per SM
+  2  kernel build (nvcc, from csrc/ in this checkout); the five
+     whole-scene kernels' (K1/K2 forward and their backwards) registers,
+     shared memory, spills and resident blocks per SM, f32 and f64
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -24,9 +25,11 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      (K1 and K2: one per force evaluation)
      (phases 5-7 run fewer steps when they would exceed TIME_BUDGET_S;
      the cut is printed)
-  9  per bucket: the K1 backward and the two K2 backward passes, each
-     composed with the fixed-order slab_to_slots scatter, kernel vs plain
-     (<= 1e-4 of max |plain|), ms per launch, the work's bound
+  9  the K1 backward and the two K2 backward passes, one launch each over
+     every tile of every bucket: each bucket's columns vs that bucket's
+     plain version on the card (the slab side composed with the
+     fixed-order slab_to_slots scatter; <= 1e-4 of max |plain|), a bitwise
+     repeat, ms per evaluation, the work's bound
  10  one VJP of elastic_forces_sparse wrt (positions, x), kernel path vs
      plain path (<= 1e-4), and bitwise equal across two kernel-path calls
  11  the episode gradient at full width: episode_value_and_grad_chunked over
@@ -102,8 +105,9 @@ JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; ms per force
-evaluation: one launch for K1 and K2 v4, the sum over the sparse scene's
-buckets for the other kernels, the raw K1 on the varcol scene),
+evaluation: one launch for K1 and K2 v4 and their backwards, the sum over
+the sparse scene's buckets for the other kernels, the raw K1 on the varcol
+scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -134,8 +138,8 @@ EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do them
-                  "moments_v4_bwd": 72, "forces_warp_v4_bwd_rows": 75,
-                  "forces_warp_v4_bwd_slab": 123,
+                  "moments_v4_bwd": 67, "forces_warp_v4_bwd_rows": 71,
+                  "forces_warp_v4_bwd_slab": 118,
                   "moments_mid": 78, "forces_warp_v2": 78, "moments_raw_bwd": 72,
                   "forces_warp_v2_bwd_rows": 78, "forces_warp_v2_bwd_slab": 123,
                   "forces_sep": 50, "forces_sep_bwd_rows": 32,
@@ -535,7 +539,6 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
 
     sb = scene.blocked
     m = sb.n_tiles * sb.rows
-    nb = len(sb.buckets)
     n = len(sop)
     f32 = 4
     rng = np.random.default_rng(9)
@@ -543,56 +546,90 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     def rand(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
 
-    # ---- 9 backward kernels vs plain, per bucket, each composed with the scatter
-    say(f"[9] per bucket, backward kernels vs plain on the card {tag}")
+    # ---- 9 the three backward kernels: one launch per evaluation each, each
+    # bucket's columns held against that bucket's plain version
+    say(f"[9] K1 backward and the two K2 backward passes, one launch each over all "
+        f"{sb.n_tiles} tiles, kernel vs plain per bucket on the card {tag}")
     dayT, dfT = rand(18, m), rand(3, m)
     f9T = torch.eye(3, device=dev).reshape(9, 1) + 0.1 * rand(9, m)
     srT = rand(15, sb.n_slots)
     srT[:, m:] = 0
-    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    n_entries = pk.n_entries(sb)
     index_bytes = (sb.slab_idx.numel() + sb.slab_ptr.numel()) * 4
     kept = sb.slab_idx.numel() * sb.group     # entries the scatter reads
     to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+
+    def slots(d, k, scatter):
+        """Per-entry columns ``d`` of one bucket alone in the scene's
+        buffer, added into slots."""
+        buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
+        buf[:, seg] = d
+        return scatter(buf, *to_slots)
+
+    def bwd():
+        return pk.moments_v4_bwd(sb, dayT, cfg.h) + (
+            pk.forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, cfg.h),
+            pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, cfg.h))
+
+    k_dps, k_dprow, k_df9, k_dsr = bwd()
+    torch.cuda.synchronize()
     e0 = 0
     for i, b in enumerate(sb.buckets):
         t, slab = b.n_tiles, b.slab_len
-        mb = t * sb.rows
-        c = slice(b.row_start, b.row_start + mb)
+        c = slice(b.row_start, b.row_start + t * sb.rows)
         seg = slice(e0, e0 + t * slab)
         e0 += t * slab
-        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
-        tile_bytes = (t * 3 * sb.rows + t * 5 * slab + t * slab // sb.group) * f32
-        pairs = t * sb.rows * slab
         a1 = (b.restT_rows, b.static_slab, dayT[:, c], sb.rs6T[:, c], cfg.h)
         a2 = (b.restT_rows, b.static_slab, f9T[:, c], srT, b.gidx8, dfT[:, c], cfg.h)
-
-        def slots(d, k, scatter):
-            """The bucket's per-entry output alone in the all-bucket buffer,
-            added into slots."""
-            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
-            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
-            return scatter(buf, *to_slots)
-
-        work = {
-            "moments_v4_bwd": (
-                lambda: pk.moments_v4_bwd(*a1), lambda: pk.moments_v4_bwd_plain(*a1),
-                lambda o, sc: (o[1], slots(o[0], 3, sc)),
-                tile_bytes + (18 * mb + 6 * mb + 3 * t * slab + 3 * mb) * f32),
-            "forces_warp_v4_bwd_rows": (
-                lambda: pk.forces_warp_v4_bwd_rows(*a2),
-                lambda: pk.forces_warp_v4_bwd_plain(*a2)[0],
-                lambda o, sc: (o,),
-                tile_bytes + (15 * uniq + 3 * mb + 9 * mb) * f32),
-            "forces_warp_v4_bwd_slab": (
-                lambda: pk.forces_warp_v4_bwd_slab(*a2),
-                lambda: pk.forces_warp_v4_bwd_plain(*a2)[1],
-                lambda o, sc: (slots(o, 15, sc),),
-                tile_bytes + (9 * mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
-        }
-        work = {k: (kern, plain, outs, FLOPS_PER_PAIR[k] * pairs, nbytes)
-                for k, (kern, plain, outs, nbytes) in work.items()}
-        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-                       + held_per_launch(torch, work, f"bucket {i}", stats)))
+        p_dps, p_dprow = pk.moments_v4_bwd_plain(*a1)
+        p_df9, p_dsr = pk.forces_warp_v4_bwd_plain(*a2)
+        e1 = max(record(stats["moments_v4_bwd"], slots(k_dps[:, seg], 3, pk.slab_to_slots),
+                        slots(p_dps.permute(1, 0, 2).reshape(3, -1), 3,
+                              pk.slab_to_slots_plain), f"moments_v4_bwd bucket {i}"),
+                 record(stats["moments_v4_bwd"], k_dprow[:, c], p_dprow,
+                        f"moments_v4_bwd rows bucket {i}"))
+        e2 = record(stats["forces_warp_v4_bwd_rows"], k_df9[:, c], p_df9,
+                    f"forces_warp_v4_bwd_rows bucket {i}")
+        e3 = record(stats["forces_warp_v4_bwd_slab"], slots(k_dsr[:, seg], 15, pk.slab_to_slots),
+                    slots(p_dsr.permute(1, 0, 2).reshape(15, -1), 15, pk.slab_to_slots_plain),
+                    f"forces_warp_v4_bwd_slab bucket {i}")
+        ms1 = cuda_ms(lambda: pk.moments_v4_bwd_plain(*a1), 1)
+        ms2 = cuda_ms(lambda: pk.forces_warp_v4_bwd_plain(*a2), 1)
+        stats["moments_v4_bwd"]["plain_ms"] += ms1
+        for key in ("forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab"):
+            stats[key]["plain_ms"] += ms2
+        say(f"    bucket {i}: slab {slab:4d} tiles {t:4d} | moments_v4_bwd err {e1:.2e} "
+            f"(plain {ms1:.2f} ms) | forces_warp_v4_bwd rows err {e2:.2e}, slab err "
+            f"{e3:.2e} (plain {ms2:.2f} ms)")
+    same = all(torch.equal(x, y) for x, y in zip((k_dps, k_dprow, k_df9, k_dsr), bwd()))
+    say(f"    second launch of each bitwise equal: {same}")
+    if not same:
+        fail("a backward kernel does not repeat bit for bit")
+    pairs = sum(b.n_tiles * sb.rows * b.slab_len for b in sb.buckets)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
+    rest_static = (sb.rest_rows.numel() + sb.static_all.numel()) * f32
+    gidx_bytes = sb.gidx_all.numel() * 4
+    work = {
+        "moments_v4_bwd": (
+            lambda: pk.moments_v4_bwd(sb, dayT, cfg.h),
+            rest_static + sb.chunks.numel() * 8
+            + (18 * m + 6 * m + 3 * n_entries + 3 * m) * f32),
+        "forces_warp_v4_bwd_rows": (
+            lambda: pk.forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, cfg.h),
+            rest_static + gidx_bytes + sb.schedule.numel() * 8
+            + (15 * uniq + 3 * m + 9 * m) * f32),
+        "forces_warp_v4_bwd_slab": (
+            lambda: pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, cfg.h),
+            rest_static + gidx_bytes + sb.chunks.numel() * 8
+            + (9 * m + 15 * uniq + 3 * m + 15 * n_entries) * f32),
+    }
+    for key, (fn, nbytes) in work.items():
+        st = stats[key]
+        st["ms"] = cuda_ms(fn, 50)
+        st["launch_ms"] = host_ms(fn, 50)
+        st["flops"] = FLOPS_PER_PAIR[key] * pairs
+        st["bytes"] = nbytes
+        summarize(key, st, 1, tag)
     # the scatter: once for K1's 3 fields and once for K2's 15 per evaluation.
     # Its library counterpart is one index_add_ over every entry's slot
     # (float atomics, so not bitwise repeatable; it also adds the padding
@@ -612,9 +649,6 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
             (k, sb.n_slots), device=dev).index_add_(1, entry_slots, buf), 20)
         st["flops"] += k * kept
         st["bytes"] += (k * kept + k * sb.n_slots) * f32 + index_bytes
-    for key in ("moments_v4_bwd", "forces_warp_v4_bwd_rows",
-                "forces_warp_v4_bwd_slab"):
-        summarize(key, stats[key], nb, tag)
     summarize("slab_to_slots", st, 2, tag)
     say(f"    slab_to_slots library counterpart (index_add_, 2 calls): "
         f"{st['library_ms']:.4f} ms {tag}")
@@ -761,11 +795,11 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     # boundaries, the chunk's recompute under autograd, the per-step
     # checkpoint's recompute in the backward) and backward once:
     #   K1, K2 forward:               3 S (one launch over every tile)
-    #   K1 bwd, K2 bwd rows and slab: buckets x S
+    #   K1 bwd, K2 bwd rows and slab: S (one launch over every tile)
     #   slab_to_slots:                2 S (one after K1's, one after K2's)
     per_eval = {"moments_v4": 3 * S, "forces_warp_v4": 3 * S,
-                "moments_v4_bwd": nb * S, "forces_warp_v4_bwd_rows": nb * S,
-                "forces_warp_v4_bwd_slab": nb * S, "slab_to_slots": 2 * S}
+                "moments_v4_bwd": S, "forces_warp_v4_bwd_rows": S,
+                "forces_warp_v4_bwd_slab": S, "slab_to_slots": 2 * S}
     say(f"[13] launches of one gradient (phase 11): {counts_grad}; of the "
         f"L-BFGS run (phase 12, {res.nfev} evaluations): {counts_opt}; "
         f"expected per evaluation {per_eval}")
@@ -1572,7 +1606,7 @@ def phase_counts(a, b):
     want = {
         ("A", "fwd"): {"moments_v4": 2 * a["steps"], "forces_sep": 2 * nb * a["steps"]},
         ("A", "grad"): {"moments_v4": 3 * S, "forces_sep": 3 * nb * S,
-                        "moments_v4_bwd": nb * S, "forces_sep_bwd_rows": nb * S,
+                        "moments_v4_bwd": S, "forces_sep_bwd_rows": nb * S,
                         "forces_sep_bwd_slab": nb * S, "slab_to_slots": 2 * S},
         ("B", "fwd"): {"moments_raw": 2 * b["steps"], "forces_warp_v2": 2 * b["steps"]},
         ("B", "grad"): {"moments_raw": 3 * S, "forces_warp_v2": 3 * S,

@@ -85,7 +85,10 @@ class SparseBlocked:
     ``gidx_all`` their (t_b, slab_b / group) gidx8.  ``schedule`` lists every
     tile once, longest slab first: [tile, slab, offset of its (5, slab)
     block in static_all, offset of its gidx8 row in gidx_all]
-    (``ops.pair_kernels.tile_schedule``)."""
+    (``ops.pair_kernels.tile_schedule``); ``chunks`` every 128-entry piece
+    of every slab, in tile order: [tile, slab, the two offsets, first
+    entry] (``ops.pair_kernels.chunk_schedule``), the backward's slab
+    side."""
 
     buckets: tuple             # tuple[DevBucket, ...]
     rs6T: torch.Tensor         # (6, n_tiles * rows)
@@ -99,6 +102,7 @@ class SparseBlocked:
     static_all: torch.Tensor   # (sum_b t_b 5 slab_b,)
     gidx_all: torch.Tensor     # (sum_b t_b slab_b / group,) int32
     schedule: torch.Tensor     # (n_tiles, 4) int64
+    chunks: torch.Tensor       # (sum_b t_b slab_b / 128, 5) int64
 
 
 @dataclasses.dataclass(frozen=True)

@@ -144,6 +144,36 @@ __device__ __forceinline__ T pair_g12(T r2, T inv_h) {
   return (T(12) * oq * oq - T(3) * tq * tq) * rs;
 }
 
+// The backward kernels' pair polynomials, the clamps as saturating
+// multiply-adds: with t = r2 rs = |dx|, s = sat(1 - t / 2h) = (2-q)+ / 2
+// and o = sat(1 - t / h) = (1-q)+,
+//   w0 = 8 s^3 - 4 o^3 = 4 w1,  w1 = 2 s^3 - o^3,
+//   g0 = 4 (o^2 - s^2) rs = 4 g1,  g1 = (o^2 - s^2) rs,
+// the factor 4 going into m_j and V_j with the spline constants: 12
+// instructions per pair for both where pair_poly takes 15, 8 for g1 where
+// pair_g12 takes 13.  Both clamps' arguments are at most 1, so saturating
+// to [0, 1] is the forward's relu.  nih = -1/h, nih2 = -1/(2h).
+template <typename T> __device__ __forceinline__ T sat01(T x) { return x > T(0) ? x : T(0); }
+template <> __device__ __forceinline__ float sat01<float>(float x) { return __saturatef(x); }
+
+template <typename T>
+__device__ __forceinline__ void pair_sat(T r2, T nih, T nih2, T& w1, T& g1) {
+  const T rs = rsqrt_normal(r2 + T(1e-30));
+  const T t = r2 * rs;
+  const T s = sat01(fma(t, nih2, T(1))), o = sat01(fma(t, nih, T(1)));
+  const T s2 = s * s, o2 = o * o;
+  w1 = T(2) * s2 * s - o2 * o;
+  g1 = (o2 - s2) * rs;
+}
+
+template <typename T>
+__device__ __forceinline__ T pair_g1(T r2, T nih, T nih2) {
+  const T rs = rsqrt_normal(r2 + T(1e-30));
+  const T t = r2 * rs;
+  const T s = sat01(fma(t, nih2, T(1))), o = sat01(fma(t, nih, T(1)));
+  return (o * o - s * s) * rs;
+}
+
 // Four consecutive stage entries of one field: one 16-byte (f32) or two
 // (f64) shared-memory broadcasts.
 template <typename T> struct alignas(4 * sizeof(T)) Four { T v[4]; };
@@ -445,11 +475,9 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
 //   dps[a](j)   = sum_i sum_blk ct[3 blk + a](i) L_blk(i, j)   per slab entry
 //   dprow[a](i) = -sum_blk ct[3 blk + a](i) rs6[blk](i)        per tile row
 //   (rs6 = the host's static row sums: the gradient is exact for a function
-//   ~1e-7 relative away from the f32 forward, packed.py:376-383).
-//   One block per tile, one thread per slab entry looping over the 32 rows:
-//   the row's rest coordinates and its 18 cotangents are shared-memory
-//   broadcasts, the sum over rows runs in 3 registers in row order.
-//   72 flops per pair.
+//   ~1e-7 relative away from the f32 forward, packed.py:376-383).  Per pair
+//   s1_a = sum_k ct[3k + a] dx_k, s2_a = sum_k ct[9 + 3k + a] dx_k and
+//   dps_a += gv s2_a - cA s1_a: 67 flops.
 //
 // K2 bwd  replaces softbody_tpu/ops/pallas/pair_kernels.py ::
 //         _forces_warp_bwd_kernel_v4 (launched by _forces_warp_bwd_v4_impl).
@@ -458,97 +486,323 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
 //     df9[3c+d](i)     = sum_j z_d w'_c                   (over the slab)
 //     dR^T[3c+a](j)    = sum_i df_a(i) u_c                (over the rows)
 //     dS_6[SYM6](j)   += sum_i nw_b y_d,  y_d = sum_c F_i[c][d] w'_c
-//   The two sums run in opposite directions, so two launches, each with one
-//   owner and no cross-thread reduction but the fixed-order one of the
-//   forward: forces_warp_v4_bwd_rows_kernel (the forward's structure: a lane
-//   per row, four warps splitting the slab, 9 accumulators, 75 flops per
-//   pair) and forces_warp_v4_bwd_slab_kernel (a thread per slab entry
-//   looping over the rows, 15 accumulators, 123 flops per pair).  One
-//   kernel would need the 15 slab sums reduced across the 32 row lanes per
-//   pair; two launches recompute the pair coefficients instead (24 flops).
+//   The two sums run in opposite directions, so two passes, each with one
+//   owner per output and no cross-thread reduction but the fixed-order one
+//   of the forward: forces_warp_v4_bwd_rows_kernel (71 flops per pair) and
+//   forces_warp_v4_bwd_slab_kernel (118).  One pass would have to reduce
+//   the 15 slab sums across the 32 row lanes per pair (about 30 shuffles
+//   and adds); two passes recompute the pair coefficients instead.
+//
+// Bound on an H100 SXM: all three are OPERATION-bound, as the forward
+// kernels are (each slab entry read once serves the tile's 32 rows);
+// chip_smoke.py computes each bound from the run's shapes.
+// What the design does about it:
+//   * One launch per backward evaluation over every tile of every bucket
+//     (it used to be one per bucket: 8 launches, two of them with fewer
+//     tiles than the card has SMs), straight into the whole-scene outputs:
+//     the row side into (3, m) and (9, m), the slab side into the
+//     (k, sum_b t_b slab_b) buffer that slab_to_slots reads, where a tile's
+//     entry s sits at column gi_off * group + s (gi_off: the offset of its
+//     gidx row in gidx_all; the buckets' entries end to end, tile-major).
+//   * The row pass has the forward K2's structure: the ragged schedule, four
+//     warps splitting the slab, the two-stage cp.async ring of the same 19
+//     fields, a lane per row with 9 accumulators.
+//   * The slab side (K1 and K2's slab pass) runs uniform work items: every
+//     slab entry's sums are independent of the other entries', so a block
+//     takes one (tile, BCH = 128-entry chunk) of the host's chunk schedule
+//     (SparseBlocked.chunks: [tile, slab, st_off, gi_off, e0], tile order):
+//     17,672 equal blocks at the ~112k scene, where there were 3,776 tiles
+//     of 1-8 entries per thread.  A tile's chunk-0 block also writes K1's
+//     dprow.
+//   * Fewer shared-memory instructions per pair on the slab side: the
+//     tile's rows are staged row-major and padded to a multiple of 4 (K1:
+//     x_3 and the 18 cotangents in 24; K2: x_3, df_3 and F_9 in 16), so a
+//     row is read as 6 (K1) or 4 (K2) 16-byte broadcasts, not 21 or 15
+//     scalar loads.  A K1 thread owns K1B_EPT = 2 slab entries, so that
+//     each broadcast serves 2 pairs; a K2 slab thread owns 1 (its 34 values
+//     per entry: at 2 entries per thread half the warps fit on an SM, and
+//     it ran 2-5% slower on the card).
+//     Each entry's sum over the rows runs in row order.
+//   * Fewer instructions per pair: the pair polynomial clamps by
+//     saturating multiply-adds (pair_sat, 3-5 instructions fewer than the
+//     forward's); the spline constants are folded into m_j and V_j once per
+//     entry, as in the forward's prep pass; K2's slab pass also takes V_j
+//     and the gradient factor out of its sums (it adds with g1 df_i and dx)
+//     and scales its 15 sums by 12 c4h V_j once.
+//   * No atomics: every sum runs in a fixed order, bitwise repeatable.
 //
 // slab_to_slots_kernel: the per-slab-entry buffers of all buckets, (k,
 //   n_entries) field-major, added into (k, n_slots): one thread per (field,
 //   slot) walks its slot group's CSR list of readers in ascending order.
-//   Byte-bound (each entry read once).  No atomics anywhere: every sum runs
-//   in a fixed order, so the episode gradient is bitwise repeatable.
-//
-// Bound on an H100 SXM: K1 bwd and both K2 bwd passes are operation-bound
-// (as the forward kernels, each slab entry staged once serves 32 rows);
-// chip_smoke.py computes each bound from the run's shapes.
+//   Byte-bound (each entry read once).
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-moments_v4_bwd_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                      const T* __restrict__ static_slab,  // (t, 5, slab)
-                      const T* __restrict__ dayT,         // (18, ld_day)
-                      int64_t ld_day,
-                      const T* __restrict__ rs6T,         // (6, ld_rs6)
-                      int64_t ld_rs6,
-                      T* __restrict__ dps,                // (3, ld_ps), column tile*slab + s
-                      int64_t ld_ps,
-                      T* __restrict__ dprow,              // (3, ld_row)
-                      int64_t ld_row,
-                      int slab, T inv_h, T c4, T c4h) {
-  const int64_t col0 = (int64_t)blockIdx.x * ROWS;
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
-    const int a = o / ROWS, r = o % ROWS;
-    T acc = T(0);
-#pragma unroll
-    for (int blk = 0; blk < 6; ++blk)
-      acc += dayT[(3 * blk + a) * ld_day + col0 + r] * rs6T[blk * ld_rs6 + col0 + r];
-    dprow[a * ld_row + col0 + r] = -acc;
-  }
-  k1_bwd_slab(restT_rows, static_slab, dayT, ld_day, dps, ld_ps, slab, inv_h, c4, c4h);
+constexpr int BCH = 128;          // slab entries per slab-side block
+constexpr int K1B_REC = 24;       // K1 bwd row record: x_3, ct_18, pad
+constexpr int K2B_REC = 16;       // K2 slab pass row record: x_3, df_3, F_9, pad
+constexpr int K2B_OUT = 9;        // the row pass's sums per row: df9
+constexpr int K1B_EPT = 2;        // slab entries per K1 bwd thread (K2's slab pass: 1)
+
+// The slab-side block's work item: entries [e0, e0 + BCH) of one tile's slab.
+struct BChunk {
+  int64_t tile, st_off, gi_off;
+  int slab, e0;
+};
+
+__device__ __forceinline__ BChunk bchunk_of(const int64_t* __restrict__ chunks) {
+  const int64_t* c = chunks + 5 * (int64_t)blockIdx.x;
+  BChunk r;
+  r.tile = c[0];
+  r.slab = (int)c[1];
+  r.st_off = c[2];
+  r.gi_off = c[3];
+  r.e0 = (int)c[4];
+  return r;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v4_bwd_rows_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                               const T* __restrict__ static_slab,  // (t, 5, slab)
-                               const T* __restrict__ srT,          // (15, ld_sr)
-                               int64_t ld_sr,
-                               const int32_t* __restrict__ gidx,   // (t, slab / group)
-                               const T* __restrict__ dfT,          // (3, ld_df)
-                               int64_t ld_df,
-                               T* __restrict__ df9T,               // (9, ld_out)
-                               int64_t ld_out,
-                               int slab, int group, T inv_h, T c4h) {
-  __shared__ K2Entry<T> ent[CHUNK];
-  __shared__ T red[NWARPS][9][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
-  k2_bwd_row_sums<false>(restT_rows + (int64_t)tile * 3 * ROWS,
-                         static_slab + (int64_t)tile * 5 * slab, srT, ld_sr,
-                         gidx + (int64_t)tile * (slab / group), slab, group, inv_h,
-                         c4h, dfT[col], dfT[ld_df + col], dfT[2 * ld_df + col], ent,
-                         red);
-  for (int o = threadIdx.x; o < 9 * ROWS; o += THREADS) {
-    const int r = o % ROWS, k = o / ROWS;
-    T sum = T(0);
+// The tile's rows row-major in shared memory: rec[r * REC + f] = field(f, r)
+// for f < NF, the padding fields zero.  Each thread stores four fields of
+// a row at once (16 bytes): neighbouring lanes read neighbouring rows of a
+// field from global memory, and the row-major stores conflict 2-way (K1)
+// or 4-way (K2) where scalar stores would conflict 8- or 16-way.
+template <typename T, int REC, int NF, int NT, typename Field>
+__device__ __forceinline__ void stage_rows(T* rec, Field field) {
+  for (int o = threadIdx.x; o < REC / 4 * ROWS; o += NT) {
+    const int k = o / ROWS, r = o % ROWS;
+    Four<T> x;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) sum += red[w][k][r];
-    df9T[k * ld_out + (int64_t)tile * ROWS + r] = sum;
+    for (int i = 0; i < 4; ++i) x.v[i] = 4 * k + i < NF ? field(4 * k + i, r) : T(0);
+    *reinterpret_cast<Four<T>*>(rec + r * REC + 4 * k) = x;
+  }
+}
+
+// Row r of the staged rows as REC / 4 16-byte broadcasts.
+template <typename T, int REC>
+__device__ __forceinline__ void load_row(const T* rec, int r, T (&x)[REC]) {
+  const Four<T>* q = reinterpret_cast<const Four<T>*>(rec + r * REC);
+#pragma unroll
+  for (int k = 0; k < REC / 4; ++k) {
+    const Four<T> f = q[k];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[4 * k + i] = f.v[i];
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v4_bwd_slab_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                               const T* __restrict__ static_slab,  // (t, 5, slab)
-                               const T* __restrict__ f9T,          // (9, ld_f9)
-                               int64_t ld_f9,
-                               const T* __restrict__ srT,          // (15, ld_sr)
-                               int64_t ld_sr,
-                               const int32_t* __restrict__ gidx,   // (t, slab / group)
-                               const T* __restrict__ dfT,          // (3, ld_df)
-                               int64_t ld_df,
-                               T* __restrict__ dsr,                // (15, ld_out), column tile*slab + s
-                               int64_t ld_out,
-                               int slab, int group, T inv_h, T c4h) {
-  k2_bwd_slab(restT_rows, static_slab, f9T, ld_f9, (const T*)nullptr, srT, ld_sr,
-              gidx, dfT, ld_df, dsr, ld_out, slab, group, inv_h, c4h);
+__global__ void __launch_bounds__(BCH / K1B_EPT)
+moments_v4_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                      const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                      const T* __restrict__ static_all,       // per tile (5, slab)
+                      const T* __restrict__ dayT, int64_t ld_day,   // (18, ld_day)
+                      const T* __restrict__ rs6T, int64_t ld_rs6,   // (6, ld_rs6)
+                      T* __restrict__ dps, int64_t ld_ps,           // (3, ld_ps)
+                      T* __restrict__ dprow, int64_t ld_row,        // (3, ld_row)
+                      int group, T inv_h, T c4, T c4h) {
+  constexpr int EPT = K1B_EPT, NT = BCH / EPT;
+  __shared__ __align__(32) T rec[ROWS * K1B_REC];
+  const BChunk c = bchunk_of(chunks);
+  const int64_t col0 = c.tile * ROWS;
+  const T* rr = rest_rows + c.tile * 3 * ROWS;
+  stage_rows<T, K1B_REC, 21, NT>(rec, [&](int f, int r) {
+    return f < 3 ? rr[f * ROWS + r] : dayT[(f - 3) * ld_day + col0 + r];
+  });
+  if (c.e0 == 0)
+    for (int o = threadIdx.x; o < 3 * ROWS; o += NT) {
+      const int a = o / ROWS, r = o % ROWS;
+      T acc = T(0);
+#pragma unroll
+      for (int blk = 0; blk < 6; ++blk)
+        acc += dayT[(3 * blk + a) * ld_day + col0 + r] * rs6T[blk * ld_rs6 + col0 + r];
+      dprow[a * ld_row + col0 + r] = -acc;
+    }
+  const T* st = static_all + c.st_off;
+  const T c4x4 = T(4) * c4, c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
+  T xj[EPT][3], mj[EPT], vj[EPT], g[EPT][3];
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    const int e = c.e0 + threadIdx.x + u * NT;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      xj[u][k] = st[k * c.slab + e];
+      g[u][k] = T(0);
+    }
+    mj[u] = c4x4 * st[3 * c.slab + e];
+    vj[u] = c4h12 * st[4 * c.slab + e];
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < ROWS; ++r) {
+    T x[K1B_REC];
+    load_row(rec, r, x);
+    const T* ct = x + 3;                     // ct[3 blk + a]
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const T d0 = x[0] - xj[u][0], d1 = x[1] - xj[u][1], d2 = x[2] - xj[u][2];
+      T w1, g1;
+      pair_sat(d0 * d0 + d1 * d1 + d2 * d2, nih, nih2, w1, g1);
+      const T cA = w1 * mj[u], gv = g1 * vj[u];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const T s1 = ct[a] * d0 + ct[3 + a] * d1 + ct[6 + a] * d2;
+        const T s2 = ct[9 + a] * d0 + ct[12 + a] * d1 + ct[15 + a] * d2;
+        g[u][a] = fma(gv, s2, g[u][a]);
+        g[u][a] = fma(-cA, s1, g[u][a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    const int64_t e = c.gi_off * group + c.e0 + threadIdx.x + u * NT;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dps[a * ld_ps + e] = g[u][a];
+  }
+}
+
+// The row pass's sums of one landed stage for row xi, its df given:
+// acc[3c + d] += z_d w'_c.  The stage's V field holds 12 c4h V_j.
+template <typename T>
+__device__ __forceinline__ void k2b_rows_stage(const T* buf, T xi0, T xi1, T xi2,
+                                               T df0, T df1, T df2, T nih, T nih2,
+                                               T (&acc)[K2B_OUT]) {
+#pragma unroll 1
+  for (int j = 0; j < CH; j += 4) {
+    const Four<T> X0 = four(buf, 0, j), X1 = four(buf, 1, j), X2 = four(buf, 2, j);
+    const Four<T> Vs = four(buf, 3, j);
+    Four<T> S[6], Rt[9];                     // S_6 = [s00 s01 s02 s11 s12 s22]
+#pragma unroll
+    for (int f = 0; f < 6; ++f) S[f] = four(buf, 4 + f, j);
+#pragma unroll
+    for (int f = 0; f < 9; ++f) Rt[f] = four(buf, 10 + f, j);   // Rt[3c + a] = R[a][c]
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T dx0 = xi0 - X0.v[u], dx1 = xi1 - X1.v[u], dx2 = xi2 - X2.v[u];
+      const T gv = pair_g1(dx0 * dx0 + dx1 * dx1 + dx2 * dx2, nih, nih2) * Vs.v[u];
+      const T nw0 = gv * dx0, nw1 = gv * dx1, nw2 = gv * dx2;
+      const T z0 = nw0 * S[0].v[u] + nw1 * S[1].v[u] + nw2 * S[2].v[u];
+      const T z1 = nw0 * S[1].v[u] + nw1 * S[3].v[u] + nw2 * S[4].v[u];
+      const T z2 = nw0 * S[2].v[u] + nw1 * S[4].v[u] + nw2 * S[5].v[u];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T wp = df0 * Rt[3 * c].v[u] + df1 * Rt[3 * c + 1].v[u]
+                     + df2 * Rt[3 * c + 2].v[u];
+        acc[3 * c] = fma(z0, wp, acc[3 * c]);
+        acc[3 * c + 1] = fma(z1, wp, acc[3 * c + 1]);
+        acc[3 * c + 2] = fma(z2, wp, acc[3 * c + 2]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+forces_warp_v4_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                               const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                               const T* __restrict__ static_all,      // per tile (5, slab)
+                               const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                               const T* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr): S_6 | R^T_9
+                               const T* __restrict__ dfT, int64_t ld_df,  // (3, ld_df)
+                               T* __restrict__ df9T, int64_t ld_out,      // (9, ld_out)
+                               int group, T inv_h, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const int64_t col = s.tile * ROWS + lane;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
+  const T df0 = dfT[col], df1 = dfT[ld_df + col], df2 = dfT[2 * ld_df + col];
+  T acc[K2B_OUT];
+#pragma unroll
+  for (int k = 0; k < K2B_OUT; ++k) acc[k] = T(0);
+  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
+  const T c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
+  walk_chunks<T, 4, 15, K2_FIELDS>(
+      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
+      [&](T* buf) {
+        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h12;
+      },
+      [&](const T* buf) {
+        k2b_rows_stage(buf, xi0, xi1, xi2, df0, df1, df2, nih, nih2, acc);
+      });
+  reduce_store<T, K2B_OUT>(smem, acc, df9T, ld_out, s.tile, 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BCH)
+forces_warp_v4_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                               const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                               const T* __restrict__ static_all,       // per tile (5, slab)
+                               const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
+                               const T* __restrict__ f9T, int64_t ld_f9,   // (9, ld_f9)
+                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
+                               const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
+                               T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
+                               int group, T inv_h, T c4h) {
+  __shared__ __align__(32) T rec[ROWS * K2B_REC];
+  const BChunk c = bchunk_of(chunks);
+  const int64_t col0 = c.tile * ROWS;
+  const T* rr = rest_rows + c.tile * 3 * ROWS;
+  stage_rows<T, K2B_REC, 15, BCH>(rec, [&](int f, int r) {
+    return f < 3 ? rr[f * ROWS + r]
+                 : f < 6 ? dfT[(f - 3) * ld_df + col0 + r]
+                         : f9T[(f - 6) * ld_f9 + col0 + r];
+  });
+  // this thread's slab entry
+  const int e = c.e0 + threadIdx.x;
+  const T* st = static_all + c.st_off;
+  const int64_t slot = (int64_t)gidx_all[c.gi_off + e / group] * group + e % group;
+  const T xj0 = st[e], xj1 = st[c.slab + e], xj2 = st[2 * c.slab + e];
+  const T vj = T(12) * c4h * st[4 * c.slab + e];
+  const T nih = -inv_h, nih2 = T(-0.5) * inv_h;
+  T S[6], Rt[9], dS[6], dRt[9];
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    S[f] = srT[f * ld_sr + slot];
+    dS[f] = T(0);
+  }
+#pragma unroll
+  for (int f = 0; f < 9; ++f) {
+    Rt[f] = srT[(6 + f) * ld_sr + slot];
+    dRt[f] = T(0);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < ROWS; ++r) {
+    T x[K2B_REC];
+    load_row(rec, r, x);
+    const T* df = x + 3;
+    const T* F = x + 6;                      // F[3c + d] = F_i[c][d]
+    const T d0 = x[0] - xj0, d1 = x[1] - xj1, d2 = x[2] - xj2;
+    const T g1 = pair_g1(d0 * d0 + d1 * d1 + d2 * d2, nih, nih2);
+    const T gd[3] = {g1 * df[0], g1 * df[1], g1 * df[2]};
+    const T z[3] = {S[0] * d0 + S[1] * d1 + S[2] * d2,
+                    S[1] * d0 + S[3] * d1 + S[4] * d2,
+                    S[2] * d0 + S[4] * d1 + S[5] * d2};
+    T wp[3];
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      const T uc = F[3 * cc] * z[0] + F[3 * cc + 1] * z[1] + F[3 * cc + 2] * z[2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) dRt[3 * cc + a] = fma(gd[a], uc, dRt[3 * cc + a]);
+      wp[cc] = gd[0] * Rt[3 * cc] + gd[1] * Rt[3 * cc + 1] + gd[2] * Rt[3 * cc + 2];
+    }
+    T y[3];
+#pragma unroll
+    for (int dd = 0; dd < 3; ++dd)
+      y[dd] = F[dd] * wp[0] + F[3 + dd] * wp[1] + F[6 + dd] * wp[2];
+    // dS_6[SYM6[3d + b]] += dx_b y_d
+    dS[0] = fma(d0, y[0], dS[0]);
+    dS[1] = fma(d0, y[1], fma(d1, y[0], dS[1]));
+    dS[2] = fma(d0, y[2], fma(d2, y[0], dS[2]));
+    dS[3] = fma(d1, y[1], dS[3]);
+    dS[4] = fma(d1, y[2], fma(d2, y[1], dS[4]));
+    dS[5] = fma(d2, y[2], dS[5]);
+  }
+  const int64_t col = c.gi_off * group + e;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) dsr[f * ld_out + col] = vj * dS[f];
+#pragma unroll
+  for (int f = 0; f < 9; ++f) dsr[(6 + f) * ld_out + col] = vj * dRt[f];
 }
 
 constexpr int SCATTER_THREADS = 256;
@@ -573,42 +827,45 @@ slab_to_slots_kernel(const T* __restrict__ buf,          // (k, ld_buf)
 }
 
 template <typename T>
-int launch_moments_bwd(const void* restT_rows, const void* static_slab,
-                       const void* dayT, int64_t ld_day, const void* rs6T,
-                       int64_t ld_rs6, void* dps, int64_t ld_ps, void* dprow,
-                       int64_t ld_row, int t, int slab, double inv_h, double c4,
-                       double c4h, void* stream) {
-  moments_v4_bwd_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)restT_rows, (const T*)static_slab, (const T*)dayT, ld_day,
-      (const T*)rs6T, ld_rs6, (T*)dps, ld_ps, (T*)dprow, ld_row, slab,
-      (T)inv_h, (T)c4, (T)c4h);
+int launch_moments_bwd(const void* chunks, int n_chunks, const void* rest_rows,
+                       const void* static_all, const void* dayT, int64_t ld_day,
+                       const void* rs6T, int64_t ld_rs6, void* dps, int64_t ld_ps,
+                       void* dprow, int64_t ld_row, int group, double inv_h,
+                       double c4, double c4h, void* stream) {
+  moments_v4_bwd_kernel<T><<<n_chunks, BCH / K1B_EPT, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
+      (const T*)dayT, ld_day, (const T*)rs6T, ld_rs6, (T*)dps, ld_ps, (T*)dprow,
+      ld_row, group, (T)inv_h, (T)c4, (T)c4h);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_forces_bwd_rows(const void* restT_rows, const void* static_slab,
-                           const void* srT, int64_t ld_sr, const void* gidx,
-                           const void* dfT, int64_t ld_df, void* df9T,
-                           int64_t ld_out, int t, int slab, int group,
+int launch_forces_bwd_rows(const void* sched, int n_sched, const void* rest_rows,
+                           const void* static_all, const void* gidx_all,
+                           const void* srT, int64_t ld_sr, const void* dfT,
+                           int64_t ld_df, void* df9T, int64_t ld_out, int group,
                            double inv_h, double c4h, void* stream) {
-  forces_warp_v4_bwd_rows_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)restT_rows, (const T*)static_slab, (const T*)srT, ld_sr,
-      (const int32_t*)gidx, (const T*)dfT, ld_df, (T*)df9T, ld_out, slab,
-      group, (T)inv_h, (T)c4h);
+  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2B_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v4_bwd_rows_kernel<T>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  forces_warp_v4_bwd_rows_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)srT, ld_sr, (const T*)dfT, ld_df,
+      (T*)df9T, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_forces_bwd_slab(const void* restT_rows, const void* static_slab,
+int launch_forces_bwd_slab(const void* chunks, int n_chunks, const void* rest_rows,
+                           const void* static_all, const void* gidx_all,
                            const void* f9T, int64_t ld_f9, const void* srT,
-                           int64_t ld_sr, const void* gidx, const void* dfT,
-                           int64_t ld_df, void* dsr, int64_t ld_out, int t,
-                           int slab, int group, double inv_h, double c4h,
+                           int64_t ld_sr, const void* dfT, int64_t ld_df, void* dsr,
+                           int64_t ld_out, int group, double inv_h, double c4h,
                            void* stream) {
-  forces_warp_v4_bwd_slab_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)restT_rows, (const T*)static_slab, (const T*)f9T, ld_f9,
-      (const T*)srT, ld_sr, (const int32_t*)gidx, (const T*)dfT, ld_df,
-      (T*)dsr, ld_out, slab, group, (T)inv_h, (T)c4h);
+  forces_warp_v4_bwd_slab_kernel<T><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const T*)srT, ld_sr,
+      (const T*)dfT, ld_df, (T*)dsr, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
@@ -624,31 +881,48 @@ int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
   return (int)cudaGetLastError();
 }
 
-// The ragged kernel `which` (0: K1 moments_v4, 1: K2 forces_warp_v4) in f32
-// or f64: [registers per thread, static shared bytes, local (stack and
-// spill) bytes, dynamic shared bytes, resident blocks per SM, threads per
-// block] into out.
-template <typename T>
-int ragged_info(int which, int* out) {
-  const void* fn = which == 0 ? (const void*)moments_v4_kernel<T>
-                              : (const void*)forces_warp_v4_kernel<T>;
-  const size_t smem = which == 0 ? ragged_smem<T>(K1_FIELDS, K1_OUT)
-                                 : ragged_smem<T>(K2_FIELDS, K2_OUT);
-  cudaError_t rc = which == 0 ? allow_smem(moments_v4_kernel<T>, smem)
-                              : allow_smem(forces_warp_v4_kernel<T>, smem);
+// Kernel `which` of this file (0: K1 moments_v4, 1: K2 forces_warp_v4,
+// 2: moments_v4_bwd, 3: forces_warp_v4_bwd_rows, 4: forces_warp_v4_bwd_slab)
+// in f32 or f64: [registers per thread, static shared bytes, local (stack
+// and spill) bytes, dynamic shared bytes, resident blocks per SM, threads
+// per block] into out.
+template <typename K>
+int kernel_info(K kernel, size_t smem, int threads, int* out) {
+  cudaError_t rc = allow_smem(kernel, smem);
   if (rc != cudaSuccess) return (int)rc;
   cudaFuncAttributes attr;
-  rc = cudaFuncGetAttributes(&attr, fn);
+  rc = cudaFuncGetAttributes(&attr, (const void*)kernel);
   if (rc != cudaSuccess) return (int)rc;
   int blocks = 0;
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, RG_THREADS, smem);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)smem;
   out[4] = blocks;
-  out[5] = RG_THREADS;
+  out[5] = threads;
   return (int)rc;
+}
+
+template <typename T>
+int ragged_info(int which, int* out) {
+  switch (which) {
+    case 0:
+      return kernel_info(moments_v4_kernel<T>, ragged_smem<T>(K1_FIELDS, K1_OUT),
+                         RG_THREADS, out);
+    case 1:
+      return kernel_info(forces_warp_v4_kernel<T>, ragged_smem<T>(K2_FIELDS, K2_OUT),
+                         RG_THREADS, out);
+    case 2:
+      return kernel_info(moments_v4_bwd_kernel<T>, 0, BCH / K1B_EPT, out);
+    case 3:
+      return kernel_info(forces_warp_v4_bwd_rows_kernel<T>,
+                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+    case 4:
+      return kernel_info(forces_warp_v4_bwd_slab_kernel<T>, 0, BCH, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -692,33 +966,37 @@ SB_FWD_ENTRIES(f32, float)
 SB_FWD_ENTRIES(f64, double)
 
 #define SB_BWD_ENTRIES(SUF, T)                                                 \
-  int sb_moments_v4_bwd_##SUF(const void* restT_rows, const void* static_slab, \
+  int sb_moments_v4_bwd_##SUF(const void* chunks, int n_chunks,                \
+                              const void* rest_rows, const void* static_all,   \
                               const void* dayT, int64_t ld_day,                \
                               const void* rs6T, int64_t ld_rs6, void* dps,     \
                               int64_t ld_ps, void* dprow, int64_t ld_row,      \
-                              int t, int slab, double inv_h, double c4,        \
-                              double c4h, void* stream) {                      \
-    return launch_moments_bwd<T>(restT_rows, static_slab, dayT, ld_day, rs6T,  \
-                                 ld_rs6, dps, ld_ps, dprow, ld_row, t, slab,   \
-                                 inv_h, c4, c4h, stream);                      \
+                              int group, double inv_h, double c4, double c4h,  \
+                              void* stream) {                                  \
+    return launch_moments_bwd<T>(chunks, n_chunks, rest_rows, static_all,      \
+                                 dayT, ld_day, rs6T, ld_rs6, dps, ld_ps,       \
+                                 dprow, ld_row, group, inv_h, c4, c4h,         \
+                                 stream);                                      \
   }                                                                            \
   int sb_forces_warp_v4_bwd_rows_##SUF(                                        \
-      const void* restT_rows, const void* static_slab, const void* srT,        \
-      int64_t ld_sr, const void* gidx, const void* dfT, int64_t ld_df,         \
-      void* df9T, int64_t ld_out, int t, int slab, int group, double inv_h,    \
-      double c4h, void* stream) {                                              \
-    return launch_forces_bwd_rows<T>(restT_rows, static_slab, srT, ld_sr,      \
-                                     gidx, dfT, ld_df, df9T, ld_out, t, slab,  \
-                                     group, inv_h, c4h, stream);               \
+      const void* sched, int n_sched, const void* rest_rows,                   \
+      const void* static_all, const void* gidx_all, const void* srT,           \
+      int64_t ld_sr, const void* dfT, int64_t ld_df, void* df9T,               \
+      int64_t ld_out, int group, double inv_h, double c4h, void* stream) {     \
+    return launch_forces_bwd_rows<T>(sched, n_sched, rest_rows, static_all,    \
+                                     gidx_all, srT, ld_sr, dfT, ld_df, df9T,   \
+                                     ld_out, group, inv_h, c4h, stream);       \
   }                                                                            \
   int sb_forces_warp_v4_bwd_slab_##SUF(                                        \
-      const void* restT_rows, const void* static_slab, const void* f9T,        \
-      int64_t ld_f9, const void* srT, int64_t ld_sr, const void* gidx,         \
-      const void* dfT, int64_t ld_df, void* dsr, int64_t ld_out, int t,        \
-      int slab, int group, double inv_h, double c4h, void* stream) {           \
-    return launch_forces_bwd_slab<T>(restT_rows, static_slab, f9T, ld_f9, srT, \
-                                     ld_sr, gidx, dfT, ld_df, dsr, ld_out, t,  \
-                                     slab, group, inv_h, c4h, stream);         \
+      const void* chunks, int n_chunks, const void* rest_rows,                 \
+      const void* static_all, const void* gidx_all, const void* f9T,           \
+      int64_t ld_f9, const void* srT, int64_t ld_sr, const void* dfT,          \
+      int64_t ld_df, void* dsr, int64_t ld_out, int group, double inv_h,       \
+      double c4h, void* stream) {                                              \
+    return launch_forces_bwd_slab<T>(chunks, n_chunks, rest_rows, static_all,  \
+                                     gidx_all, f9T, ld_f9, srT, ld_sr, dfT,    \
+                                     ld_df, dsr, ld_out, group, inv_h, c4h,    \
+                                     stream);                                  \
   }                                                                            \
   int sb_slab_to_slots_##SUF(const void* buf, int64_t ld_buf, const void* ptr, \
                              const void* idx, void* out, int64_t ld_out,       \

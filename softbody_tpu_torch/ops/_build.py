@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
-v4 path: K1/K2 forward, one ragged launch per evaluation, and backward, the
-fixed-order scatter),
+v4 path: K1/K2 forward and backward, one launch per evaluation each, and
+the fixed-order scatter),
 csrc/fused_kernels.cu (the fused K1 + mid-section path, K2 v2 and the raw
 K1 of the blocked layout) and csrc/separable_kernels.cu (the Taichi
 pairing's separable K2 and its backward), each including csrc/common.cuh.
@@ -46,11 +46,12 @@ SIGNATURES = {
                        _F64, _F64, _F64, _P],
         "forces_warp_v4": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
                            _I32, _F64, _F64, _P],
-        "moments_v4_bwd": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I32,
-                           _I32, _F64, _F64, _F64, _P],
-        "forces_warp_v4_bwd_rows": [_P, _P, _P, _I64, _P, _P, _I64, _P, _I64,
-                                    _I32, _I32, _I32, _F64, _F64, _P],
-        "forces_warp_v4_bwd_slab": _K2_BWD,
+        "moments_v4_bwd": [_P, _I32, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
+                           _I64, _I32, _F64, _F64, _F64, _P],
+        "forces_warp_v4_bwd_rows": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
+                                    _I64, _I32, _F64, _F64, _P],
+        "forces_warp_v4_bwd_slab": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
+                                    _I64, _P, _I64, _I32, _F64, _F64, _P],
         "slab_to_slots": [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
     "fused_kernels": {

@@ -11,16 +11,23 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
   ``packed.forces_warp_packed_v4``): per tile row, the Warp pairing sum
   termj_a = sum_j (R_j F_i S_j nw_ij)_a, fT (3, m).
 
-  Both take a whole scene and launch once per force evaluation over every
-  tile of every bucket, in the order of the scene's :func:`tile_schedule`
-  (longest slab first); their plain versions stay per bucket
-  (``*_v4_plain``), and ``*_v4_scene_plain`` concatenates them over the
-  buckets.
 * :func:`moments_v4_bwd` replaces ``_moments_bwd_kernel_v4``: dayT ->
-  dpsT (t, 3, slab) per slab entry and dprowT (3, t*rows), the centering
-  term's gradient against the STATIC row sums rs6T_rows.
+  dps (3, n_entries) per slab entry and dprowT (3, m), the centering
+  term's gradient against the STATIC row sums rs6T.
 * :func:`forces_warp_v4_bwd` replaces ``_forces_warp_bwd_kernel_v4``: dfT ->
-  df9T (9, t*rows) and dsrT (t, 15, slab) = [dS_6 | dR^T_9] per slab entry.
+  df9T (9, m) and dsr (15, n_entries) = [dS_6 | dR^T_9] per slab entry, as
+  two kernels, the row pass :func:`forces_warp_v4_bwd_rows` and the slab
+  pass :func:`forces_warp_v4_bwd_slab`.
+
+  All five take a whole scene and launch once per evaluation over every
+  tile of every bucket: the forward kernels and the row pass in the order
+  of the scene's :func:`tile_schedule` (longest slab first), the slab side
+  of the backward over the 128-entry chunks of :func:`chunk_schedule`.  A
+  per-slab-entry output is the (k, n_entries) buffer ``slab_to_slots``
+  reads (n_entries = sum_b t_b slab_b, the buckets' tiles end to end; a
+  tile's entry s at column gi_off * group + s).  Their plain versions stay
+  per bucket (``*_v4_plain``, ``*_v4_bwd_plain``), and ``*_scene_plain``
+  runs them over the buckets into the whole-scene outputs.
 * :func:`slab_to_slots` adds a per-slab-entry buffer (k, sum_b t_b slab_b)
   into (k, n_slots) in a fixed order through the scene's CSR inverse of the
   buckets' ``gidx8`` (no float atomics: the episode gradient is bitwise
@@ -63,7 +70,7 @@ from . import _build
 from . import fused_kernels as fk
 from . import separable_kernels as sk
 from .pair_common import (SR_FIELDS, bucket_cols, centered_moments, check,
-                          check_lane_major, check_tiles, entry, flat_entries,
+                          check_lane_major, entry, flat_entries,
                           on, raise_on, raw_moments_bwd, spline_constants,
                           stream, warp_termj, warp_termj_bwd)
 
@@ -124,6 +131,31 @@ def forces_warp_v4_bwd_plain(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
     return warp_termj_bwd(restT_rows, static_slab, f9T, srT, gidx8, dfT, h)
 
 
+def moments_v4_bwd_scene_plain(sb, dayT, h):
+    """Plain K1 backward over a whole scene: the per-bucket
+    :func:`moments_v4_bwd_plain` placed into the whole-scene outputs,
+    dps (3, n_entries) (:func:`~.pair_common.flat_entries`' order) and
+    dprowT (3, m)."""
+    parts = [moments_v4_bwd_plain(b.restT_rows, b.static_slab,
+                                  dayT[:, bucket_cols(b, sb.rows)],
+                                  sb.rs6T[:, bucket_cols(b, sb.rows)], h)
+             for b in sb.buckets]
+    return (flat_entries([p[0] for p in parts], 3),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
+def forces_warp_v4_bwd_scene_plain(sb, f9T, srT, dfT, h):
+    """Plain K2 backward over a whole scene: the per-bucket
+    :func:`forces_warp_v4_bwd_plain` placed into the whole-scene outputs,
+    df9T (9, m) and dsr (15, n_entries)."""
+    parts = [forces_warp_v4_bwd_plain(b.restT_rows, b.static_slab,
+                                      f9T[:, bucket_cols(b, sb.rows)], srT,
+                                      b.gidx8, dfT[:, bucket_cols(b, sb.rows)], h)
+             for b in sb.buckets]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            flat_entries([p[1] for p in parts], SR_FIELDS))
+
+
 # --------------------------------------------------- fixed-order scatter-reduce
 def slab_inverse(gidx8s, n_slots: int, group: int, real):
     """CSR inverse of the buckets' candidate groups (host, numpy).
@@ -180,6 +212,28 @@ def tile_schedule(n_tiles, slab_lens, tile_starts, group: int):
     return sched[np.argsort(-sched[:, 1], kind="stable")]
 
 
+# Slab entries per block of the backward's slab side (csrc/pair_kernels.cu BCH).
+BWD_CHUNK = 128
+
+
+def chunk_schedule(sched, chunk: int = BWD_CHUNK):
+    """The backward slab side's schedule (host, numpy): one row per
+    ``chunk``-entry piece of every tile's slab, [tile, slab, st_off, gi_off,
+    e0] (a row of the tile schedule ``sched`` and the piece's first entry),
+    int64, in tile order and entry order within a tile.  Every piece is the
+    same work, so no order balances better than another; tile order keeps
+    neighbouring blocks on neighbouring memory."""
+    sched = np.asarray(sched, np.int64)
+    odd = sorted({int(s) for s in sched[:, 1] if s % chunk})
+    if odd:
+        raise ValueError(f"slabs {odd} are not multiples of {chunk}")
+    sched = sched[np.argsort(sched[:, 0], kind="stable")]
+    n = sched[:, 1] // chunk
+    first = np.repeat(np.cumsum(n) - n, n)
+    e0 = (np.arange(int(n.sum()), dtype=np.int64) - first) * chunk
+    return np.concatenate([np.repeat(sched, n, axis=0), e0[:, None]], axis=1)
+
+
 def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
                    rows: int = _build.ROWS) -> SparseBlocked:
     """A :class:`SparseBlocked` on ``device`` from host buckets ``parts``:
@@ -188,7 +242,8 @@ def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
     [0, n_tiles) in order; rs6T (6, n_tiles * rows); ``real`` (n_slots,)
     marks the particle slots (:func:`slab_inverse`).  The buckets' arrays
     are views of the scene-wide ``rest_rows`` / ``static_all`` /
-    ``gidx_all``, which the ragged kernels read through ``schedule``."""
+    ``gidx_all``, which the ragged kernels read through ``schedule`` and
+    ``chunks``."""
     counts = [np.shape(p[1])[0] for p in parts]
     starts = [int(p[3]) for p in parts]
     if starts != [int(x) for x in np.cumsum([0] + counts[:-1])]:
@@ -222,7 +277,8 @@ def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
         n_tiles=sum(counts), n_slots=n_slots, group=group,
         slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32),
         rest_rows=rest_rows, static_all=static_all, gidx_all=gidx_all,
-        schedule=dev(sched, torch.int64))
+        schedule=dev(sched, torch.int64),
+        chunks=dev(chunk_schedule(sched), torch.int64))
 
 
 def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
@@ -254,8 +310,15 @@ def _aligned(name, x, lane_major=False):
                          f"elements, got {x.stride(0)}")
 
 
-def _check_scene(sb, dtype, device):
-    """Operand checks of one ragged launch over ``sb``."""
+def n_entries(sb) -> int:
+    """Slab entries of the scene, sum_b t_b slab_b: the columns of a
+    per-slab-entry buffer."""
+    return sb.gidx_all.shape[0] * sb.group
+
+
+def _check_scene(sb, dtype, device, chunks=False):
+    """Operand checks of one ragged launch over ``sb`` (with ``chunks``, of
+    the backward's slab side, also its chunk schedule)."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernels take float32 or float64, got {dtype}")
     check("rest_rows", sb.rest_rows, dtype, device, 3)
@@ -279,10 +342,20 @@ def _check_scene(sb, dtype, device):
         raise ValueError(f"slabs {odd} are not multiples of {RAGGED_CHUNK}")
     _aligned("static_all", sb.static_all)
     _aligned("gidx_all", sb.gidx_all)
+    if chunks:
+        check("chunks", sb.chunks, torch.int64, device, 2)
+        want = (n_entries(sb) // BWD_CHUNK, 5)
+        if tuple(sb.chunks.shape) != want or not sb.chunks.is_contiguous():
+            raise ValueError(f"chunks {tuple(sb.chunks.shape)} must be a contiguous "
+                             f"{want}: every {BWD_CHUNK}-entry piece of every slab")
+
+
+RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
+          "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab")
 
 
 def ragged_info() -> dict:
-    """What the card gives the two ragged kernels: {(kernel, dtype):
+    """What the card gives the whole-scene kernels: {(kernel, dtype):
     {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
     threads}} (cudaFuncGetAttributes,
     cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a card."""
@@ -290,7 +363,7 @@ def ragged_info() -> dict:
     keys = ("registers", "static_smem", "local_bytes", "dynamic_smem",
             "blocks_per_sm", "threads")
     out = {}
-    for which, name in enumerate(("moments_v4", "forces_warp_v4")):
+    for which, name in enumerate(RAGGED):
         for f64, dtype in enumerate(("float32", "float64")):
             buf = (ctypes.c_int * len(keys))()
             raise_on(lib.sb_ragged_info(which, f64, buf), f"{name} attributes")
@@ -340,74 +413,74 @@ def _launch_forces(sb, f9T, srT, h):
     return out
 
 
-def _launch_moments_bwd(restT_rows, static_slab, dayT, rs6T_rows, h):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device)
-    check_lane_major("dayT", dayT, dtype, device, 18, t * rows)
-    check_lane_major("rs6T_rows", rs6T_rows, dtype, device, 6, t * rows)
-    dps = torch.empty((3, t * slab), dtype=dtype, device=device)
-    dprow = torch.empty((3, t * rows), dtype=dtype, device=device)
-    if t:
-        inv_h, c4, c4h = spline_constants(h, dtype)
-        rc = entry("pair_kernels", "moments_v4_bwd", dtype)(
-            restT_rows.data_ptr(), static_slab.data_ptr(),
-            dayT.data_ptr(), dayT.stride(0),
-            rs6T_rows.data_ptr(), rs6T_rows.stride(0),
-            dps.data_ptr(), dps.stride(0), dprow.data_ptr(), dprow.stride(0),
-            t, slab, inv_h, c4, c4h, stream())
-        raise_on(rc, "moments_v4_bwd")
-        moments_v4_bwd.launches += 1
-    # field-major per tile entry; the (t, 3, slab) view is the JAX layout
-    return dps.view(3, t, slab).permute(1, 0, 2), dprow
+def _launch_moments_bwd(sb, dayT, h):
+    """(dps (3, n_entries), dprowT (3, m)): a block per 128-entry chunk of
+    every slab."""
+    device, dtype = dayT.device, dayT.dtype
+    _check_scene(sb, dtype, device, chunks=True)
+    m = sb.n_tiles * sb.rows
+    check_lane_major("dayT", dayT, dtype, device, 18, m)
+    check_lane_major("rs6T", sb.rs6T, dtype, device, 6, m)
+    dps = torch.empty((3, n_entries(sb)), dtype=dtype, device=device)
+    dprow = torch.empty((3, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
+        return dps, dprow
+    inv_h, c4, c4h = spline_constants(h, dtype)
+    rc = entry("pair_kernels", "moments_v4_bwd", dtype)(
+        sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), dayT.data_ptr(), dayT.stride(0),
+        sb.rs6T.data_ptr(), sb.rs6T.stride(0), dps.data_ptr(), dps.stride(0),
+        dprow.data_ptr(), dprow.stride(0), sb.group, inv_h, c4, c4h, stream())
+    raise_on(rc, "moments_v4_bwd")
+    moments_v4_bwd.launches += 1
+    return dps, dprow
 
 
-def _check_forces_bwd(restT_rows, static_slab, f9T, srT, gidx8, dfT):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
-    check_lane_major("f9T", f9T, dtype, device, 9, t * rows)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS)
-    check_lane_major("dfT", dfT, dtype, device, 3, t * rows)
-    return t, rows, slab
+def _check_forces_bwd(sb, f9T, srT, dfT, chunks):
+    device, dtype = dfT.device, dfT.dtype
+    _check_scene(sb, dtype, device, chunks)
+    m = sb.n_tiles * sb.rows
+    check_lane_major("f9T", f9T, dtype, device, 9, m)
+    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
+    check_lane_major("dfT", dfT, dtype, device, 3, m)
+    return device, dtype, m
 
 
-def _launch_forces_bwd_rows(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
-    """df9T (9, t*rows): one lane per row, four warps splitting the slab."""
-    t, rows, slab = _check_forces_bwd(restT_rows, static_slab, f9T, srT,
-                                      gidx8, dfT)
-    dtype, device = restT_rows.dtype, restT_rows.device
-    df9 = torch.empty((9, t * rows), dtype=dtype, device=device)
-    if t == 0:
+def _launch_forces_bwd_rows(sb, f9T, srT, dfT, h):
+    """df9T (9, m): the forward K2's structure, a lane per row, four warps
+    splitting the slab."""
+    device, dtype, m = _check_forces_bwd(sb, f9T, srT, dfT, False)
+    _aligned("srT", srT, lane_major=True)
+    df9 = torch.empty((9, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
         return df9
     inv_h, _, c4h = spline_constants(h, dtype)
     rc = entry("pair_kernels", "forces_warp_v4_bwd_rows", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
-        srT.data_ptr(), srT.stride(0), gidx8.data_ptr(),
-        dfT.data_ptr(), dfT.stride(0), df9.data_ptr(), df9.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
+        srT.data_ptr(), srT.stride(0), dfT.data_ptr(), dfT.stride(0),
+        df9.data_ptr(), df9.stride(0), sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4_bwd_rows")
     forces_warp_v4_bwd_rows.launches += 1
     return df9
 
 
-def _launch_forces_bwd_slab(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
-    """dsrT (t, 15, slab), field-major underneath: one thread per slab
-    entry, looping over the tile's 32 rows."""
-    t, rows, slab = _check_forces_bwd(restT_rows, static_slab, f9T, srT,
-                                      gidx8, dfT)
-    dtype, device = restT_rows.dtype, restT_rows.device
-    dsr = torch.empty((SR_FIELDS, t * slab), dtype=dtype, device=device)
-    if t == 0:
-        return dsr.view(SR_FIELDS, 0, slab).permute(1, 0, 2)
+def _launch_forces_bwd_slab(sb, f9T, srT, dfT, h):
+    """dsr (15, n_entries): a block per 128-entry chunk of every slab."""
+    device, dtype, m = _check_forces_bwd(sb, f9T, srT, dfT, True)
+    dsr = torch.empty((SR_FIELDS, n_entries(sb)), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
+        return dsr
     inv_h, _, c4h = spline_constants(h, dtype)
     rc = entry("pair_kernels", "forces_warp_v4_bwd_slab", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
+        sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         f9T.data_ptr(), f9T.stride(0), srT.data_ptr(), srT.stride(0),
-        gidx8.data_ptr(), dfT.data_ptr(), dfT.stride(0),
-        dsr.data_ptr(), dsr.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
+        dfT.data_ptr(), dfT.stride(0), dsr.data_ptr(), dsr.stride(0),
+        sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4_bwd_slab")
     forces_warp_v4_bwd_slab.launches += 1
-    return dsr.view(SR_FIELDS, t, slab).permute(1, 0, 2)
+    return dsr
 
 
 def _launch_slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
@@ -454,36 +527,36 @@ def forces_warp_v4(sb, f9T, srT, h):
     return fn(sb, f9T, srT, h)
 
 
-# ------------------------------------------------ per-bucket device dispatch
-def moments_v4_bwd(restT_rows, static_slab, dayT, rs6T_rows, h):
-    """K1 backward of one bucket: (dpsT (t, 3, slab), dprowT (3, t*rows));
-    see :func:`moments_v4_bwd_plain`."""
-    fn = on("moments_v4_bwd", dayT, moments_v4_bwd_plain, _launch_moments_bwd)
-    return fn(restT_rows, static_slab, dayT, rs6T_rows, h)
+def moments_v4_bwd(sb, dayT, h):
+    """K1 backward over every tile of the scene ``sb``: (dps (3, n_entries),
+    dprowT (3, m)); one launch on the card, :func:`moments_v4_bwd_scene_plain`
+    on the CPU."""
+    fn = on("moments_v4_bwd", dayT, moments_v4_bwd_scene_plain, _launch_moments_bwd)
+    return fn(sb, dayT, h)
 
 
-def forces_warp_v4_bwd_rows(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
-    """The K2 backward's row pass: df9T (9, t*rows)."""
+def forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, h):
+    """The K2 backward's row pass over the scene: df9T (9, m)."""
     fn = on("forces_warp_v4_bwd_rows", dfT,
-            lambda *a: forces_warp_v4_bwd_plain(*a)[0], _launch_forces_bwd_rows)
-    return fn(restT_rows, static_slab, f9T, srT, gidx8, dfT, h)
+            lambda *a: forces_warp_v4_bwd_scene_plain(*a)[0], _launch_forces_bwd_rows)
+    return fn(sb, f9T, srT, dfT, h)
 
 
-def forces_warp_v4_bwd_slab(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
-    """The K2 backward's slab pass: dsrT (t, 15, slab)."""
+def forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, h):
+    """The K2 backward's slab pass over the scene: dsr (15, n_entries)."""
     fn = on("forces_warp_v4_bwd_slab", dfT,
-            lambda *a: forces_warp_v4_bwd_plain(*a)[1], _launch_forces_bwd_slab)
-    return fn(restT_rows, static_slab, f9T, srT, gidx8, dfT, h)
+            lambda *a: forces_warp_v4_bwd_scene_plain(*a)[1], _launch_forces_bwd_slab)
+    return fn(sb, f9T, srT, dfT, h)
 
 
-def forces_warp_v4_bwd(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
-    """K2 backward of one bucket: (df9T (9, t*rows), dsrT (t, 15, slab));
-    see :func:`forces_warp_v4_bwd_plain`.  On the card two kernels, the row
-    pass and the slab pass."""
-    args = (restT_rows, static_slab, f9T, srT, gidx8, dfT, h)
+def forces_warp_v4_bwd(sb, f9T, srT, dfT, h):
+    """K2 backward over the scene: (df9T (9, m), dsr (15, n_entries)); see
+    :func:`forces_warp_v4_bwd_scene_plain`.  On the card two kernels, one
+    launch each: the row pass and the slab pass."""
     if dfT.device.type == "cpu":
-        return forces_warp_v4_bwd_plain(*args)
-    return forces_warp_v4_bwd_rows(*args), forces_warp_v4_bwd_slab(*args)
+        return forces_warp_v4_bwd_scene_plain(sb, f9T, srT, dfT, h)
+    return (forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, h),
+            forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, h))
 
 
 def slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
@@ -513,8 +586,8 @@ reset_launch_counts()
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
     """The pair functions an evaluation goes through (K1 and K2 of the v4
-    path over the whole scene, every other one per bucket), of the v4
-    path, the fused path and the blocked layout's raw K1
+    path and their backwards over the whole scene, every other one per
+    bucket), of the v4 path, the fused path and the blocked layout's raw K1
     (``ops/fused_kernels.py``) and the Taichi pairing's separable K2
     (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
     :data:`PLAIN` (the plain versions on any device, the yardstick the
@@ -539,7 +612,8 @@ KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
                   fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd,
                   fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd)
 PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
-                moments_v4_bwd_plain, forces_warp_v4_bwd_plain, slab_to_slots_plain,
+                moments_v4_bwd_scene_plain, forces_warp_v4_bwd_scene_plain,
+                slab_to_slots_plain,
                 fk.moments_mid_plain, fk.forces_warp_v2_plain,
                 fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_plain,
                 fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
@@ -559,17 +633,9 @@ class _MomentsV4(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dayT):
         sb, ops = ctx.sb, ctx.ops
-        dayT = dayT.contiguous()
-        dps, dprow = [], []
-        for b in sb.buckets:
-            cols = bucket_cols(b, sb.rows)
-            d_ps, d_row = ops.moments_bwd(b.restT_rows, b.static_slab,
-                                          dayT[:, cols], sb.rs6T[:, cols], ctx.h)
-            dps.append(d_ps)
-            dprow.append(d_row)
-        dposT = ops.to_slots(flat_entries(dps, 3), sb.slab_ptr, sb.slab_idx,
-                             sb.n_slots, sb.group)
-        return dposT, torch.cat(dprow, dim=1), None, None, None
+        dps, dprow = ops.moments_bwd(sb, dayT.contiguous(), ctx.h)
+        dposT = ops.to_slots(dps, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+        return dposT, dprow, None, None, None
 
 
 class _ForcesWarpV4(torch.autograd.Function):
@@ -586,28 +652,20 @@ class _ForcesWarpV4(torch.autograd.Function):
     def backward(ctx, dfT):
         sb, ops = ctx.sb, ctx.ops
         f9T, srT = ctx.saved_tensors
-        dfT = dfT.contiguous()
-        df9, dsr = [], []
-        for b in sb.buckets:
-            cols = bucket_cols(b, sb.rows)
-            d9, d_sr = ops.forces_bwd(b.restT_rows, b.static_slab, f9T[:, cols],
-                                      srT, b.gidx8, dfT[:, cols], ctx.h)
-            df9.append(d9)
-            dsr.append(d_sr)
-        dsrT = ops.to_slots(flat_entries(dsr, SR_FIELDS), sb.slab_ptr,
-                            sb.slab_idx, sb.n_slots, sb.group)
-        return torch.cat(df9, dim=1), dsrT, None, None, None
+        df9, dsr = ops.forces_bwd(sb, f9T, srT, dfT.contiguous(), ctx.h)
+        dsrT = ops.to_slots(dsr, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+        return df9, dsrT, None, None, None
 
 
 def moments_all(posT, posT_rows, sb, h, ops: PairOps = KERNELS):
     """Differentiable K1 over every bucket of ``sb`` (a SparseBlocked):
-    ayT (18, m), one K1 launch on the card.  Its backward runs the K1
-    backward per bucket, then one :func:`slab_to_slots`."""
+    ayT (18, m), one K1 launch on the card.  Its backward is one K1
+    backward launch, then one :func:`slab_to_slots`."""
     return _MomentsV4.apply(posT, posT_rows, sb, h, ops)
 
 
 def forces_all(f9T, srT, sb, h, ops: PairOps = KERNELS):
     """Differentiable K2 over every bucket of ``sb``: termjT (3, m), one K2
-    launch on the card.  Its backward runs the K2 backward per bucket, then
-    one :func:`slab_to_slots`."""
+    launch on the card.  Its backward is one launch of each K2 backward
+    pass, then one :func:`slab_to_slots`."""
     return _ForcesWarpV4.apply(f9T, srT, sb, h, ops)

@@ -1,17 +1,19 @@
-"""Device time per force evaluation of the sparse path's K1 (``moments_v4``)
-and K2 (``forces_warp_v4``) forward kernels at the ~112k stretch scene on
-one CUDA card, and the steps they sit in, for this checkout or another one
-(``--tree``), so that two versions can be compared on one card in one
-sitting:
+"""Device time per evaluation of the sparse path's K1 (``moments_v4``) and
+K2 (``forces_warp_v4``) forward kernels and their backwards
+(``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``) at the
+~112k stretch scene on one CUDA card, and the steps they sit in, for this
+checkout or another one (``--tree``), so that two versions can be compared
+on one card in one sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
 
 Run it for each version in turns (A, B, B, A).  The scene and the
 operands are those of ``chip_smoke.py`` phase 3 (``fit_body(100000)``,
-STRETCH, f32, a stretched and jittered body, the plain path's F, S, R).  A
-version whose wrappers take one bucket is timed as its 8 launches back to
-back (and, as ``chip_smoke.py`` summed them, launch by launch); one whose
-wrappers take the whole scene as its one launch.  CUDA events around
+STRETCH, f32, a stretched and jittered body, the plain path's F, S, R),
+and seeded random cotangents for the backwards.  A kernel whose wrapper
+takes one bucket is timed as its 8 launches back to back (and, as
+``chip_smoke.py`` summed them, launch by launch); one whose wrapper takes
+the whole scene as its one launch.  CUDA events around
 ``--reps`` evaluations queued behind a sleep kernel, warm.  Prints one JSON
 line: the tree, the card (``nvidia-smi`` name and power limit), the ms per
 evaluation and the launches per evaluation of each kernel, and for the
@@ -182,27 +184,45 @@ def main():
     srT[:, :m] = torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
                              + [R[a][c] for c in range(3) for a in range(3)])
     h = cfg.h
+    dayT = torch.as_tensor(rng.normal(size=(18, m)), dtype=torch.float32, device=dev)
+    dfT = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=dev)
 
-    if hasattr(sb, "schedule"):             # one launch per evaluation
-        evals = {"moments_v4": lambda: pk.moments_v4(sb, posT, posT[:, :m], h),
-                 "forces_warp_v4": lambda: pk.forces_warp_v4(sb, f9T, srT, h)}
-        per_launch = {}
-    else:                                   # one launch per bucket
-        def bucket_k1(b):
-            c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-            return lambda: pk.moments_v4(b.restT_rows, b.static_slab, posT,
-                                         posT[:, c], sb.rs6T[:, c], b.gidx8, h)
+    def cols(b):
+        return slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
 
-        def bucket_k2(b):
-            c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-            return lambda: pk.forces_warp_v4(b.restT_rows, b.static_slab, f9T[:, c],
-                                             srT, b.gidx8, h)
-
-        k1s = [bucket_k1(b) for b in sb.buckets]
-        k2s = [bucket_k2(b) for b in sb.buckets]
-        evals = {"moments_v4": lambda: [f() for f in k1s],
-                 "forces_warp_v4": lambda: [f() for f in k2s]}
-        per_launch = {"moments_v4": k1s, "forces_warp_v4": k2s}
+    per_bucket = {      # the per-bucket wrappers of a version that has them
+        "moments_v4": lambda b: pk.moments_v4(
+            b.restT_rows, b.static_slab, posT, posT[:, cols(b)], sb.rs6T[:, cols(b)],
+            b.gidx8, h),
+        "forces_warp_v4": lambda b: pk.forces_warp_v4(
+            b.restT_rows, b.static_slab, f9T[:, cols(b)], srT, b.gidx8, h),
+        "moments_v4_bwd": lambda b: pk.moments_v4_bwd(
+            b.restT_rows, b.static_slab, dayT[:, cols(b)], sb.rs6T[:, cols(b)], h),
+        "forces_warp_v4_bwd_rows": lambda b: pk.forces_warp_v4_bwd_rows(
+            b.restT_rows, b.static_slab, f9T[:, cols(b)], srT, b.gidx8,
+            dfT[:, cols(b)], h),
+        "forces_warp_v4_bwd_slab": lambda b: pk.forces_warp_v4_bwd_slab(
+            b.restT_rows, b.static_slab, f9T[:, cols(b)], srT, b.gidx8,
+            dfT[:, cols(b)], h),
+    }
+    whole = {}
+    if hasattr(sb, "schedule"):             # forward: one launch per evaluation
+        whole["moments_v4"] = lambda: pk.moments_v4(sb, posT, posT[:, :m], h)
+        whole["forces_warp_v4"] = lambda: pk.forces_warp_v4(sb, f9T, srT, h)
+    if hasattr(sb, "chunks"):               # backward: one launch per evaluation
+        whole["moments_v4_bwd"] = lambda: pk.moments_v4_bwd(sb, dayT, h)
+        whole["forces_warp_v4_bwd_rows"] = lambda: pk.forces_warp_v4_bwd_rows(
+            sb, f9T, srT, dfT, h)
+        whole["forces_warp_v4_bwd_slab"] = lambda: pk.forces_warp_v4_bwd_slab(
+            sb, f9T, srT, dfT, h)
+    evals, per_launch = {}, {}
+    for key, launch in per_bucket.items():
+        if key in whole:
+            evals[key] = whole[key]
+        else:                               # one launch per bucket
+            fns = [lambda b=b, launch=launch: launch(b) for b in sb.buckets]
+            evals[key] = lambda fns=fns: [f() for f in fns]
+            per_launch[key] = fns
     out = {"tree": str(Path(args.tree).resolve()),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -214,12 +234,12 @@ def main():
         torch.cuda.synchronize()
         out[f"{key}_launches"] = pk.launch_counts()[key]
         out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
-        if per_launch:
+        if key in per_launch:
             out[f"{key}_sum_of_launches_ms"] = sum(
                 cuda_ms(torch, f, args.reps) for f in per_launch[key])
     from softbody_tpu_torch.ops import _build
     out["sass_per_pair"] = sass_per_pair(_build.library_path("pair_kernels"),
-                                         ("moments_v4", "forces_warp_v4"))
+                                         tuple(per_bucket))
     out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))
     out.update({f"j_{k}": v for k, v in step_numbers(
         torch, scene, cfg.replace(pair_def_grad="j"), ratio, x_star, dev).items()})

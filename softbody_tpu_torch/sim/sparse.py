@@ -10,11 +10,12 @@ Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
     -> [forces_all: K2 forces_warp_v4, one launch] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
-With the Taichi pairing (``pair_def_grad="j"``) the mid-section also forms
-G = V M per slot and the separable K2 (``ops/separable_kernels.py``)
-applies term_i and the 0.5 V_i scale itself:
+With the Taichi pairing (``pair_def_grad="j"``) ``separable_forces`` forms
+G = V M per slot from the mid-section's M, and the separable K2
+(``ops/separable_kernels.py``) applies term_i and the 0.5 V_i scale
+itself:
 
-  ayT -> mid-section -> gT (9, n_slots) = G, row 3a+b
+  ayT -> mid-section -> M -> gT (9, n_slots) = G, row 3a+b
     -> [forces_sep_all: K2 forces_sep per bucket] -> fT (3, m)
 
 With ``cfg.fused_mid`` (Warp pairing only: with ``"j"`` it runs the
@@ -33,9 +34,11 @@ kernels launch once per bucket (8 buckets at the ~112k stretch scene), the
 JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
 contiguous column range of every lane-major array and the per-bucket results
 concatenate straight into tile order.  The VJP runs backwards through the
-same chain: per bucket the K2 and K1 backward kernels, each followed by one
-fixed-order ``slab_to_slots`` into the slots, and autograd through the
-mid-section (the polar through its clamped analytic VJP).
+same chain: the K2 backward (its row pass and its slab pass) and the K1
+backward, one launch each over the whole scene (the slab side over
+``SparseBlocked.chunks``), each followed by one fixed-order
+``slab_to_slots`` into the slots, and autograd through the mid-section
+(the polar through its clamped analytic VJP).
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
 separable K2) and 25-28 (the blocked layout's raw K1)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -162,34 +164,67 @@ def _bwd_inputs(cfg, scene, pos, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_backward_kernels_match_plain_per_bucket(dtype):
+    """The K1 backward and the two K2 backward passes launch once over the
+    whole scene; each bucket's columns (its tile rows, and its slab entries
+    in the per-entry buffers) match that bucket's plain version, and a
+    second launch repeats the first bit for bit."""
     dev = _card()
     cfg, scene, pos, _ = _scene(dtype, dev)
     sb = scene.blocked
     f9T, srT, dayT, dfT = _bwd_inputs(cfg, scene, pos, 2)
     pk.reset_launch_counts()
-    for b in sb.buckets:
-        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-        k1 = pk.moments_v4_bwd(b.restT_rows, b.static_slab, dayT[:, c],
-                               sb.rs6T[:, c], cfg.h)
-        p1 = pk.moments_v4_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c],
-                                     sb.rs6T[:, c], cfg.h)
-        k2 = pk.forces_warp_v4_bwd(b.restT_rows, b.static_slab, f9T[:, c], srT,
-                                   b.gidx8, dfT[:, c], cfg.h)
-        p2 = pk.forces_warp_v4_bwd_plain(b.restT_rows, b.static_slab, f9T[:, c],
-                                         srT, b.gidx8, dfT[:, c], cfg.h)
-        for got, want in zip(k1 + k2, p1 + p2):
-            assert got.shape == want.shape
-            assert _rel(got, want) <= TOL[dtype]
-    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
-    buf = torch.as_tensor(np.random.default_rng(3).normal(size=(15, n_entries)),
-                          dtype=pos.dtype, device=dev)
-    args = (buf, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
-    assert _rel(pk.slab_to_slots(*args), pk.slab_to_slots_plain(*args)) <= TOL[dtype]
-    n = len(sb.buckets)
+    dps, dprow = pk.moments_v4_bwd(sb, dayT, cfg.h)
+    df9 = pk.forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, cfg.h)
+    dsr = pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, cfg.h)
     counts = pk.launch_counts()
     assert counts == dict.fromkeys(counts, 0) | {
-        "moments_v4_bwd": n, "forces_warp_v4_bwd_rows": n,
-        "forces_warp_v4_bwd_slab": n, "slab_to_slots": 1}
+        "moments_v4_bwd": 1, "forces_warp_v4_bwd_rows": 1,
+        "forces_warp_v4_bwd_slab": 1}
+    assert len(sb.buckets) >= 2
+    e0 = 0
+    for b in sb.buckets:
+        t, slab = b.n_tiles, b.slab_len
+        c = slice(b.row_start, b.row_start + t * sb.rows)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        p1 = pk.moments_v4_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c],
+                                     sb.rs6T[:, c], cfg.h)
+        p2 = pk.forces_warp_v4_bwd_plain(b.restT_rows, b.static_slab, f9T[:, c],
+                                         srT, b.gidx8, dfT[:, c], cfg.h)
+        got = (dps[:, seg].view(3, t, slab).permute(1, 0, 2), dprow[:, c],
+               df9[:, c], dsr[:, seg].view(15, t, slab).permute(1, 0, 2))
+        for g, want in zip(got, p1 + p2):
+            assert g.shape == want.shape
+            assert _rel(g, want) <= TOL[dtype], b.slab_len
+    assert e0 == dps.shape[1] == dsr.shape[1]
+    again = pk.moments_v4_bwd(sb, dayT, cfg.h) + (
+        pk.forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, cfg.h),
+        pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, cfg.h))
+    assert all(torch.equal(x, y) for x, y in zip((dps, dprow, df9, dsr), again))
+    buf = torch.as_tensor(np.random.default_rng(3).normal(size=(15, e0)),
+                          dtype=pos.dtype, device=dev)
+    args = (buf, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    pk.reset_launch_counts()
+    assert _rel(pk.slab_to_slots(*args), pk.slab_to_slots_plain(*args)) <= TOL[dtype]
+    assert pk.launch_counts()["slab_to_slots"] == 1
+
+
+def test_one_launch_of_each_backward_kernel_per_backward_evaluation():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    ct = torch.as_tensor(np.random.default_rng(6).normal(size=tuple(pos.shape)),
+                         dtype=pos.dtype, device=dev)
+    for c in (cfg, cfg.replace(pair_def_grad="j")):
+        p = pos.clone().requires_grad_()
+        f = elastic_forces_sparse(p, ratio, scene.materials, scene, c)
+        pk.reset_launch_counts()
+        torch.autograd.grad(f, p, ct)
+        counts = pk.launch_counts()
+        k2 = 1 if c.pair_def_grad == "i" else 0
+        assert counts["moments_v4_bwd"] == 1, counts
+        assert counts["forces_warp_v4_bwd_rows"] == k2, counts
+        assert counts["forces_warp_v4_bwd_slab"] == k2, counts
+        assert counts["slab_to_slots"] == 2, counts
 
 
 def _episode_grad(dtype, dev, pair_ops, fused=False, pair_def_grad="i",
@@ -235,15 +270,22 @@ def test_backward_kernels_refuse_bad_operands():
     dev = _card()
     cfg, scene, pos, _ = _scene("float32", dev)
     sb = scene.blocked
-    b = sb.buckets[0]
     f9T, srT, dayT, dfT = _bwd_inputs(cfg, scene, pos, 5)
-    mb = b.n_tiles * sb.rows
     with pytest.raises(ValueError, match="18"):
-        pk.moments_v4_bwd(b.restT_rows, b.static_slab, dayT[:17, :mb],
-                          sb.rs6T[:, :mb], cfg.h)
+        pk.moments_v4_bwd(sb, dayT[:17], cfg.h)
     with pytest.raises(TypeError, match="dtype"):
-        pk.forces_warp_v4_bwd(b.restT_rows, b.static_slab, f9T[:, :mb], srT,
-                              b.gidx8, dfT[:, :mb].double(), cfg.h)
+        pk.forces_warp_v4_bwd(sb, f9T, srT, dfT.double(), cfg.h)
+    # the row pass copies 16-byte pieces of srT
+    shifted = torch.empty(15 * sb.n_slots + 1, device=dev)[1:].view(15, sb.n_slots)
+    shifted.copy_(srT)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.forces_warp_v4_bwd_rows(sb, f9T, shifted, dfT, cfg.h)
+    # the slab side walks every 128-entry chunk of the scene
+    short = dataclasses.replace(sb, chunks=sb.chunks[:-1])
+    with pytest.raises(ValueError, match="chunks"):
+        pk.moments_v4_bwd(short, dayT, cfg.h)
+    with pytest.raises(ValueError, match="chunks"):
+        pk.forces_warp_v4_bwd_slab(short, f9T, srT, dfT, cfg.h)
     with pytest.raises(ValueError, match="entries"):
         pk.slab_to_slots(srT, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
 
