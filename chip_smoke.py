@@ -7,9 +7,10 @@ top-15% Dirichlet clamp, f32) — and holds every hand-written kernel on that
 path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
-  2  kernel build (nvcc, from csrc/ in this checkout); the five
-     whole-scene kernels' (K1/K2 forward and their backwards) registers,
-     shared memory, spills and resident blocks per SM, f32 and f64
+  2  kernel build (nvcc, from csrc/ in this checkout); the eight
+     whole-scene kernels' (K1/K2 v4 forward and their backwards, K2 v2 and
+     its backward passes) registers, shared memory, spills and resident
+     blocks per SM, f32 and f64
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -45,11 +46,14 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  13  the launch counts of phases 11 and 12 against the launches the
      gradient path implies
 
- 14  the fused K1 + mid-section path (cfg.fused_mid), per bucket: the fused
-     moments_mid, K2 forces_warp_v2, the raw K1 backward moments_raw_bwd
-     and the two K2 v2 backward passes (each backward composed with
+ 14  the fused K1 + mid-section path (cfg.fused_mid): per bucket the fused
+     moments_mid and the raw K1 backward moments_raw_bwd (composed with
      slab_to_slots), kernel vs plain (<= 1e-4 of max |plain|, the records'
-     parts F, M, V, S, R each on its own), ms per launch, the work's bound
+     parts F, M, V, S, R each on its own), ms per launch, the work's
+     bound; then K2 forces_warp_v2 and its two backward passes, one launch
+     each over every tile, each bucket's columns vs that bucket's plain
+     version (the slab pass composed with slab_to_slots), a bitwise repeat,
+     ms per evaluation, the work's bound
  15  one fused force evaluation vs the unfused kernel path and vs the plain
      fused path (<= 1e-4), its VJP wrt (positions, x) vs the plain fused
      VJP (<= 1e-4); forces and VJP bitwise equal across two calls
@@ -66,7 +70,8 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      fwd+bwd ms/step, peak memory, busy share; bitwise repeat; kernel vs
      plain fused path over PREFIX_STEPS steps in f64 (phase 11's gates)
  20  the launch counts of phases 16 and 19 against what the fused path
-     implies (none of the v4 kernels, K1/K2 and their backwards)
+     implies (K2 v2 and its passes one launch per evaluation; none of the
+     v4 kernels, K1/K2 and their backwards)
 
  21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene, per
      bucket: the separable K2 forces_sep and its backward's two passes
@@ -86,9 +91,11 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  25  path B, the blocked varcol layout of the same body on the pallas
      backend: its build seconds, n_tiles, run length L, slab_len,
      candidate pairs per evaluation (beside the sparse scene's) and static
-     bytes; per launch on its tiles the raw K1 moments_raw, forces_warp_v2,
-     forces_sep and their backwards (each backward's slab side composed
-     with slab_to_slots), kernel vs plain (<= 1e-4), ms per launch, bound
+     bytes; per launch on its tiles the raw K1 moments_raw, forces_sep and
+     their backwards (each backward's slab side composed with
+     slab_to_slots), kernel vs plain (<= 1e-4), ms per launch, bound; K2
+     forces_warp_v2 and its passes as in phase 14, on the slab of 1,944
+     entries whose last 32- and 128-entry pieces are partial
  26  one path-B evaluation for "i" and "j" against the sparse path at the
      same particle positions (<= 1e-3 of max |f|: the uncentered f32 raw
      dots add noise the centered sparse path lacks), and against its own
@@ -105,9 +112,9 @@ JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; ms per force
-evaluation: one launch for K1 and K2 v4 and their backwards, the sum over
-the sparse scene's buckets for the other kernels, the raw K1 on the varcol
-scene),
+evaluation on the sparse scene: one launch for K1 and K2 v4, K2 v2 and
+their backwards, the sum over the buckets for the other kernels; the raw
+K1 on the varcol scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -137,11 +144,13 @@ NEW_PREFIX_STEPS = 30      # the same for the new paths' phases 24 and 28 (10 fr
 EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# K2 v2 and its passes run K2 v4's pair loops (svnw is the scene's static
+# row sums, not a per-pair sum); their per-row epilogues add < 0.1%
 FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do them
                   "moments_v4_bwd": 67, "forces_warp_v4_bwd_rows": 71,
                   "forces_warp_v4_bwd_slab": 118,
-                  "moments_mid": 78, "forces_warp_v2": 78, "moments_raw_bwd": 72,
-                  "forces_warp_v2_bwd_rows": 78, "forces_warp_v2_bwd_slab": 123,
+                  "moments_mid": 78, "forces_warp_v2": 74, "moments_raw_bwd": 72,
+                  "forces_warp_v2_bwd_rows": 71, "forces_warp_v2_bwd_slab": 118,
                   "forces_sep": 50, "forces_sep_bwd_rows": 32,
                   "forces_sep_bwd_slab": 44, "moments_raw": 72}
 # moments_mid's per-row epilogue, counted from csrc/fused_kernels.cu: A | Y
@@ -510,9 +519,9 @@ def main():
     path_b = phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star,
                            stats, body, ctx)
     phase_counts(path_a, path_b)
-    launches = {**ctx["counts_opt"],
-                **{k: counts_fused[k] for k in REPLACES
-                   if REPLACES[k][0] == "fused_kernels"},
+    fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
+                  "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
+    launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
                 **{k: path_a["grad"][k] for k in REPLACES
                    if REPLACES[k][0] == "separable_kernels"},
                 "moments_raw": path_b["grad"]["moments_raw"]}
@@ -840,7 +849,8 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
 
     # ---- 14 the fused kernels vs plain, per bucket (backwards composed
     # with the scatter)
-    say(f"[14] fused path, per bucket, kernels vs plain on the card {tag}")
+    say(f"[14] fused path: moments_mid and moments_raw_bwd per bucket, K2 v2 and its "
+        f"backward passes once over the scene, kernels vs plain on the card {tag}")
     posT = pos.T.contiguous()
     rs = fk.row_static(sb, scene.materials, scene.rest_corr)
     scale = cfg.stiffness_scale(ratio[:m])
@@ -863,7 +873,6 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         pairs = t * sb.rows * slab
         a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c), scale[c],
                  b.gidx8, cfg.h, cfg.corotated)
-        a_k2 = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
         a_k6 = (b.restT_rows, b.static_slab, dayT[:, c], cfg.h)
 
         def slots(d, k, scatter, seg=seg):
@@ -883,37 +892,19 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
                 tile_bytes + gidx_bytes
                 + (3 * uniq + 3 * mb + 6 * mb + 3 * mb + 9 * mb + mb + 19 * mb
                    + 15 * mb) * f32),
-            "forces_warp_v2": (
-                lambda: fk.forces_warp_v2(*a_k2, cfg.h),
-                lambda: fk.forces_warp_v2_plain(*a_k2, cfg.h), lambda o, sc: (o,),
-                FLOPS_PER_PAIR["forces_warp_v2"] * pairs,
-                tile_bytes + gidx_bytes + (19 * mb + 15 * uniq + 3 * mb) * f32),
             "moments_raw_bwd": (
                 lambda: fk.moments_raw_bwd(*a_k6), lambda: fk.moments_raw_bwd_plain(*a_k6),
                 lambda o, sc: (slots(o, 3, sc),),
                 FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
                 tile_bytes + (18 * mb + 3 * t * slab) * f32),
-            "forces_warp_v2_bwd_rows": (
-                lambda: fk.forces_warp_v2_bwd_rows(*a_k2, dfT[:, c], cfg.h),
-                lambda: fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)[0],
-                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2_bwd_rows"] * pairs,
-                tile_bytes + gidx_bytes + (15 * uniq + mb + 3 * mb + 19 * mb) * f32),
-            "forces_warp_v2_bwd_slab": (
-                lambda: fk.forces_warp_v2_bwd_slab(*a_k2, dfT[:, c], cfg.h),
-                lambda: fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)[1],
-                lambda o, sc: (slots(o, 15, sc),),
-                FLOPS_PER_PAIR["forces_warp_v2_bwd_slab"] * pairs,
-                tile_bytes + gidx_bytes
-                + (9 * mb + mb + 15 * uniq + 3 * mb + 15 * t * slab) * f32),
         }
         say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
                        + held_per_launch(torch, work, f"bucket {i}", stats)))
-    for key in ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
-                "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab"):
+    for key in ("moments_mid", "moments_raw_bwd"):
         summarize(key, stats[key], nb, tag)
     say("    (moments_mid is timed as the forward runs it, without the A | Y rows "
-        "the gradient's recompute also stores; each K2 v2 pass's plain time is "
-        "the whole plain K2 v2 backward)")
+        "the gradient's recompute also stores)")
+    v2_whole_scene(torch, dev, tag, "sparse scene", sb, fmT, srT, dfT, cfg.h, stats)
 
     # ---- 15 one fused force evaluation and its VJP
     mats = scene.materials
@@ -1089,15 +1080,16 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         say("    profile: the profiler saw no device time; idle share not measured")
 
     # ---- 20 launch counts of the fused path
-    # forward: one fused K1 + mid-section and one K2 v2 per bucket and step,
-    # two episodes.
+    # forward: one fused K1 + mid-section per bucket and one K2 v2 over the
+    # scene per step, two episodes.
     # Gradient (as phase 13): forward kernels 3 times per step, backward
-    # kernels once, slab_to_slots twice (after the raw K1 and the K2 v2
+    # kernels once (the raw K1 backward per bucket, each K2 v2 pass one
+    # launch), slab_to_slots twice (after the raw K1 and the K2 v2
     # backward); none of the v4 kernels.
-    fwd = {"moments_mid": 2 * nb * steps, "forces_warp_v2": 2 * nb * steps}
-    per_eval = {"moments_mid": 3 * nb * S, "forces_warp_v2": 3 * nb * S,
-                "moments_raw_bwd": nb * S, "forces_warp_v2_bwd_rows": nb * S,
-                "forces_warp_v2_bwd_slab": nb * S, "slab_to_slots": 2 * S}
+    fwd = {"moments_mid": 2 * nb * steps, "forces_warp_v2": 2 * steps}
+    per_eval = {"moments_mid": 3 * nb * S, "forces_warp_v2": 3 * S,
+                "moments_raw_bwd": nb * S, "forces_warp_v2_bwd_rows": S,
+                "forces_warp_v2_bwd_slab": S, "slab_to_slots": 2 * S}
     say(f"[20] fused launches: forward episode (phase 16) {counts_fwd}; one "
         f"gradient (phase 19) {counts_grad}; expected {fwd} / {per_eval}, every "
         f"other kernel 0")
@@ -1302,6 +1294,88 @@ def held_per_launch(torch, work, prefix, stats=None, reps=20):
     return line
 
 
+def v2_whole_scene(torch, dev, tag, label, sb, fmT, srT, dfT, h, stats=None, reps=50):
+    """K2 v2 and its two backward passes, one launch each over every tile
+    of ``sb`` (the sparse or the blocked scene): each bucket's columns held
+    against that bucket's plain version (the slab pass composed with
+    slab_to_slots), a bitwise repeat, ms per evaluation and the work's
+    bound.  Into ``stats`` when given, else printed."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
+    f32 = fmT.element_size()
+    m = sb.n_tiles * sb.rows
+    n_entries = pk.n_entries(sb)
+    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    launch = {
+        "forces_warp_v2": lambda: fk.forces_warp_v2(sb, fmT, srT, h),
+        "forces_warp_v2_bwd_rows": lambda: fk.forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h),
+        "forces_warp_v2_bwd_slab": lambda: fk.forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h),
+    }
+    pk.reset_launch_counts()
+    got = {k: fn() for k, fn in launch.items()}
+    torch.cuda.synchronize()
+    counts = pk.launch_counts()
+    if any(counts[k] != 1 for k in launch):
+        fail(f"K2 v2 on the {label}: launches {counts}, expected one of each")
+    errs = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in launch}
+    plain_ms = dict.fromkeys(launch, 0.0)
+    e0 = 0
+    for i, b in enumerate(sb.buckets):
+        t, slab = b.n_tiles, b.slab_len
+        c = slice(b.row_start, b.row_start + t * sb.rows)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        a = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
+        p_dfm, p_dsr = fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h)
+
+        def slots(d, scatter, seg=seg):
+            buf = torch.zeros((15, n_entries), dtype=d.dtype, device=dev)
+            buf[:, seg] = d
+            return scatter(buf, *to_slots)
+
+        held = {
+            "forces_warp_v2": (got["forces_warp_v2"][:, c], fk.forces_warp_v2_plain(*a, h)),
+            "forces_warp_v2_bwd_rows": (got["forces_warp_v2_bwd_rows"][:, c], p_dfm),
+            "forces_warp_v2_bwd_slab": (
+                slots(got["forces_warp_v2_bwd_slab"][:, seg], pk.slab_to_slots),
+                slots(p_dsr.permute(1, 0, 2).reshape(15, -1), pk.slab_to_slots_plain)),
+        }
+        line = [f"{k} err {record(errs[k], g, w, f'{k} {label} bucket {i}'):.2e}"
+                for k, (g, w) in held.items()]
+        del p_dfm, p_dsr, held
+        ms_f = cuda_ms(lambda: fk.forces_warp_v2_plain(*a, h), 1)
+        ms_b = cuda_ms(lambda: fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h), 1)
+        plain_ms["forces_warp_v2"] += ms_f
+        plain_ms["forces_warp_v2_bwd_rows"] += ms_b
+        plain_ms["forces_warp_v2_bwd_slab"] += ms_b
+        say(f"      {label} bucket {i}: slab {slab:4d} tiles {t:4d} | " + " | ".join(line)
+            + f" (plain {ms_f:.2f} / {ms_b:.2f} ms)")
+    again = [fn() for fn in launch.values()]
+    same = all(torch.equal(got[k], x) for k, x in zip(launch, again))
+    say(f"      second launch of each bitwise equal: {same}")
+    if not same:
+        fail(f"a K2 v2 kernel does not repeat bit for bit on the {label}")
+    del got, again
+    pairs = sum(b.n_tiles * sb.rows * b.slab_len for b in sb.buckets)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
+    tiles = (sb.rest_rows.numel() + sb.static_all.numel()) * f32 + sb.gidx_all.numel() * 4
+    rows_side = tiles + sb.schedule.numel() * 8
+    nbytes = {   # each input read once, each output written once
+        "forces_warp_v2": rows_side + (19 * m + 3 * m + 15 * uniq + 3 * m) * f32,
+        "forces_warp_v2_bwd_rows": rows_side + (m + 3 * m + 15 * uniq + 3 * m + 19 * m) * f32,
+        "forces_warp_v2_bwd_slab": tiles + sb.chunks.numel() * 8
+        + (10 * m + 3 * m + 15 * uniq + 15 * n_entries) * f32,
+    }
+    for k, fn in launch.items():
+        st = stats[k] if stats is not None else {}
+        st.update(ms=cuda_ms(fn, reps), launch_ms=host_ms(fn, reps), plain_ms=plain_ms[k],
+                  flops=FLOPS_PER_PAIR[k] * pairs, bytes=nbytes[k])
+        for e in ("max_abs_err", "max_rel_err"):
+            st[e] = max(st.get(e, 0.0), errs[k][e])
+        summarize(k, st, 1, f"({label}) {tag}")
+
+
 def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     """Phases 21-24: path A, the Taichi pairing (pair_def_grad="j") on the
     sparse scene.  Returns the launch counts of its forward episodes and of
@@ -1499,21 +1573,6 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
             lambda: fk.moments_raw_bwd_plain(rr, st, dayT, h), slots(3),
             FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
             tile_bytes + (18 * m + 3 * t * slab) * f32),
-        "forces_warp_v2": (
-            lambda: fk.forces_warp_v2(rr, st, fmT, srT, gi, h),
-            lambda: fk.forces_warp_v2_plain(rr, st, fmT, srT, gi, h),
-            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2"] * pairs,
-            tile_bytes + gidx_bytes + (19 * m + 15 * uniq + 3 * m) * f32),
-        "forces_warp_v2_bwd_rows": (
-            lambda: fk.forces_warp_v2_bwd_rows(rr, st, fmT, srT, gi, dfT, h),
-            lambda: fk.forces_warp_v2_bwd_plain(rr, st, fmT, srT, gi, dfT, h)[0],
-            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_warp_v2_bwd_rows"] * pairs,
-            tile_bytes + gidx_bytes + (15 * uniq + m + 3 * m + 19 * m) * f32),
-        "forces_warp_v2_bwd_slab": (
-            lambda: fk.forces_warp_v2_bwd_slab(rr, st, fmT, srT, gi, dfT, h),
-            lambda: fk.forces_warp_v2_bwd_plain(rr, st, fmT, srT, gi, dfT, h)[1],
-            slots(15), FLOPS_PER_PAIR["forces_warp_v2_bwd_slab"] * pairs,
-            tile_bytes + gidx_bytes + (10 * m + 15 * uniq + 3 * m + 15 * t * slab) * f32),
         "forces_sep": (
             lambda: sk.forces_sep(rr, st, gT[:, :m], gT, vol_m, gi, h),
             lambda: sk.forces_sep_plain(rr, st, gT[:, :m], gT, vol_m, gi, h),
@@ -1546,6 +1605,10 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
             fail(f"slab_to_slots on the varcol index, k={k}: error {err:.3e}")
         line.append(f"k={k} err {err:.2e} {cuda_ms(lambda: pk.slab_to_slots(buf, *to_slots), 10):.4f} ms")
     say("      slab_to_slots on the varcol index: " + ", ".join(line))
+    say(f"    K2 v2 and its backward passes, one launch each over the {t} varcol tiles "
+        f"(slab {slab} = {slab // 32} x 32 + {slab % 32} = {slab // 128} x 128 + "
+        f"{slab % 128}), kernel vs plain {tag}:")
+    v2_whole_scene(torch, dev, tag, "varcol scene", blk, fmT, srT, dfT, h, reps=10)
 
     # ---- 26 one path-B evaluation against the sparse path, and its VJP
     ratio_s = ctx["ratio"]
@@ -1633,10 +1696,10 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "forces_warp_v4_bwd_slab": ("pair_kernels", "pair_kernels.py:1038"),
     "slab_to_slots": ("pair_kernels", "packed.py:212"),
     "moments_mid": ("fused_kernels", "pair_kernels.py:602"),
-    "forces_warp_v2": ("fused_kernels", "pair_kernels.py:822"),
+    "forces_warp_v2": ("pair_kernels", "pair_kernels.py:822"),
     "moments_raw_bwd": ("fused_kernels", "pair_kernels.py:335"),
-    "forces_warp_v2_bwd_rows": ("fused_kernels", "pair_kernels.py:936"),
-    "forces_warp_v2_bwd_slab": ("fused_kernels", "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_rows": ("pair_kernels", "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_slab": ("pair_kernels", "pair_kernels.py:936"),
     "forces_sep": ("separable_kernels", "pair_kernels.py:690"),
     "forces_sep_bwd_rows": ("separable_kernels", "pair_kernels.py:716"),
     "forces_sep_bwd_slab": ("separable_kernels", "pair_kernels.py:716"),

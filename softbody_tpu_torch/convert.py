@@ -27,7 +27,7 @@ import torch
 
 from .core.types import Blocked, DevBucket, Materials, Scene
 from .ops._build import ROWS
-from .ops.pair_kernels import slab_inverse, sparse_blocked
+from .ops.pair_kernels import schedules, slab_inverse, sparse_blocked
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
 
@@ -87,6 +87,7 @@ def _blocked_from_numpy(d, real, device, dtype):
     gidx8 = np.repeat(np.asarray(d["blocked.gidx8"], np.int32), split, axis=0)
     n_slots, group = len(real), int(d["group"])
     ptr, idx = slab_inverse([gidx8], n_slots, group, real)
+    sched, chunks = schedules([gidx8.shape[0]], [static.shape[2]], [0], group, device)
     return Blocked(
         bucket=DevBucket(gidx8=_tensor(gidx8, device, torch.int32),
                          restT_rows=_tensor(rr, device, dtype),
@@ -97,7 +98,7 @@ def _blocked_from_numpy(d, real, device, dtype):
         rs6T=_tensor(d["rs6T"], device, dtype), run_len=int(d["run_len"]),
         n_slots=n_slots, group=group,
         slab_ptr=torch.from_numpy(ptr).to(device),
-        slab_idx=torch.from_numpy(idx).to(device))
+        slab_idx=torch.from_numpy(idx).to(device), schedule=sched, chunks=chunks)
 
 
 def scene_to_numpy(scene: Scene) -> dict:

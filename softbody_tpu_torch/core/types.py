@@ -71,8 +71,9 @@ class SparseBlocked:
     ``rs6T`` holds the static rest row sums, lane-major: rows 0:3 are
     sum_j w_ij m_j (X_j - X_i) and rows 3:6 sum_j V_j grad W_ij, host-built
     in f64 over the true pairs.  The forward path reads only rows 3:6, in
-    the K2 ``term_i`` epilogue (the fused path's K2 sums its own), and the
-    K1 backward of either path reads all six.
+    the K2 ``term_i`` epilogue (on the fused path inside the K2 v2 kernel;
+    its plain version sums its own), and the K1 backward of either path
+    reads all six.
 
     ``slab_ptr`` / ``slab_idx`` are the CSR inverse of the buckets' ``gidx8``
     (``ops.pair_kernels.slab_inverse``): the fixed-order index through which
@@ -88,7 +89,8 @@ class SparseBlocked:
     (``ops.pair_kernels.tile_schedule``); ``chunks`` every 128-entry piece
     of every slab, in tile order: [tile, slab, the two offsets, first
     entry] (``ops.pair_kernels.chunk_schedule``), the backward's slab
-    side."""
+    side.  A slab need only be a multiple of ``group``; the sparse layout's
+    are multiples of 128."""
 
     buckets: tuple             # tuple[DevBucket, ...]
     rs6T: torch.Tensor         # (6, n_tiles * rows)
@@ -102,7 +104,7 @@ class SparseBlocked:
     static_all: torch.Tensor   # (sum_b t_b 5 slab_b,)
     gidx_all: torch.Tensor     # (sum_b t_b slab_b / group,) int32
     schedule: torch.Tensor     # (n_tiles, 4) int64
-    chunks: torch.Tensor       # (sum_b t_b slab_b / 128, 5) int64
+    chunks: torch.Tensor       # (sum_b t_b ceil(slab_b / 128), 5) int64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,9 +122,18 @@ class Blocked:
     ``slab_ptr`` / ``slab_idx``.  ``rs6T`` (6, m) holds the raw K1's row
     sums on an all-ones RHS (rows 0:3 sum_j w m_j (-dx), rows 3:6 sum_j
     gfac V_j dx, from the same kernel and coefficients as the forward's
-    dots), which the forward subtracts as pos_i * rs6.  The JAX layout's
-    ``cells`` tiles of tz * C rows are cut into 32-row tiles sharing their
-    slab."""
+    dots), which the forward subtracts as pos_i * rs6 and K2 v2 reads as
+    svnw.  The JAX layout's ``cells`` tiles of tz * C rows are cut into
+    32-row tiles sharing their slab.
+
+    To the whole-scene kernels it is a scene like a ``SparseBlocked``:
+    ``rest_rows`` / ``static_all`` / ``gidx_all`` are views of its bucket's
+    contiguous arrays, and ``schedule`` / ``chunks`` come from
+    ``ops.pair_kernels.schedules`` (the scene build and
+    ``convert.scene_from_numpy`` both take them from there).  Its slab of
+    9 run_len entries need not be a multiple of the kernels' 32- or
+    128-entry pieces (1,944 at the ~112k stretch scene): the last piece of
+    every tile is partial."""
 
     bucket: DevBucket
     slab_start: torch.Tensor   # (n_tiles, 9) int64 first slot of each run
@@ -132,6 +143,8 @@ class Blocked:
     group: int
     slab_ptr: torch.Tensor     # (n_slots / group + 1,) int32
     slab_idx: torch.Tensor     # (n_tiles * slab / group,) int32, live groups only
+    schedule: torch.Tensor     # (n_tiles, 4) int64
+    chunks: torch.Tensor       # (n_tiles * ceil(slab / 128), 5) int64
 
     @property
     def buckets(self) -> tuple:
@@ -148,6 +161,18 @@ class Blocked:
     @property
     def slab_len(self) -> int:
         return self.bucket.slab_len
+
+    @property
+    def rest_rows(self) -> torch.Tensor:
+        return self.bucket.restT_rows
+
+    @property
+    def static_all(self) -> torch.Tensor:
+        return self.bucket.static_slab.view(-1)
+
+    @property
+    def gidx_all(self) -> torch.Tensor:
+        return self.bucket.gidx8.view(-1)
 
 
 class Scene(NamedTuple):

@@ -1,18 +1,12 @@
-// Kernels of the fused K1 + mid-section path (cfg.fused_mid), hand-written
-// for Hopper (sm_90a).  Each replaces one Pallas body of
-// softbody_tpu/ops/pallas/pair_kernels.py:
+// Kernels of the fused K1 + mid-section path (cfg.fused_mid) and the raw
+// K1 of the blocked layout, hand-written for Hopper (sm_90a).  Each
+// replaces one Pallas body of softbody_tpu/ops/pallas/pair_kernels.py:
 //
 // moments_mid_kernel              :: _moments_mid_kernel (launched by
 //                                    ops/pallas/packed.py :: _fused_call)
-// forces_warp_v2_kernel           :: _forces_warp_kernel_v2 (packed.py ::
-//                                    _forces_warp_packed_fwd)
 // moments_raw_bwd_kernel          :: _moments_bwd_kernel (pair_kernels.py ::
 //                                    _moments_vjp_bwd, from packed.py ::
 //                                    _fused_vjp_bwd)
-// forces_warp_v2_bwd_rows_kernel  :: _forces_warp_bwd_kernel_v2, as two
-// forces_warp_v2_bwd_slab_kernel     launches (pair_kernels.py ::
-//                                    _forces_warp_bwd_impl, from packed.py ::
-//                                    _forces_warp_packed_vjp_bwd)
 // moments_raw_kernel              :: _moments_kernel (pair_kernels.py ::
 //                                    _moments_fwd_impl, from packed.py ::
 //                                    moments_packed: the blocked layout's
@@ -23,9 +17,12 @@
 //                                    Hopper form, cp.async / TMA double
 //                                    buffering of the slab, is a tuning item
 //
-// The blocked layout's K2 is forces_warp_v2 (Warp pairing) or
-// separable_kernels.cu's forces_sep (Taichi pairing); its raw K1's
-// backward is moments_raw_bwd.
+// The fused path's K2 and the blocked layout's Warp-pairing K2 are
+// pair_kernels.cu's forces_warp_v2 (_forces_warp_kernel_v2) and its
+// backward passes forces_warp_v2_bwd_rows / _slab, one launch over the
+// whole scene each; the blocked layout's Taichi-pairing K2 is
+// separable_kernels.cu's forces_sep; its raw K1's backward is
+// moments_raw_bwd.
 //
 // What they compute (tile of ROWS = 32 rows against its candidate slab,
 // slot = gidx[tile, e / group] * group + e % group; lane-major operands):
@@ -43,23 +40,13 @@
 //     moves the forces by 5e-5 of their maximum and destabilised a quiet
 //     body (pair_kernels.py:512-526).  Centering in the kernel is the same
 //     function in exact arithmetic and keeps f32 at the v4 path's accuracy.
-//   forces_warp_v2: per pair nw = gfac V_j dx, z_d = sum_b nw_b S_j[d][b],
-//     u_c = sum_d F_i[c][d] z_d; termj_a = sum_j (R_j u)_a and
-//     svnw_b = sum_j nw_b over the slab; f_a = 0.5 V_i (termj_a +
-//     sum_b M_i[a][b] svnw_b), stored as fT (3, m).
 //   moments_raw_bwd: dps[a](j) = sum_i sum_blk day[3 blk + a](i) L_blk(i, j),
 //     the slab side of K1's VJP.  The row side (-day . rs6 with the static
 //     row sums, as the JAX VJP takes it) is a few elementwise ops outside.
-//   forces_warp_v2_bwd: with df scaled by 0.5 V_i, the K2 v4 backward
-//     (pair_kernels.cu) plus dM[3a+b] = df_a svnw_b: the row pass gives
-//     dfm = [dF_9 | dM_9 | 0] (19, m), the slab pass [dS_6 | dR^T_9] per
-//     slab entry (to slab_to_slots).
 //
 // Bound on an H100 SXM (67 TFLOP/s FP32, 3.35 TB/s): every kernel here is
-// OPERATION-bound, as the v4 ones: per pair moments_mid does K1's 78 flops,
-// forces_warp_v2 78 (K2's 75 + svnw), moments_raw_bwd 72, the backward's
-// row pass 78 and slab pass 123, each slab entry staged once serving 32
-// rows.  moments_mid adds its mid-section once per ROW, ~2,250 flops (24
+// OPERATION-bound, as the v4 ones: per pair moments_mid does K1's 78 flops
+// and moments_raw_bwd 72, each slab entry staged once serving 32 rows.  moments_mid adds its mid-section once per ROW, ~2,250 flops (24
 // Jacobi rotations): 0.004 ms of work at ~112k, against 0.084 ms for the
 // pairs (chip_smoke.py computes every bound from the run's shapes).
 // What the design does about it: the v4 tile design (plain FP32 FMAs, never
@@ -386,56 +373,10 @@ moments_raw_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v2_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                      const T* __restrict__ static_slab,  // (t, 5, slab)
-                      const T* __restrict__ fmT,          // (19, ld_fm): F_9 | M_9 | V
-                      int64_t ld_fm,
-                      const T* __restrict__ srT,          // (15, ld_sr): S_6 | R^T_9
-                      int64_t ld_sr,
-                      const int32_t* __restrict__ gidx,   // (t, slab / group)
-                      T* __restrict__ fT,                 // (3, ld_out)
-                      int64_t ld_out,
-                      int slab, int group, T inv_h, T c4h) {
-  __shared__ K2Entry<T> ent[CHUNK];
-  __shared__ T red[NWARPS][6][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
-  T F[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) F[k] = fmT[k * ld_fm + col];
-  k2_tile_sums<true>(restT_rows + (int64_t)tile * 3 * ROWS,
-                     static_slab + (int64_t)tile * 5 * slab, F, srT, ld_sr,
-                     gidx + (int64_t)tile * (slab / group), slab, group, inv_h, c4h,
-                     ent, red);
-  // f_a = 0.5 V_i (termj_a + sum_b M_i[a][b] svnw_b)
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) {
-    const int r = o % ROWS, a = o / ROWS;
-    const int64_t c = (int64_t)tile * ROWS + r;
-    T tj = T(0), sv[3] = {T(0), T(0), T(0)};
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      tj += red[w][a][r];
-#pragma unroll
-      for (int b = 0; b < 3; ++b) sv[b] += red[w][3 + b][r];
-    }
-    const T* Mrow = fmT + (9 + 3 * a) * ld_fm + c;
-    const T ti = Mrow[0] * sv[0] + Mrow[ld_fm] * sv[1] + Mrow[2 * ld_fm] * sv[2];
-    fT[a * ld_out + c] = (T(0.5) * fmT[18 * ld_fm + c]) * (tj + ti);
-  }
-}
-
 // ---------------------------------------------------------------- backward
 // moments_raw_bwd_kernel: one block per tile, one thread per slab entry
 // looping over the 32 rows, as moments_v4_bwd_kernel without its row term.
-// forces_warp_v2_bwd_rows_kernel: the forward's layout (a lane per row, four
-// warps splitting the slab), 12 accumulators: dF's 9 and svnw's 3.
-// forces_warp_v2_bwd_slab_kernel: a thread per slab entry looping over the
-// rows, 15 accumulators.  The two K2 passes sum in opposite directions;
-// each output has one owner and the only cross-thread sum is the forward's
-// fixed-order warp reduction, so the gradient is bitwise repeatable.
+// Each output has one owner: the gradient is bitwise repeatable.
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -447,69 +388,6 @@ moments_raw_bwd_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
                        int64_t ld_ps,
                        int slab, T inv_h, T c4, T c4h) {
   k1_bwd_slab(restT_rows, static_slab, dayT, ld_day, dps, ld_ps, slab, inv_h, c4, c4h);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v2_bwd_rows_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                               const T* __restrict__ static_slab,  // (t, 5, slab)
-                               const T* __restrict__ fmT,          // (19, ld_fm)
-                               int64_t ld_fm,
-                               const T* __restrict__ srT,          // (15, ld_sr)
-                               int64_t ld_sr,
-                               const int32_t* __restrict__ gidx,   // (t, slab / group)
-                               const T* __restrict__ dfT,          // (3, ld_df)
-                               int64_t ld_df,
-                               T* __restrict__ dfmT,               // (19, ld_out)
-                               int64_t ld_out,
-                               int slab, int group, T inv_h, T c4h) {
-  __shared__ K2Entry<T> ent[CHUNK];
-  __shared__ T red[NWARPS][12][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col = (int64_t)tile * ROWS + (threadIdx.x & 31);
-  const T hv = T(0.5) * fmT[18 * ld_fm + col];
-  k2_bwd_row_sums<true>(restT_rows + (int64_t)tile * 3 * ROWS,
-                        static_slab + (int64_t)tile * 5 * slab, srT, ld_sr,
-                        gidx + (int64_t)tile * (slab / group), slab, group, inv_h,
-                        c4h, dfT[col] * hv, dfT[ld_df + col] * hv,
-                        dfT[2 * ld_df + col] * hv, ent, red);
-  for (int o = threadIdx.x; o < 19 * ROWS; o += THREADS) {
-    const int r = o % ROWS, k = o / ROWS;
-    const int64_t c = (int64_t)tile * ROWS + r;
-    T out = T(0);
-    if (k < 9) {
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) out += red[w][k][r];
-    } else if (k < 18) {
-      // dM[3a + b] = df_a svnw_b
-      const int a = (k - 9) / 3, b = (k - 9) % 3;
-      T sv = T(0);
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) sv += red[w][9 + b][r];
-      out = (dfT[a * ld_df + c] * (T(0.5) * fmT[18 * ld_fm + c])) * sv;
-    }
-    dfmT[k * ld_out + c] = out;   // row 18: V_i is a material constant
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-forces_warp_v2_bwd_slab_kernel(const T* __restrict__ restT_rows,   // (t, 3, ROWS)
-                               const T* __restrict__ static_slab,  // (t, 5, slab)
-                               const T* __restrict__ fmT,          // (19, ld_fm)
-                               int64_t ld_fm,
-                               const T* __restrict__ srT,          // (15, ld_sr)
-                               int64_t ld_sr,
-                               const int32_t* __restrict__ gidx,   // (t, slab / group)
-                               const T* __restrict__ dfT,          // (3, ld_df)
-                               int64_t ld_df,
-                               T* __restrict__ dsr,                // (15, ld_out), column tile*slab + s
-                               int64_t ld_out,
-                               int slab, int group, T inv_h, T c4h) {
-  // F_i is fmT's rows 0-8; df is scaled by 0.5 V_i, row 18
-  k2_bwd_slab(restT_rows, static_slab, fmT, ld_fm, fmT + 18 * ld_fm, srT, ld_sr,
-              gidx, dfT, ld_df, dsr, ld_out, slab, group, inv_h, c4h);
 }
 
 }  // namespace
@@ -546,17 +424,6 @@ int sb_rows() { return ROWS; }
         (T)c4h);                                                               \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
-  int sb_forces_warp_v2_##SUF(                                                 \
-      const void* restT_rows, const void* static_slab, const void* fmT,        \
-      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* gidx,         \
-      void* fT, int64_t ld_out, int t, int slab, int group, double inv_h,      \
-      double c4h, void* stream) {                                              \
-    forces_warp_v2_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(         \
-        (const T*)restT_rows, (const T*)static_slab, (const T*)fmT, ld_fm,     \
-        (const T*)srT, ld_sr, (const int32_t*)gidx, (T*)fT, ld_out, slab,      \
-        group, (T)inv_h, (T)c4h);                                              \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
   int sb_moments_raw_bwd_##SUF(                                                \
       const void* restT_rows, const void* static_slab, const void* dayT,       \
       int64_t ld_day, void* dps, int64_t ld_ps, int t, int slab, double inv_h, \
@@ -564,28 +431,6 @@ int sb_rows() { return ROWS; }
     moments_raw_bwd_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>(        \
         (const T*)restT_rows, (const T*)static_slab, (const T*)dayT, ld_day,   \
         (T*)dps, ld_ps, slab, (T)inv_h, (T)c4, (T)c4h);                        \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  int sb_forces_warp_v2_bwd_rows_##SUF(                                        \
-      const void* restT_rows, const void* static_slab, const void* fmT,        \
-      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* gidx,         \
-      const void* dfT, int64_t ld_df, void* dfmT, int64_t ld_out, int t,       \
-      int slab, int group, double inv_h, double c4h, void* stream) {           \
-    forces_warp_v2_bwd_rows_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>( \
-        (const T*)restT_rows, (const T*)static_slab, (const T*)fmT, ld_fm,     \
-        (const T*)srT, ld_sr, (const int32_t*)gidx, (const T*)dfT, ld_df,      \
-        (T*)dfmT, ld_out, slab, group, (T)inv_h, (T)c4h);                      \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  int sb_forces_warp_v2_bwd_slab_##SUF(                                        \
-      const void* restT_rows, const void* static_slab, const void* fmT,        \
-      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* gidx,         \
-      const void* dfT, int64_t ld_df, void* dsr, int64_t ld_out, int t,        \
-      int slab, int group, double inv_h, double c4h, void* stream) {           \
-    forces_warp_v2_bwd_slab_kernel<T><<<t, THREADS, 0, (cudaStream_t)stream>>>( \
-        (const T*)restT_rows, (const T*)static_slab, (const T*)fmT, ld_fm,     \
-        (const T*)srT, ld_sr, (const int32_t*)gidx, (const T*)dfT, ld_df,      \
-        (T*)dsr, ld_out, slab, group, (T)inv_h, (T)c4h);                       \
     return (int)cudaGetLastError();                                            \
   }
 

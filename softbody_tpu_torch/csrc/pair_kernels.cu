@@ -1,4 +1,5 @@
-// Pair kernels of the sparse path, hand-written for Hopper (sm_90a).
+// Pair kernels of the sparse path and the K2 of the fused path and the
+// blocked layout, hand-written for Hopper (sm_90a).
 //
 // K1  moments_v4_kernel      replaces softbody_tpu/ops/pallas/pair_kernels.py
 //                            :: _moments_kernel_v4 (launched by
@@ -6,6 +7,10 @@
 // K2  forces_warp_v4_kernel  replaces softbody_tpu/ops/pallas/pair_kernels.py
 //                            :: _forces_warp_kernel_v4 (launched by
 //                            ops/pallas/packed.py :: _forces_warp_v4_fwd_srT)
+// K2  forces_warp_v2_kernel  replaces softbody_tpu/ops/pallas/pair_kernels.py
+//                            :: _forces_warp_kernel_v2 (launched by
+//                            ops/pallas/packed.py :: _forces_warp_packed_fwd):
+//                            the fused path's and the blocked layout's K2
 // The backward kernels and the fixed-order scatter follow the forward ones,
 // each with its own note (further down).
 //
@@ -18,41 +23,52 @@
 //       tile's first rest row: the same sums, one subtraction per pair
 //       instead of 6 row sums and 6 accumulators.)
 //   K2: nw = gfac V_j dx, Z_d = sum_b nw_b S_j[d, b], u = F_i Z,
-//       out row a = sum_j (R_j u)_a.  (The TPU kernel summed D = R^T Z over
+//       termj_a = sum_j (R_j u)_a.  (The TPU kernel summed D = R^T Z over
 //       the slab and applied F_i after; applying F_i per pair needs 3
 //       accumulators instead of 27 and 18 instead of 27 multiply-adds.)
+//       v4 stores termj; v2 reads the row record fmT = F_9 | M_9 | V_i and
+//       stores f_a = 0.5 V_i (termj_a + sum_b M_i[a][b] svnw_b), svnw_b =
+//       sum_j nw_b.  svnw depends on rest geometry and volumes only, so v2
+//       reads it from the scene's static row sums rs6T[3:6] (host f64 over
+//       the true pairs on the sparse scene, the raw K1 on an all-ones RHS
+//       on the blocked one), as the default path applies it: the same
+//       function as the TPU kernel's in-kernel sum, its pair loop exactly
+//       K2 v4's, with no 3 extra live sums.
 //   Pair coefficients use the rsqrt form: rs = rsqrt(r2 + 1e-30) and the
 //   gradient polynomial is exactly zero at q = 0, so the self pair needs no
 //   mask; padding slots sit on a far grid, so their coefficients vanish.
 //
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
-//   both kernels are OPERATION-bound.  Per pair K1 does 72 flops and K2 74
+//   the kernels are OPERATION-bound.  Per pair K1 does 72 flops and K2 74
 //   (in about 51 and 56 issued instructions, softbody_tpu_torch/
 //   pair_times.py counts them); per slab entry K1 stages 8 values and K2
 //   19, each serving all 32 rows of the tile.  At the ~112k stretch scene
-//   (72.4 M candidate pairs per force evaluation) that is ~0.08 ms per
-//   evaluation for each kernel, and ~0.11-0.12 ms of instruction issue at
-//   4 warp-instructions per clock per SM at 1.98 GHz (chip_smoke.py
+//   (72.4 M candidate pairs per force evaluation on the sparse scene,
+//   288.3 M on the blocked varcol one) that is ~0.08 ms per evaluation for
+//   each kernel on the sparse scene and ~0.11-0.12 ms of instruction issue
+//   at 4 warp-instructions per clock per SM at 1.98 GHz (chip_smoke.py
 //   computes the exact bound from the run's shapes).
 // What the design does about it:
 //   * One launch per force evaluation over every tile of every bucket (the
 //     sparse layout's 8 buckets used to be 8 launches, two of them with
 //     fewer tiles than the card has SMs).  A host-built schedule
-//     (SparseBlocked.schedule: tile, slab, offsets into the scene's flat
-//     static slab and gidx arrays) lists the tiles longest slab first, so
-//     the long tiles start first and the short ones fill the tail.
+//     (SparseBlocked.schedule, Blocked.schedule: tile, slab, offsets into
+//     the scene's flat static slab and gidx arrays) lists the tiles longest
+//     slab first, so the long tiles start first and the short ones fill
+//     the tail.
 //   * Balanced blocks: one block of RG_WARPS = 4 warps per tile, one lane
-//     per tile row, the warps splitting the slab in CH = 32-entry chunks.
-//     Slabs are multiples of 128 entries, so every warp of a block walks
-//     the same number of chunks (no warp idles at the block's end), and no
-//     block walks more than 1.7x the mean (slab 1024 against a mean of
-//     599); 4 warps per tile ran faster on the card than 8 (more, smaller
-//     blocks per SM: at 96 registers 5 blocks, 20 warps, fit on an SM; a
-//     tighter register bound spilled and ran slower), and with one launch
-//     the few long tiles start first instead of forming a launch of their
-//     own.  The warps' partial sums
-//     meet in shared memory and add in warp order: fixed order, no
-//     atomics, bitwise repeatable.
+//     per tile row, the warps splitting the slab in CH = 32-entry chunks,
+//     warp w taking chunks [w n / 4, (w + 1) n / 4) of the slab's n: the
+//     sparse scene's slabs are multiples of 128 entries, so its warps walk
+//     equal shares, and the blocked layout's 1,944 (61 chunks) split
+//     15 / 15 / 15 / 16.  No block walks more than 1.7x the mean on the
+//     sparse scene (slab 1024 against a mean of 599); 4 warps per tile ran
+//     faster on the card than 8 (more, smaller blocks per SM: at 96
+//     registers 5 blocks, 20 warps, fit on an SM; a tighter register bound
+//     spilled and ran slower), and with one launch the few long tiles
+//     start first instead of forming a launch of their own.  The warps'
+//     partial sums meet in shared memory and add in warp order: fixed
+//     order, no atomics, bitwise repeatable.
 //   * Asynchronous staging: each warp keeps a ring of NSTAGE = 2 stages of
 //     CH slab entries in shared memory, fields side by side, filled by
 //     16-byte cp.async copies (the tile's static slab rows, and through
@@ -60,6 +76,16 @@
 //     per group in f32, 64 in f64) while the warp computes the previous
 //     stage; cp.async.wait_group and a warp barrier order the ring.  The
 //     stage is read back as 16-byte broadcasts of 4 entries per field.
+//   * Ragged tails (K2 v2 on the blocked layout): a slab need only be a
+//     multiple of the slot group (8).  The copies of entries past the slab
+//     are cp.async's zero-fill form (source size 0; no branch in the
+//     loop), so a partial last chunk holds zeros there: V_j = 0 makes every
+//     term of those entries vanish, and zero S, R and positions keep them
+//     finite.  The bounds checks cost the staging a few instructions per
+//     copy (3-5% of K1/K2 v4's time on the card), so they are a template
+//     flag: the sparse scene's slabs (multiples of 128) run without them,
+//     and the v4 kernels, which serve only the sparse scene, take whole
+//     chunks only.
 //   * Fewer instructions per pair: K1 centers per lane (p = pos_j - pos_i)
 //     and folds cA and gv into p, 24 multiply-adds per pair where 30 were;
 //     a prep pass per stage puts the spline constants into m_j and V_j
@@ -97,6 +123,15 @@ constexpr size_t ragged_smem(int fields, int outs) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// A 16-byte copy of which the first `bytes` (16 or 0) come from src and the
+// rest are zeros (cp.async's zero-fill form).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes)
                : "memory");
 }
 
@@ -188,8 +223,13 @@ __device__ __forceinline__ Four<T> four(const T* buf, int field, int j) {
 // srow[f] (each contiguous in the tile's (5, slab) block); the NG after
 // them are rows of the lane-major `src` (stride ld) at the entries' slots,
 // gathered per slot group.  Lane l < CH / group holds gval = the gidx of
-// the stage's group l.  Every copy is 16 bytes.
-template <typename T, int NS, int NG>
+// the stage's group l (past the slab any valid gidx, its copies being
+// zeros).  Every copy is 16 bytes.  With
+// TAIL the slab may end inside the stage: the pieces of entries past it (a
+// multiple of the group, so a piece is wholly in or out) are zeros, copied
+// from an address inside the slab.  Without, every piece is copied as is
+// (the bounds checks cost the sparse scene's kernels 3-5% on the card).
+template <typename T, int NS, int NG, bool TAIL>
 __device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
                                             int slab, const int (&srow)[NS],
                                             const T* __restrict__ src, int64_t ld,
@@ -199,16 +239,30 @@ __device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
   constexpr int PER = CH / VEC;              // 16-byte copies per field
   for (int q = lane; q < NS * PER; q += 32) {
     const int f = q / PER, k = q % PER;
-    cp_async16(buf + f * CH + k * VEC, st + (int64_t)srow[f] * slab + e0 + k * VEC);
+    if constexpr (TAIL) {
+      const bool in = e0 + k * VEC < slab;
+      cp_async16_zfill(buf + f * CH + k * VEC,
+                       st + (int64_t)srow[f] * slab + (in ? e0 + k * VEC : e0),
+                       in ? 16 : 0);
+    } else {
+      cp_async16(buf + f * CH + k * VEC, st + (int64_t)srow[f] * slab + e0 + k * VEC);
+    }
   }
   const int gpc = group / VEC;               // copies per group and field
   for (int q0 = 0; q0 < NG * PER; q0 += 32) {   // uniform trip count: shfl below
     const int q = q0 + lane;
     const int k = q % PER;
     const int32_t g = __shfl_sync(0xffffffffu, gval, k / gpc);
-    if (q < NG * PER)
-      cp_async16(buf + (NS + q / PER) * CH + k * VEC,
-                 src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC);
+    if constexpr (TAIL) {
+      if (q < NG * PER)
+        cp_async16_zfill(buf + (NS + q / PER) * CH + k * VEC,
+                         src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC,
+                         e0 + k * VEC < slab ? 16 : 0);
+    } else {
+      if (q < NG * PER)
+        cp_async16(buf + (NS + q / PER) * CH + k * VEC,
+                   src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC);
+    }
   }
 }
 
@@ -216,7 +270,8 @@ __device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
 // stage has landed, prep(buf) rescales its entries in place (lane l its
 // entries l, l + 32, ...), then stage(buf) consumes it.  gi is the tile's
 // gidx row.
-template <typename T, int NS, int NG, int FIELDS, typename Prep, typename Stage>
+template <typename T, int NS, int NG, int FIELDS, bool TAIL, typename Prep,
+          typename Stage>
 __device__ __forceinline__ void walk_chunks(T* ring, const T* __restrict__ st,
                                             int slab, const int (&srow)[NS],
                                             const T* __restrict__ src, int64_t ld,
@@ -225,16 +280,23 @@ __device__ __forceinline__ void walk_chunks(T* ring, const T* __restrict__ st,
                                             Prep prep, Stage stage) {
   if (c0 >= c1) return;
   const int ngr = CH / group;
-  int32_t g = lane < ngr ? gi[c0 * ngr + lane] : 0;
-  issue_stage<T, NS, NG>(ring, st, slab, srow, src, ld, c0 * CH, g, group, lane);
+  // lane l < ngr holds the gidx of group l of the chunk (with TAIL, only
+  // while that group lies inside the slab; past it the copies are zeros)
+  const auto has = [&](int c) {
+    if constexpr (TAIL) return lane < ngr && c * ngr + lane < slab / group;
+    return lane < ngr;
+  };
+  int32_t g = has(c0) ? gi[c0 * ngr + lane] : 0;
+  issue_stage<T, NS, NG, TAIL>(ring, st, slab, srow, src, ld, c0 * CH, g, group, lane);
   cp_async_commit();
-  g = (lane < ngr && c0 + 1 < c1) ? gi[(c0 + 1) * ngr + lane] : 0;
+  g = (has(c0 + 1) && c0 + 1 < c1) ? gi[(c0 + 1) * ngr + lane] : 0;
   for (int c = c0; c < c1; ++c) {
     if (c + 1 < c1)
-      issue_stage<T, NS, NG>(ring + ((c + 1 - c0) % NSTAGE) * (FIELDS * CH), st,
-                             slab, srow, src, ld, (c + 1) * CH, g, group, lane);
+      issue_stage<T, NS, NG, TAIL>(ring + ((c + 1 - c0) % NSTAGE) * (FIELDS * CH),
+                                   st, slab, srow, src, ld, (c + 1) * CH, g, group,
+                                   lane);
     cp_async_commit();                       // (empty on the last chunk)
-    if (lane < ngr && c + 2 < c1) g = gi[(c + 2) * ngr + lane];   // in flight
+    if (has(c + 2) && c + 2 < c1) g = gi[(c + 2) * ngr + lane];   // in flight
     cp_async_wait_prev();                    // this lane's copies of chunk c
     __syncwarp();                            // ... and every other lane's
     T* buf = ring + ((c - c0) % NSTAGE) * (FIELDS * CH);
@@ -316,7 +378,8 @@ __device__ __forceinline__ void k2_stage(const T* buf, T xi0, T xi1, T xi2,
 }
 
 // The scheduled tile of this block: (tile, its slab, its static (5, slab)
-// block, its gidx row); warp w takes chunks [c0, c1) of the slab.
+// block, its gidx row); warp w takes chunks [c0, c1) of the slab's
+// ceil(slab / CH), the last one partial when CH does not divide the slab.
 struct Sched {
   int64_t tile;
   int slab, c0, c1;
@@ -330,19 +393,18 @@ __device__ __forceinline__ Sched sched_of(const int64_t* __restrict__ sched, int
   r.slab = (int)s[1];
   r.st_off = s[2];
   r.gi_off = s[3];
-  const int nch = r.slab / CH;
+  const int nch = (r.slab + CH - 1) / CH;
   r.c0 = warp * nch / RG_WARPS;
   r.c1 = (warp + 1) * nch / RG_WARPS;
   return r;
 }
 
 // Each warp's partial sums into shared memory (over its ring), then the
-// fixed-order sum over warps: out[k * ld_out + tile * ROWS + r]; rows
-// below `negate` are stored negated.
-template <typename T, int K>
-__device__ __forceinline__ void reduce_store(T* smem, const T (&acc)[K], T* out,
-                                             int64_t ld_out, int64_t tile,
-                                             int negate) {
+// fixed-order sum over warps: store(k, col, sum) for each of the tile's
+// K x ROWS outputs, col = tile * ROWS + r their lane-major column.
+template <typename T, int K, typename Store>
+__device__ __forceinline__ void reduce_store(T* smem, const T (&acc)[K], int64_t tile,
+                                             Store store) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();                           // every ring read: smem is free
 #pragma unroll
@@ -353,7 +415,7 @@ __device__ __forceinline__ void reduce_store(T* smem, const T (&acc)[K], T* out,
     T sum = T(0);
 #pragma unroll
     for (int w = 0; w < RG_WARPS; ++w) sum += smem[(w * K + k) * ROWS + r];
-    out[k * ld_out + tile * ROWS + r] = k < negate ? -sum : sum;
+    store(k, tile * ROWS + r, sum);
   }
 }
 
@@ -381,7 +443,7 @@ moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
   for (int k = 0; k < K1_OUT; ++k) acc[k] = T(0);
   const int srow[5] = {0, 1, 2, 3, 4};
   const T c4h3 = T(3) * c4h;
-  walk_chunks<T, 5, 3, K1_FIELDS>(
+  walk_chunks<T, 5, 3, K1_FIELDS, false>(
       smem + warp * (NSTAGE * K1_FIELDS * CH), static_all + s.st_off, s.slab, srow,
       posT, ld_pos, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
       [&](T* buf) {
@@ -391,7 +453,51 @@ moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
         }
       },
       [&](const T* buf) { k1_stage(buf, xi0, xi1, xi2, pi0, pi1, pi2, inv_h, acc); });
-  reduce_store<T, K1_OUT>(smem, acc, ayT, ld_out, s.tile, 9);
+  // blocks 0-2 were accumulated as +cA p_a dx_k: stored negated
+  reduce_store(smem, acc, s.tile,
+               [&](int k, int64_t c, T sum) { ayT[k * ld_out + c] = k < 9 ? -sum : sum; });
+}
+
+// K2 of one scheduled tile, both record layouts (the block's kernel is
+// forces_warp_v4_kernel or forces_warp_v2_kernel).  v4: f9T (9, ld_f9) is
+// F_i, and fT = termj.  V2: f9T is the (19, ld_f9) record F_9 | M_9 | V_i,
+// and f_a = 0.5 V_i (termj_a + sum_b M_i[a][b] svnw_b), svnw_b = the
+// static row sum rs6T[3 + b] (rs6T unread by v4).  TAIL: a slab may end
+// inside a stage (the ring's zero-fill form).
+template <typename T, bool V2, bool TAIL>
+__device__ __forceinline__ void k2_forward(
+    T* smem, const int64_t* __restrict__ sched, const T* __restrict__ rest_rows,
+    const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
+    const T* __restrict__ f9T, int64_t ld_f9, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ rs6T, int64_t ld_rs6, T* __restrict__ fT, int64_t ld_out,
+    int group, T inv_h, T c4h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const int64_t col = s.tile * ROWS + lane;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
+  T F[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) F[k] = f9T[k * ld_f9 + col];
+  T acc[K2_OUT] = {T(0), T(0), T(0)};
+  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
+  walk_chunks<T, 4, 15, K2_FIELDS, TAIL>(
+      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
+      [&](T* buf) {
+        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h;
+      },
+      [&](const T* buf) { k2_stage(buf, xi0, xi1, xi2, F, inv_h, acc); });
+  reduce_store(smem, acc, s.tile, [&](int a, int64_t c, T tj) {
+    if constexpr (V2) {
+      const T* M = f9T + (9 + 3 * a) * ld_f9 + c;
+      const T* sv = rs6T + 3 * ld_rs6 + c;
+      const T ti = M[0] * sv[0] + M[ld_f9] * sv[ld_rs6] + M[2 * ld_f9] * sv[2 * ld_rs6];
+      fT[a * ld_out + c] = (T(0.5) * f9T[18 * ld_f9 + c]) * (tj + ti);
+    } else {
+      fT[a * ld_out + c] = tj;
+    }
+  });
 }
 
 template <typename T>
@@ -405,25 +511,26 @@ forces_warp_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
                       T* __restrict__ fT, int64_t ld_out,        // (3, ld_out)
                       int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Sched s = sched_of(sched, warp);
-  const T* rr = rest_rows + s.tile * 3 * ROWS;
-  const int64_t col = s.tile * ROWS + lane;
-  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  T F[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) F[k] = f9T[k * ld_f9 + col];
-  T acc[K2_OUT] = {T(0), T(0), T(0)};
-  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
-  walk_chunks<T, 4, 15, K2_FIELDS>(
-      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
-      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
-      [&](T* buf) {
-        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h;
-      },
-      [&](const T* buf) { k2_stage(buf, xi0, xi1, xi2, F, inv_h, acc); });
-  reduce_store<T, K2_OUT>(smem, acc, fT, ld_out, s.tile, 0);
+  k2_forward<T, false, false>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+                              static_all, gidx_all, f9T, ld_f9, srT, ld_sr, nullptr, 0,
+                              fT, ld_out, group, inv_h, c4h);
+}
+
+template <typename T, bool TAIL>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+forces_warp_v2_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                      const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                      const T* __restrict__ static_all,      // per tile (5, slab)
+                      const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                      const T* __restrict__ fmT, int64_t ld_fm,    // (19, ld_fm): F_9 | M_9 | V
+                      const T* __restrict__ srT, int64_t ld_sr,    // (15, ld_sr): S_6 | R^T_9
+                      const T* __restrict__ rs6T, int64_t ld_rs6,  // (6, ld_rs6)
+                      T* __restrict__ fT, int64_t ld_out,          // (3, ld_out)
+                      int group, T inv_h, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  k2_forward<T, true, TAIL>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+                            static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T, ld_rs6,
+                            fT, ld_out, group, inv_h, c4h);
 }
 
 // Dynamic shared memory above 48 KB (K2's f64 rings) needs the opt-in,
@@ -467,6 +574,22 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool TAIL>
+int launch_forces_v2(const void* sched, int n_sched, const void* rest_rows,
+                     const void* static_all, const void* gidx_all, const void* fmT,
+                     int64_t ld_fm, const void* srT, int64_t ld_sr, const void* rs6T,
+                     int64_t ld_rs6, void* fT, int64_t ld_out, int group,
+                     double inv_h, double c4h, void* stream) {
+  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v2_kernel<T, TAIL>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  forces_warp_v2_kernel<T, TAIL><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+      (const T*)rs6T, ld_rs6, (T*)fT, ld_out, group, (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- backward
 //
 // K1 bwd  moments_v4_bwd_kernel replaces softbody_tpu/ops/pallas/
@@ -480,7 +603,9 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
 //   dps_a += gv s2_a - cA s1_a: 67 flops.
 //
 // K2 bwd  replaces softbody_tpu/ops/pallas/pair_kernels.py ::
-//         _forces_warp_bwd_kernel_v4 (launched by _forces_warp_bwd_v4_impl).
+//         _forces_warp_bwd_kernel_v4 (launched by _forces_warp_bwd_v4_impl)
+//         and, as forces_warp_v2_bwd_rows / _slab, ::
+//         _forces_warp_bwd_kernel_v2 (launched by _forces_warp_bwd_impl).
 //   With z_d = sum_b nw_b S_j[d][b], u_c = sum_d F_i[c][d] z_d and
 //   w'_c = sum_a df_a(i) R_j[a][c]:
 //     df9[3c+d](i)     = sum_j z_d w'_c                   (over the slab)
@@ -492,6 +617,10 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
 //   forces_warp_v4_bwd_slab_kernel (118).  One pass would have to reduce
 //   the 15 slab sums across the 32 row lanes per pair (about 30 shuffles
 //   and adds); two passes recompute the pair coefficients instead.
+//   v2 (the fmT record F_9 | M_9 | V_i): df is taken as df * 0.5 V_i, and
+//   the row pass stores dfm = [dF_9 | dM_9 | 0] (19 rows) with
+//   dM[3a+b] = df_a svnw_b, svnw from the static row sums rs6T[3:6] as in
+//   the forward: an elementwise epilogue, the pair loops are v4's.
 //
 // Bound on an H100 SXM: all three are OPERATION-bound, as the forward
 // kernels are (each slab entry read once serves the tile's 32 rows);
@@ -513,7 +642,11 @@ int launch_forces(const void* sched, int n_sched, const void* rest_rows,
 //     (SparseBlocked.chunks: [tile, slab, st_off, gi_off, e0], tile order):
 //     17,672 equal blocks at the ~112k scene, where there were 3,776 tiles
 //     of 1-8 entries per thread.  A tile's chunk-0 block also writes K1's
-//     dprow.
+//     dprow.  K2's slab pass also takes a slab whose last chunk holds fewer
+//     entries (the blocked layout's 1,944 = 15 x 128 + 24): threads past
+//     the slab read an entry inside it and write nothing.  The K1 backward
+//     serves the sparse scene only, whose slabs are whole chunks (its
+//     wrapper refuses others).
 //   * Fewer shared-memory instructions per pair on the slab side: the
 //     tile's rows are staged row-major and padded to a multiple of 4 (K1:
 //     x_3 and the 18 cotangents in 24; K2: x_3, df_3 and F_9 in 16), so a
@@ -692,6 +825,63 @@ __device__ __forceinline__ void k2b_rows_stage(const T* buf, T xi0, T xi1, T xi2
   }
 }
 
+// The row pass of one scheduled tile, both record layouts (its kernel is
+// forces_warp_v4_bwd_rows_kernel or forces_warp_v2_bwd_rows_kernel): out
+// (9, ld_out) = df9.  V2: df is scaled by 0.5 V_i (fmT row 18), and out is
+// (19, ld_out) = [dF_9 | dM_9 | 0], dM[3a + b] = df_a svnw_b with svnw_b =
+// rs6T[3 + b] (fmT and rs6T unread by v4).  TAIL as for k2_forward.
+template <typename T, bool V2, bool TAIL>
+__device__ __forceinline__ void k2_bwd_rows(
+    T* smem, const int64_t* __restrict__ sched, const T* __restrict__ rest_rows,
+    const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
+    const T* __restrict__ fmT, int64_t ld_fm, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ rs6T, int64_t ld_rs6, const T* __restrict__ dfT,
+    int64_t ld_df, T* __restrict__ out, int64_t ld_out, int group, T inv_h, T c4h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const int64_t col = s.tile * ROWS + lane;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
+  T df0 = dfT[col], df1 = dfT[ld_df + col], df2 = dfT[2 * ld_df + col];
+  if constexpr (V2) {
+    const T hv = T(0.5) * fmT[18 * ld_fm + col];
+    df0 *= hv;
+    df1 *= hv;
+    df2 *= hv;
+  }
+  T acc[K2B_OUT];
+#pragma unroll
+  for (int k = 0; k < K2B_OUT; ++k) acc[k] = T(0);
+  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
+  const T c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
+  walk_chunks<T, 4, 15, K2_FIELDS, TAIL>(
+      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
+      [&](T* buf) {
+        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h12;
+      },
+      [&](const T* buf) {
+        k2b_rows_stage(buf, xi0, xi1, xi2, df0, df1, df2, nih, nih2, acc);
+      });
+  reduce_store(smem, acc, s.tile,
+               [&](int k, int64_t c, T sum) { out[k * ld_out + c] = sum; });
+  if constexpr (V2) {
+    // rows 9-17: dM[3a + b] = (df_a 0.5 V_i) svnw_b; row 18 (V_i is a
+    // material constant): 0
+    for (int o = threadIdx.x; o < 10 * ROWS; o += RG_THREADS) {
+      const int k = 9 + o / ROWS;
+      const int64_t c = s.tile * ROWS + o % ROWS;
+      T v = T(0);
+      if (k < 18) {
+        const int a = (k - 9) / 3, b = (k - 9) % 3;
+        v = (dfT[a * ld_df + c] * (T(0.5) * fmT[18 * ld_fm + c]))
+            * rs6T[(3 + b) * ld_rs6 + c];
+      }
+      out[k * ld_out + c] = v;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(RG_THREADS, 5)
 forces_warp_v4_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
@@ -703,52 +893,57 @@ forces_warp_v4_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sche
                                T* __restrict__ df9T, int64_t ld_out,      // (9, ld_out)
                                int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Sched s = sched_of(sched, warp);
-  const T* rr = rest_rows + s.tile * 3 * ROWS;
-  const int64_t col = s.tile * ROWS + lane;
-  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  const T df0 = dfT[col], df1 = dfT[ld_df + col], df2 = dfT[2 * ld_df + col];
-  T acc[K2B_OUT];
-#pragma unroll
-  for (int k = 0; k < K2B_OUT; ++k) acc[k] = T(0);
-  const int srow[4] = {0, 1, 2, 4};          // rest_3, V
-  const T c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
-  walk_chunks<T, 4, 15, K2_FIELDS>(
-      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
-      srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
-      [&](T* buf) {
-        for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h12;
-      },
-      [&](const T* buf) {
-        k2b_rows_stage(buf, xi0, xi1, xi2, df0, df1, df2, nih, nih2, acc);
-      });
-  reduce_store<T, K2B_OUT>(smem, acc, df9T, ld_out, s.tile, 0);
+  k2_bwd_rows<T, false, false>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+                               static_all, gidx_all, nullptr, 0, srT, ld_sr, nullptr, 0,
+                               dfT, ld_df, df9T, ld_out, group, inv_h, c4h);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BCH)
-forces_warp_v4_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
-                               const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
-                               const T* __restrict__ static_all,       // per tile (5, slab)
-                               const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
-                               const T* __restrict__ f9T, int64_t ld_f9,   // (9, ld_f9)
-                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
-                               const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
-                               T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
+template <typename T, bool TAIL>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+forces_warp_v2_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                               const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                               const T* __restrict__ static_all,      // per tile (5, slab)
+                               const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                               const T* __restrict__ fmT, int64_t ld_fm,    // (19, ld_fm)
+                               const T* __restrict__ srT, int64_t ld_sr,    // (15, ld_sr)
+                               const T* __restrict__ rs6T, int64_t ld_rs6,  // (6, ld_rs6)
+                               const T* __restrict__ dfT, int64_t ld_df,    // (3, ld_df)
+                               T* __restrict__ dfmT, int64_t ld_out,        // (19, ld_out)
                                int group, T inv_h, T c4h) {
-  __shared__ __align__(32) T rec[ROWS * K2B_REC];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  k2_bwd_rows<T, true, TAIL>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+                              static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T, ld_rs6,
+                              dfT, ld_df, dfmT, ld_out, group, inv_h, c4h);
+}
+
+// The slab pass of one (tile, 128-entry chunk), both record layouts (its
+// kernel is forces_warp_v4_bwd_slab_kernel or _v2_): dsr (15, ld_out), a
+// tile's entry s at column gi_off * group + s.  f9T holds F_i in rows 0-8
+// (v2: the fmT record, whose row 18, V_i, scales df by 0.5 V_i).  rec is
+// the block's staged rows.
+template <typename T, bool V2>
+__device__ __forceinline__ void k2_bwd_slab(
+    T* rec, const int64_t* __restrict__ chunks, const T* __restrict__ rest_rows,
+    const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
+    const T* __restrict__ f9T, int64_t ld_f9, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ dfT, int64_t ld_df, T* __restrict__ dsr, int64_t ld_out,
+    int group, T inv_h, T c4h) {
   const BChunk c = bchunk_of(chunks);
   const int64_t col0 = c.tile * ROWS;
   const T* rr = rest_rows + c.tile * 3 * ROWS;
   stage_rows<T, K2B_REC, 15, BCH>(rec, [&](int f, int r) {
-    return f < 3 ? rr[f * ROWS + r]
-                 : f < 6 ? dfT[(f - 3) * ld_df + col0 + r]
-                         : f9T[(f - 6) * ld_f9 + col0 + r];
+    if (f < 3) return rr[f * ROWS + r];
+    if (f < 6) {
+      const T d = dfT[(f - 3) * ld_df + col0 + r];
+      if constexpr (V2) return d * (T(0.5) * f9T[18 * ld_f9 + col0 + r]);
+      return d;
+    }
+    return f9T[(f - 6) * ld_f9 + col0 + r];
   });
-  // this thread's slab entry
-  const int e = c.e0 + threadIdx.x;
+  // this thread's slab entry (past a partial last chunk: the chunk's first,
+  // computed and not stored)
+  const int s = c.e0 + threadIdx.x;
+  const int e = s < c.slab ? s : c.e0;
   const T* st = static_all + c.st_off;
   const int64_t slot = (int64_t)gidx_all[c.gi_off + e / group] * group + e % group;
   const T xj0 = st[e], xj1 = st[c.slab + e], xj2 = st[2 * c.slab + e];
@@ -798,11 +993,44 @@ forces_warp_v4_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chu
     dS[4] = fma(d1, y[2], fma(d2, y[1], dS[4]));
     dS[5] = fma(d2, y[2], dS[5]);
   }
-  const int64_t col = c.gi_off * group + e;
+  if (s >= c.slab) return;
+  const int64_t col = c.gi_off * group + s;
 #pragma unroll
   for (int f = 0; f < 6; ++f) dsr[f * ld_out + col] = vj * dS[f];
 #pragma unroll
   for (int f = 0; f < 9; ++f) dsr[(6 + f) * ld_out + col] = vj * dRt[f];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BCH)
+forces_warp_v4_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                               const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                               const T* __restrict__ static_all,       // per tile (5, slab)
+                               const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
+                               const T* __restrict__ f9T, int64_t ld_f9,   // (9, ld_f9)
+                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
+                               const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
+                               T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
+                               int group, T inv_h, T c4h) {
+  __shared__ __align__(32) T rec[ROWS * K2B_REC];
+  k2_bwd_slab<T, false>(rec, chunks, rest_rows, static_all, gidx_all, f9T, ld_f9, srT,
+                        ld_sr, dfT, ld_df, dsr, ld_out, group, inv_h, c4h);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BCH)
+forces_warp_v2_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                               const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                               const T* __restrict__ static_all,       // per tile (5, slab)
+                               const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
+                               const T* __restrict__ fmT, int64_t ld_fm,   // (19, ld_fm)
+                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
+                               const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
+                               T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
+                               int group, T inv_h, T c4h) {
+  __shared__ __align__(32) T rec[ROWS * K2B_REC];
+  k2_bwd_slab<T, true>(rec, chunks, rest_rows, static_all, gidx_all, fmT, ld_fm, srT,
+                       ld_sr, dfT, ld_df, dsr, ld_out, group, inv_h, c4h);
 }
 
 constexpr int SCATTER_THREADS = 256;
@@ -869,6 +1097,41 @@ int launch_forces_bwd_slab(const void* chunks, int n_chunks, const void* rest_ro
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool TAIL>
+int launch_forces_v2_bwd_rows(const void* sched, int n_sched, const void* rest_rows,
+                              const void* static_all, const void* gidx_all,
+                              const void* fmT, int64_t ld_fm, const void* srT,
+                              int64_t ld_sr, const void* rs6T, int64_t ld_rs6,
+                              const void* dfT, int64_t ld_df, void* dfmT,
+                              int64_t ld_out, int group, double inv_h, double c4h,
+                              void* stream) {
+  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2B_OUT);
+  static const cudaError_t attr =
+      allow_smem(forces_warp_v2_bwd_rows_kernel<T, TAIL>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  forces_warp_v2_bwd_rows_kernel<T, TAIL>
+      <<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+          (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+          (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+          (const T*)rs6T, ld_rs6, (const T*)dfT, ld_df, (T*)dfmT, ld_out, group,
+          (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_forces_v2_bwd_slab(const void* chunks, int n_chunks, const void* rest_rows,
+                              const void* static_all, const void* gidx_all,
+                              const void* fmT, int64_t ld_fm, const void* srT,
+                              int64_t ld_sr, const void* dfT, int64_t ld_df, void* dsr,
+                              int64_t ld_out, int group, double inv_h, double c4h,
+                              void* stream) {
+  forces_warp_v2_bwd_slab_kernel<T><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+      (const T*)dfT, ld_df, (T*)dsr, ld_out, group, (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
                          const void* idx, void* out, int64_t ld_out, int k,
@@ -882,8 +1145,9 @@ int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
 }
 
 // Kernel `which` of this file (0: K1 moments_v4, 1: K2 forces_warp_v4,
-// 2: moments_v4_bwd, 3: forces_warp_v4_bwd_rows, 4: forces_warp_v4_bwd_slab)
-// in f32 or f64: [registers per thread, static shared bytes, local (stack
+// 2: moments_v4_bwd, 3: forces_warp_v4_bwd_rows, 4: forces_warp_v4_bwd_slab,
+// 5: forces_warp_v2, 6: forces_warp_v2_bwd_rows, 7: forces_warp_v2_bwd_slab,
+// 8 and 9: 5 and 6 for slabs that end inside a ring stage) in f32 or f64: [registers per thread, static shared bytes, local (stack
 // and spill) bytes, dynamic shared bytes, resident blocks per SM, threads
 // per block] into out.
 template <typename K>
@@ -920,6 +1184,20 @@ int ragged_info(int which, int* out) {
                          ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
     case 4:
       return kernel_info(forces_warp_v4_bwd_slab_kernel<T>, 0, BCH, out);
+    case 5:
+      return kernel_info(forces_warp_v2_kernel<T, false>,
+                         ragged_smem<T>(K2_FIELDS, K2_OUT), RG_THREADS, out);
+    case 6:
+      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, false>,
+                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+    case 7:
+      return kernel_info(forces_warp_v2_bwd_slab_kernel<T>, 0, BCH, out);
+    case 8:
+      return kernel_info(forces_warp_v2_kernel<T, true>,
+                         ragged_smem<T>(K2_FIELDS, K2_OUT), RG_THREADS, out);
+    case 9:
+      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, true>,
+                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -960,6 +1238,17 @@ const char* sb_error_string(int code) {
     return launch_forces<T>(sched, n_sched, rest_rows, static_all, gidx_all,   \
                             f9T, ld_f9, srT, ld_sr, fT, ld_out, group, inv_h,  \
                             c4h, stream);                                      \
+  }                                                                            \
+  int sb_forces_warp_v2_##SUF(const void* sched, int n_sched,                  \
+                              const void* rest_rows, const void* static_all,   \
+                              const void* gidx_all, const void* fmT,           \
+                              int64_t ld_fm, const void* srT, int64_t ld_sr,   \
+                              const void* rs6T, int64_t ld_rs6, void* fT,      \
+                              int64_t ld_out, int group, double inv_h,         \
+                              double c4h, int tail, void* stream) {            \
+    return (tail ? launch_forces_v2<T, true> : launch_forces_v2<T, false>)(    \
+        sched, n_sched, rest_rows, static_all, gidx_all, fmT, ld_fm, srT,      \
+        ld_sr, rs6T, ld_rs6, fT, ld_out, group, inv_h, c4h, stream);           \
   }
 
 SB_FWD_ENTRIES(f32, float)
@@ -997,6 +1286,30 @@ SB_FWD_ENTRIES(f64, double)
                                      gidx_all, f9T, ld_f9, srT, ld_sr, dfT,    \
                                      ld_df, dsr, ld_out, group, inv_h, c4h,    \
                                      stream);                                  \
+  }                                                                            \
+  int sb_forces_warp_v2_bwd_rows_##SUF(                                        \
+      const void* sched, int n_sched, const void* rest_rows,                   \
+      const void* static_all, const void* gidx_all, const void* fmT,           \
+      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* rs6T,         \
+      int64_t ld_rs6, const void* dfT, int64_t ld_df, void* dfmT,              \
+      int64_t ld_out, int group, double inv_h, double c4h, int tail,           \
+      void* stream) {                                                          \
+    return (tail ? launch_forces_v2_bwd_rows<T, true>                          \
+                 : launch_forces_v2_bwd_rows<T, false>)(                       \
+        sched, n_sched, rest_rows, static_all, gidx_all, fmT, ld_fm, srT,      \
+        ld_sr, rs6T, ld_rs6, dfT, ld_df, dfmT, ld_out, group, inv_h, c4h,      \
+        stream);                                                               \
+  }                                                                            \
+  int sb_forces_warp_v2_bwd_slab_##SUF(                                        \
+      const void* chunks, int n_chunks, const void* rest_rows,                 \
+      const void* static_all, const void* gidx_all, const void* fmT,           \
+      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* dfT,          \
+      int64_t ld_df, void* dsr, int64_t ld_out, int group, double inv_h,       \
+      double c4h, void* stream) {                                              \
+    return launch_forces_v2_bwd_slab<T>(chunks, n_chunks, rest_rows,           \
+                                        static_all, gidx_all, fmT, ld_fm, srT, \
+                                        ld_sr, dfT, ld_df, dsr, ld_out, group, \
+                                        inv_h, c4h, stream);                   \
   }                                                                            \
   int sb_slab_to_slots_##SUF(const void* buf, int64_t ld_buf, const void* ptr, \
                              const void* idx, void* out, int64_t ld_out,       \

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
-v4 path: K1/K2 forward and backward, one launch per evaluation each, and
-the fixed-order scatter),
-csrc/fused_kernels.cu (the fused K1 + mid-section path, K2 v2 and the raw
-K1 of the blocked layout) and csrc/separable_kernels.cu (the Taichi
-pairing's separable K2 and its backward), each including csrc/common.cuh.
+whole-scene kernels, one launch per evaluation each: the v4 path's K1/K2
+forward and backward, K2 v2 of the fused path and the blocked layout and
+its backward, and the fixed-order scatter), csrc/fused_kernels.cu (the
+fused K1 + mid-section and the raw K1 of the blocked layout, with its
+backward) and csrc/separable_kernels.cu (the Taichi pairing's separable K2
+and its backward), each including csrc/common.cuh.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
 one library per source, into the package's git-ignored build directory at
@@ -37,8 +38,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes argument types of each entry point sb_<name>_<f32|f64>
 _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-_K2_BWD = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32,
-           _F64, _F64, _P]
 _SEP_BWD = [_P, _P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64, _P]
 SIGNATURES = {
     "pair_kernels": {
@@ -52,18 +51,21 @@ SIGNATURES = {
                                     _I64, _I32, _F64, _F64, _P],
         "forces_warp_v4_bwd_slab": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
                                     _I64, _P, _I64, _I32, _F64, _F64, _P],
+        "forces_warp_v2": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
+                           _I64, _I32, _F64, _F64, _I32, _P],
+        "forces_warp_v2_bwd_rows": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
+                                    _I64, _P, _I64, _P, _I64, _I32, _F64, _F64, _I32,
+                                    _P],
+        "forces_warp_v2_bwd_slab": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
+                                    _I64, _P, _I64, _I32, _F64, _F64, _P],
         "slab_to_slots": [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
     "fused_kernels": {
         "moments_mid": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _P,
                         _P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _F64,
                         _F64, _F64, _I32, _I32, _P],
-        "forces_warp_v2": [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _I32,
-                           _I32, _F64, _F64, _P],
         "moments_raw_bwd": [_P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64,
                             _F64, _P],
-        "forces_warp_v2_bwd_rows": _K2_BWD,
-        "forces_warp_v2_bwd_slab": _K2_BWD,
         "moments_raw": [_P, _P, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _F64, _F64, _P],
     },

@@ -12,14 +12,26 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
   the A | Y rows ayT (18, m).
 * :func:`forces_warp_v2` replaces ``_forces_warp_kernel_v2`` (launched by
   ``packed._forces_warp_packed_fwd``): the Warp pairing with term_i and the
-  0.5 V_i scale in the kernel, fT (3, m).
+  0.5 V_i scale in the kernel, fT (3, m), over the whole scene.
 * :func:`moments_raw_bwd` replaces ``_moments_bwd_kernel`` (launched by
   ``_moments_vjp_bwd`` from ``packed._fused_vjp_bwd``): dayT -> dpsT
   (t, 3, slab), the slab side of K1's VJP.
 * :func:`forces_warp_v2_bwd` replaces ``_forces_warp_bwd_kernel_v2``
   (launched by ``_forces_warp_bwd_impl``): dfT -> dfmT (19, m) =
-  [dF_9 | dM_9 | 0] and dsrT (t, 15, slab); on the card two kernels, the
-  row pass and the slab pass.
+  [dF_9 | dM_9 | 0] and dsr (15, n_entries), the per-slab-entry buffer
+  ``slab_to_slots`` reads; on the card two kernels, the row pass and the
+  slab pass.
+
+  K2 v2 and its two passes take a whole scene (a SparseBlocked or a
+  Blocked: its ``schedule`` and ``chunks``) and launch once per evaluation,
+  as K2 v4 and its passes do: they are K2 v4's kernels of
+  csrc/pair_kernels.cu with the v2 record's epilogue, svnw_b =
+  sum_j gfac V_j dx_b read from the scene's static row sums rs6T[3:6] (the
+  same function as the TPU kernel's in-kernel sum; the plain versions sum
+  it over the slab, as the TPU kernel does).  Their plain yardsticks stay
+  per bucket (:func:`forces_warp_v2_plain`, :func:`forces_warp_v2_bwd_plain`)
+  and ``*_scene_plain`` runs them over the buckets into the whole-scene
+  outputs (what the wrappers run on the CPU, and ``PLAIN``).
 * :func:`moments_raw` replaces ``_moments_kernel`` (launched by
   ``_moments_fwd_impl`` from ``packed.moments_packed``) and the inner
   kernel of ``_moments_fwd_manual`` (the same function, TPU-only manual
@@ -39,14 +51,14 @@ JAX's ``stat_rows`` record, ``sim/sparse.py:240-244``, left in place).
 
 Each kernel has a plain PyTorch version (``*_plain``) for CPU tensors; for
 CUDA tensors the wrapper launches the hand-written kernel of
-csrc/fused_kernels.cu and counts it in its ``launches`` attribute; any
-other device raises.  :func:`moments_mid_all` / :func:`forces_v2_all` are
-the differentiable ops over every bucket, going through a
-``pair_kernels.PairOps`` (its ``KERNELS`` or ``PLAIN`` table).  The
-backward of :func:`moments_mid_all` rebuilds the mid-section from the saved
-A | Y under autograd (the port's counterpart of ``packed._mid_xla``; the
-polar through its clamped VJP), then runs :func:`moments_raw_bwd` per
-bucket and one ``slab_to_slots``.
+csrc/fused_kernels.cu (K2 v2: csrc/pair_kernels.cu) and counts it in its
+``launches`` attribute; any other device raises.  :func:`moments_mid_all`
+/ :func:`forces_v2_all` are the differentiable ops over every bucket,
+going through a ``pair_kernels.PairOps`` (its ``KERNELS`` or ``PLAIN``
+table).  The backward of :func:`moments_mid_all` rebuilds the mid-section
+from the saved A | Y under autograd (the port's counterpart of
+``packed._mid_xla``; the polar through its clamped VJP), then runs
+:func:`moments_raw_bwd` per bucket and one ``slab_to_slots``.
 """
 
 from __future__ import annotations
@@ -57,11 +69,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..sim.blocked import mid_rows
-from .pair_common import (SR_FIELDS, _no_tf32, bucket_cols, centered_moments,
-                          check_lane_major, check_tiles, check_vector, entry,
-                          flat_entries, k1_lhs, on, raise_on, raw_moments_bwd,
-                          slab_slots, spline_constants, stream, tile_chunked,
-                          warp_nw, warp_termj, warp_termj_bwd)
+from .pair_common import (RAGGED_CHUNK, SR_FIELDS, _no_tf32, aligned, bucket_cols,
+                          centered_moments, check_lane_major, check_scene,
+                          check_tiles, check_vector, entry, flat_entries, k1_lhs,
+                          n_entries, on, raise_on, raw_moments_bwd, slab_slots,
+                          spline_constants, stream, tile_chunked, warp_nw,
+                          warp_termj, warp_termj_bwd)
 
 FM_FIELDS = 19     # rows of fmT: F_9 | M_9 | V_i
 SWEEPS = 8         # Jacobi sweeps of the polar (mat3.polar3's default)
@@ -169,6 +182,28 @@ def forces_warp_v2_bwd_plain(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
     return torch.cat([df9, dM, torch.zeros_like(dM[:1])]), dsr
 
 
+def forces_warp_v2_scene_plain(sb, fmT, srT, h):
+    """Plain K2 v2 over a whole scene: the per-bucket
+    :func:`forces_warp_v2_plain` concatenated in tile order, fT (3, m)."""
+    return torch.cat([
+        forces_warp_v2_plain(b.restT_rows, b.static_slab,
+                             fmT[:, bucket_cols(b, sb.rows)], srT, b.gidx8, h)
+        for b in sb.buckets], dim=1)
+
+
+def forces_warp_v2_bwd_scene_plain(sb, fmT, srT, dfT, h):
+    """Plain K2 v2 backward over a whole scene: the per-bucket
+    :func:`forces_warp_v2_bwd_plain` placed into the whole-scene outputs,
+    dfmT (19, m) and dsr (15, n_entries) (:func:`~.pair_common.flat_entries`'
+    order: a tile's entry s at column gi_off * group + s)."""
+    parts = [forces_warp_v2_bwd_plain(b.restT_rows, b.static_slab,
+                                      fmT[:, bucket_cols(b, sb.rows)], srT, b.gidx8,
+                                      dfT[:, bucket_cols(b, sb.rows)], h)
+             for b in sb.buckets]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            flat_entries([p[1] for p in parts], SR_FIELDS))
+
+
 # ------------------------------------------------------------ kernel launches
 def _launch_moments_mid(restT_rows, static_slab, posT, posT_rows, rs, scale,
                         gidx8, h, corotated, emit_ay=False):
@@ -201,31 +236,81 @@ def _launch_moments_mid(restT_rows, static_slab, posT, posT_rows, rs, scale,
     return fmT, srT, ayT
 
 
-def _check_k2(restT_rows, static_slab, fmT, srT, gidx8, dfT=None):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
-    check_lane_major("fmT", fmT, dtype, device, FM_FIELDS, t * rows)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS)
+def _check_v2(sb, fmT, srT, dfT=None, chunks=False):
+    """Operand checks of one whole-scene K2 v2 launch (with ``chunks``, of
+    the backward's slab pass)."""
+    device, dtype = srT.device, srT.dtype
+    check_scene(sb, dtype, device, chunks)
+    m = sb.n_tiles * sb.rows
+    check_lane_major("fmT", fmT, dtype, device, FM_FIELDS, m)
+    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
     if dfT is not None:
-        check_lane_major("dfT", dfT, dtype, device, 3, t * rows)
-    return t, rows, slab
+        check_lane_major("dfT", dfT, dtype, device, 3, m)
+    if not chunks:      # the epilogue's svnw; the ring copies 16-byte pieces of srT
+        check_lane_major("rs6T", sb.rs6T, dtype, device, 6, m)
+        aligned("srT", srT, lane_major=True)
+    return device, dtype, m
 
 
-def _launch_forces_v2(restT_rows, static_slab, fmT, srT, gidx8, h):
-    t, rows, slab = _check_k2(restT_rows, static_slab, fmT, srT, gidx8)
-    dtype = restT_rows.dtype
-    out = torch.empty((3, t * rows), dtype=dtype, device=restT_rows.device)
-    if t == 0:
+def _tail(sb) -> int:
+    """1 when a slab ends inside a ring stage: the kernels' zero-filling
+    instantiation runs (the blocked layout's slabs of 9 run_len)."""
+    return int(any(b.slab_len % RAGGED_CHUNK for b in sb.buckets))
+
+
+def _launch_forces_v2(sb, fmT, srT, h):
+    """fT (3, m): a block per tile of the schedule, a lane per row, four
+    warps splitting the slab."""
+    device, dtype, m = _check_v2(sb, fmT, srT)
+    out = torch.empty((3, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
         return out
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("fused_kernels", "forces_warp_v2", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
+    rc = entry("pair_kernels", "forces_warp_v2", dtype)(
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
-        gidx8.data_ptr(), out.data_ptr(), out.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
+        sb.rs6T.data_ptr(), sb.rs6T.stride(0), out.data_ptr(), out.stride(0),
+        sb.group, inv_h, c4h, _tail(sb), stream())
     raise_on(rc, "forces_warp_v2")
     forces_warp_v2.launches += 1
     return out
+
+
+def _launch_forces_v2_bwd_rows(sb, fmT, srT, dfT, h):
+    """dfmT (19, m): the forward's structure."""
+    device, dtype, m = _check_v2(sb, fmT, srT, dfT)
+    dfm = torch.empty((FM_FIELDS, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
+        return dfm
+    inv_h, _, c4h = spline_constants(h, dtype)
+    rc = entry("pair_kernels", "forces_warp_v2_bwd_rows", dtype)(
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
+        fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
+        sb.rs6T.data_ptr(), sb.rs6T.stride(0), dfT.data_ptr(), dfT.stride(0),
+        dfm.data_ptr(), dfm.stride(0), sb.group, inv_h, c4h, _tail(sb), stream())
+    raise_on(rc, "forces_warp_v2_bwd_rows")
+    forces_warp_v2_bwd_rows.launches += 1
+    return dfm
+
+
+def _launch_forces_v2_bwd_slab(sb, fmT, srT, dfT, h):
+    """dsr (15, n_entries): a block per 128-entry chunk of every slab."""
+    device, dtype, m = _check_v2(sb, fmT, srT, dfT, chunks=True)
+    dsr = torch.empty((SR_FIELDS, n_entries(sb)), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
+        return dsr
+    inv_h, _, c4h = spline_constants(h, dtype)
+    rc = entry("pair_kernels", "forces_warp_v2_bwd_slab", dtype)(
+        sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
+        fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
+        dfT.data_ptr(), dfT.stride(0), dsr.data_ptr(), dsr.stride(0),
+        sb.group, inv_h, c4h, stream())
+    raise_on(rc, "forces_warp_v2_bwd_slab")
+    forces_warp_v2_bwd_slab.launches += 1
+    return dsr
 
 
 def _launch_moments_raw(restT_rows, static_slab, posT, gidx8, h):
@@ -262,46 +347,7 @@ def _launch_moments_raw_bwd(restT_rows, static_slab, dayT, h):
     return dps.view(3, t, slab).permute(1, 0, 2)
 
 
-def _launch_forces_v2_bwd_rows(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
-    """dfmT (19, t*rows): one lane per row, four warps splitting the slab."""
-    t, rows, slab = _check_k2(restT_rows, static_slab, fmT, srT, gidx8, dfT)
-    dtype = restT_rows.dtype
-    dfm = torch.empty((FM_FIELDS, t * rows), dtype=dtype, device=restT_rows.device)
-    if t == 0:
-        return dfm
-    inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("fused_kernels", "forces_warp_v2_bwd_rows", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
-        fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
-        gidx8.data_ptr(), dfT.data_ptr(), dfT.stride(0),
-        dfm.data_ptr(), dfm.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
-    raise_on(rc, "forces_warp_v2_bwd_rows")
-    forces_warp_v2_bwd_rows.launches += 1
-    return dfm
-
-
-def _launch_forces_v2_bwd_slab(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
-    """dsrT (t, 15, slab), field-major underneath: one thread per slab
-    entry, looping over the tile's 32 rows."""
-    t, rows, slab = _check_k2(restT_rows, static_slab, fmT, srT, gidx8, dfT)
-    dtype = restT_rows.dtype
-    dsr = torch.empty((SR_FIELDS, t * slab), dtype=dtype, device=restT_rows.device)
-    if t == 0:
-        return dsr.view(SR_FIELDS, 0, slab).permute(1, 0, 2)
-    inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("fused_kernels", "forces_warp_v2_bwd_slab", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
-        fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
-        gidx8.data_ptr(), dfT.data_ptr(), dfT.stride(0),
-        dsr.data_ptr(), dsr.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
-    raise_on(rc, "forces_warp_v2_bwd_slab")
-    forces_warp_v2_bwd_slab.launches += 1
-    return dsr.view(SR_FIELDS, t, slab).permute(1, 0, 2)
-
-
-# ------------------------------------------------ per-bucket device dispatch
+# ------------------------------------------------------------ device dispatch
 def moments_mid(restT_rows, static_slab, posT, posT_rows, rs, scale, gidx8, h,
                 corotated, emit_ay=False):
     """Fused K1 + mid-section of one bucket: (fmT, srT, ayT or None); see
@@ -311,10 +357,12 @@ def moments_mid(restT_rows, static_slab, posT, posT_rows, rs, scale, gidx8, h,
               corotated, emit_ay)
 
 
-def forces_warp_v2(restT_rows, static_slab, fmT, srT, gidx8, h):
-    """K2 v2 of one bucket: fT (3, t*rows); see :func:`forces_warp_v2_plain`."""
-    fn = on("forces_warp_v2", srT, forces_warp_v2_plain, _launch_forces_v2)
-    return fn(restT_rows, static_slab, fmT, srT, gidx8, h)
+def forces_warp_v2(sb, fmT, srT, h):
+    """K2 v2 over every tile of the scene ``sb``: fT (3, m) from fmT (19, m)
+    and srT (15, n_slots); one launch on the card,
+    :func:`forces_warp_v2_scene_plain` on the CPU."""
+    fn = on("forces_warp_v2", srT, forces_warp_v2_scene_plain, _launch_forces_v2)
+    return fn(sb, fmT, srT, h)
 
 
 def moments_raw(restT_rows, static_slab, posT, gidx8, h):
@@ -331,28 +379,28 @@ def moments_raw_bwd(restT_rows, static_slab, dayT, h):
     return fn(restT_rows, static_slab, dayT, h)
 
 
-def forces_warp_v2_bwd_rows(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
-    """The K2 v2 backward's row pass: dfmT (19, t*rows)."""
+def forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h):
+    """The K2 v2 backward's row pass over the scene: dfmT (19, m)."""
     fn = on("forces_warp_v2_bwd_rows", dfT,
-            lambda *a: forces_warp_v2_bwd_plain(*a)[0], _launch_forces_v2_bwd_rows)
-    return fn(restT_rows, static_slab, fmT, srT, gidx8, dfT, h)
+            lambda *a: forces_warp_v2_bwd_scene_plain(*a)[0], _launch_forces_v2_bwd_rows)
+    return fn(sb, fmT, srT, dfT, h)
 
 
-def forces_warp_v2_bwd_slab(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
-    """The K2 v2 backward's slab pass: dsrT (t, 15, slab)."""
+def forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h):
+    """The K2 v2 backward's slab pass over the scene: dsr (15, n_entries)."""
     fn = on("forces_warp_v2_bwd_slab", dfT,
-            lambda *a: forces_warp_v2_bwd_plain(*a)[1], _launch_forces_v2_bwd_slab)
-    return fn(restT_rows, static_slab, fmT, srT, gidx8, dfT, h)
+            lambda *a: forces_warp_v2_bwd_scene_plain(*a)[1], _launch_forces_v2_bwd_slab)
+    return fn(sb, fmT, srT, dfT, h)
 
 
-def forces_warp_v2_bwd(restT_rows, static_slab, fmT, srT, gidx8, dfT, h):
-    """K2 v2 backward of one bucket: (dfmT (19, t*rows), dsrT (t, 15, slab));
-    see :func:`forces_warp_v2_bwd_plain`.  On the card two kernels, the row
-    pass and the slab pass."""
-    args = (restT_rows, static_slab, fmT, srT, gidx8, dfT, h)
+def forces_warp_v2_bwd(sb, fmT, srT, dfT, h):
+    """K2 v2 backward over the scene: (dfmT (19, m), dsr (15, n_entries));
+    see :func:`forces_warp_v2_bwd_scene_plain`.  On the card two kernels,
+    one launch each: the row pass and the slab pass."""
     if dfT.device.type == "cpu":
-        return forces_warp_v2_bwd_plain(*args)
-    return forces_warp_v2_bwd_rows(*args), forces_warp_v2_bwd_slab(*args)
+        return forces_warp_v2_bwd_scene_plain(sb, fmT, srT, dfT, h)
+    return (forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h),
+            forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h))
 
 
 COUNTED = (moments_mid, forces_warp_v2, moments_raw_bwd, forces_warp_v2_bwd_rows,
@@ -437,33 +485,23 @@ class _MomentsRaw(torch.autograd.Function):
 
 
 class _ForcesWarpV2(torch.autograd.Function):
-    """K2 v2 over every bucket: (fmT (19, m), srT (15, n_slots)) -> fT (3, m)."""
+    """K2 v2 over the whole scene: (fmT (19, m), srT (15, n_slots)) -> fT
+    (3, m)."""
 
     @staticmethod
     def forward(ctx, fmT, srT, sb, h, ops):
         ctx.sb, ctx.h, ctx.ops = sb, h, ops
         ctx.save_for_backward(fmT, srT)
-        return torch.cat([
-            ops.forces_v2(b.restT_rows, b.static_slab,
-                          fmT[:, bucket_cols(b, sb.rows)], srT, b.gidx8, h)
-            for b in sb.buckets], dim=1)
+        return ops.forces_v2(sb, fmT, srT, h)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dfT):
         sb, ops = ctx.sb, ctx.ops
         fmT, srT = ctx.saved_tensors
-        dfT = dfT.contiguous()
-        dfm, dsr = [], []
-        for b in sb.buckets:
-            c = bucket_cols(b, sb.rows)
-            d_fm, d_sr = ops.forces_v2_bwd(b.restT_rows, b.static_slab, fmT[:, c],
-                                           srT, b.gidx8, dfT[:, c], ctx.h)
-            dfm.append(d_fm)
-            dsr.append(d_sr)
-        dsrT = ops.to_slots(flat_entries(dsr, SR_FIELDS), sb.slab_ptr,
-                            sb.slab_idx, sb.n_slots, sb.group)
-        return torch.cat(dfm, dim=1), dsrT, None, None, None
+        dfm, dsr = ops.forces_v2_bwd(sb, fmT, srT, dfT.contiguous(), ctx.h)
+        dsrT = ops.to_slots(dsr, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+        return dfm, dsrT, None, None, None
 
 
 def moments_mid_all(posT, posT_rows, scale, sb, rs: RowStatic, h, corotated, ops):
@@ -482,7 +520,7 @@ def moments_raw_all(posT, sb, h, ops):
 
 
 def forces_v2_all(fmT, srT, sb, h, ops):
-    """Differentiable K2 v2 over every bucket of ``sb``: fT (3, m).  Its
-    backward runs the K2 v2 backward per bucket, then one
-    ``slab_to_slots``."""
+    """Differentiable K2 v2 over every tile of ``sb``: fT (3, m), one launch
+    on the card.  Its backward is one launch of each K2 v2 backward pass,
+    then one ``slab_to_slots``."""
     return _ForcesWarpV2.apply(fmT, srT, sb, h, ops)

@@ -6,9 +6,11 @@
   versions are built from: :func:`pair_coeffs`, :func:`centered_moments`
   (K1's centered A | Y), :func:`warp_termj` (K2's Warp pairing sum) and
   :func:`warp_termj_bwd` (its VJP).
-* The launch plumbing: operand checks, the kernel library's entry points,
-  the stream, and the device dispatch :func:`on` (plain version for CPU
-  tensors, kernel for CUDA tensors, anything else raises — no fallback).
+* The launch plumbing: operand checks (:func:`check_scene` for the
+  whole-scene kernels of both families), the kernel library's entry
+  points, the stream, and the device dispatch :func:`on` (plain version for
+  CPU tensors, kernel for CUDA tensors, anything else raises — no
+  fallback).
 
 Operands keep the JAX package's lane-major layouts: positions (3, n_slots),
 the per-slot K2 record srT (15, n_slots) = [S_6 | R^T_9] with
@@ -327,6 +329,74 @@ def check_vector(name, x, dtype, device, n):
     if x.shape[0] != n or x.stride(0) != 1:
         raise ValueError(f"{name} must be a contiguous ({n},) vector, got "
                          f"shape {tuple(x.shape)} stride {x.stride()}")
+
+
+# The whole-scene kernels' stage (slab entries copied per pass, in 16-byte
+# pieces) and the backward slab side's block (entries per block),
+# csrc/pair_kernels.cu CH and BCH.
+RAGGED_CHUNK = 32
+BWD_CHUNK = 128
+
+
+def aligned(name, x, lane_major=False):
+    """The whole-scene kernels copy 16-byte pieces: a 16-byte base and, for
+    a lane-major operand, a row stride of a multiple of 4 elements."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary "
+                         f"(address {x.data_ptr():#x})")
+    if lane_major and x.stride(0) % 4:
+        raise ValueError(f"{name}'s leading dimension must be a multiple of 4 "
+                         f"elements, got {x.stride(0)}")
+
+
+def n_entries(sb) -> int:
+    """Slab entries of the scene, sum_b t_b slab_b: the columns of a
+    per-slab-entry buffer."""
+    return sb.gidx_all.shape[0] * sb.group
+
+
+def n_chunks(sb) -> int:
+    """Blocks of the backward's slab side: every slab's ceil(slab / 128)
+    pieces."""
+    return sum(b.n_tiles * -(-b.slab_len // BWD_CHUNK) for b in sb.buckets)
+
+
+def check_scene(sb, dtype, device, chunks=False):
+    """Operand checks of one whole-scene launch over ``sb`` (a
+    SparseBlocked or a Blocked; with ``chunks``, of the backward's slab
+    side, also its chunk schedule).  A slab need only be a multiple of the
+    slot group: the kernels zero-fill a partial last stage and skip the
+    entries past a partial last chunk."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32 or float64, got {dtype}")
+    check("rest_rows", sb.rest_rows, dtype, device, 3)
+    check("static_all", sb.static_all, dtype, device, 1)
+    check("gidx_all", sb.gidx_all, torch.int32, device, 1)
+    check("schedule", sb.schedule, torch.int64, device, 2)
+    if (tuple(sb.rest_rows.shape) != (sb.n_tiles, 3, _build.ROWS)
+            or tuple(sb.schedule.shape) != (sb.n_tiles, 4)):
+        raise ValueError(f"rest_rows {tuple(sb.rest_rows.shape)} and schedule "
+                         f"{tuple(sb.schedule.shape)} must cover {sb.n_tiles} "
+                         f"tiles of {_build.ROWS} rows")
+    for name in ("rest_rows", "static_all", "gidx_all", "schedule"):
+        if not getattr(sb, name).is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    piece = 16 // sb.static_all.element_size()
+    if sb.group % piece or RAGGED_CHUNK % sb.group:
+        raise ValueError(f"slot groups of {sb.group}: the kernels copy "
+                         f"{piece}-element pieces of {RAGGED_CHUNK}-entry stages")
+    odd = [b.slab_len for b in sb.buckets if b.slab_len % sb.group]
+    if odd:
+        raise ValueError(f"slabs {odd} are not multiples of the slot group "
+                         f"{sb.group}")
+    aligned("static_all", sb.static_all)
+    aligned("gidx_all", sb.gidx_all)
+    if chunks:
+        check("chunks", sb.chunks, torch.int64, device, 2)
+        want = (n_chunks(sb), 5)
+        if tuple(sb.chunks.shape) != want or not sb.chunks.is_contiguous():
+            raise ValueError(f"chunks {tuple(sb.chunks.shape)} must be a contiguous "
+                             f"{want}: every {BWD_CHUNK}-entry piece of every slab")
 
 
 def raise_on(rc: int, what: str):

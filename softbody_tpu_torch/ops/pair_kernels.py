@@ -48,7 +48,9 @@ backward go through a :class:`PairOps` — :data:`KERNELS` (the wrappers:
 plain on the CPU, kernels on the card) or :data:`PLAIN` (the plain versions
 on any device, the yardstick the kernels are held against on the card).
 The two tables also carry the fused path's functions and the blocked
-layout's raw K1 (``ops/fused_kernels.py``) and the Taichi pairing's
+layout's raw K1 (``ops/fused_kernels.py``; its K2 v2 and that K2's
+backward passes are whole-scene kernels of csrc/pair_kernels.cu, the v4
+K2's bodies with the v2 record's epilogue) and the Taichi pairing's
 separable K2 (``ops/separable_kernels.py``), and :func:`launch_counts`
 counts every path's kernels.  The kernels read their slab operands
 themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
@@ -69,8 +71,9 @@ from ..core.types import DevBucket, SparseBlocked
 from . import _build
 from . import fused_kernels as fk
 from . import separable_kernels as sk
-from .pair_common import (SR_FIELDS, bucket_cols, centered_moments, check,
-                          check_lane_major, entry, flat_entries,
+from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, aligned, bucket_cols,
+                          centered_moments, check, check_lane_major,
+                          check_scene, entry, flat_entries, n_entries,
                           on, raise_on, raw_moments_bwd, spline_constants,
                           stream, warp_termj, warp_termj_bwd)
 
@@ -212,26 +215,34 @@ def tile_schedule(n_tiles, slab_lens, tile_starts, group: int):
     return sched[np.argsort(-sched[:, 1], kind="stable")]
 
 
-# Slab entries per block of the backward's slab side (csrc/pair_kernels.cu BCH).
-BWD_CHUNK = 128
-
-
-def chunk_schedule(sched, chunk: int = BWD_CHUNK):
+def chunk_schedule(sched, group: int, chunk: int = BWD_CHUNK):
     """The backward slab side's schedule (host, numpy): one row per
     ``chunk``-entry piece of every tile's slab, [tile, slab, st_off, gi_off,
     e0] (a row of the tile schedule ``sched`` and the piece's first entry),
-    int64, in tile order and entry order within a tile.  Every piece is the
+    int64, in tile order and entry order within a tile.  A slab need only
+    be a multiple of the slot ``group``: its last piece may be shorter
+    (the kernels write nothing past the slab).  Every full piece is the
     same work, so no order balances better than another; tile order keeps
     neighbouring blocks on neighbouring memory."""
     sched = np.asarray(sched, np.int64)
-    odd = sorted({int(s) for s in sched[:, 1] if s % chunk})
+    odd = sorted({int(s) for s in sched[:, 1] if s % group})
     if odd:
-        raise ValueError(f"slabs {odd} are not multiples of {chunk}")
+        raise ValueError(f"slabs {odd} are not multiples of the slot group {group}")
     sched = sched[np.argsort(sched[:, 0], kind="stable")]
-    n = sched[:, 1] // chunk
+    n = -(-sched[:, 1] // chunk)
     first = np.repeat(np.cumsum(n) - n, n)
     e0 = (np.arange(int(n.sum()), dtype=np.int64) - first) * chunk
     return np.concatenate([np.repeat(sched, n, axis=0), e0[:, None]], axis=1)
+
+
+def schedules(n_tiles, slab_lens, tile_starts, group: int, device):
+    """(schedule, chunks) of a scene on ``device``, int64: the
+    :func:`tile_schedule` of its buckets (tile counts, slab lengths, first
+    tiles) and its :func:`chunk_schedule`.  Both scene types take them from
+    here, whichever way the scene was built."""
+    sched = tile_schedule(n_tiles, slab_lens, tile_starts, group)
+    return (torch.from_numpy(sched).to(device),
+            torch.from_numpy(chunk_schedule(sched, group)).to(device))
 
 
 def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
@@ -271,14 +282,14 @@ def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
         gi_off += g_n
         st_off += s_n
     ptr, idx = slab_inverse([p[0] for p in parts], n_slots, group, real)
-    sched = tile_schedule(counts, [b.slab_len for b in buckets], starts, group)
+    sched, chunks = schedules(counts, [b.slab_len for b in buckets], starts, group,
+                              device)
     return SparseBlocked(
         buckets=tuple(buckets), rs6T=dev(rs6T, dtype), rows=rows,
         n_tiles=sum(counts), n_slots=n_slots, group=group,
         slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32),
         rest_rows=rest_rows, static_all=static_all, gidx_all=gidx_all,
-        schedule=dev(sched, torch.int64),
-        chunks=dev(chunk_schedule(sched), torch.int64))
+        schedule=sched, chunks=chunks)
 
 
 def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
@@ -295,67 +306,24 @@ def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
 
 
 # ------------------------------------------------------------ kernel launches
-# The ragged kernels' stage: slab entries copied per pass, in 16-byte pieces.
-RAGGED_CHUNK = 32
-
-
-def _aligned(name, x, lane_major=False):
-    """The ragged kernels copy 16-byte pieces: a 16-byte base and, for a
-    lane-major operand, a row stride of a multiple of 4 elements."""
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary "
-                         f"(address {x.data_ptr():#x})")
-    if lane_major and x.stride(0) % 4:
-        raise ValueError(f"{name}'s leading dimension must be a multiple of 4 "
-                         f"elements, got {x.stride(0)}")
-
-
-def n_entries(sb) -> int:
-    """Slab entries of the scene, sum_b t_b slab_b: the columns of a
-    per-slab-entry buffer."""
-    return sb.gidx_all.shape[0] * sb.group
-
-
-def _check_scene(sb, dtype, device, chunks=False):
-    """Operand checks of one ragged launch over ``sb`` (with ``chunks``, of
-    the backward's slab side, also its chunk schedule)."""
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernels take float32 or float64, got {dtype}")
-    check("rest_rows", sb.rest_rows, dtype, device, 3)
-    check("static_all", sb.static_all, dtype, device, 1)
-    check("gidx_all", sb.gidx_all, torch.int32, device, 1)
-    check("schedule", sb.schedule, torch.int64, device, 2)
-    if (tuple(sb.rest_rows.shape) != (sb.n_tiles, 3, _build.ROWS)
-            or tuple(sb.schedule.shape) != (sb.n_tiles, 4)):
-        raise ValueError(f"rest_rows {tuple(sb.rest_rows.shape)} and schedule "
-                         f"{tuple(sb.schedule.shape)} must cover {sb.n_tiles} "
-                         f"tiles of {_build.ROWS} rows")
-    for name in ("rest_rows", "static_all", "gidx_all", "schedule"):
-        if not getattr(sb, name).is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    piece = 16 // sb.static_all.element_size()
-    if sb.group % piece or RAGGED_CHUNK % sb.group:
-        raise ValueError(f"slot groups of {sb.group}: the kernels copy "
-                         f"{piece}-element pieces of {RAGGED_CHUNK}-entry stages")
-    odd = [b.slab_len for b in sb.buckets if b.slab_len % RAGGED_CHUNK]
-    if odd:
-        raise ValueError(f"slabs {odd} are not multiples of {RAGGED_CHUNK}")
-    _aligned("static_all", sb.static_all)
-    _aligned("gidx_all", sb.gidx_all)
-    if chunks:
-        check("chunks", sb.chunks, torch.int64, device, 2)
-        want = (n_entries(sb) // BWD_CHUNK, 5)
-        if tuple(sb.chunks.shape) != want or not sb.chunks.is_contiguous():
-            raise ValueError(f"chunks {tuple(sb.chunks.shape)} must be a contiguous "
-                             f"{want}: every {BWD_CHUNK}-entry piece of every slab")
-
-
 RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
-          "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab")
+          "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab", "forces_warp_v2",
+          "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab",
+          "forces_warp_v2 (tail)", "forces_warp_v2_bwd_rows (tail)")
+
+
+def _whole_pieces(sb, piece, name):
+    """The v4 kernels serve the sparse scene, whose slabs are whole
+    128-entry chunks: they have no partial-stage (or partial-chunk) form."""
+    odd = [b.slab_len for b in sb.buckets if b.slab_len % piece]
+    if odd:
+        raise ValueError(f"{name} takes slabs of whole {piece}-entry pieces, "
+                         f"got {odd}")
 
 
 def ragged_info() -> dict:
-    """What the card gives the whole-scene kernels: {(kernel, dtype):
+    """What the card gives the whole-scene kernels (K1/K2 v4, K2 v2 and
+    their backwards): {(kernel, dtype):
     {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
     threads}} (cudaFuncGetAttributes,
     cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a card."""
@@ -373,11 +341,12 @@ def ragged_info() -> dict:
 
 def _launch_moments(sb, posT, posT_rows, h):
     device, dtype = posT.device, posT.dtype
-    _check_scene(sb, dtype, device)
+    check_scene(sb, dtype, device)
+    _whole_pieces(sb, RAGGED_CHUNK, "moments_v4")
     m = sb.n_tiles * sb.rows
     check_lane_major("posT", posT, dtype, device, 3, sb.n_slots)
     check_lane_major("posT_rows", posT_rows, dtype, device, 3, m)
-    _aligned("posT", posT, lane_major=True)
+    aligned("posT", posT, lane_major=True)
     out = torch.empty((18, m), dtype=dtype, device=device)
     if sb.n_tiles == 0:
         return out
@@ -394,11 +363,12 @@ def _launch_moments(sb, posT, posT_rows, h):
 
 def _launch_forces(sb, f9T, srT, h):
     device, dtype = srT.device, srT.dtype
-    _check_scene(sb, dtype, device)
+    check_scene(sb, dtype, device)
+    _whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4")
     m = sb.n_tiles * sb.rows
     check_lane_major("f9T", f9T, dtype, device, 9, m)
     check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
-    _aligned("srT", srT, lane_major=True)
+    aligned("srT", srT, lane_major=True)
     out = torch.empty((3, m), dtype=dtype, device=device)
     if sb.n_tiles == 0:
         return out
@@ -417,7 +387,8 @@ def _launch_moments_bwd(sb, dayT, h):
     """(dps (3, n_entries), dprowT (3, m)): a block per 128-entry chunk of
     every slab."""
     device, dtype = dayT.device, dayT.dtype
-    _check_scene(sb, dtype, device, chunks=True)
+    check_scene(sb, dtype, device, chunks=True)
+    _whole_pieces(sb, BWD_CHUNK, "moments_v4_bwd")
     m = sb.n_tiles * sb.rows
     check_lane_major("dayT", dayT, dtype, device, 18, m)
     check_lane_major("rs6T", sb.rs6T, dtype, device, 6, m)
@@ -438,7 +409,7 @@ def _launch_moments_bwd(sb, dayT, h):
 
 def _check_forces_bwd(sb, f9T, srT, dfT, chunks):
     device, dtype = dfT.device, dfT.dtype
-    _check_scene(sb, dtype, device, chunks)
+    check_scene(sb, dtype, device, chunks)
     m = sb.n_tiles * sb.rows
     check_lane_major("f9T", f9T, dtype, device, 9, m)
     check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
@@ -450,7 +421,8 @@ def _launch_forces_bwd_rows(sb, f9T, srT, dfT, h):
     """df9T (9, m): the forward K2's structure, a lane per row, four warps
     splitting the slab."""
     device, dtype, m = _check_forces_bwd(sb, f9T, srT, dfT, False)
-    _aligned("srT", srT, lane_major=True)
+    _whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4_bwd_rows")
+    aligned("srT", srT, lane_major=True)
     df9 = torch.empty((9, m), dtype=dtype, device=device)
     if sb.n_tiles == 0:
         return df9
@@ -586,12 +558,12 @@ reset_launch_counts()
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
     """The pair functions an evaluation goes through (K1 and K2 of the v4
-    path and their backwards over the whole scene, every other one per
-    bucket), of the v4 path, the fused path and the blocked layout's raw K1
-    (``ops/fused_kernels.py``) and the Taichi pairing's separable K2
-    (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
-    :data:`PLAIN` (the plain versions on any device, the yardstick the
-    kernels are held against on the card)."""
+    path, K2 v2 and their backwards over the whole scene, every other one
+    per bucket), of the v4 path, the fused path and the blocked layout's raw
+    K1 and K2 v2 (``ops/fused_kernels.py``) and the Taichi pairing's
+    separable K2 (``ops/separable_kernels.py``): :data:`KERNELS` (device
+    dispatch) or :data:`PLAIN` (the plain versions on any device, the
+    yardstick the kernels are held against on the card)."""
 
     moments: Callable
     forces: Callable
@@ -614,8 +586,8 @@ KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
 PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 moments_v4_bwd_scene_plain, forces_warp_v4_bwd_scene_plain,
                 slab_to_slots_plain,
-                fk.moments_mid_plain, fk.forces_warp_v2_plain,
-                fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_plain,
+                fk.moments_mid_plain, fk.forces_warp_v2_scene_plain,
+                fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_scene_plain,
                 fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
 
 

@@ -1,35 +1,40 @@
 """Device time per evaluation of the sparse path's K1 (``moments_v4``) and
 K2 (``forces_warp_v4``) forward kernels and their backwards
-(``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``) at the
-~112k stretch scene on one CUDA card, and the steps they sit in, for this
-checkout or another one (``--tree``), so that two versions can be compared
-on one card in one sitting:
+(``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``), and of K2
+v2 (``forces_warp_v2``) and its backward passes on the fused path's
+records over the sparse scene and on path B's over the blocked varcol
+scene (``varcol_``), at the ~112k stretch scene on one CUDA card, and the
+steps they sit in, for this checkout or another one (``--tree``), so that
+two versions can be compared on one card in one sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
 
 Run it for each version in turns (A, B, B, A).  The scene and the
-operands are those of ``chip_smoke.py`` phase 3 (``fit_body(100000)``,
-STRETCH, f32, a stretched and jittered body, the plain path's F, S, R),
-and seeded random cotangents for the backwards.  A kernel whose wrapper
+operands are those of ``chip_smoke.py`` phases 3, 14 and 25
+(``fit_body(100000)``, STRETCH, f32, a stretched and jittered body, the
+plain path's F, S, R, and the fused path's and path B's fmT / srT), and
+seeded random cotangents for the backwards.  A kernel whose wrapper
 takes one bucket is timed as its 8 launches back to back (and, as
 ``chip_smoke.py`` summed them, launch by launch); one whose wrapper takes
 the whole scene as its one launch.  CUDA events around
 ``--reps`` evaluations queued behind a sleep kernel, warm.  Prints one JSON
 line: the tree, the card (``nvidia-smi`` name and power limit), the ms per
 evaluation and the launches per evaluation of each kernel, and for the
-default path and the Taichi pairing (``j_``) one forward step's wall ms
-(fastest of 5 rounds of 5) and one gradient step's (a 10-step
-``episode_value_and_grad_chunked``, fastest of 3), each with the device's
-busy ms and activities per step (``torch.profiler`` over 10 steps, as
-``chip_smoke.py`` phases 8 and 11 take them), and each kernel's SASS
-instructions per pair in f32 (``cuobjdump -sass`` of the built library: the
-innermost loop around the pair's one ``MUFU.RSQ``, its instructions over
-its ``MUFU`` count).  Needs a card.
+default path, the Taichi pairing (``j_``), the fused path (``f_``) and
+path B (``b_``) one forward step's wall ms (fastest of 5 rounds of 5) and
+one gradient step's (a 10-step ``episode_value_and_grad_chunked``, fastest
+of 3), each with the device's busy ms and activities per step
+(``torch.profiler`` over 10 steps, as ``chip_smoke.py`` phases 8 and 11
+take them), and each kernel's SASS instructions per pair in f32
+(``cuobjdump -sass`` of the built libraries: the innermost loop around the
+pair's one ``MUFU.RSQ``, its instructions over its ``MUFU`` count).  Needs
+a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -102,9 +107,10 @@ def step_numbers(torch, scene, cfg, ratio, x, dev):
 
 
 def sass_per_pair(lib_path, names):
-    """{name: SASS instructions per pair of the f32 kernel ``name``}: the
-    shortest backward-branch loop holding a MUFU, its length over its MUFU
-    count (one rsqrt per pair)."""
+    """{name: SASS instructions per pair of the f32 kernel ``name``} (and
+    ``name_tail`` for its ragged-tail instantiation): the shortest
+    backward-branch loop holding a MUFU, its length over its MUFU count
+    (one rsqrt per pair)."""
     import re
 
     from softbody_tpu_torch.ops import _build
@@ -118,6 +124,8 @@ def sass_per_pair(lib_path, names):
                     None)
         if name is None:
             continue
+        if "_kernelIfLb1E" in fn.split()[0]:   # the ragged-tail instantiation
+            name += "_tail"
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         loops = []
@@ -150,11 +158,12 @@ def main():
         sys.exit("pair_times.py needs a CUDA card")
     from softbody_tpu_torch import warp_parity
     from softbody_tpu_torch.geometry.shapes import suggest_h
+    from softbody_tpu_torch.ops import fused_kernels as fk
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
     from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask, fit_body, x_star_bands
-    from softbody_tpu_torch.sim.blocked import mid_section
-    from softbody_tpu_torch.sim.sparse import build_sparse_scene
+    from softbody_tpu_torch.sim.blocked import build_blocked_scene, mid_section
+    from softbody_tpu_torch.sim.sparse import build_sparse_scene, slot_rows
 
     assert Path(pk.__file__).resolve().is_relative_to(Path(args.tree).resolve())
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -223,6 +232,55 @@ def main():
             fns = [lambda b=b, launch=launch: launch(b) for b in sb.buckets]
             evals[key] = lambda fns=fns: [f() for f in fns]
             per_launch[key] = fns
+
+    # K2 v2 and its passes: on the fused path's records over the sparse
+    # scene, and on path B's over the varcol scene (as chip_smoke.py phase 25)
+    rs = fk.row_static(sb, scene.materials, scene.rest_corr)
+    fmT, srT_f = fk.moments_mid_all(posT, posT[:, :m], cfg.stiffness_scale(ratio[:m]),
+                                    sb, rs, h, cfg.corotated, pk.PLAIN)
+    scene_b, sop_b = build_blocked_scene(pts, cfg, out_num=out_num, device=dev,
+                                         dirichlet_mask=dirichlet_mask(pts, "stretch"))
+    blk = scene_b.blocked
+    m_b = blk.n_tiles * blk.rows
+    x_b = torch.as_tensor(x_star_bands(pts, blk.n_slots, sop_b), dtype=torch.float32,
+                          device=dev)
+    ratio_b = compute_ratio(x_b, cfg)
+    pos_b = scene_b.rest_position.clone()
+    pos_b[scene_b.slot_of_particle] = torch.as_tensor(body, dtype=torch.float32,
+                                                      device=dev)
+    posT_b = pos_b.T.contiguous()
+    ay_b = fk.moments_raw_all(posT_b, blk, h, pk.PLAIN)
+    A_b = [[ay_b[3 * c + a] - posT_b[a, :m_b] * blk.rs6T[c] for c in range(3)]
+           for a in range(3)]
+    Y_b = [[ay_b[9 + 3 * c + a] - posT_b[a, :m_b] * blk.rs6T[3 + c] for c in range(3)]
+           for a in range(3)]
+    R_b, F_b, S_b, M_b, vol_b = mid_section(A_b, Y_b, ratio_b, scene_b.materials,
+                                            scene_b, cfg, m_b)
+    fmT_b = torch.stack([F_b[a][c] for a in range(3) for c in range(3)]
+                        + [M_b[a][c] for a in range(3) for c in range(3)] + [vol_b])
+    srT_b = slot_rows([S_b[0][0], S_b[0][1], S_b[0][2], S_b[1][1], S_b[1][2], S_b[2][2]]
+                      + [R_b[a][c] for c in range(3) for a in range(3)], blk.n_slots)
+    dfT_b = torch.as_tensor(rng.normal(size=(3, m_b)), dtype=torch.float32, device=dev)
+    del ay_b, A_b, Y_b, R_b, F_b, S_b, M_b
+    v2_whole = "sb" in inspect.signature(fk.forces_warp_v2).parameters
+    v2_kernels = ("forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
+    for label, sc_, fm, sr, df in (("", sb, fmT, srT_f, dfT),
+                                   ("varcol_", blk, fmT_b, srT_b, dfT_b)):
+        for name in v2_kernels:
+            wrapper = getattr(fk, name)
+            ops = (fm, sr) if name == "forces_warp_v2" else (fm, sr, df)
+            if v2_whole:                    # one launch over the scene
+                evals[label + name] = (lambda w=wrapper, sc_=sc_, ops=ops:
+                                       w(sc_, *ops, h))
+                continue
+            fns = []                        # one launch per bucket
+            for b in sc_.buckets:
+                c = slice(b.row_start, b.row_start + b.n_tiles * sc_.rows)
+                a = (b.restT_rows, b.static_slab, fm[:, c], sr, b.gidx8) + (
+                    (df[:, c],) if name != "forces_warp_v2" else ())
+                fns.append(lambda w=wrapper, a=a: w(*a, h))
+            evals[label + name] = lambda fns=fns: [f() for f in fns]
+            per_launch[label + name] = fns
     out = {"tree": str(Path(args.tree).resolve()),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -232,17 +290,25 @@ def main():
         pk.reset_launch_counts()
         fn()
         torch.cuda.synchronize()
-        out[f"{key}_launches"] = pk.launch_counts()[key]
+        out[f"{key}_launches"] = pk.launch_counts()[key.removeprefix("varcol_")]
         out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
         if key in per_launch:
             out[f"{key}_sum_of_launches_ms"] = sum(
                 cuda_ms(torch, f, args.reps) for f in per_launch[key])
     from softbody_tpu_torch.ops import _build
-    out["sass_per_pair"] = sass_per_pair(_build.library_path("pair_kernels"),
-                                         tuple(per_bucket))
+    out["sass_per_pair"] = {}
+    for source in ("pair_kernels", "fused_kernels"):   # K2 v2: either, by tree
+        out["sass_per_pair"].update(sass_per_pair(_build.library_path(source),
+                                                  tuple(per_bucket) + v2_kernels))
+    out["buckets_varcol"] = [[b.slab_len, b.n_tiles] for b in blk.buckets]
+    del fmT, srT_f, fmT_b, srT_b
     out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))
     out.update({f"j_{k}": v for k, v in step_numbers(
         torch, scene, cfg.replace(pair_def_grad="j"), ratio, x_star, dev).items()})
+    out.update({f"f_{k}": v for k, v in step_numbers(
+        torch, scene, cfg.replace(fused_mid=True), ratio, x_star, dev).items()})
+    out.update({f"b_{k}": v for k, v in step_numbers(
+        torch, scene_b, cfg, ratio_b, x_b, dev).items()})
     print(json.dumps(out), flush=True)
 
 

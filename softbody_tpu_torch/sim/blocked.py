@@ -13,9 +13,10 @@ torch reference (``ops/blocked.py``), ``"pallas"`` is
 
   posT -> [moments_raw_all: raw K1 moments_raw] -> ayT (18, m)
     -> A, Y = dots - pos_i * rs6 (rs6: the same kernel on an all-ones RHS)
-    -> mid-section (eager torch) -> "i": [forces_v2_all: K2 forces_warp_v2]
-       on fmT = [F | M | V] and srT = [S_6 | R^T_9]; "j": [forces_sep_all:
-       the separable K2] on G = V M  -> forces (n_slots, 3)
+    -> mid-section (eager torch) -> "i": [forces_v2_all: K2 forces_warp_v2,
+       one launch over every tile] on fmT = [F | M | V] and srT =
+       [S_6 | R^T_9]; "j": [forces_sep_all: the separable K2] on G = V M
+       -> forces (n_slots, 3)
 
 The blocked path ignores ``cfg.fused_mid``, as the JAX package's does.
 
@@ -116,7 +117,7 @@ def build_blocked_scene(
     none."""
     from ..ops.fused_kernels import moments_raw
     from ..ops.pair_common import slab_slots
-    from ..ops.pair_kernels import slab_inverse
+    from ..ops.pair_kernels import schedules, slab_inverse
 
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
@@ -182,12 +183,14 @@ def build_blocked_scene(
                           torch.ones((3, ns), dtype=dtype, device=device),
                           gidx8, cfg.h)
     ptr, sidx = slab_inverse([gidx8.cpu().numpy()], ns, GROUP, real)
+    sched, chunks = schedules([t], [9 * L], [0], GROUP, device)
     blk = Blocked(
         bucket=DevBucket(gidx8=gidx8, restT_rows=restT_rows, static_slab=static_slab,
                          tile_start=0, rows=ROWS, slab_len=9 * L),
         slab_start=dev(slab_start, torch.int64), rs6T=ay1[0::3].contiguous(),
         run_len=L, n_slots=ns, group=GROUP,
-        slab_ptr=dev(ptr, torch.int32), slab_idx=dev(sidx, torch.int32))
+        slab_ptr=dev(ptr, torch.int32), slab_idx=dev(sidx, torch.int32),
+        schedule=sched, chunks=chunks)
     mats = Materials(
         mass=dev(mass_integ), volume=dev(volume), mu=dev(mu), lam=dev(lam),
         free=dev(free), external=dev(ext),

@@ -8,7 +8,7 @@ with only the port's dependencies:
 (``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
 full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
-separable K2) and 25-28 (the blocked layout's raw K1)."""
+separable K2) and 25-28 (the blocked layout's raw K1 and K2 v2)."""
 
 import dataclasses
 
@@ -288,6 +288,14 @@ def test_backward_kernels_refuse_bad_operands():
         pk.forces_warp_v4_bwd_slab(short, f9T, srT, dfT, cfg.h)
     with pytest.raises(ValueError, match="entries"):
         pk.slab_to_slots(srT, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    # the v4 kernels serve the sparse scene's slabs of whole 128-entry
+    # chunks; a blocked slab ends in a partial one
+    blk = _scene("float32", dev, blocked=True)[1].blocked
+    assert blk.slab_len % 32
+    with pytest.raises(ValueError, match="whole 128"):
+        pk.moments_v4_bwd(blk, torch.zeros((18, blk.n_tiles * blk.rows), device=dev), cfg.h)
+    with pytest.raises(ValueError, match="whole 32"):
+        pk.forces_warp_v4(blk, f9T[:, :1], srT[:, :1], cfg.h)
 
 
 # ------------------------------------------------------------ the fused path
@@ -310,9 +318,41 @@ def _fused_inputs(scene, cfg, pos, ratio, seed):
     return posT, rs, scale, fmT, srT, rand(18, m), rand(3, m)
 
 
+def _v2_launches(sb, fmT, srT, dfT, h):
+    """The three whole-scene K2 v2 launches: (fT, dfmT, dsr)."""
+    return (fk.forces_warp_v2(sb, fmT, srT, h),
+            fk.forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h),
+            fk.forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h))
+
+
+def _hold_v2_per_bucket(sb, fmT, srT, dfT, h, got, tol):
+    """Each bucket's columns of the three K2 v2 launches (its tile rows,
+    and its slab entries in the per-entry buffer) against that bucket's
+    plain version."""
+    f, dfm, dsr = got
+    e0 = 0
+    for b in sb.buckets:
+        t, slab = b.n_tiles, b.slab_len
+        c = slice(b.row_start, b.row_start + t * sb.rows)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        a = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
+        p_dfm, p_dsr = fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h)
+        pairs = ((f[:, c], fk.forces_warp_v2_plain(*a, h)), (dfm[:, c], p_dfm),
+                 (dsr[:, seg].view(15, t, slab).permute(1, 0, 2), p_dsr))
+        for g, want in pairs:
+            assert g.shape == want.shape
+            assert _rel(g, want) <= tol, (slab, _rel(g, want))
+        assert not dfm[18, c].any()
+    assert e0 == dsr.shape[1]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("corotated", [True, False])
 def test_fused_kernels_match_plain_per_bucket(dtype, corotated):
+    """The fused K1 + mid-section and the raw K1 backward per bucket; K2 v2
+    and its two backward passes once over the whole scene, each bucket's
+    columns held against that bucket's plain version."""
     dev = _card()
     cfg, scene, pos, ratio = _scene(dtype, dev)
     cfg = cfg.replace(corotated=corotated)
@@ -323,24 +363,72 @@ def test_fused_kernels_match_plain_per_bucket(dtype, corotated):
         c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
         a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c),
                  scale[c], b.gidx8, cfg.h, corotated, True)
-        a_k2 = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
         pairs = [
             (fk.moments_mid(*a_mid), fk.moments_mid_plain(*a_mid)),
-            ((fk.forces_warp_v2(*a_k2, cfg.h),), (fk.forces_warp_v2_plain(*a_k2, cfg.h),)),
             ((fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),),
              (fk.moments_raw_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),)),
-            (fk.forces_warp_v2_bwd(*a_k2, dfT[:, c], cfg.h),
-             fk.forces_warp_v2_bwd_plain(*a_k2, dfT[:, c], cfg.h)),
         ]
         for outs_k, outs_p in pairs:
             for got, want in zip(outs_k, outs_p):
                 assert got.shape == want.shape
                 assert _rel(got, want) <= TOL[dtype], (b.slab_len, _rel(got, want))
+    _hold_v2_per_bucket(sb, fmT, srT, dfT, cfg.h, _v2_launches(sb, fmT, srT, dfT, cfg.h),
+                        TOL[dtype])
     n = len(sb.buckets)
     counts = pk.launch_counts()
     assert counts == dict.fromkeys(counts, 0) | {
-        "moments_mid": n, "forces_warp_v2": n, "moments_raw_bwd": n,
-        "forces_warp_v2_bwd_rows": n, "forces_warp_v2_bwd_slab": n}
+        "moments_mid": n, "forces_warp_v2": 1, "moments_raw_bwd": n,
+        "forces_warp_v2_bwd_rows": 1, "forces_warp_v2_bwd_slab": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_v2_kernels_on_a_varcol_slab_with_a_tail(dtype):
+    """K2 v2 and its two backward passes on a blocked varcol scene whose
+    slab (936 entries: 29 x 32 + 8, 7 x 128 + 40) ends in a partial chunk
+    on both sides: one launch each against the plain version, and a second
+    launch bit for bit the first."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked=True)
+    blk = scene.blocked
+    assert blk.slab_len % 32 and blk.slab_len % 128
+    m = blk.n_tiles * blk.rows
+    rng = np.random.default_rng(10)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=pos.dtype, device=dev)
+
+    fmT = rand(19, m)
+    fmT[18] = scene.materials.volume[:m]
+    srT = rand(15, blk.n_slots)
+    srT[:, m:] = 0
+    dfT = rand(3, m)
+    pk.reset_launch_counts()
+    got = _v2_launches(blk, fmT, srT, dfT, cfg.h)
+    counts = pk.launch_counts()
+    assert counts == dict.fromkeys(counts, 0) | {
+        "forces_warp_v2": 1, "forces_warp_v2_bwd_rows": 1, "forces_warp_v2_bwd_slab": 1}
+    _hold_v2_per_bucket(blk, fmT, srT, dfT, cfg.h, got, TOL[dtype])
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, _v2_launches(blk, fmT, srT, dfT, cfg.h)))
+
+
+def test_one_launch_of_each_v2_kernel_per_force_evaluation():
+    """The fused path and path B: one K2 v2 launch per force evaluation,
+    one launch of each backward pass per backward evaluation."""
+    dev = _card()
+    for blocked in (False, True):
+        cfg, scene, pos, ratio = _scene("float32", dev, blocked)
+        c = cfg if blocked else cfg.replace(fused_mid=True)
+        p = pos.clone().requires_grad_()
+        pk.reset_launch_counts()
+        f = (elastic_forces_pallas if blocked else elastic_forces_sparse)(
+            p, ratio, scene.materials, scene, c)
+        assert pk.launch_counts()["forces_warp_v2"] == 1
+        pk.reset_launch_counts()
+        torch.autograd.grad(f, p, torch.ones_like(f))
+        counts = pk.launch_counts()
+        assert counts["forces_warp_v2_bwd_rows"] == counts["forces_warp_v2_bwd_slab"] == 1
+        assert counts["forces_warp_v2"] == 0 and counts["slab_to_slots"] == 2, counts
 
 
 def test_fused_forces_match_unfused_and_plain():
@@ -369,13 +457,26 @@ def test_fused_kernels_refuse_bad_operands():
                        torch.stack([scale[c], scale[c]], dim=1)[:, 0], b.gidx8,
                        cfg.h, True)
     with pytest.raises(TypeError, match="dtype"):
-        fk.forces_warp_v2(b.restT_rows, b.static_slab, fmT[:, c].double(), srT,
-                          b.gidx8, cfg.h)
+        fk.forces_warp_v2(sb, fmT.double(), srT, cfg.h)
     with pytest.raises(ValueError, match="19"):
-        fk.forces_warp_v2_bwd(b.restT_rows, b.static_slab, fmT[:18, c], srT,
-                              b.gidx8, dfT[:, c], cfg.h)
+        fk.forces_warp_v2_bwd(sb, fmT[:18], srT, dfT, cfg.h)
     with pytest.raises(ValueError, match="18"):
         fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:17, c], cfg.h)
+    # the ring copies 16-byte pieces of srT; the slab pass walks every chunk
+    shifted = torch.empty(15 * sb.n_slots + 1, device=dev)[1:].view(15, sb.n_slots)
+    shifted.copy_(srT)
+    with pytest.raises(ValueError, match="16-byte"):
+        fk.forces_warp_v2(sb, fmT, shifted, cfg.h)
+    short = dataclasses.replace(sb, chunks=sb.chunks[:-1])
+    with pytest.raises(ValueError, match="chunks"):
+        fk.forces_warp_v2_bwd_slab(short, fmT, srT, dfT, cfg.h)
+    # a slab need only be a multiple of the slot group (8), no other
+    odd = dataclasses.replace(sb, buckets=(dataclasses.replace(b, slab_len=b.slab_len - 4),)
+                              + sb.buckets[1:])
+    with pytest.raises(ValueError, match="slot group"):
+        fk.forces_warp_v2(odd, fmT, srT, cfg.h)
+    with pytest.raises(ValueError, match="slot group"):
+        pk.forces_warp_v4(odd, fmT[:9], srT, cfg.h)
 
 
 def test_fused_episode_gradient_matches_plain_f64_and_repeats():

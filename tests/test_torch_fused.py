@@ -176,23 +176,23 @@ def test_backward_plain_versions_match_jax_per_bucket(case):
 
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(case):
     """On CPU tensors every wrapper returns its plain version's result and
-    launches nothing."""
+    launches nothing (K2 v2 and its backward over the whole scene)."""
     dtype, cfg, sc = case["dtype"], case["cfg"], case["scene_t"]
     sb = sc.blocked
-    b, c = sb.buckets[0], _bucket_cols(sc)[0]
     fmT, srT = _t(case["fmT"], dtype), _t(case["srT"], dtype)
     dfT = _t(case["df"].T, dtype)
     fk_counts = {fn.__name__ for fn in fk.COUNTED}
     for fn in fk.COUNTED:
         fn.launches = 0
-    a = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
-    assert torch.equal(fk.forces_warp_v2(*a, cfg.h), fk.forces_warp_v2_plain(*a, cfg.h))
-    for got, want in zip(fk.forces_warp_v2_bwd(*a, dfT[:, c], cfg.h),
-                         fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], cfg.h)):
+    a = (sb, fmT, srT)
+    assert torch.equal(fk.forces_warp_v2(*a, cfg.h),
+                       fk.forces_warp_v2_scene_plain(*a, cfg.h))
+    for got, want in zip(fk.forces_warp_v2_bwd(*a, dfT, cfg.h),
+                         fk.forces_warp_v2_bwd_scene_plain(*a, dfT, cfg.h)):
         assert torch.equal(got, want)
     assert fk_counts == {"moments_mid", "forces_warp_v2", "moments_raw_bwd",
                          "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab",
                          "moments_raw"}
     assert all(fn.launches == 0 for fn in fk.COUNTED)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fk.forces_warp_v2(*a[:3], srT.to("meta"), a[4], cfg.h)
+        fk.forces_warp_v2(sb, fmT, srT.to("meta"), cfg.h)

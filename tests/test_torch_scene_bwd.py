@@ -132,11 +132,19 @@ def test_chunk_schedule_covers_every_chunk_once_in_flat_entries_order(source):
 
 
 def test_chunk_schedule_refuses_slabs_not_multiples_of_the_chunk():
-    ch = pk.chunk_schedule(pk.tile_schedule([2, 1], [128, 256], [0, 2], 8))
+    """Slabs of whole 128-entry chunks as before; a slab need only be a
+    multiple of the slot group (8), its last chunk partial; any other slab
+    is refused."""
+    ch = pk.chunk_schedule(pk.tile_schedule([2, 1], [128, 256], [0, 2], 8), 8)
     np.testing.assert_array_equal(ch[:, [0, 1, 4]],
                                   [[0, 128, 0], [1, 128, 0], [2, 256, 0], [2, 256, 128]])
-    with pytest.raises(ValueError, match="96"):
-        pk.chunk_schedule(pk.tile_schedule([2, 1], [128, 96], [0, 2], 8))
+    ch = pk.chunk_schedule(pk.tile_schedule([2, 1], [128, 96], [0, 2], 8), 8)
+    np.testing.assert_array_equal(ch[:, [0, 1, 4]],
+                                  [[0, 128, 0], [1, 128, 0], [2, 96, 0]])
+    with pytest.raises(ValueError, match="100"):
+        pk.chunk_schedule(np.array([[0, 100, 0, 0]], np.int64), 8)
+    with pytest.raises(ValueError, match="100"):
+        pk.tile_schedule([1], [100], [0], 8)
 
 
 @pytest.fixture(scope="module")
