@@ -7,10 +7,11 @@ top-15% Dirichlet clamp, f32) — and holds every hand-written kernel on that
 path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
-  2  kernel build (nvcc, from csrc/ in this checkout); the eight
-     whole-scene kernels' (K1/K2 v4 forward and their backwards, K2 v2 and
-     its backward passes) registers, shared memory, spills and resident
-     blocks per SM, f32 and f64
+  2  kernel build (nvcc, from csrc/ in this checkout); the whole-scene
+     kernels' (K1/K2 v4 forward and their backwards, K2 v2 and its
+     backward passes, the fused K1 + mid-section and the raw K1 backward)
+     registers, shared memory, spills and resident blocks per SM, f32 and
+     f64
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -46,14 +47,14 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  13  the launch counts of phases 11 and 12 against the launches the
      gradient path implies
 
- 14  the fused K1 + mid-section path (cfg.fused_mid): per bucket the fused
-     moments_mid and the raw K1 backward moments_raw_bwd (composed with
-     slab_to_slots), kernel vs plain (<= 1e-4 of max |plain|, the records'
-     parts F, M, V, S, R each on its own), ms per launch, the work's
-     bound; then K2 forces_warp_v2 and its two backward passes, one launch
-     each over every tile, each bucket's columns vs that bucket's plain
-     version (the slab pass composed with slab_to_slots), a bitwise repeat,
-     ms per evaluation, the work's bound
+ 14  the fused K1 + mid-section path (cfg.fused_mid): the fused
+     moments_mid and the raw K1 backward moments_raw_bwd with its row term,
+     K2 forces_warp_v2 and its two backward passes, one launch each over
+     every tile, each bucket's columns vs that bucket's plain version
+     (<= 1e-4 of max |plain|; the records' parts F, M, V, S, R each on its
+     own, srT's padding columns zero; the slab sides composed with
+     slab_to_slots), a bitwise repeat, ms per evaluation, the work's
+     bound
  15  one fused force evaluation vs the unfused kernel path and vs the plain
      fused path (<= 1e-4), its VJP wrt (positions, x) vs the plain fused
      VJP (<= 1e-4); forces and VJP bitwise equal across two calls
@@ -70,7 +71,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      fwd+bwd ms/step, peak memory, busy share; bitwise repeat; kernel vs
      plain fused path over PREFIX_STEPS steps in f64 (phase 11's gates)
  20  the launch counts of phases 16 and 19 against what the fused path
-     implies (K2 v2 and its passes one launch per evaluation; none of the
+     implies (each of its kernels one launch per evaluation; none of the
      v4 kernels, K1/K2 and their backwards)
 
  21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene, per
@@ -91,11 +92,13 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  25  path B, the blocked varcol layout of the same body on the pallas
      backend: its build seconds, n_tiles, run length L, slab_len,
      candidate pairs per evaluation (beside the sparse scene's) and static
-     bytes; per launch on its tiles the raw K1 moments_raw, forces_sep and
-     their backwards (each backward's slab side composed with
-     slab_to_slots), kernel vs plain (<= 1e-4), ms per launch, bound; K2
-     forces_warp_v2 and its passes as in phase 14, on the slab of 1,944
-     entries whose last 32- and 128-entry pieces are partial
+     bytes; per launch on its tiles the raw K1 moments_raw, its backward
+     moments_raw_bwd (one launch over the scene, its last 128-entry chunk
+     partial), forces_sep and its backward (each backward's slab side
+     composed with slab_to_slots), kernel vs plain (<= 1e-4), ms per
+     launch, bound; K2 forces_warp_v2 and its passes as in phase 14, on the
+     slab of 1,944 entries whose last 32- and 128-entry pieces are
+     partial
  26  one path-B evaluation for "i" and "j" against the sparse path at the
      same particle positions (<= 1e-3 of max |f|: the uncentered f32 raw
      dots add noise the centered sparse path lacks), and against its own
@@ -112,9 +115,9 @@ JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; ms per force
-evaluation on the sparse scene: one launch for K1 and K2 v4, K2 v2 and
-their backwards, the sum over the buckets for the other kernels; the raw
-K1 on the varcol scene),
+evaluation on the sparse scene: one launch for K1 and K2 v4, the fused
+K1 + mid-section, K2 v2 and their backwards, the sum over the buckets for
+the separable K2 and its backward; the raw K1 on the varcol scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -145,17 +148,19 @@ EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # K2 v2 and its passes run K2 v4's pair loops (svnw is the scene's static
-# row sums, not a per-pair sum); their per-row epilogues add < 0.1%
+# row sums, not a per-pair sum), moments_mid K1 v4's and moments_raw_bwd the
+# K1 v4 backward's; their per-row epilogues add < 0.1% (moments_mid's
+# mid-section is counted on its own)
 FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do them
                   "moments_v4_bwd": 67, "forces_warp_v4_bwd_rows": 71,
                   "forces_warp_v4_bwd_slab": 118,
-                  "moments_mid": 78, "forces_warp_v2": 74, "moments_raw_bwd": 72,
+                  "moments_mid": 72, "forces_warp_v2": 74, "moments_raw_bwd": 67,
                   "forces_warp_v2_bwd_rows": 71, "forces_warp_v2_bwd_slab": 118,
                   "forces_sep": 50, "forces_sep_bwd_rows": 32,
                   "forces_sep_bwd_slab": 44, "moments_raw": 72}
-# moments_mid's per-row epilogue, counted from csrc/fused_kernels.cu: A | Y
-# from the warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the
-# SVD's U and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
+# moments_mid's per-row epilogue, counted from csrc/mid.cuh: A | Y from the
+# warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the SVD's U
+# and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
 MID_FLOPS_PER_ROW = 2250
 T_START = time.perf_counter()
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time, longer than any timed batch's enqueue
@@ -837,7 +842,6 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
 
     sb = scene.blocked
     m = sb.n_tiles * sb.rows
-    nb = len(sb.buckets)
     n = len(scene.slot_of_particle)
     f32 = 4
     cfg_f = cfg.replace(fused_mid=True)
@@ -847,65 +851,101 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     def rand(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
 
-    # ---- 14 the fused kernels vs plain, per bucket (backwards composed
-    # with the scatter)
-    say(f"[14] fused path: moments_mid and moments_raw_bwd per bucket, K2 v2 and its "
-        f"backward passes once over the scene, kernels vs plain on the card {tag}")
+    # ---- 14 the fused kernels: one launch each over the scene, each
+    # bucket's columns held against that bucket's plain version (the slab
+    # sides composed with the scatter)
+    say(f"[14] fused path: moments_mid, moments_raw_bwd (with its row term), K2 v2 and "
+        f"its backward passes, one launch each over all {sb.n_tiles} tiles, kernels vs "
+        f"plain per bucket on the card {tag}")
     posT = pos.T.contiguous()
     rs = fk.row_static(sb, scene.materials, scene.rest_corr)
     scale = cfg.stiffness_scale(ratio[:m])
     fmT, srT = fk.moments_mid_all(posT, posT[:, :m], scale, sb, rs, cfg.h,
                                   cfg.corotated, pk.PLAIN)
     dayT, dfT = rand(18, m), rand(3, m)
-    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
+    n_entries = pk.n_entries(sb)
     to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
     parts = {"F": slice(0, 9), "M": slice(9, 18), "V": slice(18, 19)}
+
+    def launch():
+        return (fk.moments_mid(sb, posT, posT[:, :m], rs, scale, cfg.h, cfg.corotated),
+                fk.moments_raw_bwd(sb, dayT, cfg.h, True))
+
+    pk.reset_launch_counts()
+    (k_fm, k_sr, _), (k_dps, k_dprow) = launch()
+    torch.cuda.synchronize()
+    counts = pk.launch_counts()
+    if counts["moments_mid"] != 1 or counts["moments_raw_bwd"] != 1:
+        fail(f"moments_mid / moments_raw_bwd launched {counts['moments_mid']} / "
+             f"{counts['moments_raw_bwd']} times for one evaluation, expected 1 / 1")
+    if k_sr[:, m:].any():
+        fail("moments_mid left srT's padding columns non-zero")
+    ct6 = dayT.view(6, 3, m)
+    p_dprow = -sum(ct6[k] * sb.rs6T[k] for k in range(6))   # the plain row side
+
+    def slots(d, k, scatter, seg):
+        buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
+        buf[:, seg] = d
+        return scatter(buf, *to_slots)
+
     e0 = 0
     for i, b in enumerate(sb.buckets):
         t, slab = b.n_tiles, b.slab_len
-        mb = t * sb.rows
-        c = slice(b.row_start, b.row_start + mb)
+        c = slice(b.row_start, b.row_start + t * sb.rows)
         seg = slice(e0, e0 + t * slab)
         e0 += t * slab
-        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
-        tile_bytes = (t * 3 * sb.rows + t * 5 * slab) * f32
-        gidx_bytes = t * slab // sb.group * 4
-        pairs = t * sb.rows * slab
         a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c), scale[c],
                  b.gidx8, cfg.h, cfg.corotated)
         a_k6 = (b.restT_rows, b.static_slab, dayT[:, c], cfg.h)
-
-        def slots(d, k, scatter, seg=seg):
-            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
-            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
-            return scatter(buf, *to_slots)
-
-        def mid_parts(o, sc):
-            fm_, sr_ = o[0], o[1]
-            return ([fm_[p] for p in parts.values()]
-                    + [sr_[0:6], sr_[6:15]])
-
-        work = {   # key: (kernel, plain, outputs compared, flops, bytes)
-            "moments_mid": (
-                lambda: fk.moments_mid(*a_mid), lambda: fk.moments_mid_plain(*a_mid),
-                mid_parts, FLOPS_PER_PAIR["moments_mid"] * pairs + MID_FLOPS_PER_ROW * mb,
-                tile_bytes + gidx_bytes
-                + (3 * uniq + 3 * mb + 6 * mb + 3 * mb + 9 * mb + mb + 19 * mb
-                   + 15 * mb) * f32),
-            "moments_raw_bwd": (
-                lambda: fk.moments_raw_bwd(*a_k6), lambda: fk.moments_raw_bwd_plain(*a_k6),
-                lambda o, sc: (slots(o, 3, sc),),
-                FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
-                tile_bytes + (18 * mb + 3 * t * slab) * f32),
-        }
-        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-                       + held_per_launch(torch, work, f"bucket {i}", stats)))
-    for key in ("moments_mid", "moments_raw_bwd"):
-        summarize(key, stats[key], nb, tag)
+        p_fm, p_sr, _ = fk.moments_mid_plain(*a_mid)
+        e1 = max([record(stats["moments_mid"], k_fm[p, c], p_fm[p],
+                         f"moments_mid {name} bucket {i}") for name, p in parts.items()]
+                 + [record(stats["moments_mid"], k_sr[p, c], p_sr[p],
+                           f"moments_mid {name} bucket {i}")
+                    for name, p in (("S", slice(0, 6)), ("R", slice(6, 15)))])
+        p_dps = fk.moments_raw_bwd_plain(*a_k6)
+        e2 = max(record(stats["moments_raw_bwd"], slots(k_dps[:, seg], 3, pk.slab_to_slots, seg),
+                        slots(p_dps.permute(1, 0, 2).reshape(3, -1), 3,
+                              pk.slab_to_slots_plain, seg),
+                        f"moments_raw_bwd bucket {i}"),
+                 record(stats["moments_raw_bwd"], k_dprow[:, c], p_dprow[:, c],
+                        f"moments_raw_bwd rows bucket {i}"))
+        del p_fm, p_sr, p_dps
+        ms1 = cuda_ms(lambda: fk.moments_mid_plain(*a_mid), 1)
+        ms2 = cuda_ms(lambda: fk.moments_raw_bwd_plain(*a_k6), 1)
+        stats["moments_mid"]["plain_ms"] += ms1
+        stats["moments_raw_bwd"]["plain_ms"] += ms2
+        say(f"    bucket {i}: slab {slab:4d} tiles {t:4d} | moments_mid err {e1:.2e} "
+            f"(plain {ms1:.2f} ms) | moments_raw_bwd err {e2:.2e} (plain {ms2:.2f} ms)")
+    again = launch()
+    same = all(torch.equal(x, y) for x, y in zip((k_fm, k_sr, k_dps, k_dprow),
+                                                 again[0][:2] + again[1]))
+    say(f"    second launch of each bitwise equal: {same}")
+    if not same:
+        fail("moments_mid or moments_raw_bwd does not repeat bit for bit")
+    del again
+    pairs = sum(b.n_tiles * sb.rows * b.slab_len for b in sb.buckets)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
+    rest_static = (sb.rest_rows.numel() + sb.static_all.numel()) * f32
+    work = {   # each input read once, each output written once
+        "moments_mid": (
+            lambda: fk.moments_mid(sb, posT, posT[:, :m], rs, scale, cfg.h, cfg.corotated),
+            FLOPS_PER_PAIR["moments_mid"] * pairs + MID_FLOPS_PER_ROW * m,
+            rest_static + sb.gidx_all.numel() * 4 + sb.schedule.numel() * 8
+            + (3 * uniq + 3 * m + 4 * m + 9 * m + 19 * m + 15 * sb.n_slots) * f32),
+        "moments_raw_bwd": (
+            lambda: fk.moments_raw_bwd(sb, dayT, cfg.h, True),
+            FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
+            rest_static + sb.chunks.numel() * 8
+            + (18 * m + 6 * m + 3 * n_entries + 3 * m) * f32),
+    }
+    for key, (fn, flops, nbytes) in work.items():
+        st = stats[key]
+        st.update(ms=cuda_ms(fn, 50), launch_ms=host_ms(fn, 50), flops=flops, bytes=nbytes)
+        summarize(key, st, 1, tag)
     say("    (moments_mid is timed as the forward runs it, without the A | Y rows "
         "the gradient's recompute also stores)")
     v2_whole_scene(torch, dev, tag, "sparse scene", sb, fmT, srT, dfT, cfg.h, stats)
-
     # ---- 15 one fused force evaluation and its VJP
     mats = scene.materials
     f_k = elastic_forces_sparse(pos, ratio, mats, scene, cfg_f)
@@ -1080,15 +1120,15 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         say("    profile: the profiler saw no device time; idle share not measured")
 
     # ---- 20 launch counts of the fused path
-    # forward: one fused K1 + mid-section per bucket and one K2 v2 over the
-    # scene per step, two episodes.
+    # forward: one fused K1 + mid-section and one K2 v2 over the scene per
+    # step, two episodes.
     # Gradient (as phase 13): forward kernels 3 times per step, backward
-    # kernels once (the raw K1 backward per bucket, each K2 v2 pass one
-    # launch), slab_to_slots twice (after the raw K1 and the K2 v2
-    # backward); none of the v4 kernels.
-    fwd = {"moments_mid": 2 * nb * steps, "forces_warp_v2": 2 * steps}
-    per_eval = {"moments_mid": 3 * nb * S, "forces_warp_v2": 3 * S,
-                "moments_raw_bwd": nb * S, "forces_warp_v2_bwd_rows": S,
+    # kernels once (the raw K1 backward and each K2 v2 pass one launch),
+    # slab_to_slots twice (after the raw K1 and the K2 v2 backward); none
+    # of the v4 kernels.
+    fwd = {"moments_mid": 2 * steps, "forces_warp_v2": 2 * steps}
+    per_eval = {"moments_mid": 3 * S, "forces_warp_v2": 3 * S,
+                "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S,
                 "forces_warp_v2_bwd_slab": S, "slab_to_slots": 2 * S}
     say(f"[20] fused launches: forward episode (phase 16) {counts_fwd}; one "
         f"gradient (phase 19) {counts_grad}; expected {fwd} / {per_eval}, every "
@@ -1568,11 +1608,11 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
             lambda: fk.moments_raw_plain(rr, st, posT, gi, h), lambda o, sc: (o,),
             FLOPS_PER_PAIR["moments_raw"] * pairs,
             tile_bytes + gidx_bytes + (3 * uniq + 18 * m) * f32),
-        "moments_raw_bwd": (
-            lambda: fk.moments_raw_bwd(rr, st, dayT, h),
-            lambda: fk.moments_raw_bwd_plain(rr, st, dayT, h), slots(3),
-            FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
-            tile_bytes + (18 * m + 3 * t * slab) * f32),
+        "moments_raw_bwd": (   # one launch over the scene, slab = 15 x 128 + 24
+            lambda: fk.moments_raw_bwd(blk, dayT, h)[0],
+            lambda: fk.moments_raw_bwd_scene_plain(blk, dayT, h)[0],
+            lambda o, sc: (sc(o, *to_slots),), FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
+            tile_bytes + blk.chunks.numel() * 8 + (18 * m + 3 * t * slab) * f32),
         "forces_sep": (
             lambda: sk.forces_sep(rr, st, gT[:, :m], gT, vol_m, gi, h),
             lambda: sk.forces_sep_plain(rr, st, gT[:, :m], gT, vol_m, gi, h),
@@ -1596,6 +1636,10 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
         say("      " + held_per_launch(torch, one, "varcol", into, reps=10)[0])
     if stats["moments_raw"]["ms"]:
         summarize("moments_raw", stats["moments_raw"], 1, tag)
+    pk.reset_launch_counts()
+    fk.moments_raw_bwd(blk, dayT, h)
+    if pk.launch_counts()["moments_raw_bwd"] != 1:
+        fail("the varcol moments_raw_bwd is not one launch over the scene")
     n_entries = t * slab
     line = []
     for k in (3, 9, 15):
@@ -1695,9 +1739,9 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "forces_warp_v4_bwd_rows": ("pair_kernels", "pair_kernels.py:1038"),
     "forces_warp_v4_bwd_slab": ("pair_kernels", "pair_kernels.py:1038"),
     "slab_to_slots": ("pair_kernels", "packed.py:212"),
-    "moments_mid": ("fused_kernels", "pair_kernels.py:602"),
+    "moments_mid": ("pair_kernels", "pair_kernels.py:602"),
     "forces_warp_v2": ("pair_kernels", "pair_kernels.py:822"),
-    "moments_raw_bwd": ("fused_kernels", "pair_kernels.py:335"),
+    "moments_raw_bwd": ("pair_kernels", "pair_kernels.py:335"),
     "forces_warp_v2_bwd_rows": ("pair_kernels", "pair_kernels.py:936"),
     "forces_warp_v2_bwd_slab": ("pair_kernels", "pair_kernels.py:936"),
     "forces_sep": ("separable_kernels", "pair_kernels.py:690"),

@@ -1,11 +1,10 @@
 // What the pair-kernel sources share (pair_kernels.cu, the whole-scene
-// kernels; fused_kernels.cu, the fused K1 + mid-section and the raw K1;
-// separable_kernels.cu, the Taichi pairing's K2): the tile geometry, the
-// cubic-spline pair coefficients, and the per-tile K1 loops of
-// fused_kernels.cu.  Each kernel keeps only what it does beyond them (its
-// epilogue).
+// kernels; fused_kernels.cu, the raw K1; separable_kernels.cu, the Taichi
+// pairing's K2): the tile geometry, the cubic-spline pair coefficients,
+// and the raw K1's per-tile loop.
 //
-// One block per tile of ROWS slot rows, one lane per row, NWARPS warps
+// The per-bucket kernels (fused_kernels.cu, separable_kernels.cu) run one
+// block per tile of ROWS slot rows, one lane per row, NWARPS warps
 // splitting the tile's candidate slab (slot = gidx[e / group] * group +
 // e % group); each pass stages CHUNK slab entries in shared memory, one
 // entry per thread, and warp w reads back entries [32w, 32w + 32), exactly
@@ -30,7 +29,7 @@ template <> __device__ __forceinline__ double rsqrt_t<double>(double x) { return
 
 template <typename T> __device__ __forceinline__ T relu(T x) { return x > T(0) ? x : T(0); }
 
-// K1 slab entry: rest_3, mass, volume, pos - c (8 values).
+// K1 slab entry: rest_3, mass, volume, pos (8 values).
 template <typename T> struct alignas(16) K1Entry { T v[8]; };
 
 // Cubic-spline coefficients of one pair from r2 = |X_i - X_j|^2, rsqrt
@@ -57,29 +56,23 @@ __device__ __forceinline__ T spline_gfac(T r2, T inv_h, T c4h) {
 }
 
 // ------------------------------------------------------------ forward sums
-// K1's tile sums: red[w][NA k + a][lane] holds warp w's share of
-// sum_j p_a L_k (a < 3) and, with ROWSUM (NA = 4), sum_j L_k (a = 3) for
-// row `lane`, with L = [-w m_j dx ; gfac V_j dx] and p = pos_j - c, c the
-// tile's first rest row, which the caller keeps in registers for its
-// epilogue (re-reading it there cost K1 v4 8%).  Without ROWSUM (NA = 3)
-// the row sums are neither formed nor stored.  rr (3, ROWS), st (5, slab)
-// and gi are the tile's own.  Ends with a block barrier.
-template <bool ROWSUM, typename T>
+// The raw K1's tile sums: red[w][3 k + a][lane] holds warp w's share of
+// sum_j pos_j[a] L_k for row `lane`, with L = [-w m_j dx ; gfac V_j dx]
+// (72 flops per pair).  rr (3, ROWS), st (5, slab) and gi are the tile's
+// own.  Ends with a block barrier.
+template <typename T>
 __device__ __forceinline__ void k1_tile_sums(
     const T* __restrict__ rr, const T* __restrict__ st,
     const T* __restrict__ posT, int64_t ld_pos, const int32_t* __restrict__ gi,
-    int slab, int group, T inv_h, T c4, T c4h, const T (&c)[3], K1Entry<T>* ent,
-    T (*red)[ROWSUM ? 24 : 18][ROWS]) {
-  constexpr int NA = ROWSUM ? 4 : 3;
+    int slab, int group, T inv_h, T c4, T c4h, K1Entry<T>* ent, T (*red)[18][ROWS]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const T c0 = c[0], c1 = c[1], c2 = c[2];
   const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
-  T acc[6][NA];
+  T acc[6][3];
 #pragma unroll
   for (int k = 0; k < 6; ++k)
 #pragma unroll
-    for (int a = 0; a < NA; ++a) acc[k][a] = T(0);
+    for (int a = 0; a < 3; ++a) acc[k][a] = T(0);
 
   for (int base = 0; base < slab; base += CHUNK) {
     const int n = min(CHUNK, slab - base);
@@ -93,9 +86,9 @@ __device__ __forceinline__ void k1_tile_sums(
       x.v[2] = st[2 * slab + s];
       x.v[3] = st[3 * slab + s];
       x.v[4] = st[4 * slab + s];
-      x.v[5] = posT[slot] - c0;
-      x.v[6] = posT[ld_pos + slot] - c1;
-      x.v[7] = posT[2 * ld_pos + slot] - c2;
+      x.v[5] = posT[slot];
+      x.v[6] = posT[ld_pos + slot];
+      x.v[7] = posT[2 * ld_pos + slot];
       ent[e] = x;
     }
     __syncwarp();
@@ -112,7 +105,6 @@ __device__ __forceinline__ void k1_tile_sums(
         acc[k][0] += x.v[5] * L[k];
         acc[k][1] += x.v[6] * L[k];
         acc[k][2] += x.v[7] * L[k];
-        if constexpr (ROWSUM) acc[k][3] += L[k];
       }
     }
     __syncwarp();
@@ -121,69 +113,8 @@ __device__ __forceinline__ void k1_tile_sums(
 #pragma unroll
   for (int k = 0; k < 6; ++k)
 #pragma unroll
-    for (int a = 0; a < NA; ++a) red[warp][NA * k + a][lane] = acc[k][a];
+    for (int a = 0; a < 3; ++a) red[warp][3 * k + a][lane] = acc[k][a];
   __syncthreads();
-}
-
-// Row r's centered K1 moment 3k + a (A[a][k] for k < 3, Y[a][k - 3] after)
-// from k1_tile_sums: dot - (pos_i[a] - c_a) rowsum, pi = pos_i[a] - c_a.
-template <typename T>
-__device__ __forceinline__ T k1_moment(T (*red)[24][ROWS], int k, int a,
-                                       int r, T pi) {
-  T dot = T(0), rowsum = T(0);
-#pragma unroll
-  for (int w = 0; w < NWARPS; ++w) {
-    dot += red[w][4 * k + a][r];
-    rowsum += red[w][4 * k + 3][r];
-  }
-  return dot - pi * rowsum;
-}
-
-// ----------------------------------------------------------- backward sums
-// The slab side of K1's VJP, a whole kernel body: per slab entry
-// dps[a](j) = sum_r sum_blk day[3 blk + a](r) L_blk(r, j), one thread per
-// slab entry looping over the rows in order; the rows' rest coordinates and
-// their 18 cotangents are shared-memory broadcasts.  dps (3, ld_ps), column
-// tile * slab + s.
-template <typename T>
-__device__ __forceinline__ void k1_bwd_slab(
-    const T* __restrict__ restT_rows, const T* __restrict__ static_slab,
-    const T* __restrict__ dayT, int64_t ld_day, T* __restrict__ dps,
-    int64_t ld_ps, int slab, T inv_h, T c4, T c4h) {
-  __shared__ T xr[3][ROWS];
-  __shared__ T ct[18][ROWS];
-
-  const int tile = blockIdx.x;
-  const int64_t col0 = (int64_t)tile * ROWS;
-  const T* rr = restT_rows + (int64_t)tile * 3 * ROWS;
-  for (int o = threadIdx.x; o < 3 * ROWS; o += THREADS) xr[o / ROWS][o % ROWS] = rr[o];
-  for (int o = threadIdx.x; o < 18 * ROWS; o += THREADS)
-    ct[o / ROWS][o % ROWS] = dayT[(o / ROWS) * ld_day + col0 + o % ROWS];
-  __syncthreads();
-
-  const T* st = static_slab + (int64_t)tile * 5 * slab;
-  for (int s = threadIdx.x; s < slab; s += THREADS) {
-    const T xj0 = st[s], xj1 = st[slab + s], xj2 = st[2 * slab + s];
-    const T mj = st[3 * slab + s], vj = st[4 * slab + s];
-    T g0 = T(0), g1 = T(0), g2 = T(0);
-    for (int r = 0; r < ROWS; ++r) {
-      const T dx0 = xr[0][r] - xj0, dx1 = xr[1][r] - xj1, dx2 = xr[2][r] - xj2;
-      T w, gfac;
-      spline_w_gfac(dx0 * dx0 + dx1 * dx1 + dx2 * dx2, inv_h, c4, c4h, w, gfac);
-      const T cA = w * mj, gv = gfac * vj;
-      const T L[6] = {-cA * dx0, -cA * dx1, -cA * dx2, gv * dx0, gv * dx1, gv * dx2};
-#pragma unroll
-      for (int blk = 0; blk < 6; ++blk) {
-        g0 += ct[3 * blk][r] * L[blk];
-        g1 += ct[3 * blk + 1][r] * L[blk];
-        g2 += ct[3 * blk + 2][r] * L[blk];
-      }
-    }
-    const int64_t e = (int64_t)tile * slab + s;
-    dps[e] = g0;
-    dps[ld_ps + e] = g1;
-    dps[2 * ld_ps + e] = g2;
-  }
 }
 
 }  // namespace

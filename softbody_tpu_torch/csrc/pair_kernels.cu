@@ -11,6 +11,11 @@
 //                            :: _forces_warp_kernel_v2 (launched by
 //                            ops/pallas/packed.py :: _forces_warp_packed_fwd):
 //                            the fused path's and the blocked layout's K2
+// K1  moments_mid_kernel     replaces softbody_tpu/ops/pallas/pair_kernels.py
+//     + mid-section          :: _moments_mid_kernel (launched by
+//                            ops/pallas/packed.py :: _fused_call): the fused
+//                            path's K1, K1 v4's sums with the per-row
+//                            mid-section (mid.cuh) as its epilogue
 // The backward kernels and the fixed-order scatter follow the forward ones,
 // each with its own note (further down).
 //
@@ -76,6 +81,17 @@
 //     per group in f32, 64 in f64) while the warp computes the previous
 //     stage; cp.async.wait_group and a warp barrier order the ring.  The
 //     stage is read back as 16-byte broadcasts of 4 entries per field.
+//   * The fused path's K1 (moments_mid) is K1 v4's kernel with the
+//     mid-section as its epilogue: after the fixed-order sum over warps, one
+//     thread per row gathers its 18 moments and runs the 8-sweep Jacobi
+//     polar, F, the StVK S and M in registers (~2,250 flops per row; the
+//     other three warps idle while it runs, the SM's other resident blocks
+//     keep issuing), then stores the K2 records fmT and srT.  The TPU
+//     kernel contracted ABSOLUTE positions and subtracted pos_i * rs6 with
+//     the host's static row sums; in f32 that cancellation moves the forces
+//     by 5e-5 of their maximum and destabilised a quiet body
+//     (pair_kernels.py:512-526); centering per lane is the same function in
+//     exact arithmetic, at the v4 path's accuracy.
 //   * Ragged tails (K2 v2 on the blocked layout): a slab need only be a
 //     multiple of the slot group (8).  The copies of entries past the slab
 //     are cp.async's zero-fill form (source size 0; no branch in the
@@ -99,6 +115,7 @@
 // and allocate nothing.
 
 #include "common.cuh"
+#include "mid.cuh"
 
 namespace {
 
@@ -111,6 +128,7 @@ constexpr int K1_FIELDS = 8;                 // rest_3, m, V | pos_3
 constexpr int K2_FIELDS = 19;                // rest_3, V | S_6, R^T_9
 constexpr int K1_OUT = 18;
 constexpr int K2_OUT = 3;
+constexpr int SR_ROWS = 15;                  // the K2 slot record S_6 | R^T_9
 
 template <typename T>
 constexpr size_t ragged_smem(int fields, int outs) {
@@ -419,26 +437,21 @@ __device__ __forceinline__ void reduce_store(T* smem, const T (&acc)[K], int64_t
   }
 }
 
+// K1's sums of one scheduled tile into this lane's acc (row lane, its
+// warp's share of the slab): the block's kernel is moments_v4_kernel or
+// moments_mid_kernel.  Blocks 0-2 are accumulated as +cA p_a dx_k.
 template <typename T>
-__global__ void __launch_bounds__(RG_THREADS, 5)
-moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
-                  const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
-                  const T* __restrict__ static_all,      // per tile (5, slab)
-                  const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
-                  const T* __restrict__ posT, int64_t ld_pos,        // (3, ld_pos)
-                  const T* __restrict__ posT_rows, int64_t ld_rows,  // (3, ld_rows)
-                  T* __restrict__ ayT, int64_t ld_out,   // (18, ld_out)
-                  int group, T inv_h, T c4, T c4h) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+__device__ __forceinline__ void k1_forward(
+    T* smem, const Sched& s, const T* __restrict__ rest_rows,
+    const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
+    const T* __restrict__ posT, int64_t ld_pos, const T* __restrict__ posT_rows,
+    int64_t ld_rows, int group, T inv_h, T c4, T c4h, T (&acc)[K1_OUT]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Sched s = sched_of(sched, warp);
   const T* rr = rest_rows + s.tile * 3 * ROWS;
   const int64_t col = s.tile * ROWS + lane;
   const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
   const T pi0 = posT_rows[col], pi1 = posT_rows[ld_rows + col],
           pi2 = posT_rows[2 * ld_rows + col];
-  T acc[K1_OUT];
 #pragma unroll
   for (int k = 0; k < K1_OUT; ++k) acc[k] = T(0);
   const int srow[5] = {0, 1, 2, 3, 4};
@@ -453,9 +466,106 @@ moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
         }
       },
       [&](const T* buf) { k1_stage(buf, xi0, xi1, xi2, pi0, pi1, pi2, inv_h, acc); });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+moments_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                  const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                  const T* __restrict__ static_all,      // per tile (5, slab)
+                  const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                  const T* __restrict__ posT, int64_t ld_pos,        // (3, ld_pos)
+                  const T* __restrict__ posT_rows, int64_t ld_rows,  // (3, ld_rows)
+                  T* __restrict__ ayT, int64_t ld_out,   // (18, ld_out)
+                  int group, T inv_h, T c4, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const Sched s = sched_of(sched, threadIdx.x >> 5);
+  T acc[K1_OUT];
+  k1_forward(smem, s, rest_rows, static_all, gidx_all, posT, ld_pos, posT_rows, ld_rows,
+             group, inv_h, c4, c4h, acc);
   // blocks 0-2 were accumulated as +cA p_a dx_k: stored negated
   reduce_store(smem, acc, s.tile,
                [&](int k, int64_t c, T sum) { ayT[k * ld_out + c] = k < 9 ? -sum : sum; });
+}
+
+// The fused path's K1 + mid-section: K1 v4's sums, the fixed-order sum
+// over warps into shared memory, then one thread per row gathers its 18
+// moments A | Y and runs the mid-section (mid.cuh's mid_row) in
+// registers, storing the columns tile * ROWS + r of fmT = [F_9 | M_9 | V_i]
+// (19 rows), srT = [S_6 | R^T_9] (15 rows) and, when ayT is given, the
+// A | Y rows.  Block 0 also zeroes srT's columns [m, n_sr) (the slots past
+// the tile rows, which K2 reads through gidx).
+template <typename T>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+moments_mid_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                   const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                   const T* __restrict__ static_all,      // per tile (5, slab)
+                   const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                   const T* __restrict__ posT, int64_t ld_pos,        // (3, ld_pos)
+                   const T* __restrict__ posT_rows, int64_t ld_rows,  // (3, ld_rows)
+                   const T* __restrict__ mu,              // (m,)
+                   const T* __restrict__ lam,             // (m,)
+                   const T* __restrict__ vol,             // (m,)
+                   const T* __restrict__ rcT, int64_t ld_rc,  // (9, ld_rc): rc[a][b] at 3a+b
+                   const T* __restrict__ scale,           // (m,)
+                   T* __restrict__ fmT, int64_t ld_fm,    // (19, ld_fm)
+                   T* __restrict__ srT, int64_t ld_sr,    // (15, ld_sr)
+                   T* __restrict__ ayT, int64_t ld_ay,    // (18, ld_ay) or null
+                   int64_t m, int64_t n_sr, int group, T inv_h, T c4, T c4h,
+                   int corotated, int sweeps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  {
+    T acc[K1_OUT];
+    k1_forward(smem, s, rest_rows, static_all, gidx_all, posT, ld_pos, posT_rows,
+               ld_rows, group, inv_h, c4, c4h, acc);
+    __syncthreads();                         // every ring read: smem is free
+#pragma unroll
+    for (int k = 0; k < K1_OUT; ++k) smem[(warp * K1_OUT + k) * ROWS + lane] = acc[k];
+  }
+  __syncthreads();
+  if (blockIdx.x == 0)
+    for (int64_t o = threadIdx.x; o < SR_ROWS * (n_sr - m); o += RG_THREADS)
+      srT[(o / (n_sr - m)) * ld_sr + m + o % (n_sr - m)] = T(0);
+  if (warp != 0) return;                     // no barrier follows
+
+  const int64_t col = s.tile * ROWS + lane;
+  T A[3][3], Y[3][3];
+#pragma unroll
+  for (int row = 0; row < K1_OUT; ++row) {   // row 3 blk + a, warps in order
+    T sum = T(0);
+#pragma unroll
+    for (int w = 0; w < RG_WARPS; ++w) sum += smem[(w * K1_OUT + row) * ROWS + lane];
+    const T v = row < 9 ? -sum : sum;        // blocks 0-2 accumulated negated
+    if (ayT != nullptr) ayT[row * ld_ay + col] = v;
+    // A[a][blk] for blk < 3, Y[a][blk - 3] after
+    if (row < 9) A[row % 3][row / 3] = v; else Y[row % 3][row / 3 - 3] = v;
+  }
+  T rc[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) rc[i][j] = rcT[(3 * i + j) * ld_rc + col];
+  T R[3][3], F[3][3], S[3][3], M[3][3];
+  mid_row(A, Y, rc, mu[col], lam[col], scale[col], corotated != 0, sweeps, R, F, S, M);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      fmT[(3 * i + j) * ld_fm + col] = F[i][j];
+      fmT[(9 + 3 * i + j) * ld_fm + col] = M[i][j];
+      srT[(6 + 3 * j + i) * ld_sr + col] = R[i][j];   // R^T_9: [3c + a] = R[a][c]
+    }
+  fmT[18 * ld_fm + col] = vol[col];
+  srT[0 * ld_sr + col] = S[0][0];
+  srT[1 * ld_sr + col] = S[0][1];
+  srT[2 * ld_sr + col] = S[0][2];
+  srT[3 * ld_sr + col] = S[1][1];
+  srT[4 * ld_sr + col] = S[1][2];
+  srT[5 * ld_sr + col] = S[2][2];
 }
 
 // K2 of one scheduled tile, both record layouts (the block's kernel is
@@ -559,6 +669,27 @@ int launch_moments(const void* sched, int n_sched, const void* rest_rows,
 }
 
 template <typename T>
+int launch_moments_mid(const void* sched, int n_sched, const void* rest_rows,
+                       const void* static_all, const void* gidx_all, const void* posT,
+                       int64_t ld_pos, const void* posT_rows, int64_t ld_rows,
+                       const void* mu, const void* lam, const void* vol,
+                       const void* rcT, int64_t ld_rc, const void* scale, void* fmT,
+                       int64_t ld_fm, void* srT, int64_t ld_sr, void* ayT, int64_t ld_ay,
+                       int64_t m, int64_t n_sr, int group, double inv_h, double c4,
+                       double c4h, int corotated, int sweeps, void* stream) {
+  constexpr size_t smem = ragged_smem<T>(K1_FIELDS, K1_OUT);
+  static const cudaError_t attr = allow_smem(moments_mid_kernel<T>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  moments_mid_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)posT, ld_pos, (const T*)posT_rows, ld_rows,
+      (const T*)mu, (const T*)lam, (const T*)vol, (const T*)rcT, ld_rc,
+      (const T*)scale, (T*)fmT, ld_fm, (T*)srT, ld_sr, (T*)ayT, ld_ay, m, n_sr, group,
+      (T)inv_h, (T)c4, (T)c4h, corotated, sweeps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_forces(const void* sched, int n_sched, const void* rest_rows,
                   const void* static_all, const void* gidx_all, const void* f9T,
                   int64_t ld_f9, const void* srT, int64_t ld_sr, void* fT,
@@ -594,11 +725,18 @@ int launch_forces_v2(const void* sched, int n_sched, const void* rest_rows,
 //
 // K1 bwd  moments_v4_bwd_kernel replaces softbody_tpu/ops/pallas/
 //         pair_kernels.py :: _moments_bwd_kernel_v4 (launched by
-//         ops/pallas/packed.py :: _moments_v4_bwd_impl).
+//         ops/pallas/packed.py :: _moments_v4_bwd_impl), and
+//         moments_raw_bwd_kernel (the same body, k1_bwd_chunk) replaces
+//         ::_moments_bwd_kernel (launched by _moments_vjp_bwd from
+//         packed.py :: _fused_vjp_bwd and moments_packed's VJP): the raw
+//         K1's backward on the fused path (with the row term) and on the
+//         blocked layout (without; slabs that end inside a chunk).
 //   dps[a](j)   = sum_i sum_blk ct[3 blk + a](i) L_blk(i, j)   per slab entry
 //   dprow[a](i) = -sum_blk ct[3 blk + a](i) rs6[blk](i)        per tile row
 //   (rs6 = the host's static row sums: the gradient is exact for a function
-//   ~1e-7 relative away from the f32 forward, packed.py:376-383).  Per pair
+//   ~1e-7 relative away from the f32 forward, packed.py:376-383; the fused
+//   path takes the same row term, the blocked layout's caller keeps its
+//   - pos_i rs6 correction under autograd).  Per pair
 //   s1_a = sum_k ct[3k + a] dx_k, s2_a = sum_k ct[9 + 3k + a] dx_k and
 //   dps_a += gv s2_a - cA s1_a: 67 flops.
 //
@@ -642,10 +780,11 @@ int launch_forces_v2(const void* sched, int n_sched, const void* rest_rows,
 //     (SparseBlocked.chunks: [tile, slab, st_off, gi_off, e0], tile order):
 //     17,672 equal blocks at the ~112k scene, where there were 3,776 tiles
 //     of 1-8 entries per thread.  A tile's chunk-0 block also writes K1's
-//     dprow.  K2's slab pass also takes a slab whose last chunk holds fewer
-//     entries (the blocked layout's 1,944 = 15 x 128 + 24): threads past
-//     the slab read an entry inside it and write nothing.  The K1 backward
-//     serves the sparse scene only, whose slabs are whole chunks (its
+//     dprow.  K2's slab pass and the raw K1 backward also take a slab whose
+//     last chunk holds fewer entries (the blocked layout's 1,944 = 15 x 128
+//     + 24): threads past the slab read an entry inside it and write
+//     nothing (the raw K1 backward as a template flag; moments_v4_bwd
+//     serves the sparse scene only, whose slabs are whole chunks, and its
 //     wrapper refuses others).
 //   * Fewer shared-memory instructions per pair on the slab side: the
 //     tile's rows are staged row-major and padded to a multiple of 4 (K1:
@@ -720,39 +859,46 @@ __device__ __forceinline__ void load_row(const T* rec, int r, T (&x)[REC]) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BCH / K1B_EPT)
-moments_v4_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
-                      const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
-                      const T* __restrict__ static_all,       // per tile (5, slab)
-                      const T* __restrict__ dayT, int64_t ld_day,   // (18, ld_day)
-                      const T* __restrict__ rs6T, int64_t ld_rs6,   // (6, ld_rs6)
-                      T* __restrict__ dps, int64_t ld_ps,           // (3, ld_ps)
-                      T* __restrict__ dprow, int64_t ld_row,        // (3, ld_row)
-                      int group, T inv_h, T c4, T c4h) {
+// K1's backward on one (tile, 128-entry chunk) of the chunk schedule: dps
+// (3, ld_ps), a tile's entry s at column gi_off * group + s.  One body,
+// two kernels: moments_v4_bwd_kernel = <!TAIL, ROWTERM> and
+// moments_raw_bwd_kernel (the raw K1's backward: the fused path with
+// ROWTERM, path B's varcol slab with TAIL).  ROWTERM: the chunk-0 blocks
+// also write dprow (3, ld_row) = -sum_blk ct[3 blk + a] rs6[blk].  TAIL:
+// a slab's last chunk may be partial; a thread's entries past the slab
+// read the chunk's first entry and store nothing.  TAIL is the first bool
+// template parameter of every kernel here (pair_times.py reads it so).
+template <typename T, bool TAIL, bool ROWTERM>
+__device__ __forceinline__ void k1_bwd_chunk(
+    T* rec, const int64_t* __restrict__ chunks, const T* __restrict__ rest_rows,
+    const T* __restrict__ static_all, const T* __restrict__ dayT, int64_t ld_day,
+    const T* __restrict__ rs6T, int64_t ld_rs6, T* __restrict__ dps, int64_t ld_ps,
+    T* __restrict__ dprow, int64_t ld_row, int group, T inv_h, T c4, T c4h) {
   constexpr int EPT = K1B_EPT, NT = BCH / EPT;
-  __shared__ __align__(32) T rec[ROWS * K1B_REC];
   const BChunk c = bchunk_of(chunks);
   const int64_t col0 = c.tile * ROWS;
   const T* rr = rest_rows + c.tile * 3 * ROWS;
   stage_rows<T, K1B_REC, 21, NT>(rec, [&](int f, int r) {
     return f < 3 ? rr[f * ROWS + r] : dayT[(f - 3) * ld_day + col0 + r];
   });
-  if (c.e0 == 0)
-    for (int o = threadIdx.x; o < 3 * ROWS; o += NT) {
-      const int a = o / ROWS, r = o % ROWS;
-      T acc = T(0);
+  if constexpr (ROWTERM) {
+    if (c.e0 == 0)
+      for (int o = threadIdx.x; o < 3 * ROWS; o += NT) {
+        const int a = o / ROWS, r = o % ROWS;
+        T acc = T(0);
 #pragma unroll
-      for (int blk = 0; blk < 6; ++blk)
-        acc += dayT[(3 * blk + a) * ld_day + col0 + r] * rs6T[blk * ld_rs6 + col0 + r];
-      dprow[a * ld_row + col0 + r] = -acc;
-    }
+        for (int blk = 0; blk < 6; ++blk)
+          acc += dayT[(3 * blk + a) * ld_day + col0 + r] * rs6T[blk * ld_rs6 + col0 + r];
+        dprow[a * ld_row + col0 + r] = -acc;
+      }
+  }
   const T* st = static_all + c.st_off;
   const T c4x4 = T(4) * c4, c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
   T xj[EPT][3], mj[EPT], vj[EPT], g[EPT][3];
 #pragma unroll
   for (int u = 0; u < EPT; ++u) {
-    const int e = c.e0 + threadIdx.x + u * NT;
+    int e = c.e0 + threadIdx.x + u * NT;
+    if constexpr (TAIL) e = e < c.slab ? e : c.e0;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       xj[u][k] = st[k * c.slab + e];
@@ -784,10 +930,41 @@ moments_v4_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
   }
 #pragma unroll
   for (int u = 0; u < EPT; ++u) {
+    if (TAIL && c.e0 + (int)threadIdx.x + u * NT >= c.slab) continue;
     const int64_t e = c.gi_off * group + c.e0 + threadIdx.x + u * NT;
 #pragma unroll
     for (int a = 0; a < 3; ++a) dps[a * ld_ps + e] = g[u][a];
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BCH / K1B_EPT)
+moments_v4_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                      const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                      const T* __restrict__ static_all,       // per tile (5, slab)
+                      const T* __restrict__ dayT, int64_t ld_day,   // (18, ld_day)
+                      const T* __restrict__ rs6T, int64_t ld_rs6,   // (6, ld_rs6)
+                      T* __restrict__ dps, int64_t ld_ps,           // (3, ld_ps)
+                      T* __restrict__ dprow, int64_t ld_row,        // (3, ld_row)
+                      int group, T inv_h, T c4, T c4h) {
+  __shared__ __align__(32) T rec[ROWS * K1B_REC];
+  k1_bwd_chunk<T, false, true>(rec, chunks, rest_rows, static_all, dayT, ld_day, rs6T,
+                               ld_rs6, dps, ld_ps, dprow, ld_row, group, inv_h, c4, c4h);
+}
+
+template <typename T, bool TAIL, bool ROWTERM>
+__global__ void __launch_bounds__(BCH / K1B_EPT)
+moments_raw_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                       const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                       const T* __restrict__ static_all,       // per tile (5, slab)
+                       const T* __restrict__ dayT, int64_t ld_day,   // (18, ld_day)
+                       const T* __restrict__ rs6T, int64_t ld_rs6,   // (6, ld_rs6) or null
+                       T* __restrict__ dps, int64_t ld_ps,           // (3, ld_ps)
+                       T* __restrict__ dprow, int64_t ld_row,        // (3, ld_row) or null
+                       int group, T inv_h, T c4, T c4h) {
+  __shared__ __align__(32) T rec[ROWS * K1B_REC];
+  k1_bwd_chunk<T, TAIL, ROWTERM>(rec, chunks, rest_rows, static_all, dayT, ld_day, rs6T,
+                                 ld_rs6, dps, ld_ps, dprow, ld_row, group, inv_h, c4, c4h);
 }
 
 // The row pass's sums of one landed stage for row xi, its df given:
@@ -1067,6 +1244,20 @@ int launch_moments_bwd(const void* chunks, int n_chunks, const void* rest_rows,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool TAIL, bool ROWTERM>
+int launch_moments_raw_bwd(const void* chunks, int n_chunks, const void* rest_rows,
+                           const void* static_all, const void* dayT, int64_t ld_day,
+                           const void* rs6T, int64_t ld_rs6, void* dps, int64_t ld_ps,
+                           void* dprow, int64_t ld_row, int group, double inv_h,
+                           double c4, double c4h, void* stream) {
+  moments_raw_bwd_kernel<T, TAIL, ROWTERM>
+      <<<n_chunks, BCH / K1B_EPT, 0, (cudaStream_t)stream>>>(
+          (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
+          (const T*)dayT, ld_day, (const T*)rs6T, ld_rs6, (T*)dps, ld_ps, (T*)dprow,
+          ld_row, group, (T)inv_h, (T)c4, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_forces_bwd_rows(const void* sched, int n_sched, const void* rest_rows,
                            const void* static_all, const void* gidx_all,
@@ -1147,9 +1338,11 @@ int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
 // Kernel `which` of this file (0: K1 moments_v4, 1: K2 forces_warp_v4,
 // 2: moments_v4_bwd, 3: forces_warp_v4_bwd_rows, 4: forces_warp_v4_bwd_slab,
 // 5: forces_warp_v2, 6: forces_warp_v2_bwd_rows, 7: forces_warp_v2_bwd_slab,
-// 8 and 9: 5 and 6 for slabs that end inside a ring stage) in f32 or f64: [registers per thread, static shared bytes, local (stack
-// and spill) bytes, dynamic shared bytes, resident blocks per SM, threads
-// per block] into out.
+// 8 and 9: 5 and 6 for slabs that end inside a ring stage, 10: moments_mid,
+// 11: moments_raw_bwd with the row term (the fused path), 12: without it,
+// for slabs that end inside a chunk (path B)) in f32 or f64: [registers
+// per thread, static shared bytes, local (stack and spill) bytes, dynamic
+// shared bytes, resident blocks per SM, threads per block] into out.
 template <typename K>
 int kernel_info(K kernel, size_t smem, int threads, int* out) {
   cudaError_t rc = allow_smem(kernel, smem);
@@ -1198,6 +1391,13 @@ int ragged_info(int which, int* out) {
     case 9:
       return kernel_info(forces_warp_v2_bwd_rows_kernel<T, true>,
                          ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+    case 10:
+      return kernel_info(moments_mid_kernel<T>, ragged_smem<T>(K1_FIELDS, K1_OUT),
+                         RG_THREADS, out);
+    case 11:
+      return kernel_info(moments_raw_bwd_kernel<T, false, true>, 0, BCH / K1B_EPT, out);
+    case 12:
+      return kernel_info(moments_raw_bwd_kernel<T, true, false>, 0, BCH / K1B_EPT, out);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1228,6 +1428,21 @@ const char* sb_error_string(int code) {
     return launch_moments<T>(sched, n_sched, rest_rows, static_all, gidx_all,  \
                              posT, ld_pos, posT_rows, ld_rows, ayT, ld_out,    \
                              group, inv_h, c4, c4h, stream);                   \
+  }                                                                            \
+  int sb_moments_mid_##SUF(                                                    \
+      const void* sched, int n_sched, const void* rest_rows,                   \
+      const void* static_all, const void* gidx_all, const void* posT,          \
+      int64_t ld_pos, const void* posT_rows, int64_t ld_rows, const void* mu,  \
+      const void* lam, const void* vol, const void* rcT, int64_t ld_rc,        \
+      const void* scale, void* fmT, int64_t ld_fm, void* srT, int64_t ld_sr,   \
+      void* ayT, int64_t ld_ay, int64_t m, int64_t n_sr, int group,            \
+      double inv_h, double c4, double c4h, int corotated, int sweeps,          \
+      void* stream) {                                                          \
+    return launch_moments_mid<T>(sched, n_sched, rest_rows, static_all,        \
+                                 gidx_all, posT, ld_pos, posT_rows, ld_rows,   \
+                                 mu, lam, vol, rcT, ld_rc, scale, fmT, ld_fm,  \
+                                 srT, ld_sr, ayT, ld_ay, m, n_sr, group,       \
+                                 inv_h, c4, c4h, corotated, sweeps, stream);   \
   }                                                                            \
   int sb_forces_warp_v4_##SUF(const void* sched, int n_sched,                  \
                               const void* rest_rows, const void* static_all,   \
@@ -1266,6 +1481,21 @@ SB_FWD_ENTRIES(f64, double)
                                  dayT, ld_day, rs6T, ld_rs6, dps, ld_ps,       \
                                  dprow, ld_row, group, inv_h, c4, c4h,         \
                                  stream);                                      \
+  }                                                                            \
+  int sb_moments_raw_bwd_##SUF(const void* chunks, int n_chunks,               \
+                               const void* rest_rows, const void* static_all,  \
+                               const void* dayT, int64_t ld_day,               \
+                               const void* rs6T, int64_t ld_rs6, void* dps,    \
+                               int64_t ld_ps, void* dprow, int64_t ld_row,     \
+                               int group, double inv_h, double c4, double c4h, \
+                               int rows, int tail, void* stream) {             \
+    auto* launch = rows ? (tail ? launch_moments_raw_bwd<T, true, true>        \
+                                : launch_moments_raw_bwd<T, false, true>)      \
+                        : (tail ? launch_moments_raw_bwd<T, true, false>       \
+                                : launch_moments_raw_bwd<T, false, false>);    \
+    return launch(chunks, n_chunks, rest_rows, static_all, dayT, ld_day, rs6T, \
+                  ld_rs6, dps, ld_ps, dprow, ld_row, group, inv_h, c4, c4h,    \
+                  stream);                                                     \
   }                                                                            \
   int sb_forces_warp_v4_bwd_rows_##SUF(                                        \
       const void* sched, int n_sched, const void* rest_rows,                   \

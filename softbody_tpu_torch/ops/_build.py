@@ -1,18 +1,19 @@
 """Build and load the hand-written CUDA kernels: csrc/pair_kernels.cu (the
 whole-scene kernels, one launch per evaluation each: the v4 path's K1/K2
-forward and backward, K2 v2 of the fused path and the blocked layout and
-its backward, and the fixed-order scatter), csrc/fused_kernels.cu (the
-fused K1 + mid-section and the raw K1 of the blocked layout, with its
-backward) and csrc/separable_kernels.cu (the Taichi pairing's separable K2
-and its backward), each including csrc/common.cuh.
+forward and backward, the fused path's K1 + mid-section, K2 v2 of the
+fused path and the blocked layout and its backward, the raw K1's backward,
+and the fixed-order scatter), csrc/fused_kernels.cu (the raw K1 of the
+blocked layout) and csrc/separable_kernels.cu (the Taichi pairing's
+separable K2 and its backward), each including csrc/common.cuh
+(pair_kernels.cu also csrc/mid.cuh).
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
 one library per source, into the package's git-ignored build directory at
 first use, from the sources in the repository only; the missing libraries
 are compiled by one nvcc process each, all started together.  The libraries
 have a plain C interface and are loaded with ctypes.  A library's name
-carries a hash of its source, the shared header and the flags, so an edited
-source is rebuilt, and the build writes a temporary file and renames it, so
+carries a hash of its source, the headers in csrc/ and the flags, so an
+edited source or header is rebuilt, and the build writes a temporary file and renames it, so
 concurrent first uses cannot load a half-written library.  ``ptxas -v``
 output (registers, shared memory, spills per kernel) is kept beside each
 library as ``<name>.log``.
@@ -30,7 +31,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pair_kernels", "fused_kernels", "separable_kernels")
-HEADER = CSRC / "common.cuh"
+HEADERS = ("common.cuh", "mid.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,8 +46,13 @@ SIGNATURES = {
                        _F64, _F64, _F64, _P],
         "forces_warp_v4": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64,
                            _I32, _F64, _F64, _P],
+        "moments_mid": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
+                        _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I32,
+                        _F64, _F64, _F64, _I32, _I32, _P],
         "moments_v4_bwd": [_P, _I32, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
                            _I64, _I32, _F64, _F64, _F64, _P],
+        "moments_raw_bwd": [_P, _I32, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
+                            _I64, _I32, _F64, _F64, _F64, _I32, _I32, _P],
         "forces_warp_v4_bwd_rows": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
                                     _I64, _I32, _F64, _F64, _P],
         "forces_warp_v4_bwd_slab": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
@@ -61,11 +67,6 @@ SIGNATURES = {
         "slab_to_slots": [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
     "fused_kernels": {
-        "moments_mid": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _P,
-                        _P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _F64,
-                        _F64, _F64, _I32, _I32, _P],
-        "moments_raw_bwd": [_P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64,
-                            _F64, _P],
         "moments_raw": [_P, _P, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _F64, _F64, _P],
     },
@@ -99,7 +100,8 @@ def source_path(source: str) -> Path:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256(source_path(source).read_bytes() + HEADER.read_bytes()
+    digest = hashlib.sha256(source_path(source).read_bytes()
+                            + b"".join((CSRC / h).read_bytes() for h in HEADERS)
                             + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
 

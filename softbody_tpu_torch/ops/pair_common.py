@@ -349,6 +349,23 @@ def aligned(name, x, lane_major=False):
                          f"elements, got {x.stride(0)}")
 
 
+def whole_pieces(sb, piece, name):
+    """Refuse a scene whose slabs are not whole ``piece``-entry pieces: the
+    kernels that serve only the sparse scene (its slabs are multiples of
+    128) have no partial-stage (or partial-chunk) form."""
+    odd = [b.slab_len for b in sb.buckets if b.slab_len % piece]
+    if odd:
+        raise ValueError(f"{name} takes slabs of whole {piece}-entry pieces, "
+                         f"got {odd}")
+
+
+def has_tail(sb, piece) -> int:
+    """1 when a slab of ``sb`` ends inside a ``piece``-entry piece (a ring
+    stage, or a backward chunk): the kernels' ragged-tail instantiation
+    runs (the blocked layout's slabs of 9 run_len)."""
+    return int(any(b.slab_len % piece for b in sb.buckets))
+
+
 def n_entries(sb) -> int:
     """Slab entries of the scene, sum_b t_b slab_b: the columns of a
     per-slab-entry buffer."""

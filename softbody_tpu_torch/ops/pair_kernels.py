@@ -48,11 +48,11 @@ backward go through a :class:`PairOps` — :data:`KERNELS` (the wrappers:
 plain on the CPU, kernels on the card) or :data:`PLAIN` (the plain versions
 on any device, the yardstick the kernels are held against on the card).
 The two tables also carry the fused path's functions and the blocked
-layout's raw K1 (``ops/fused_kernels.py``; its K2 v2 and that K2's
-backward passes are whole-scene kernels of csrc/pair_kernels.cu, the v4
-K2's bodies with the v2 record's epilogue) and the Taichi pairing's
-separable K2 (``ops/separable_kernels.py``), and :func:`launch_counts`
-counts every path's kernels.  The kernels read their slab operands
+layout's raw K1 (``ops/fused_kernels.py``; the fused K1 + mid-section,
+K2 v2 and its backward passes and the raw K1's backward are whole-scene
+kernels of csrc/pair_kernels.cu, the v4 bodies with their own epilogues)
+and the Taichi pairing's separable K2 (``ops/separable_kernels.py``), and
+:func:`launch_counts` counts every path's kernels.  The kernels read their slab operands
 themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
 (t, 3, slab) / (t, 16, slab) gathered copies the TPU path materialised
 (``packed.gather_packed_T``) do not exist here.
@@ -75,7 +75,7 @@ from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, aligned, bucket_co
                           centered_moments, check, check_lane_major,
                           check_scene, entry, flat_entries, n_entries,
                           on, raise_on, raw_moments_bwd, spline_constants,
-                          stream, warp_termj, warp_termj_bwd)
+                          stream, warp_termj, warp_termj_bwd, whole_pieces)
 
 
 # ------------------------------------------------------------- plain versions
@@ -309,21 +309,14 @@ def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
 RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
           "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab", "forces_warp_v2",
           "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab",
-          "forces_warp_v2 (tail)", "forces_warp_v2_bwd_rows (tail)")
-
-
-def _whole_pieces(sb, piece, name):
-    """The v4 kernels serve the sparse scene, whose slabs are whole
-    128-entry chunks: they have no partial-stage (or partial-chunk) form."""
-    odd = [b.slab_len for b in sb.buckets if b.slab_len % piece]
-    if odd:
-        raise ValueError(f"{name} takes slabs of whole {piece}-entry pieces, "
-                         f"got {odd}")
+          "forces_warp_v2 (tail)", "forces_warp_v2_bwd_rows (tail)", "moments_mid",
+          "moments_raw_bwd", "moments_raw_bwd (tail)")
 
 
 def ragged_info() -> dict:
     """What the card gives the whole-scene kernels (K1/K2 v4, K2 v2 and
-    their backwards): {(kernel, dtype):
+    their backwards, the fused K1 + mid-section and the raw K1 backward):
+    {(kernel, dtype):
     {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
     threads}} (cudaFuncGetAttributes,
     cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a card."""
@@ -342,7 +335,7 @@ def ragged_info() -> dict:
 def _launch_moments(sb, posT, posT_rows, h):
     device, dtype = posT.device, posT.dtype
     check_scene(sb, dtype, device)
-    _whole_pieces(sb, RAGGED_CHUNK, "moments_v4")
+    whole_pieces(sb, RAGGED_CHUNK, "moments_v4")
     m = sb.n_tiles * sb.rows
     check_lane_major("posT", posT, dtype, device, 3, sb.n_slots)
     check_lane_major("posT_rows", posT_rows, dtype, device, 3, m)
@@ -364,7 +357,7 @@ def _launch_moments(sb, posT, posT_rows, h):
 def _launch_forces(sb, f9T, srT, h):
     device, dtype = srT.device, srT.dtype
     check_scene(sb, dtype, device)
-    _whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4")
+    whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4")
     m = sb.n_tiles * sb.rows
     check_lane_major("f9T", f9T, dtype, device, 9, m)
     check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
@@ -388,7 +381,7 @@ def _launch_moments_bwd(sb, dayT, h):
     every slab."""
     device, dtype = dayT.device, dayT.dtype
     check_scene(sb, dtype, device, chunks=True)
-    _whole_pieces(sb, BWD_CHUNK, "moments_v4_bwd")
+    whole_pieces(sb, BWD_CHUNK, "moments_v4_bwd")
     m = sb.n_tiles * sb.rows
     check_lane_major("dayT", dayT, dtype, device, 18, m)
     check_lane_major("rs6T", sb.rs6T, dtype, device, 6, m)
@@ -421,7 +414,7 @@ def _launch_forces_bwd_rows(sb, f9T, srT, dfT, h):
     """df9T (9, m): the forward K2's structure, a lane per row, four warps
     splitting the slab."""
     device, dtype, m = _check_forces_bwd(sb, f9T, srT, dfT, False)
-    _whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4_bwd_rows")
+    whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4_bwd_rows")
     aligned("srT", srT, lane_major=True)
     df9 = torch.empty((9, m), dtype=dtype, device=device)
     if sb.n_tiles == 0:
@@ -557,13 +550,14 @@ reset_launch_counts()
 
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
-    """The pair functions an evaluation goes through (K1 and K2 of the v4
-    path, K2 v2 and their backwards over the whole scene, every other one
-    per bucket), of the v4 path, the fused path and the blocked layout's raw
-    K1 and K2 v2 (``ops/fused_kernels.py``) and the Taichi pairing's
-    separable K2 (``ops/separable_kernels.py``): :data:`KERNELS` (device
-    dispatch) or :data:`PLAIN` (the plain versions on any device, the
-    yardstick the kernels are held against on the card)."""
+    """The pair functions an evaluation goes through (those of the v4 path,
+    the fused path and the blocked layout's K2 v2 and raw K1 backward over
+    the whole scene; the raw K1 and the separable K2 and its backward per
+    bucket), of the v4 path, the fused path and the blocked layout's raw K1
+    and K2 v2 (``ops/fused_kernels.py``) and the Taichi pairing's separable
+    K2 (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
+    :data:`PLAIN` (the plain versions on any device, the yardstick the
+    kernels are held against on the card)."""
 
     moments: Callable
     forces: Callable
@@ -586,8 +580,8 @@ KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
 PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 moments_v4_bwd_scene_plain, forces_warp_v4_bwd_scene_plain,
                 slab_to_slots_plain,
-                fk.moments_mid_plain, fk.forces_warp_v2_scene_plain,
-                fk.moments_raw_bwd_plain, fk.forces_warp_v2_bwd_scene_plain,
+                fk.moments_mid_scene_plain, fk.forces_warp_v2_scene_plain,
+                fk.moments_raw_bwd_scene_plain, fk.forces_warp_v2_bwd_scene_plain,
                 fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
 
 

@@ -1,10 +1,12 @@
 """Device time per evaluation of the sparse path's K1 (``moments_v4``) and
 K2 (``forces_warp_v4``) forward kernels and their backwards
-(``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``), and of K2
-v2 (``forces_warp_v2``) and its backward passes on the fused path's
-records over the sparse scene and on path B's over the blocked varcol
-scene (``varcol_``), at the ~112k stretch scene on one CUDA card, and the
-steps they sit in, for this checkout or another one (``--tree``), so that
+(``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``), of the
+fused path's K1 + mid-section (``moments_mid``), of the raw K1 backward
+(``moments_raw_bwd``: with its row term on the fused path, without on
+path B) and of K2 v2 (``forces_warp_v2``) and its backward passes on the
+fused path's records over the sparse scene and on path B's over the
+blocked varcol scene (``varcol_``), at the ~112k stretch scene on one CUDA
+card, and the steps they sit in, for this checkout or another one (``--tree``), so that
 two versions can be compared on one card in one sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
@@ -14,9 +16,9 @@ operands are those of ``chip_smoke.py`` phases 3, 14 and 25
 (``fit_body(100000)``, STRETCH, f32, a stretched and jittered body, the
 plain path's F, S, R, and the fused path's and path B's fmT / srT), and
 seeded random cotangents for the backwards.  A kernel whose wrapper
-takes one bucket is timed as its 8 launches back to back (and, as
-``chip_smoke.py`` summed them, launch by launch); one whose wrapper takes
-the whole scene as its one launch.  CUDA events around
+takes one bucket (found from the wrapper's signature) is timed as its 8
+launches back to back (and, as ``chip_smoke.py`` summed them, launch by
+launch); one whose wrapper takes the whole scene as its one launch.  CUDA events around
 ``--reps`` evaluations queued behind a sleep kernel, warm.  Prints one JSON
 line: the tree, the card (``nvidia-smi`` name and power limit), the ms per
 evaluation and the launches per evaluation of each kernel, and for the
@@ -27,7 +29,8 @@ of 3), each with the device's busy ms and activities per step
 (``torch.profiler`` over 10 steps, as ``chip_smoke.py`` phases 8 and 11
 take them), and each kernel's SASS instructions per pair in f32
 (``cuobjdump -sass`` of the built libraries: the innermost loop around the
-pair's one ``MUFU.RSQ``, its instructions over its ``MUFU`` count).  Needs
+pair's one ``MUFU.RSQ`` that reads shared memory, its instructions over
+its ``MUFU`` count).  Needs
 a card.
 """
 
@@ -108,9 +111,11 @@ def step_numbers(torch, scene, cfg, ratio, x, dev):
 
 def sass_per_pair(lib_path, names):
     """{name: SASS instructions per pair of the f32 kernel ``name``} (and
-    ``name_tail`` for its ragged-tail instantiation): the shortest
-    backward-branch loop holding a MUFU, its length over its MUFU count
-    (one rsqrt per pair)."""
+    ``name_tail`` for its ragged-tail instantiation, the one whose first
+    bool template argument is true): the shortest backward-branch loop
+    holding a MUFU and a shared-memory load (the pair loop; not the
+    mid-section's Jacobi sweeps), its length over its MUFU count (one
+    rsqrt per pair)."""
     import re
 
     from softbody_tpu_torch.ops import _build
@@ -134,7 +139,7 @@ def sass_per_pair(lib_path, names):
             if tgt and int(tgt.group(1), 16) < a:
                 body = [o for x, o in ins if int(tgt.group(1), 16) <= x <= a]
                 mufu = sum("MUFU" in o for o in body)
-                if mufu:
+                if mufu and any(o.startswith("LDS") for o in body):
                     loops.append((len(body), mufu))
         if loops:
             n, mufu = min(loops)
@@ -281,6 +286,31 @@ def main():
                 fns.append(lambda w=wrapper, a=a: w(*a, h))
             evals[label + name] = lambda fns=fns: [f() for f in fns]
             per_launch[label + name] = fns
+    # the fused path's K1 + mid-section on the sparse scene, and the raw K1
+    # backward with its row term there and without it on the varcol scene
+    scale = cfg.stiffness_scale(ratio[:m])
+    dayT_b = torch.as_tensor(rng.normal(size=(18, m_b)), dtype=torch.float32, device=dev)
+    if "sb" in inspect.signature(fk.moments_mid).parameters:
+        evals["moments_mid"] = lambda: fk.moments_mid(sb, posT, posT[:, :m], rs, scale, h,
+                                                      cfg.corotated)
+    else:
+        fns = [lambda b=b: fk.moments_mid(b.restT_rows, b.static_slab, posT,
+                                          posT[:, cols(b)], rs.cols(cols(b)),
+                                          scale[cols(b)], b.gidx8, h, cfg.corotated)
+               for b in sb.buckets]
+        evals["moments_mid"] = lambda fns=fns: [f() for f in fns]
+        per_launch["moments_mid"] = fns
+    raw_whole = "sb" in inspect.signature(fk.moments_raw_bwd).parameters
+    for label, sc_, day in (("", sb, dayT), ("varcol_", blk, dayT_b)):
+        if raw_whole:
+            evals[label + "moments_raw_bwd"] = (lambda sc_=sc_, day=day:
+                                                fk.moments_raw_bwd(sc_, day, h, sc_ is sb))
+            continue
+        fns = [lambda b=b, day=day, c=slice(b.row_start, b.row_start + b.n_tiles * sc_.rows):
+               fk.moments_raw_bwd(b.restT_rows, b.static_slab, day[:, c], h)
+               for b in sc_.buckets]
+        evals[label + "moments_raw_bwd"] = lambda fns=fns: [f() for f in fns]
+        per_launch[label + "moments_raw_bwd"] = fns
     out = {"tree": str(Path(args.tree).resolve()),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -297,9 +327,10 @@ def main():
                 cuda_ms(torch, f, args.reps) for f in per_launch[key])
     from softbody_tpu_torch.ops import _build
     out["sass_per_pair"] = {}
-    for source in ("pair_kernels", "fused_kernels"):   # K2 v2: either, by tree
-        out["sass_per_pair"].update(sass_per_pair(_build.library_path(source),
-                                                  tuple(per_bucket) + v2_kernels))
+    for source in ("pair_kernels", "fused_kernels"):   # either, by tree
+        out["sass_per_pair"].update(sass_per_pair(
+            _build.library_path(source),
+            tuple(per_bucket) + v2_kernels + ("moments_mid", "moments_raw_bwd")))
     out["buckets_varcol"] = [[b.slab_len, b.n_tiles] for b in blk.buckets]
     del fmT, srT_f, fmT_b, srT_b
     out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))

@@ -22,18 +22,19 @@ With ``cfg.fused_mid`` (Warp pairing only: with ``"j"`` it runs the
 ``"j"`` branch above, as the JAX package does) the mid-section moves into
 the K1 kernel (``ops/fused_kernels.py``):
 
-  posT -> [moments_mid_all: fused K1 + mid-section per bucket]
+  posT -> [moments_mid_all: fused K1 + mid-section, one launch]
     -> fmT (19, m) = [F_9 | M_9 | V_i], srT (15, n_slots)
     -> [forces_v2_all: K2 forces_warp_v2, one launch, term_i and 0.5 V_i in
         the kernel] -> fT (3, m) -> forces (n_slots, 3)
 
-K1 and K2 of the default path (and K1 of the Taichi pairing) and K2 v2 of
-the fused path launch once per force evaluation over every tile of every
-bucket, in the scene's tile schedule (``SparseBlocked.schedule``, longest
-slab first); the other kernels launch once per bucket (8 buckets at the
-~112k stretch scene), the JAX path's granularity.  Tiles are bucket-major, so a bucket's rows are a
-contiguous column range of every lane-major array and the per-bucket results
-concatenate straight into tile order.  The VJP runs backwards through the
+K1 and K2 of the default path (and K1 of the Taichi pairing) and the fused
+path's K1 + mid-section and K2 v2 launch once per force evaluation over
+every tile of every bucket, in the scene's tile schedule
+(``SparseBlocked.schedule``, longest slab first); the Taichi pairing's
+separable K2 launches once per bucket (8 buckets at the ~112k stretch
+scene), the JAX path's granularity.  Tiles are bucket-major, so a bucket's
+rows are a contiguous column range of every lane-major array and the
+per-bucket results concatenate straight into tile order.  The VJP runs backwards through the
 same chain: the K2 backward (its row pass and its slab pass) and the K1
 backward, one launch each over the whole scene (the slab side over
 ``SparseBlocked.chunks``), each followed by one fixed-order
@@ -226,9 +227,9 @@ def separable_forces(pos_slots, M, vol_m, sb, cfg: SimConfig, pair_ops: PairOps)
 def _fused_forces(pos_slots, posT, ratio_slots, mats: Materials, scene: Scene,
                   cfg: SimConfig, pair_ops: PairOps):
     """The fused path (counterpart of ``softbody_tpu/sim/sparse.py:340-381``):
-    per bucket one K1 + mid-section kernel emits the K2 records fmT / srT,
-    then K2 v2, one launch over the scene, applies term_i and the 0.5 V_i
-    scale itself."""
+    one K1 + mid-section launch over the scene emits the K2 records fmT /
+    srT, then K2 v2, one launch over the scene, applies term_i and the
+    0.5 V_i scale itself."""
     sb: SparseBlocked = scene.blocked
     m = sb.n_tiles * sb.rows
     scale = cfg.stiffness_scale(ratio_slots[:m])

@@ -300,7 +300,7 @@ def test_backward_kernels_refuse_bad_operands():
 
 # ------------------------------------------------------------ the fused path
 def _fused_inputs(scene, cfg, pos, ratio, seed):
-    """Per-bucket operands of the four fused kernels, and random
+    """Operands of the four fused kernels, and random
     cotangents."""
     sb = scene.blocked
     m = sb.n_tiles * sb.rows
@@ -350,35 +350,80 @@ def _hold_v2_per_bucket(sb, fmT, srT, dfT, h, got, tol):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("corotated", [True, False])
 def test_fused_kernels_match_plain_per_bucket(dtype, corotated):
-    """The fused K1 + mid-section and the raw K1 backward per bucket; K2 v2
-    and its two backward passes once over the whole scene, each bucket's
-    columns held against that bucket's plain version."""
+    """The fused K1 + mid-section, the raw K1 backward with its row term,
+    K2 v2 and its two backward passes, one launch each over the whole
+    scene, each bucket's columns held against that bucket's plain version;
+    srT's padding columns zero; a second launch bit for bit the first."""
     dev = _card()
     cfg, scene, pos, ratio = _scene(dtype, dev)
     cfg = cfg.replace(corotated=corotated)
     sb = scene.blocked
+    m = sb.n_tiles * sb.rows
     posT, rs, scale, fmT, srT, dayT, dfT = _fused_inputs(scene, cfg, pos, ratio, 6)
+
+    def launch():
+        return (fk.moments_mid(sb, posT, posT[:, :m], rs, scale, cfg.h, corotated, True),
+                fk.moments_raw_bwd(sb, dayT, cfg.h, True))
+
     pk.reset_launch_counts()
+    (k_fm, k_sr, k_ay), (k_dps, k_dprow) = got = launch()
+    assert k_sr.shape == (15, sb.n_slots) and not k_sr[:, m:].any()
+    p_dprow = -sum(dayT.view(6, 3, m)[k] * sb.rs6T[k] for k in range(6))
+    e0 = 0
     for b in sb.buckets:
-        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-        a_mid = (b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c),
-                 scale[c], b.gidx8, cfg.h, corotated, True)
-        pairs = [
-            (fk.moments_mid(*a_mid), fk.moments_mid_plain(*a_mid)),
-            ((fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),),
-             (fk.moments_raw_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c], cfg.h),)),
-        ]
-        for outs_k, outs_p in pairs:
-            for got, want in zip(outs_k, outs_p):
-                assert got.shape == want.shape
-                assert _rel(got, want) <= TOL[dtype], (b.slab_len, _rel(got, want))
+        t, slab = b.n_tiles, b.slab_len
+        c = slice(b.row_start, b.row_start + t * sb.rows)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        p_mid = fk.moments_mid_plain(b.restT_rows, b.static_slab, posT, posT[:, c],
+                                     rs.cols(c), scale[c], b.gidx8, cfg.h, corotated, True)
+        p_dps = fk.moments_raw_bwd_plain(b.restT_rows, b.static_slab, dayT[:, c], cfg.h)
+        pairs = list(zip((k_fm[:, c], k_sr[:, c], k_ay[:, c]), p_mid)) + [
+            (k_dps[:, seg].view(3, t, slab).permute(1, 0, 2), p_dps),
+            (k_dprow[:, c], p_dprow[:, c])]
+        for g, want in pairs:
+            assert g.shape == want.shape
+            assert _rel(g, want) <= TOL[dtype], (slab, _rel(g, want))
+    assert e0 == k_dps.shape[1]
+    again = launch()
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1], again[0] + again[1]))
+    pk.reset_launch_counts()
     _hold_v2_per_bucket(sb, fmT, srT, dfT, cfg.h, _v2_launches(sb, fmT, srT, dfT, cfg.h),
                         TOL[dtype])
-    n = len(sb.buckets)
     counts = pk.launch_counts()
     assert counts == dict.fromkeys(counts, 0) | {
-        "moments_mid": n, "forces_warp_v2": 1, "moments_raw_bwd": n,
-        "forces_warp_v2_bwd_rows": 1, "forces_warp_v2_bwd_slab": 1}
+        "forces_warp_v2": 1, "forces_warp_v2_bwd_rows": 1, "forces_warp_v2_bwd_slab": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_raw_bwd_on_a_varcol_slab_with_a_tail(dtype):
+    """The raw K1 backward on a blocked varcol scene whose slab (936
+    entries: 7 x 128 + 40) ends inside a 128-entry chunk, with and without
+    its row term: one launch over the scene against the per-bucket plain
+    version, and a second launch bit for bit the first."""
+    dev = _card()
+    cfg, scene, pos, _ = _scene(dtype, dev, blocked=True)
+    blk = scene.blocked
+    assert blk.slab_len % 128
+    m = blk.n_tiles * blk.rows
+    dayT = torch.as_tensor(np.random.default_rng(11).normal(size=(18, m)),
+                           dtype=pos.dtype, device=dev)
+    b = blk.bucket
+    p_dps = fk.moments_raw_bwd_plain(b.restT_rows, b.static_slab, dayT, cfg.h)
+    for rows in (False, True):
+        pk.reset_launch_counts()
+        dps, dprow = fk.moments_raw_bwd(blk, dayT, cfg.h, rows)
+        counts = pk.launch_counts()
+        assert counts == dict.fromkeys(counts, 0) | {"moments_raw_bwd": 1}
+        got = dps.view(3, blk.n_tiles, blk.slab_len).permute(1, 0, 2)
+        assert _rel(got, p_dps) <= TOL[dtype]
+        if rows:
+            want = -sum(dayT.view(6, 3, m)[k] * blk.rs6T[k] for k in range(6))
+            assert _rel(dprow, want) <= TOL[dtype]
+        else:
+            assert dprow is None
+        again = fk.moments_raw_bwd(blk, dayT, cfg.h, rows)
+        assert torch.equal(dps, again[0])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -413,8 +458,9 @@ def test_v2_kernels_on_a_varcol_slab_with_a_tail(dtype):
 
 
 def test_one_launch_of_each_v2_kernel_per_force_evaluation():
-    """The fused path and path B: one K2 v2 launch per force evaluation,
-    one launch of each backward pass per backward evaluation."""
+    """The fused path and path B: one K2 v2 launch (and on the fused path
+    one K1 + mid-section launch) per force evaluation, one launch of each
+    backward pass and of the raw K1 backward per backward evaluation."""
     dev = _card()
     for blocked in (False, True):
         cfg, scene, pos, ratio = _scene("float32", dev, blocked)
@@ -423,11 +469,14 @@ def test_one_launch_of_each_v2_kernel_per_force_evaluation():
         pk.reset_launch_counts()
         f = (elastic_forces_pallas if blocked else elastic_forces_sparse)(
             p, ratio, scene.materials, scene, c)
-        assert pk.launch_counts()["forces_warp_v2"] == 1
+        counts = pk.launch_counts()
+        assert counts["forces_warp_v2"] == 1
+        assert counts["moments_mid"] == (0 if blocked else 1), counts
         pk.reset_launch_counts()
         torch.autograd.grad(f, p, torch.ones_like(f))
         counts = pk.launch_counts()
         assert counts["forces_warp_v2_bwd_rows"] == counts["forces_warp_v2_bwd_slab"] == 1
+        assert counts["moments_raw_bwd"] == 1, counts
         assert counts["forces_warp_v2"] == 0 and counts["slab_to_slots"] == 2, counts
 
 
@@ -451,17 +500,20 @@ def test_fused_kernels_refuse_bad_operands():
     sb = scene.blocked
     b = sb.buckets[0]
     posT, rs, scale, fmT, srT, dayT, dfT = _fused_inputs(scene, cfg, pos, ratio, 7)
-    c = slice(0, b.n_tiles * sb.rows)
+    m = sb.n_tiles * sb.rows
     with pytest.raises(ValueError, match="contiguous"):
-        fk.moments_mid(b.restT_rows, b.static_slab, posT, posT[:, c], rs.cols(c),
-                       torch.stack([scale[c], scale[c]], dim=1)[:, 0], b.gidx8,
-                       cfg.h, True)
+        fk.moments_mid(sb, posT, posT[:, :m], rs,
+                       torch.stack([scale, scale], dim=1)[:, 0], cfg.h, True)
+    # moments_mid serves the sparse scene, whose slabs are whole 32-entry stages
+    blk = _scene("float32", dev, blocked=True)[1].blocked
+    with pytest.raises(ValueError, match="whole 32"):
+        fk.moments_mid(blk, posT, posT[:, :m], rs, scale, cfg.h, True)
     with pytest.raises(TypeError, match="dtype"):
         fk.forces_warp_v2(sb, fmT.double(), srT, cfg.h)
     with pytest.raises(ValueError, match="19"):
         fk.forces_warp_v2_bwd(sb, fmT[:18], srT, dfT, cfg.h)
     with pytest.raises(ValueError, match="18"):
-        fk.moments_raw_bwd(b.restT_rows, b.static_slab, dayT[:17, c], cfg.h)
+        fk.moments_raw_bwd(sb, dayT[:17], cfg.h, True)
     # the ring copies 16-byte pieces of srT; the slab pass walks every chunk
     shifted = torch.empty(15 * sb.n_slots + 1, device=dev)[1:].view(15, sb.n_slots)
     shifted.copy_(srT)
@@ -470,6 +522,8 @@ def test_fused_kernels_refuse_bad_operands():
     short = dataclasses.replace(sb, chunks=sb.chunks[:-1])
     with pytest.raises(ValueError, match="chunks"):
         fk.forces_warp_v2_bwd_slab(short, fmT, srT, dfT, cfg.h)
+    with pytest.raises(ValueError, match="chunks"):
+        fk.moments_raw_bwd(short, dayT, cfg.h)
     # a slab need only be a multiple of the slot group (8), no other
     odd = dataclasses.replace(sb, buckets=(dataclasses.replace(b, slab_len=b.slab_len - 4),)
                               + sb.buckets[1:])

@@ -6,7 +6,9 @@ carried across with ``convert.scene_from_numpy``:
 * ``fk.moments_mid_plain`` vs ``packed._fused_call`` (``emit_ay``);
 * ``fk.forces_warp_v2_plain`` vs ``packed.forces_warp_packed``;
 * ``fk.moments_raw_bwd_plain`` vs ``pair_kernels._moments_vjp_bwd``;
-* ``fk.forces_warp_v2_bwd_plain`` vs ``pair_kernels._forces_warp_bwd_impl``.
+* ``fk.forces_warp_v2_bwd_plain`` vs ``pair_kernels._forces_warp_bwd_impl``;
+* the whole-scene ``fk.moments_mid`` and ``fk.moments_raw_bwd`` (with its
+  row term) per bucket against the same launches.
 
 Tolerances, relative to max |JAX|: 1e-12 in f64 (another summation order
 over <= 384 slab entries and 32 rows) and 1e-5 in f32, except the fused
@@ -111,11 +113,13 @@ def _bucket_cols(scene_t):
 
 
 def test_row_static_is_the_jax_stat_record(case):
-    """RowStatic reads the scene's own arrays; stacked, they are JAX's
-    stat_rows record [rs6 | mu | lam | vol | rest_corr_9], bit for bit."""
+    """RowStatic reads the scene's own arrays; stacked after the scene's
+    static row sums, they are JAX's stat_rows record [rs6 | mu | lam | vol |
+    rest_corr_9], bit for bit."""
     sc = case["scene_t"]
     rs = fk.row_static(sc.blocked, sc.materials, sc.rest_corr)
-    stacked = torch.cat([rs.rs6T, rs.mu[None], rs.lam[None], rs.vol[None], rs.rcT])
+    stacked = torch.cat([sc.blocked.rs6T, rs.mu[None], rs.lam[None], rs.vol[None],
+                         rs.rcT])
     np.testing.assert_array_equal(stacked.double().numpy().T, case["stat"])
 
 
@@ -172,6 +176,43 @@ def test_backward_plain_versions_match_jax_per_bucket(case):
         assert _rel(dfm[:18].T, ref["dfm"].reshape(mb, 19)[:, :18]) <= TOL[dtype]
         assert _rel(dsr[:, :6], ref["ds6"]) <= TOL[dtype]
         assert _rel(dsr[:, 6:], ref["drT"]) <= TOL[dtype]
+
+
+def test_scene_wrappers_match_jax_per_bucket(case):
+    """The whole-scene wrappers (one launch each on the card, their scene
+    plain versions here) hold each bucket's columns to JAX's per-bucket
+    launches: moments_mid's fm / sr / A | Y, and moments_raw_bwd's slab
+    side (placed at gi_off * group + s) with JAX's row side
+    -pos_i-cotangent . rs6 as its row term."""
+    dtype, cfg, sc = case["dtype"], case["cfg"], case["scene_t"]
+    sb = sc.blocked
+    m = sb.n_tiles * sb.rows
+    posT = _t(case["pos"].T, dtype).contiguous()
+    rs = fk.row_static(sb, sc.materials, sc.rest_corr)
+    dayT = _t(case["day"].T, dtype).contiguous()
+    fmT, srT, ayT = fk.moments_mid(sb, posT, posT[:, :m], rs, _t(case["scale"], dtype),
+                                   cfg.h, True, True)
+    dps, dprow = fk.moments_raw_bwd(sb, dayT, cfg.h, True)
+    tol = TOL["float64"] if dtype == "float64" else TOL_MID_F32
+    assert srT.shape == (15, sb.n_slots) and not srT[:, m:].any()
+    e0 = 0
+    for b, c, ref in zip(sb.buckets, _bucket_cols(sc), case["refs"]):
+        mb, n = b.n_tiles * sb.rows, b.n_tiles * b.slab_len
+        assert _rel(fmT[:, c].T, ref["fm"].reshape(mb, 19)) <= tol
+        assert _rel(srT[:, c].T, ref["sr"].reshape(mb, 16)[:, :15]) <= tol
+        stat, pos_i = case["stat"][c], case["pos"][c]
+        ay = ref["ay"].reshape(mb, 18).copy()
+        for blk in range(6):
+            for a in range(3):
+                ay[:, 3 * blk + a] -= pos_i[:, a] * stat[:, blk]
+        assert _rel(ayT[:, c].T, ay) <= tol
+        got = dps[:, e0:e0 + n].reshape(3, b.n_tiles, b.slab_len).permute(1, 0, 2)
+        assert _rel(got, ref["dps"]) <= TOL[dtype]
+        e0 += n
+    assert e0 == dps.shape[1]
+    ct = case["day"].reshape(m, 6, 3)
+    want = -np.einsum("rka,rk->ar", ct, case["stat"][:, :6])
+    assert _rel(dprow, want) <= TOL[dtype]
 
 
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(case):
