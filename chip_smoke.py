@@ -9,9 +9,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
   1  the card (nvidia-smi name and power limit)
   2  kernel build (nvcc, from csrc/ in this checkout); the whole-scene
      kernels' (K1/K2 v4 forward and their backwards, K2 v2 and its
-     backward passes, the fused K1 + mid-section and the raw K1 backward)
-     registers, shared memory, spills and resident blocks per SM, f32 and
-     f64
+     backward passes, the fused K1 + mid-section, the raw K1 backward, the
+     separable K2 and its backward) registers, shared memory, spills and
+     resident blocks per SM, f32 and f64
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -74,11 +74,12 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      implies (each of its kernels one launch per evaluation; none of the
      v4 kernels, K1/K2 and their backwards)
 
- 21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene, per
-     bucket: the separable K2 forces_sep and its backward's two passes
-     forces_sep_bwd_rows / _slab (the slab pass composed with
-     slab_to_slots), kernel vs plain (<= 1e-4 of max |plain|), ms per
-     launch, the work's bound
+ 21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene:
+     the separable K2 forces_sep and its backward forces_sep_bwd, one
+     launch each over every tile, each bucket's columns vs that bucket's
+     plain version (<= 1e-4 of max |plain|; the backward's slab side
+     composed with slab_to_slots plus its row term), a bitwise repeat, ms
+     per evaluation, the work's bound
  22  one "j" force evaluation and its VJP wrt (positions, x), kernel path
      vs plain path (<= 1e-4), both bitwise equal across two calls;
      fused_mid=True with "j" equals "j" bit for bit
@@ -92,18 +93,19 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  25  path B, the blocked varcol layout of the same body on the pallas
      backend: its build seconds, n_tiles, run length L, slab_len,
      candidate pairs per evaluation (beside the sparse scene's) and static
-     bytes; per launch on its tiles the raw K1 moments_raw, its backward
-     moments_raw_bwd (one launch over the scene, its last 128-entry chunk
-     partial), forces_sep and its backward (each backward's slab side
-     composed with slab_to_slots), kernel vs plain (<= 1e-4), ms per
-     launch, bound; K2 forces_warp_v2 and its passes as in phase 14, on the
+     bytes; per launch on its tiles the raw K1 moments_raw and its
+     backward moments_raw_bwd (one launch over the scene, its last
+     128-entry chunk partial; composed with slab_to_slots), kernel vs plain
+     (<= 1e-4), ms per launch, bound; K2 forces_warp_v2 and its passes as
+     in phase 14 and forces_sep and its backward as in phase 21, on the
      slab of 1,944 entries whose last 32- and 128-entry pieces are
      partial
  26  one path-B evaluation for "i" and "j" against the sparse path at the
      same particle positions (<= 1e-3 of max |f|: the uncentered f32 raw
      dots add noise the centered sparse path lacks), and against its own
      plain path, forces and VJP wrt (positions, x) (<= 1e-4); bitwise
-     repeat; fused_mid is ignored, as in the JAX package
+     repeat; one launch of its K2 and of its K2 backward in that VJP;
+     fused_mid is ignored, as in the JAX package
  27  path B's forward episode and quiet body, as phase 23, the quiet-body
      gate rms drift < 1e-4 m (uncentered true-f32 raw dots)
  28  path B's gradient, as phase 24
@@ -115,9 +117,8 @@ JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; ms per force
-evaluation on the sparse scene: one launch for K1 and K2 v4, the fused
-K1 + mid-section, K2 v2 and their backwards, the sum over the buckets for
-the separable K2 and its backward; the raw K1 on the varcol scene),
+evaluation on the sparse scene, one launch each, but the raw K1's, per
+launch on the varcol scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -148,16 +149,16 @@ EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # K2 v2 and its passes run K2 v4's pair loops (svnw is the scene's static
-# row sums, not a per-pair sum), moments_mid K1 v4's and moments_raw_bwd the
-# K1 v4 backward's; their per-row epilogues add < 0.1% (moments_mid's
-# mid-section is counted on its own)
+# row sums, not a per-pair sum, as in the separable K2 and its backward),
+# moments_mid K1 v4's and moments_raw_bwd the K1 v4 backward's; their
+# per-row epilogues add < 0.1% (moments_mid's mid-section is counted on
+# its own)
 FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do them
                   "moments_v4_bwd": 67, "forces_warp_v4_bwd_rows": 71,
                   "forces_warp_v4_bwd_slab": 118,
                   "moments_mid": 72, "forces_warp_v2": 74, "moments_raw_bwd": 67,
                   "forces_warp_v2_bwd_rows": 71, "forces_warp_v2_bwd_slab": 118,
-                  "forces_sep": 50, "forces_sep_bwd_rows": 32,
-                  "forces_sep_bwd_slab": 44, "moments_raw": 72}
+                  "forces_sep": 43, "forces_sep_bwd": 42, "moments_raw": 72}
 # moments_mid's per-row epilogue, counted from csrc/mid.cuh: A | Y from the
 # warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the SVD's U
 # and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
@@ -527,8 +528,7 @@ def main():
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
-                **{k: path_a["grad"][k] for k in REPLACES
-                   if REPLACES[k][0] == "separable_kernels"},
+                **{k: path_a["grad"][k] for k in ("forces_sep", "forces_sep_bwd")},
                 "moments_raw": path_b["grad"]["moments_raw"]}
     kernels = kernel_json(stats, launches)
     say(f"    total {time.perf_counter() - T_START:.0f} s")
@@ -945,7 +945,7 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         summarize(key, st, 1, tag)
     say("    (moments_mid is timed as the forward runs it, without the A | Y rows "
         "the gradient's recompute also stores)")
-    v2_whole_scene(torch, dev, tag, "sparse scene", sb, fmT, srT, dfT, cfg.h, stats)
+    v2_whole_scene(torch, tag, "sparse scene", sb, fmT, srT, dfT, cfg.h, stats)
     # ---- 15 one fused force evaluation and its VJP
     mats = scene.materials
     f_k = elastic_forces_sparse(pos, ratio, mats, scene, cfg_f)
@@ -1334,30 +1334,40 @@ def held_per_launch(torch, work, prefix, stats=None, reps=20):
     return line
 
 
-def v2_whole_scene(torch, dev, tag, label, sb, fmT, srT, dfT, h, stats=None, reps=50):
-    """K2 v2 and its two backward passes, one launch each over every tile
-    of ``sb`` (the sparse or the blocked scene): each bucket's columns held
-    against that bucket's plain version (the slab pass composed with
-    slab_to_slots), a bitwise repeat, ms per evaluation and the work's
-    bound.  Into ``stats`` when given, else printed."""
-    from softbody_tpu_torch.ops import fused_kernels as fk
+def scene_slots(torch, sb, side, seg, scatter, rows=None, c=None):
+    """A per-entry slab side placed at its columns ``seg`` of a whole-scene
+    (k, n_entries) buffer and summed into slots by ``scatter``, plus a row
+    term ``rows`` at its columns ``c`` when given."""
     from softbody_tpu_torch.ops import pair_kernels as pk
 
-    f32 = fmT.element_size()
-    m = sb.n_tiles * sb.rows
-    n_entries = pk.n_entries(sb)
-    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
-    launch = {
-        "forces_warp_v2": lambda: fk.forces_warp_v2(sb, fmT, srT, h),
-        "forces_warp_v2_bwd_rows": lambda: fk.forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h),
-        "forces_warp_v2_bwd_slab": lambda: fk.forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h),
-    }
+    buf = torch.zeros((side.shape[0], pk.n_entries(sb)), dtype=side.dtype,
+                      device=side.device)
+    buf[:, seg] = side
+    out = scatter(buf, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    if rows is not None:
+        out[:, c] += rows
+    return out
+
+
+def whole_scene_held(torch, tag, label, sb, launch, per_bucket, nbytes, stats=None,
+                     reps=50):
+    """The kernels of ``launch`` (name: its whole-scene call), one launch
+    each over every tile of ``sb`` (the sparse or the blocked scene): each
+    bucket's columns held against that bucket's plain version, a bitwise
+    repeat, ms per evaluation and the work's bound (``nbytes``: name: bytes
+    moved).  ``per_bucket(b, c, seg, got)`` gives, for bucket ``b`` with
+    row columns ``c`` and slab entries ``seg``, the parts held (name:
+    (kernel's, plain's)) and its plain calls ((names, call), each call timed
+    once and charged to every name).  Into ``stats`` when given, else
+    printed."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
     pk.reset_launch_counts()
     got = {k: fn() for k, fn in launch.items()}
     torch.cuda.synchronize()
     counts = pk.launch_counts()
     if any(counts[k] != 1 for k in launch):
-        fail(f"K2 v2 on the {label}: launches {counts}, expected one of each")
+        fail(f"{', '.join(launch)} on the {label}: launches {counts}, expected one of each")
     errs = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in launch}
     plain_ms = dict.fromkeys(launch, 0.0)
     e0 = 0
@@ -1366,47 +1376,28 @@ def v2_whole_scene(torch, dev, tag, label, sb, fmT, srT, dfT, h, stats=None, rep
         c = slice(b.row_start, b.row_start + t * sb.rows)
         seg = slice(e0, e0 + t * slab)
         e0 += t * slab
-        a = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
-        p_dfm, p_dsr = fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h)
-
-        def slots(d, scatter, seg=seg):
-            buf = torch.zeros((15, n_entries), dtype=d.dtype, device=dev)
-            buf[:, seg] = d
-            return scatter(buf, *to_slots)
-
-        held = {
-            "forces_warp_v2": (got["forces_warp_v2"][:, c], fk.forces_warp_v2_plain(*a, h)),
-            "forces_warp_v2_bwd_rows": (got["forces_warp_v2_bwd_rows"][:, c], p_dfm),
-            "forces_warp_v2_bwd_slab": (
-                slots(got["forces_warp_v2_bwd_slab"][:, seg], pk.slab_to_slots),
-                slots(p_dsr.permute(1, 0, 2).reshape(15, -1), pk.slab_to_slots_plain)),
-        }
+        held, plain = per_bucket(b, c, seg, got)
         line = [f"{k} err {record(errs[k], g, w, f'{k} {label} bucket {i}'):.2e}"
                 for k, (g, w) in held.items()]
-        del p_dfm, p_dsr, held
-        ms_f = cuda_ms(lambda: fk.forces_warp_v2_plain(*a, h), 1)
-        ms_b = cuda_ms(lambda: fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h), 1)
-        plain_ms["forces_warp_v2"] += ms_f
-        plain_ms["forces_warp_v2_bwd_rows"] += ms_b
-        plain_ms["forces_warp_v2_bwd_slab"] += ms_b
+        del held
+        times = []
+        for names, call in plain:
+            times.append(cuda_ms(call, 1))
+            for k in names:
+                plain_ms[k] += times[-1]
         say(f"      {label} bucket {i}: slab {slab:4d} tiles {t:4d} | " + " | ".join(line)
-            + f" (plain {ms_f:.2f} / {ms_b:.2f} ms)")
+            + f" (plain {' / '.join(f'{x:.2f}' for x in times)} ms)")
+
+    def flat(outs):
+        return [x for v in outs for x in (v if isinstance(v, tuple) else (v,))]
+
     again = [fn() for fn in launch.values()]
-    same = all(torch.equal(got[k], x) for k, x in zip(launch, again))
+    same = all(torch.equal(x, y) for x, y in zip(flat(got.values()), flat(again)))
     say(f"      second launch of each bitwise equal: {same}")
     if not same:
-        fail(f"a K2 v2 kernel does not repeat bit for bit on the {label}")
+        fail(f"a kernel of {', '.join(launch)} does not repeat bit for bit on the {label}")
     del got, again
     pairs = sum(b.n_tiles * sb.rows * b.slab_len for b in sb.buckets)
-    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
-    tiles = (sb.rest_rows.numel() + sb.static_all.numel()) * f32 + sb.gidx_all.numel() * 4
-    rows_side = tiles + sb.schedule.numel() * 8
-    nbytes = {   # each input read once, each output written once
-        "forces_warp_v2": rows_side + (19 * m + 3 * m + 15 * uniq + 3 * m) * f32,
-        "forces_warp_v2_bwd_rows": rows_side + (m + 3 * m + 15 * uniq + 3 * m + 19 * m) * f32,
-        "forces_warp_v2_bwd_slab": tiles + sb.chunks.numel() * 8
-        + (10 * m + 3 * m + 15 * uniq + 15 * n_entries) * f32,
-    }
     for k, fn in launch.items():
         st = stats[k] if stats is not None else {}
         st.update(ms=cuda_ms(fn, reps), launch_ms=host_ms(fn, reps), plain_ms=plain_ms[k],
@@ -1416,12 +1407,96 @@ def v2_whole_scene(torch, dev, tag, label, sb, fmT, srT, dfT, h, stats=None, rep
         summarize(k, st, 1, f"({label}) {tag}")
 
 
+def v2_whole_scene(torch, tag, label, sb, fmT, srT, dfT, h, stats=None, reps=50):
+    """K2 v2 and its two backward passes through ``whole_scene_held`` (the
+    slab pass composed with slab_to_slots)."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
+    f32 = fmT.element_size()
+    m = sb.n_tiles * sb.rows
+    launch = {
+        "forces_warp_v2": lambda: fk.forces_warp_v2(sb, fmT, srT, h),
+        "forces_warp_v2_bwd_rows": lambda: fk.forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h),
+        "forces_warp_v2_bwd_slab": lambda: fk.forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h),
+    }
+
+    def per_bucket(b, c, seg, got):
+        a = (b.restT_rows, b.static_slab, fmT[:, c], srT, b.gidx8)
+        p_dfm, p_dsr = fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h)
+        held = {
+            "forces_warp_v2": (got["forces_warp_v2"][:, c], fk.forces_warp_v2_plain(*a, h)),
+            "forces_warp_v2_bwd_rows": (got["forces_warp_v2_bwd_rows"][:, c], p_dfm),
+            "forces_warp_v2_bwd_slab": (
+                scene_slots(torch, sb, got["forces_warp_v2_bwd_slab"][:, seg], seg,
+                            pk.slab_to_slots),
+                scene_slots(torch, sb, p_dsr.permute(1, 0, 2).reshape(15, -1), seg,
+                            pk.slab_to_slots_plain)),
+        }
+        return held, [(("forces_warp_v2",), lambda: fk.forces_warp_v2_plain(*a, h)),
+                      (("forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab"),
+                       lambda: fk.forces_warp_v2_bwd_plain(*a, dfT[:, c], h))]
+
+    n_entries = pk.n_entries(sb)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group   # slots the scene reads
+    tiles = (sb.rest_rows.numel() + sb.static_all.numel()) * f32 + sb.gidx_all.numel() * 4
+    rows_side = tiles + sb.schedule.numel() * 8
+    nbytes = {   # each input read once, each output written once
+        "forces_warp_v2": rows_side + (19 * m + 3 * m + 15 * uniq + 3 * m) * f32,
+        "forces_warp_v2_bwd_rows": rows_side + (m + 3 * m + 15 * uniq + 3 * m + 19 * m) * f32,
+        "forces_warp_v2_bwd_slab": tiles + sb.chunks.numel() * 8
+        + (10 * m + 3 * m + 15 * uniq + 15 * n_entries) * f32,
+    }
+    whole_scene_held(torch, tag, label, sb, launch, per_bucket, nbytes, stats, reps)
+
+
+def sep_whole_scene(torch, tag, label, sb, gT, vol_m, dfT, h, stats=None, reps=50):
+    """The separable K2 and its backward through ``whole_scene_held`` (the
+    backward's slab side composed with slab_to_slots, plus its row
+    term)."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops import separable_kernels as sk
+
+    f32 = gT.element_size()
+    m = sb.n_tiles * sb.rows
+    launch = {"forces_sep": lambda: sk.forces_sep(sb, gT, vol_m, h),
+              "forces_sep_bwd": lambda: sk.forces_sep_bwd(sb, vol_m, dfT, h)}
+
+    def per_bucket(b, c, seg, got):
+        a_f = (b.restT_rows, b.static_slab, gT[:, c], gT, vol_m[c], b.gidx8, h)
+        a_b = (b.restT_rows, b.static_slab, vol_m[c], dfT[:, c], h)
+        p_dgr, p_dgs = sk.forces_sep_bwd_plain(*a_b)
+        dgs, dgr = got["forces_sep_bwd"]
+        held = {
+            "forces_sep": (got["forces_sep"][:, c], sk.forces_sep_plain(*a_f)),
+            "forces_sep_bwd": (
+                scene_slots(torch, sb, dgs[:, seg], seg, pk.slab_to_slots, dgr[:, c], c),
+                scene_slots(torch, sb, p_dgs.permute(1, 0, 2).reshape(9, -1), seg,
+                            pk.slab_to_slots_plain, p_dgr, c)),
+        }
+        return held, [(("forces_sep",), lambda: sk.forces_sep_plain(*a_f)),
+                      (("forces_sep_bwd",), lambda: sk.forces_sep_bwd_plain(*a_b))]
+
+    read = torch.zeros(sb.n_slots, dtype=torch.bool, device=gT.device)   # columns read
+    read[:m] = True
+    read.view(-1, sb.group)[sb.gidx_all.long()] = True
+    cols = int(read.sum())
+    # the static slab's rest rows (3 of its 5), each input read once
+    tiles = (sb.rest_rows.numel() + sb.static_all.numel() * 3 // 5) * f32
+    nbytes = {
+        "forces_sep": tiles + sb.gidx_all.numel() * 4 + sb.schedule.numel() * 8
+        + (9 * cols + m + 3 * m + 3 * m) * f32,
+        "forces_sep_bwd": tiles + sb.chunks.numel() * 8
+        + (3 * m + m + 3 * m + 9 * pk.n_entries(sb) + 9 * m) * f32,
+    }
+    whole_scene_held(torch, tag, label, sb, launch, per_bucket, nbytes, stats, reps)
+
+
 def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     """Phases 21-24: path A, the Taichi pairing (pair_def_grad="j") on the
     sparse scene.  Returns the launch counts of its forward episodes and of
     one gradient."""
     from softbody_tpu_torch.ops import pair_kernels as pk
-    from softbody_tpu_torch.ops import separable_kernels as sk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
     from softbody_tpu_torch.sim.blocked import mid_section
     from softbody_tpu_torch.sim.sparse import elastic_forces_sparse, slot_rows
@@ -1429,7 +1504,6 @@ def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     sb = scene.blocked
     m = sb.n_tiles * sb.rows
     n = len(scene.slot_of_particle)
-    f32 = 4
     cfg_j = cfg.replace(pair_def_grad="j")
     ratio = ctx["ratio"]
     rng = np.random.default_rng(21)
@@ -1437,57 +1511,17 @@ def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     def rand(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
 
-    # ---- 21 the separable K2 and its backward vs plain, per bucket
-    say(f"[21] Taichi pairing (path A), per bucket, kernels vs plain on the card {tag}")
+    # ---- 21 the separable K2 and its backward, one launch each
+    say(f"[21] Taichi pairing (path A): forces_sep and forces_sep_bwd, one launch each "
+        f"over all {sb.n_tiles} tiles, kernel vs plain per bucket on the card {tag}")
     posT = pos.T.contiguous()
     ayT = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN)
     A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
     Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
     _, _, _, M, vol_m = mid_section(A, Y, ratio, scene.materials, scene, cfg_j, m)
     gT = slot_rows([vol_m * M[a][b] for a in range(3) for b in range(3)], sb.n_slots)
-    dfT = rand(3, m)
-    n_entries = sum(b.n_tiles * b.slab_len for b in sb.buckets)
-    to_slots = (sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
-    e0 = 0
-    for i, b in enumerate(sb.buckets):
-        t, slab = b.n_tiles, b.slab_len
-        mb = t * sb.rows
-        c = slice(b.row_start, b.row_start + mb)
-        seg = slice(e0, e0 + t * slab)
-        e0 += t * slab
-        uniq = int(torch.unique(b.gidx8).numel()) * sb.group
-        tile_bytes = (t * 3 * sb.rows + t * 5 * slab) * f32
-        gidx_bytes = t * slab // sb.group * 4
-        pairs = t * sb.rows * slab
-        a_f = (b.restT_rows, b.static_slab, gT[:, c], gT, vol_m[c], b.gidx8, cfg.h)
-        a_b = (b.restT_rows, b.static_slab, vol_m[c], dfT[:, c], cfg.h)
-
-        def slots(d, k, scatter, seg=seg):
-            buf = torch.zeros((k, n_entries), dtype=torch.float32, device=dev)
-            buf[:, seg] = d.permute(1, 0, 2).reshape(k, -1)
-            return scatter(buf, *to_slots)
-
-        work = {
-            "forces_sep": (
-                lambda: sk.forces_sep(*a_f), lambda: sk.forces_sep_plain(*a_f),
-                lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep"] * pairs,
-                tile_bytes + gidx_bytes + (9 * uniq + 9 * mb + mb + 3 * mb) * f32),
-            "forces_sep_bwd_rows": (
-                lambda: sk.forces_sep_bwd_rows(*a_b),
-                lambda: sk.forces_sep_bwd_plain(*a_b)[0], lambda o, sc: (o,),
-                FLOPS_PER_PAIR["forces_sep_bwd_rows"] * pairs,
-                tile_bytes + (mb + 3 * mb + 9 * mb) * f32),
-            "forces_sep_bwd_slab": (
-                lambda: sk.forces_sep_bwd_slab(*a_b),
-                lambda: sk.forces_sep_bwd_plain(*a_b)[1],
-                lambda o, sc: (slots(o, 9, sc),),
-                FLOPS_PER_PAIR["forces_sep_bwd_slab"] * pairs,
-                tile_bytes + (mb + 3 * mb + 9 * t * slab) * f32),
-        }
-        say(" | ".join([f"    bucket {i}: slab {slab:4d} tiles {t:4d}"]
-                       + held_per_launch(torch, work, f"bucket {i}", stats)))
-    for key in ("forces_sep", "forces_sep_bwd_rows", "forces_sep_bwd_slab"):
-        summarize(key, stats[key], len(sb.buckets), tag)
+    sep_whole_scene(torch, tag, "sparse scene", sb, gT, vol_m, rand(3, m), cfg.h,
+                    stats)
 
     # ---- 22 one "j" force evaluation and its VJP
     mats = scene.materials
@@ -1527,8 +1561,7 @@ def phase_taichi(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
         torch, np, dev, tag, 24, "Taichi-pairing", scene, ctx["cfg_g"].replace(
             pair_def_grad="j"), x_star, ctx["scene64"],
         ctx["cfg64"].replace(pair_def_grad="j"), names)
-    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps,
-            "nb": len(sb.buckets)}
+    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps}
 
 
 def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
@@ -1538,7 +1571,6 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
     episodes and of one gradient."""
     from softbody_tpu_torch.ops import fused_kernels as fk
     from softbody_tpu_torch.ops import pair_kernels as pk
-    from softbody_tpu_torch.ops import separable_kernels as sk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
     from softbody_tpu_torch.scenarios import dirichlet_mask, x_star_bands
     from softbody_tpu_torch.sim.blocked import (build_blocked_scene,
@@ -1598,10 +1630,6 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
     tile_bytes = (t * 3 * rows + t * 5 * slab) * f32
     gidx_bytes = t * slab // blk.group * 4
     rr, st, gi, h = b.restT_rows, b.static_slab, b.gidx8, cfg.h
-
-    def slots(k):
-        return lambda d, sc: (sc(d.permute(1, 0, 2).reshape(k, -1), *to_slots),)
-
     work = {
         "moments_raw": (
             lambda: fk.moments_raw(rr, st, posT, gi, h),
@@ -1613,21 +1641,6 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
             lambda: fk.moments_raw_bwd_scene_plain(blk, dayT, h)[0],
             lambda o, sc: (sc(o, *to_slots),), FLOPS_PER_PAIR["moments_raw_bwd"] * pairs,
             tile_bytes + blk.chunks.numel() * 8 + (18 * m + 3 * t * slab) * f32),
-        "forces_sep": (
-            lambda: sk.forces_sep(rr, st, gT[:, :m], gT, vol_m, gi, h),
-            lambda: sk.forces_sep_plain(rr, st, gT[:, :m], gT, vol_m, gi, h),
-            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep"] * pairs,
-            tile_bytes + gidx_bytes + (9 * uniq + 9 * m + m + 3 * m) * f32),
-        "forces_sep_bwd_rows": (
-            lambda: sk.forces_sep_bwd_rows(rr, st, vol_m, dfT, h),
-            lambda: sk.forces_sep_bwd_plain(rr, st, vol_m, dfT, h)[0],
-            lambda o, sc: (o,), FLOPS_PER_PAIR["forces_sep_bwd_rows"] * pairs,
-            tile_bytes + (m + 3 * m + 9 * m) * f32),
-        "forces_sep_bwd_slab": (
-            lambda: sk.forces_sep_bwd_slab(rr, st, vol_m, dfT, h),
-            lambda: sk.forces_sep_bwd_plain(rr, st, vol_m, dfT, h)[1], slots(9),
-            FLOPS_PER_PAIR["forces_sep_bwd_slab"] * pairs,
-            tile_bytes + (m + 3 * m + 9 * t * slab) * f32),
     }
     say(f"    per launch on the varcol tiles, kernel vs plain {tag}:")
     for key in work:
@@ -1652,7 +1665,10 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
     say(f"    K2 v2 and its backward passes, one launch each over the {t} varcol tiles "
         f"(slab {slab} = {slab // 32} x 32 + {slab % 32} = {slab // 128} x 128 + "
         f"{slab % 128}), kernel vs plain {tag}:")
-    v2_whole_scene(torch, dev, tag, "varcol scene", blk, fmT, srT, dfT, h, reps=10)
+    v2_whole_scene(torch, tag, "varcol scene", blk, fmT, srT, dfT, h, reps=10)
+    say(f"    the separable K2 and its backward, one launch each over the {t} varcol "
+        f"tiles, kernel vs plain {tag}:")
+    sep_whole_scene(torch, tag, "varcol scene", blk, gT, vol_m, dfT, h, reps=10)
 
     # ---- 26 one path-B evaluation against the sparse path, and its VJP
     ratio_s = ctx["ratio"]
@@ -1675,7 +1691,13 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
             f = elastic_forces_pallas(pp, compute_ratio(xv, c), mats, scene_b, c, ops)
             return torch.autograd.grad(f, (pp, xv), ct)
 
-        k1, pl = vjp(pk.KERNELS), vjp(pk.PLAIN)
+        pk.reset_launch_counts()
+        k1 = vjp(pk.KERNELS)
+        counts = pk.launch_counts()
+        pl = vjp(pk.PLAIN)
+        k2 = ("forces_sep", "forces_sep_bwd") if pdg == "j" else (
+            "forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
+        once = all(counts[k] == 1 for k in k2)
         errs = [rel_err(a, bb) for a, bb in zip(k1, pl)]
         ignored = (torch.equal(elastic_forces_pallas(pos_b, ratio_b, mats, scene_b,
                                                      c.replace(fused_mid=True)), f_b)
@@ -1683,11 +1705,12 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
         say(f"[26] path B (varcol, pallas) \"{pdg}\": vs the sparse path at the same "
             f"particle positions {cross:.3e} of max |f| (tol 1e-3); kernel vs plain "
             f"{own:.3e}, VJP wrt (pos, x) {errs[0]:.3e}, {errs[1]:.3e} (tol {TOL}); "
-            f"bitwise repeat {torch.equal(f_b, f_b2)}"
+            f"bitwise repeat {torch.equal(f_b, f_b2)}; launches in the VJP "
+            + ", ".join(f"{k} {counts[k]}" for k in k2) + " (expected 1 each)"
             + ("; fused_mid ignored (bitwise equal forces): " + str(ignored)
                if pdg == "i" else ""))
         if not (cross <= 1e-3 and max([own] + errs) <= TOL and torch.equal(f_b, f_b2)
-                and ignored and bool(torch.isfinite(f_b).all())
+                and ignored and once and bool(torch.isfinite(f_b).all())
                 and all(bool(torch.isfinite(a).all()) for a in k1)):
             fail(f"path B \"{pdg}\" disagrees with the sparse path or its plain path")
 
@@ -1706,15 +1729,14 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
 def phase_counts(a, b):
     """Phase 29: the launch counts of phases 23-24 (path A) and 27-28 (path
     B) against what each path implies; every other kernel 0."""
-    S, nb = GRAD_STEPS, a["nb"]
+    S = GRAD_STEPS
     # symplectic: one force evaluation per step, two forward episodes; one
     # gradient runs the forward kernels 3 times per step and the backward
     # ones once (phase 13)
     want = {
-        ("A", "fwd"): {"moments_v4": 2 * a["steps"], "forces_sep": 2 * nb * a["steps"]},
-        ("A", "grad"): {"moments_v4": 3 * S, "forces_sep": 3 * nb * S,
-                        "moments_v4_bwd": S, "forces_sep_bwd_rows": nb * S,
-                        "forces_sep_bwd_slab": nb * S, "slab_to_slots": 2 * S},
+        ("A", "fwd"): {"moments_v4": 2 * a["steps"], "forces_sep": 2 * a["steps"]},
+        ("A", "grad"): {"moments_v4": 3 * S, "forces_sep": 3 * S, "moments_v4_bwd": S,
+                        "forces_sep_bwd": S, "slab_to_slots": 2 * S},
         ("B", "fwd"): {"moments_raw": 2 * b["steps"], "forces_warp_v2": 2 * b["steps"]},
         ("B", "grad"): {"moments_raw": 3 * S, "forces_warp_v2": 3 * S,
                         "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S,
@@ -1744,9 +1766,8 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "moments_raw_bwd": ("pair_kernels", "pair_kernels.py:335"),
     "forces_warp_v2_bwd_rows": ("pair_kernels", "pair_kernels.py:936"),
     "forces_warp_v2_bwd_slab": ("pair_kernels", "pair_kernels.py:936"),
-    "forces_sep": ("separable_kernels", "pair_kernels.py:690"),
-    "forces_sep_bwd_rows": ("separable_kernels", "pair_kernels.py:716"),
-    "forces_sep_bwd_slab": ("separable_kernels", "pair_kernels.py:716"),
+    "forces_sep": ("pair_kernels", "pair_kernels.py:690"),
+    "forces_sep_bwd": ("pair_kernels", "pair_kernels.py:716"),
     "moments_raw": ("fused_kernels", "pair_kernels.py:307"),
 }
 

@@ -1,12 +1,11 @@
 // What the pair-kernel sources share (pair_kernels.cu, the whole-scene
-// kernels; fused_kernels.cu, the raw K1; separable_kernels.cu, the Taichi
-// pairing's K2): the tile geometry, the cubic-spline pair coefficients,
-// and the raw K1's per-tile loop.
+// kernels; fused_kernels.cu, the raw K1): the tile geometry, the
+// cubic-spline pair coefficients, and the raw K1's per-tile loop.
 //
-// The per-bucket kernels (fused_kernels.cu, separable_kernels.cu) run one
-// block per tile of ROWS slot rows, one lane per row, NWARPS warps
-// splitting the tile's candidate slab (slot = gidx[e / group] * group +
-// e % group); each pass stages CHUNK slab entries in shared memory, one
+// The per-bucket kernel (fused_kernels.cu) runs one block per tile of ROWS
+// slot rows, one lane per row, NWARPS warps splitting the tile's candidate
+// slab (slot = gidx[e / group] * group + e % group); each pass stages
+// CHUNK slab entries in shared memory, one
 // entry per thread, and warp w reads back entries [32w, 32w + 32), exactly
 // the ones its own lanes staged, so a warp barrier suffices.  Cross-warp
 // sums run in a fixed order (warp 0 first): no atomics, deterministic.
@@ -45,14 +44,6 @@ __device__ __forceinline__ void spline_w_gfac(T r2, T inv_h, T c4, T c4h,
   const T tq2 = tq * tq, oq2 = oq * oq;
   w = c4 * (tq2 * tq - T(4) * oq2 * oq);
   gfac = c4h * (T(12) * oq2 - T(3) * tq2) * rs;
-}
-
-template <typename T>
-__device__ __forceinline__ T spline_gfac(T r2, T inv_h, T c4h) {
-  const T rs = rsqrt_t(r2 + T(1e-30));
-  const T q = r2 * rs * inv_h;
-  const T tq = relu(T(2) - q), oq = relu(T(1) - q);
-  return c4h * (T(12) * oq * oq - T(3) * tq * tq) * rs;
 }
 
 // ------------------------------------------------------------ forward sums

@@ -9,10 +9,10 @@
 //                        only); its Hopper form, cp.async / TMA double
 //                        buffering of the slab, is a tuning item
 //
-// The fused path's kernels (moments_mid, K2 v2 and their backwards) and
-// the raw K1's backward moments_raw_bwd are whole-scene kernels of
-// pair_kernels.cu; the blocked layout's Taichi-pairing K2 is
-// separable_kernels.cu's forces_sep.
+// The fused path's kernels (moments_mid, K2 v2 and their backwards), the
+// raw K1's backward moments_raw_bwd and the blocked layout's
+// Taichi-pairing K2 (forces_sep and its backward) are whole-scene kernels
+// of pair_kernels.cu.
 //
 // What it computes (tile of ROWS = 32 rows against its candidate slab,
 // slot = gidx[tile, e / group] * group + e % group; lane-major operands):

@@ -16,8 +16,9 @@
 //                            ops/pallas/packed.py :: _fused_call): the fused
 //                            path's K1, K1 v4's sums with the per-row
 //                            mid-section (mid.cuh) as its epilogue
-// The backward kernels and the fixed-order scatter follow the forward ones,
-// each with its own note (further down).
+// The backward kernels, the Taichi pairing's separable K2 and its backward
+// and the fixed-order scatter follow the forward ones, each with its own
+// note (further down).
 //
 // What they compute (per tile of ROWS = 32 slot rows against its candidate
 // slab of `slab` slots, slot = gidx[tile, e / group] * group + e % group):
@@ -1210,6 +1211,184 @@ forces_warp_v2_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chu
                        ld_sr, dfT, ld_df, dsr, ld_out, group, inv_h, c4h);
 }
 
+// ------------------------------------------------------ the separable K2
+//
+// K2 sep  forces_sep_kernel replaces softbody_tpu/ops/pallas/pair_kernels.py
+//         :: _forces_kernel (launched by _forces_fwd_impl from
+//         ops/pallas/packed.py :: forces_packed), and
+//         forces_sep_bwd_kernel ::_forces_bwd_kernel (launched by
+//         _forces_vjp_bwd): the Taichi pairing's (pair_def_grad = "j")
+//         K2 on the sparse scene (path A) and the blocked one (path B).
+//   With G = V M per slot (row 3a + b = G[a][b]), M_i = G_i / V_safe,i
+//   (V_safe = V where V > 0, else 1) and nw = gfac dx = grad W_ij:
+//     f_a        = 0.5 V_i (sum_j (G_j nw)_a + sum_b M_i[a][b] svnw_b)
+//     dG_rows    = (d_a / V_safe,i) svnw_b at 3a + b, d = 0.5 V_i df  (9, m)
+//     dG_slab(j) = sum_i nw_b d_a at 3a + b, per slab entry  (9, n_entries)
+//   svnw_b = sum_j V_j nw_b depends on rest geometry and volumes only: both
+//   read it from the scene's static row sums rs6T[3:6], as K2 v2 does (the
+//   TPU kernel summed it over the slab, pair_kernels.py:705-706 and
+//   :737-738; the plain versions still do).  Volumes get no cotangent
+//   (material constants), as in the TPU VJP.
+//   Per pair the forward does 43 flops (dx 3, r2 5, the gradient
+//   polynomial 14, nw 3, the 9 multiply-adds of G_j nw 18) on 12 staged
+//   fields (rest_3, G_9), the backward 42 (dx 3, r2 5, the saturating
+//   polynomial 13, g1 d 3, the 9 sums 18) on 3; both OPERATION-bound.
+// What the design does about it: the forward is K2 v4's ragged kernel
+//   (a block of 4 warps per tile over the schedule, longest slab first; the
+//   two-stage cp.async ring per warp, G gathered through gidx in 16-byte
+//   pieces; a lane per row with 3 sums; the TAIL zero-fill form for
+//   varcol's slab), the spline's constant c4h applied once per row in the
+//   epilogue.  The backward is the slab side's chunk block (a block per
+//   128-entry chunk, the tile's rows staged row-major as x_3 | d_3 | pad,
+//   two 16-byte broadcasts per row, SEPB_EPT = 2 slab entries per thread
+//   with 9 sums each in row order (2 ran 8% faster than 1 on the sparse
+//   scene and 13% on varcol's), pair_g1 with 12 c4h applied once per entry);
+//   its chunk-0 blocks also write the row term, which needs no pair loop.
+//   One launch per evaluation each; no atomics.
+
+constexpr int SEP_FIELDS = 12;               // rest_3 | G_9
+constexpr int SEP_OUT = 3;
+constexpr int SEPB_REC = 8;                  // bwd row record: x_3, d_3, pad
+constexpr int SEP_G = 9;                     // rows of gT and of the cotangents
+constexpr int SEPB_EPT = 2;                  // slab entries per separable bwd thread
+
+// The separable K2's sums of one landed stage for row xi: acc[a] +=
+// sum_b G_j[a][b] g12 dx_b (c4h applied in the epilogue).
+template <typename T>
+__device__ __forceinline__ void sep_stage(const T* buf, T xi0, T xi1, T xi2, T inv_h,
+                                          T (&acc)[SEP_OUT]) {
+#pragma unroll 1
+  for (int j = 0; j < CH; j += 4) {
+    const Four<T> X0 = four(buf, 0, j), X1 = four(buf, 1, j), X2 = four(buf, 2, j);
+    Four<T> G[SEP_G];                        // G[3a + b] = G_j[a][b]
+#pragma unroll
+    for (int f = 0; f < SEP_G; ++f) G[f] = four(buf, 3 + f, j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T dx0 = xi0 - X0.v[u], dx1 = xi1 - X1.v[u], dx2 = xi2 - X2.v[u];
+      const T g = pair_g12(dx0 * dx0 + dx1 * dx1 + dx2 * dx2, inv_h);
+      const T nw0 = g * dx0, nw1 = g * dx1, nw2 = g * dx2;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        acc[a] = fma(G[3 * a].v[u], nw0, acc[a]);
+        acc[a] = fma(G[3 * a + 1].v[u], nw1, acc[a]);
+        acc[a] = fma(G[3 * a + 2].v[u], nw2, acc[a]);
+      }
+    }
+  }
+}
+
+// fT (3, ld_out): a block per scheduled tile; gT (9, ld_g) holds every
+// slot's G (the tile rows' are its first m columns), vol (m,) the rows'
+// volumes.  TAIL as for k2_forward.
+template <typename T, bool TAIL>
+__global__ void __launch_bounds__(RG_THREADS, 5)
+forces_sep_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
+                  const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
+                  const T* __restrict__ static_all,      // per tile (5, slab)
+                  const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
+                  const T* __restrict__ gT, int64_t ld_g,      // (9, ld_g)
+                  const T* __restrict__ vol,                   // (m,)
+                  const T* __restrict__ rs6T, int64_t ld_rs6,  // (6, ld_rs6)
+                  T* __restrict__ fT, int64_t ld_out,          // (3, ld_out)
+                  int group, T inv_h, T c4h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Sched s = sched_of(sched, warp);
+  const T* rr = rest_rows + s.tile * 3 * ROWS;
+  const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
+  T acc[SEP_OUT] = {T(0), T(0), T(0)};
+  const int srow[3] = {0, 1, 2};             // rest_3
+  walk_chunks<T, 3, SEP_G, SEP_FIELDS, TAIL>(
+      smem + warp * (NSTAGE * SEP_FIELDS * CH), static_all + s.st_off, s.slab, srow, gT,
+      ld_g, gidx_all + s.gi_off, group, s.c0, s.c1, lane, [](T*) {},
+      [&](const T* buf) { sep_stage(buf, xi0, xi1, xi2, inv_h, acc); });
+  // f_a = 0.5 V_i (c4h termj_a + sum_b (G_i[a][b] / V_safe) svnw_b)
+  reduce_store(smem, acc, s.tile, [&](int a, int64_t c, T tj) {
+    const T v = vol[c];
+    const T vs = v > T(0) ? v : T(1);
+    const T* G = gT + 3 * a * ld_g + c;
+    const T* sv = rs6T + 3 * ld_rs6 + c;
+    const T ti = (G[0] / vs) * sv[0] + (G[ld_g] / vs) * sv[ld_rs6]
+                 + (G[2 * ld_g] / vs) * sv[2 * ld_rs6];
+    fT[a * ld_out + c] = (T(0.5) * v) * (c4h * tj + ti);
+  });
+}
+
+// The separable K2's backward on one (tile, 128-entry chunk) of the chunk
+// schedule: dgs (9, ld_gs), a tile's entry s at column gi_off * group + s,
+// and from the chunk-0 blocks dgr (9, ld_gr), the row term.  SEPB_EPT slab
+// entries per thread; TAIL: a slab's last chunk may be partial (a thread's
+// entries past the slab read the chunk's first entry and store nothing).
+template <typename T, bool TAIL>
+__global__ void __launch_bounds__(BCH / SEPB_EPT)
+forces_sep_bwd_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
+                      const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
+                      const T* __restrict__ static_all,       // per tile (5, slab)
+                      const T* __restrict__ vol,              // (m,)
+                      const T* __restrict__ rs6T, int64_t ld_rs6,   // (6, ld_rs6)
+                      const T* __restrict__ dfT, int64_t ld_df,     // (3, ld_df)
+                      T* __restrict__ dgs, int64_t ld_gs,           // (9, ld_gs)
+                      T* __restrict__ dgr, int64_t ld_gr,           // (9, ld_gr)
+                      int group, T inv_h, T c4h) {
+  constexpr int EPT = SEPB_EPT, NT = BCH / EPT;
+  __shared__ __align__(32) T rec[ROWS * SEPB_REC];
+  const BChunk c = bchunk_of(chunks);
+  const int64_t col0 = c.tile * ROWS;
+  const T* rr = rest_rows + c.tile * 3 * ROWS;
+  stage_rows<T, SEPB_REC, 6, NT>(rec, [&](int f, int r) {   // x_3 | d = 0.5 V_i df
+    return f < 3 ? rr[f * ROWS + r]
+                 : dfT[(f - 3) * ld_df + col0 + r] * (T(0.5) * vol[col0 + r]);
+  });
+  if (c.e0 == 0)     // the row term: dG_rows[3a + b] = (d_a / V_safe) svnw_b
+    for (int o = threadIdx.x; o < SEP_G * ROWS; o += NT) {
+      const int k = o / ROWS, a = k / 3, b = k % 3;
+      const int64_t col = col0 + o % ROWS;
+      const T v = vol[col];
+      const T vs = v > T(0) ? v : T(1);
+      dgr[k * ld_gr + col] =
+          ((dfT[a * ld_df + col] * (T(0.5) * v)) / vs) * rs6T[(3 + b) * ld_rs6 + col];
+    }
+  const T* st = static_all + c.st_off;
+  const T nih = -inv_h, nih2 = T(-0.5) * inv_h;
+  T xj[EPT][3], acc[EPT][SEP_G];
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    int e = c.e0 + threadIdx.x + u * NT;
+    if constexpr (TAIL) e = e < c.slab ? e : c.e0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xj[u][k] = st[k * c.slab + e];
+#pragma unroll
+    for (int k = 0; k < SEP_G; ++k) acc[u][k] = T(0);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < ROWS; ++r) {
+    T x[SEPB_REC];
+    load_row(rec, r, x);
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const T d[3] = {x[0] - xj[u][0], x[1] - xj[u][1], x[2] - xj[u][2]};
+      const T g1 = pair_g1(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], nih, nih2);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const T gd = g1 * x[3 + a];
+#pragma unroll
+        for (int b = 0; b < 3; ++b) acc[u][3 * a + b] = fma(gd, d[b], acc[u][3 * a + b]);
+      }
+    }
+  }
+  const T c4h12 = T(12) * c4h;               // gfac = 12 c4h g1
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    if (TAIL && c.e0 + (int)threadIdx.x + u * NT >= c.slab) continue;
+    const int64_t e = c.gi_off * group + c.e0 + threadIdx.x + u * NT;
+#pragma unroll
+    for (int k = 0; k < SEP_G; ++k) dgs[k * ld_gs + e] = c4h12 * acc[u][k];
+  }
+}
+
 constexpr int SCATTER_THREADS = 256;
 
 template <typename T>
@@ -1323,6 +1502,35 @@ int launch_forces_v2_bwd_slab(const void* chunks, int n_chunks, const void* rest
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool TAIL>
+int launch_forces_sep(const void* sched, int n_sched, const void* rest_rows,
+                      const void* static_all, const void* gidx_all, const void* gT,
+                      int64_t ld_g, const void* vol, const void* rs6T, int64_t ld_rs6,
+                      void* fT, int64_t ld_out, int group, double inv_h, double c4h,
+                      void* stream) {
+  constexpr size_t smem = ragged_smem<T>(SEP_FIELDS, SEP_OUT);
+  static const cudaError_t attr = allow_smem(forces_sep_kernel<T, TAIL>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  forces_sep_kernel<T, TAIL><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
+      (const int32_t*)gidx_all, (const T*)gT, ld_g, (const T*)vol, (const T*)rs6T, ld_rs6,
+      (T*)fT, ld_out, group, (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TAIL>
+int launch_forces_sep_bwd(const void* chunks, int n_chunks, const void* rest_rows,
+                          const void* static_all, const void* vol, const void* rs6T,
+                          int64_t ld_rs6, const void* dfT, int64_t ld_df, void* dgs,
+                          int64_t ld_gs, void* dgr, int64_t ld_gr, int group,
+                          double inv_h, double c4h, void* stream) {
+  forces_sep_bwd_kernel<T, TAIL><<<n_chunks, BCH / SEPB_EPT, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all, (const T*)vol,
+      (const T*)rs6T, ld_rs6, (const T*)dfT, ld_df, (T*)dgs, ld_gs, (T*)dgr, ld_gr, group,
+      (T)inv_h, (T)c4h);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
                          const void* idx, void* out, int64_t ld_out, int k,
@@ -1340,7 +1548,10 @@ int launch_slab_to_slots(const void* buf, int64_t ld_buf, const void* ptr,
 // 5: forces_warp_v2, 6: forces_warp_v2_bwd_rows, 7: forces_warp_v2_bwd_slab,
 // 8 and 9: 5 and 6 for slabs that end inside a ring stage, 10: moments_mid,
 // 11: moments_raw_bwd with the row term (the fused path), 12: without it,
-// for slabs that end inside a chunk (path B)) in f32 or f64: [registers
+// for slabs that end inside a chunk (path B), 13: forces_sep, 14: it for
+// slabs that end inside a ring stage, 15 and 16: forces_sep_bwd with 1 and
+// 2 slab entries per thread, 17 and 18: those for slabs that end inside a
+// chunk) in f32 or f64: [registers
 // per thread, static shared bytes, local (stack and spill) bytes, dynamic
 // shared bytes, resident blocks per SM, threads per block] into out.
 template <typename K>
@@ -1398,6 +1609,16 @@ int ragged_info(int which, int* out) {
       return kernel_info(moments_raw_bwd_kernel<T, false, true>, 0, BCH / K1B_EPT, out);
     case 12:
       return kernel_info(moments_raw_bwd_kernel<T, true, false>, 0, BCH / K1B_EPT, out);
+    case 13:
+      return kernel_info(forces_sep_kernel<T, false>, ragged_smem<T>(SEP_FIELDS, SEP_OUT),
+                         RG_THREADS, out);
+    case 14:
+      return kernel_info(forces_sep_kernel<T, true>, ragged_smem<T>(SEP_FIELDS, SEP_OUT),
+                         RG_THREADS, out);
+    case 15:
+      return kernel_info(forces_sep_bwd_kernel<T, false>, 0, BCH / SEPB_EPT, out);
+    case 16:
+      return kernel_info(forces_sep_bwd_kernel<T, true>, 0, BCH / SEPB_EPT, out);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1550,5 +1771,31 @@ SB_FWD_ENTRIES(f64, double)
 
 SB_BWD_ENTRIES(f32, float)
 SB_BWD_ENTRIES(f64, double)
+
+#define SB_SEP_ENTRIES(SUF, T)                                                 \
+  int sb_forces_sep_##SUF(const void* sched, int n_sched,                      \
+                          const void* rest_rows, const void* static_all,       \
+                          const void* gidx_all, const void* gT, int64_t ld_g,  \
+                          const void* vol, const void* rs6T, int64_t ld_rs6,   \
+                          void* fT, int64_t ld_out, int group, double inv_h,   \
+                          double c4h, int tail, void* stream) {                \
+    return (tail ? launch_forces_sep<T, true> : launch_forces_sep<T, false>)(  \
+        sched, n_sched, rest_rows, static_all, gidx_all, gT, ld_g, vol, rs6T,  \
+        ld_rs6, fT, ld_out, group, inv_h, c4h, stream);                        \
+  }                                                                            \
+  int sb_forces_sep_bwd_##SUF(                                                 \
+      const void* chunks, int n_chunks, const void* rest_rows,                 \
+      const void* static_all, const void* vol, const void* rs6T,               \
+      int64_t ld_rs6, const void* dfT, int64_t ld_df, void* dgs,               \
+      int64_t ld_gs, void* dgr, int64_t ld_gr, int group, double inv_h,        \
+      double c4h, int tail, void* stream) {                                    \
+    return (tail ? launch_forces_sep_bwd<T, true>                              \
+                 : launch_forces_sep_bwd<T, false>)(                           \
+        chunks, n_chunks, rest_rows, static_all, vol, rs6T, ld_rs6, dfT,       \
+        ld_df, dgs, ld_gs, dgr, ld_gr, group, inv_h, c4h, stream);             \
+  }
+
+SB_SEP_ENTRIES(f32, float)
+SB_SEP_ENTRIES(f64, double)
 
 }  // extern "C"

@@ -2,10 +2,9 @@
 whole-scene kernels, one launch per evaluation each: the v4 path's K1/K2
 forward and backward, the fused path's K1 + mid-section, K2 v2 of the
 fused path and the blocked layout and its backward, the raw K1's backward,
-and the fixed-order scatter), csrc/fused_kernels.cu (the raw K1 of the
-blocked layout) and csrc/separable_kernels.cu (the Taichi pairing's
-separable K2 and its backward), each including csrc/common.cuh
-(pair_kernels.cu also csrc/mid.cuh).
+the Taichi pairing's separable K2 and its backward, and the fixed-order
+scatter) and csrc/fused_kernels.cu (the raw K1 of the blocked layout),
+each including csrc/common.cuh (pair_kernels.cu also csrc/mid.cuh).
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
 one library per source, into the package's git-ignored build directory at
@@ -30,7 +29,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pair_kernels", "fused_kernels", "separable_kernels")
+SOURCES = ("pair_kernels", "fused_kernels")
 HEADERS = ("common.cuh", "mid.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
@@ -39,7 +38,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes argument types of each entry point sb_<name>_<f32|f64>
 _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-_SEP_BWD = [_P, _P, _P, _P, _I64, _P, _I64, _I32, _I32, _F64, _F64, _P]
 SIGNATURES = {
     "pair_kernels": {
         "moments_v4": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64, _I32,
@@ -64,17 +62,15 @@ SIGNATURES = {
                                     _P],
         "forces_warp_v2_bwd_slab": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P,
                                     _I64, _P, _I64, _I32, _F64, _F64, _P],
+        "forces_sep": [_P, _I32, _P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _I32,
+                       _F64, _F64, _I32, _P],
+        "forces_sep_bwd": [_P, _I32, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
+                           _I64, _I32, _F64, _F64, _I32, _P],
         "slab_to_slots": [_P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
     "fused_kernels": {
         "moments_raw": [_P, _P, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _F64, _F64, _P],
-    },
-    "separable_kernels": {
-        "forces_sep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _I64, _I32, _I32,
-                       _I32, _F64, _F64, _P],
-        "forces_sep_bwd_rows": _SEP_BWD,
-        "forces_sep_bwd_slab": _SEP_BWD,
     },
 }
 

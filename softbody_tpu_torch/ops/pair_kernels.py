@@ -51,7 +51,8 @@ The two tables also carry the fused path's functions and the blocked
 layout's raw K1 (``ops/fused_kernels.py``; the fused K1 + mid-section,
 K2 v2 and its backward passes and the raw K1's backward are whole-scene
 kernels of csrc/pair_kernels.cu, the v4 bodies with their own epilogues)
-and the Taichi pairing's separable K2 (``ops/separable_kernels.py``), and
+and the Taichi pairing's separable K2 and its backward
+(``ops/separable_kernels.py``, whole-scene kernels of the same file), and
 :func:`launch_counts` counts every path's kernels.  The kernels read their slab operands
 themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
 (t, 3, slab) / (t, 16, slab) gathered copies the TPU path materialised
@@ -310,12 +311,14 @@ RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
           "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab", "forces_warp_v2",
           "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab",
           "forces_warp_v2 (tail)", "forces_warp_v2_bwd_rows (tail)", "moments_mid",
-          "moments_raw_bwd", "moments_raw_bwd (tail)")
+          "moments_raw_bwd", "moments_raw_bwd (tail)", "forces_sep", "forces_sep (tail)",
+          "forces_sep_bwd", "forces_sep_bwd (tail)")
 
 
 def ragged_info() -> dict:
     """What the card gives the whole-scene kernels (K1/K2 v4, K2 v2 and
-    their backwards, the fused K1 + mid-section and the raw K1 backward):
+    their backwards, the fused K1 + mid-section, the raw K1 backward, the
+    separable K2 and its backward):
     {(kernel, dtype):
     {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
     threads}} (cudaFuncGetAttributes,
@@ -550,12 +553,11 @@ reset_launch_counts()
 
 # ------------------------------------------------------- differentiable ops
 class PairOps(NamedTuple):
-    """The pair functions an evaluation goes through (those of the v4 path,
-    the fused path and the blocked layout's K2 v2 and raw K1 backward over
-    the whole scene; the raw K1 and the separable K2 and its backward per
-    bucket), of the v4 path, the fused path and the blocked layout's raw K1
-    and K2 v2 (``ops/fused_kernels.py``) and the Taichi pairing's separable
-    K2 (``ops/separable_kernels.py``): :data:`KERNELS` (device dispatch) or
+    """The pair functions an evaluation goes through (each over the whole
+    scene but the raw K1, per bucket), of the v4 path, the fused path and
+    the blocked layout's raw K1 and K2 v2 (``ops/fused_kernels.py``) and the
+    Taichi pairing's separable K2 (``ops/separable_kernels.py``):
+    :data:`KERNELS` (device dispatch) or
     :data:`PLAIN` (the plain versions on any device, the yardstick the
     kernels are held against on the card)."""
 
@@ -582,7 +584,8 @@ PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 slab_to_slots_plain,
                 fk.moments_mid_scene_plain, fk.forces_warp_v2_scene_plain,
                 fk.moments_raw_bwd_scene_plain, fk.forces_warp_v2_bwd_scene_plain,
-                fk.moments_raw_plain, sk.forces_sep_plain, sk.forces_sep_bwd_plain)
+                fk.moments_raw_plain, sk.forces_sep_scene_plain,
+                sk.forces_sep_bwd_scene_plain)
 
 
 class _MomentsV4(torch.autograd.Function):

@@ -11,10 +11,22 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
   f_a = 0.5 V_i (sum_j (G_j grad W_ij)_a + sum_b M_i[a][b] svnw_b) with
   G = V M, M_i = G_i / V_safe,i and svnw = sum_j V_j grad W_ij, fT (3, m).
 * :func:`forces_sep_bwd` replaces ``_forces_bwd_kernel`` (launched by
-  ``_forces_vjp_bwd``): dfT -> the rows' dG (9, m), the term_i path, and
-  per slab entry dG (t, 9, slab), the term_j path; on the card two
-  kernels, the row pass and the slab pass.  Volumes are material
-  constants: no cotangent, as JAX returns None for them.
+  ``_forces_vjp_bwd``): dfT -> per slab entry dG (9, n_entries), the
+  term_j path, and the rows' dG (9, m), the term_i path.  Volumes are
+  material constants: no cotangent, as JAX returns None for them.
+
+Both take a whole scene (a SparseBlocked or a Blocked: its ``schedule``
+and ``chunks``) and launch once per evaluation, as the other pair kernels
+do: the forward is K2 v4's ragged kernel of csrc/pair_kernels.cu on the
+12 fields rest_3 | G_9, the backward the slab side's chunk blocks with the
+rows' term in the chunk-0 blocks.  Both read svnw from the scene's static
+row sums rs6T[3:6] (the same function as the TPU kernel's in-kernel sum,
+as K2 v2 reads it); the plain versions sum it over the slab, as the TPU
+kernel does.  A per-entry output is the (9, n_entries) buffer
+``slab_to_slots`` reads, a tile's entry s at column gi_off * group + s.
+The per-bucket plain versions (``*_plain``) stay the yardstick;
+``*_scene_plain`` runs them over the buckets into the whole-scene outputs
+(what the wrappers run on the CPU, and ``PLAIN``).
 
 Operands are lane-major: G of every slot gT (9, n_slots), row 3a+b =
 G[a][b] (``mat3.to_trailing(G)`` order); the tile rows' G is a column range
@@ -22,12 +34,12 @@ of the same array.  The kernels read the slab's G through ``gidx8`` (slot =
 gidx8[tile, g] * group + k), so the gathered (t, slab, 16) copy the TPU path
 staged (``packed.gather_packed``) does not exist here.
 
-Each kernel has a plain PyTorch version (``*_plain``) for CPU tensors; for
-CUDA tensors the wrapper launches the hand-written kernel of
-csrc/separable_kernels.cu and counts it in its ``launches`` attribute; any
-other device raises, and no wrapper falls back to its plain version.
-:func:`forces_sep_all` is the differentiable op over every bucket, going
-through a ``pair_kernels.PairOps`` (its ``KERNELS`` or ``PLAIN`` table).
+For CUDA tensors the wrapper launches the hand-written kernel and counts
+it in its ``launches`` attribute; for CPU tensors it runs the plain
+version; any other device raises, and no wrapper falls back to its plain
+version.  :func:`forces_sep_all` is the differentiable op over the scene,
+going through a ``pair_kernels.PairOps`` (its ``KERNELS`` or ``PLAIN``
+table).
 """
 
 from __future__ import annotations
@@ -35,8 +47,9 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .pair_common import (_no_tf32, bucket_cols, check_lane_major, check_tiles,
-                          check_vector, entry, flat_entries, on, pair_coeffs_g,
+from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, _no_tf32, aligned, bucket_cols,
+                          check_lane_major, check_scene, check_vector, entry,
+                          flat_entries, has_tail, n_entries, on, pair_coeffs_g,
                           raise_on, slab_slots, spline_constants, stream,
                           tile_chunked)
 
@@ -97,143 +110,132 @@ def forces_sep_bwd_plain(restT_rows, static_slab, vol_rows, dfT, h):
     return dgr, dgs.reshape(t, G_FIELDS, -1)
 
 
+def forces_sep_scene_plain(sb, gT, vol_m, h):
+    """Plain separable K2 over a whole scene: the per-bucket
+    :func:`forces_sep_plain` concatenated in tile order, fT (3, m)."""
+    return torch.cat([
+        forces_sep_plain(b.restT_rows, b.static_slab, gT[:, bucket_cols(b, sb.rows)],
+                         gT, vol_m[bucket_cols(b, sb.rows)], b.gidx8, h)
+        for b in sb.buckets], dim=1)
+
+
+def forces_sep_bwd_scene_plain(sb, vol_m, dfT, h):
+    """Plain separable K2 backward over a whole scene: the per-bucket
+    :func:`forces_sep_bwd_plain` placed into the whole-scene outputs, (dgs
+    (9, n_entries) in :func:`~.pair_common.flat_entries`' order, a tile's
+    entry s at column gi_off * group + s; dgr (9, m), the rows' term)."""
+    parts = [forces_sep_bwd_plain(b.restT_rows, b.static_slab,
+                                  vol_m[bucket_cols(b, sb.rows)],
+                                  dfT[:, bucket_cols(b, sb.rows)], h)
+             for b in sb.buckets]
+    return (flat_entries([p[1] for p in parts], G_FIELDS),
+            torch.cat([p[0] for p in parts], dim=1))
+
+
 # ------------------------------------------------------------ kernel launches
-def _launch_forces_sep(restT_rows, static_slab, gT_rows, gT, vol_rows, gidx8, h):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device, gidx8)
-    check_lane_major("gT_rows", gT_rows, dtype, device, G_FIELDS, t * rows)
-    check_lane_major("gT", gT, dtype, device, G_FIELDS)
-    check_vector("vol_rows", vol_rows, dtype, device, t * rows)
-    out = torch.empty((3, t * rows), dtype=dtype, device=device)
-    if t == 0:
+def _check_sep(sb, vol_m, dtype, device, chunks):
+    """Operand checks of one whole-scene separable launch; returns m.  The
+    epilogue (forward) and the row term (backward) read svnw from the
+    scene's static row sums rs6T[3:6]."""
+    check_scene(sb, dtype, device, chunks)
+    m = sb.n_tiles * sb.rows
+    check_vector("vol_m", vol_m, dtype, device, m)
+    check_lane_major("rs6T", sb.rs6T, dtype, device, 6, m)
+    return m
+
+
+def _launch_forces_sep(sb, gT, vol_m, h):
+    """fT (3, m): a block per tile of the schedule, a lane per row, four
+    warps splitting the slab, G gathered in 16-byte pieces."""
+    device, dtype = gT.device, gT.dtype
+    m = _check_sep(sb, vol_m, dtype, device, False)
+    check_lane_major("gT", gT, dtype, device, G_FIELDS, sb.n_slots)
+    aligned("gT", gT, lane_major=True)
+    out = torch.empty((3, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
         return out
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("separable_kernels", "forces_sep", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(),
-        gT_rows.data_ptr(), gT_rows.stride(0), gT.data_ptr(), gT.stride(0),
-        vol_rows.data_ptr(), gidx8.data_ptr(), out.data_ptr(), out.stride(0),
-        t, slab, slab // gidx8.shape[1], inv_h, c4h, stream())
+    rc = entry("pair_kernels", "forces_sep", dtype)(
+        sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), sb.gidx_all.data_ptr(), gT.data_ptr(), gT.stride(0),
+        vol_m.data_ptr(), sb.rs6T.data_ptr(), sb.rs6T.stride(0),
+        out.data_ptr(), out.stride(0), sb.group, inv_h, c4h,
+        has_tail(sb, RAGGED_CHUNK), stream())
     raise_on(rc, "forces_sep")
     forces_sep.launches += 1
     return out
 
 
-def _check_bwd(restT_rows, static_slab, vol_rows, dfT):
-    device, dtype = restT_rows.device, restT_rows.dtype
-    t, rows, slab = check_tiles(restT_rows, static_slab, device)
-    check_vector("vol_rows", vol_rows, dtype, device, t * rows)
-    check_lane_major("dfT", dfT, dtype, device, 3, t * rows)
-    return t, rows, slab
-
-
-def _launch_forces_sep_bwd_rows(restT_rows, static_slab, vol_rows, dfT, h):
-    """dgrT (9, t*rows): one lane per row, four warps splitting the slab."""
-    t, rows, slab = _check_bwd(restT_rows, static_slab, vol_rows, dfT)
-    dtype = restT_rows.dtype
-    dgr = torch.empty((G_FIELDS, t * rows), dtype=dtype, device=restT_rows.device)
-    if t == 0:
-        return dgr
+def _launch_forces_sep_bwd(sb, vol_m, dfT, h):
+    """(dgs (9, n_entries), dgr (9, m)): a block per 128-entry chunk of
+    every slab, two entries per thread, the chunk-0 blocks writing the
+    rows' term."""
+    device, dtype = dfT.device, dfT.dtype
+    m = _check_sep(sb, vol_m, dtype, device, True)
+    check_lane_major("dfT", dfT, dtype, device, 3, m)
+    dgs = torch.empty((G_FIELDS, n_entries(sb)), dtype=dtype, device=device)
+    dgr = torch.empty((G_FIELDS, m), dtype=dtype, device=device)
+    if sb.n_tiles == 0:
+        return dgs, dgr
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("separable_kernels", "forces_sep_bwd_rows", dtype)(
-        restT_rows.data_ptr(), static_slab.data_ptr(), vol_rows.data_ptr(),
-        dfT.data_ptr(), dfT.stride(0), dgr.data_ptr(), dgr.stride(0),
-        t, slab, inv_h, c4h, stream())
-    raise_on(rc, "forces_sep_bwd_rows")
-    forces_sep_bwd_rows.launches += 1
-    return dgr
+    rc = entry("pair_kernels", "forces_sep_bwd", dtype)(
+        sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
+        sb.static_all.data_ptr(), vol_m.data_ptr(), sb.rs6T.data_ptr(),
+        sb.rs6T.stride(0), dfT.data_ptr(), dfT.stride(0), dgs.data_ptr(), dgs.stride(0),
+        dgr.data_ptr(), dgr.stride(0), sb.group, inv_h, c4h, has_tail(sb, BWD_CHUNK),
+        stream())
+    raise_on(rc, "forces_sep_bwd")
+    forces_sep_bwd.launches += 1
+    return dgs, dgr
 
 
-def _launch_forces_sep_bwd_slab(restT_rows, static_slab, vol_rows, dfT, h):
-    """dgs (t, 9, slab), field-major underneath: one thread per slab entry,
-    looping over the tile's 32 rows."""
-    t, rows, slab = _check_bwd(restT_rows, static_slab, vol_rows, dfT)
-    dtype = restT_rows.dtype
-    dgs = torch.empty((G_FIELDS, t * slab), dtype=dtype, device=restT_rows.device)
-    if t:
-        inv_h, _, c4h = spline_constants(h, dtype)
-        rc = entry("separable_kernels", "forces_sep_bwd_slab", dtype)(
-            restT_rows.data_ptr(), static_slab.data_ptr(), vol_rows.data_ptr(),
-            dfT.data_ptr(), dfT.stride(0), dgs.data_ptr(), dgs.stride(0),
-            t, slab, inv_h, c4h, stream())
-        raise_on(rc, "forces_sep_bwd_slab")
-        forces_sep_bwd_slab.launches += 1
-    return dgs.view(G_FIELDS, t, slab).permute(1, 0, 2)
+# ------------------------------------------------------------ device dispatch
+def forces_sep(sb, gT, vol_m, h):
+    """Separable K2 over every tile of the scene ``sb``: fT (3, m) from gT
+    (9, n_slots) and the rows' volumes vol_m (m,); one launch on the card,
+    :func:`forces_sep_scene_plain` on the CPU."""
+    fn = on("forces_sep", gT, forces_sep_scene_plain, _launch_forces_sep)
+    return fn(sb, gT, vol_m, h)
 
 
-# ------------------------------------------------ per-bucket device dispatch
-def forces_sep(restT_rows, static_slab, gT_rows, gT, vol_rows, gidx8, h):
-    """Separable K2 of one bucket: fT (3, t*rows); see
-    :func:`forces_sep_plain`."""
-    fn = on("forces_sep", gT, forces_sep_plain, _launch_forces_sep)
-    return fn(restT_rows, static_slab, gT_rows, gT, vol_rows, gidx8, h)
+def forces_sep_bwd(sb, vol_m, dfT, h):
+    """Separable K2 backward over the scene: (dgs (9, n_entries), dgr
+    (9, m)); one launch on the card, :func:`forces_sep_bwd_scene_plain` on
+    the CPU."""
+    fn = on("forces_sep_bwd", dfT, forces_sep_bwd_scene_plain, _launch_forces_sep_bwd)
+    return fn(sb, vol_m, dfT, h)
 
 
-def forces_sep_bwd_rows(restT_rows, static_slab, vol_rows, dfT, h):
-    """The separable K2 backward's row pass: dgrT (9, t*rows)."""
-    fn = on("forces_sep_bwd_rows", dfT,
-            lambda *a: forces_sep_bwd_plain(*a)[0], _launch_forces_sep_bwd_rows)
-    return fn(restT_rows, static_slab, vol_rows, dfT, h)
-
-
-def forces_sep_bwd_slab(restT_rows, static_slab, vol_rows, dfT, h):
-    """The separable K2 backward's slab pass: dgs (t, 9, slab)."""
-    fn = on("forces_sep_bwd_slab", dfT,
-            lambda *a: forces_sep_bwd_plain(*a)[1], _launch_forces_sep_bwd_slab)
-    return fn(restT_rows, static_slab, vol_rows, dfT, h)
-
-
-def forces_sep_bwd(restT_rows, static_slab, vol_rows, dfT, h):
-    """Separable K2 backward of one bucket: (dgrT (9, t*rows), dgs (t, 9,
-    slab)); see :func:`forces_sep_bwd_plain`.  On the card two kernels, the
-    row pass and the slab pass."""
-    args = (restT_rows, static_slab, vol_rows, dfT, h)
-    if dfT.device.type == "cpu":
-        return forces_sep_bwd_plain(*args)
-    return forces_sep_bwd_rows(*args), forces_sep_bwd_slab(*args)
-
-
-COUNTED = (forces_sep, forces_sep_bwd_rows, forces_sep_bwd_slab)
+COUNTED = (forces_sep, forces_sep_bwd)
 
 
 # ------------------------------------------------------- differentiable op
 class _ForcesSep(torch.autograd.Function):
-    """Separable K2 over every bucket: gT (9, n_slots) -> fT (3, m).  The
+    """Separable K2 over the whole scene: gT (9, n_slots) -> fT (3, m).  The
     rows' G is gT's first m columns (tile rows are the slot prefix), so the
-    backward adds the row pass's cotangent into those columns of the slab
-    pass's scattered one."""
+    backward adds the rows' term into those columns of the scattered slab
+    side."""
 
     @staticmethod
     def forward(ctx, gT, vol_m, sb, h, ops):
         ctx.sb, ctx.h, ctx.ops = sb, h, ops
         ctx.save_for_backward(vol_m)
-        return torch.cat([
-            ops.forces_sep(b.restT_rows, b.static_slab, gT[:, bucket_cols(b, sb.rows)],
-                           gT, vol_m[bucket_cols(b, sb.rows)], b.gidx8, h)
-            for b in sb.buckets], dim=1)
+        return ops.forces_sep(sb, gT, vol_m, h)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dfT):
         sb, ops = ctx.sb, ctx.ops
         (vol_m,) = ctx.saved_tensors
-        dfT = dfT.contiguous()
-        dgr, dgs = [], []
-        for b in sb.buckets:
-            c = bucket_cols(b, sb.rows)
-            d_r, d_s = ops.forces_sep_bwd(b.restT_rows, b.static_slab, vol_m[c],
-                                          dfT[:, c], ctx.h)
-            dgr.append(d_r)
-            dgs.append(d_s)
-        dgT = ops.to_slots(flat_entries(dgs, G_FIELDS), sb.slab_ptr, sb.slab_idx,
-                           sb.n_slots, sb.group)
-        m = sb.n_tiles * sb.rows
-        dgT[:, :m] += torch.cat(dgr, dim=1)
+        dgs, dgr = ops.forces_sep_bwd(sb, vol_m, dfT.contiguous(), ctx.h)
+        dgT = ops.to_slots(dgs, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+        dgT[:, :dgr.shape[1]] += dgr
         return dgT, None, None, None, None
 
 
 def forces_sep_all(gT, vol_m, sb, h, ops):
-    """Differentiable separable K2 over every bucket of ``sb`` (one launch
-    per bucket): gT (9, n_slots), vol_m (m,) -> fT (3, m).  Its backward
-    runs the row and slab passes per bucket, then one ``slab_to_slots`` of
-    the slab pass's 9 fields."""
+    """Differentiable separable K2 over every tile of ``sb``: gT (9, n_slots),
+    vol_m (m,) -> fT (3, m), one launch on the card.  Its backward is one
+    launch (the slab side and the rows' term), then one ``slab_to_slots``
+    of its 9 fields."""
     return _ForcesSep.apply(gT, vol_m, sb, h, ops)

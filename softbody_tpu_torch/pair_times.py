@@ -3,18 +3,22 @@ K2 (``forces_warp_v4``) forward kernels and their backwards
 (``moments_v4_bwd``, ``forces_warp_v4_bwd_rows`` and ``_slab``), of the
 fused path's K1 + mid-section (``moments_mid``), of the raw K1 backward
 (``moments_raw_bwd``: with its row term on the fused path, without on
-path B) and of K2 v2 (``forces_warp_v2``) and its backward passes on the
+path B), of K2 v2 (``forces_warp_v2``) and its backward passes on the
 fused path's records over the sparse scene and on path B's over the
-blocked varcol scene (``varcol_``), at the ~112k stretch scene on one CUDA
-card, and the steps they sit in, for this checkout or another one (``--tree``), so that
-two versions can be compared on one card in one sitting:
+blocked varcol scene (``varcol_``), and of the Taichi pairing's separable
+K2 (``forces_sep``) and its backward (``forces_sep_bwd``; a tree whose
+wrappers take a bucket has two passes, ``forces_sep_bwd_rows`` and ``_slab``,
+timed together) on G = V M of the same two scenes, at the ~112k stretch
+scene on one CUDA card, and the steps they sit in, for this checkout or
+another one (``--tree``), so that two versions can be compared on one card
+in one sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
 
 Run it for each version in turns (A, B, B, A).  The scene and the
 operands are those of ``chip_smoke.py`` phases 3, 14 and 25
 (``fit_body(100000)``, STRETCH, f32, a stretched and jittered body, the
-plain path's F, S, R, and the fused path's and path B's fmT / srT), and
+plain path's F, S, R, M, and the fused path's and path B's fmT / srT), and
 seeded random cotangents for the backwards.  A kernel whose wrapper
 takes one bucket (found from the wrapper's signature) is timed as its 8
 launches back to back (and, as ``chip_smoke.py`` summed them, launch by
@@ -30,7 +34,8 @@ of 3), each with the device's busy ms and activities per step
 take them), and each kernel's SASS instructions per pair in f32
 (``cuobjdump -sass`` of the built libraries: the innermost loop around the
 pair's one ``MUFU.RSQ`` that reads shared memory, its instructions over
-its ``MUFU`` count).  Needs
+its ``MUFU`` count; ``_tail`` names a kernel's ragged-tail
+instantiation).  Needs
 a card.
 """
 
@@ -192,7 +197,8 @@ def main():
     ayT = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN)
     A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
     Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
-    R, F, S, _, _ = mid_section(A, Y, ratio, scene.materials, scene, cfg, m)
+    R, F, S, M, vol_m = mid_section(A, Y, ratio, scene.materials, scene, cfg, m)
+    gT = slot_rows([vol_m * M[a][c] for a in range(3) for c in range(3)], sb.n_slots)
     f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])
     srT = torch.zeros((15, sb.n_slots), dtype=torch.float32, device=dev)
     srT[:, :m] = torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
@@ -265,6 +271,7 @@ def main():
                         + [M_b[a][c] for a in range(3) for c in range(3)] + [vol_b])
     srT_b = slot_rows([S_b[0][0], S_b[0][1], S_b[0][2], S_b[1][1], S_b[1][2], S_b[2][2]]
                       + [R_b[a][c] for c in range(3) for a in range(3)], blk.n_slots)
+    gT_b = slot_rows([vol_b * M_b[a][c] for a in range(3) for c in range(3)], blk.n_slots)
     dfT_b = torch.as_tensor(rng.normal(size=(3, m_b)), dtype=torch.float32, device=dev)
     del ay_b, A_b, Y_b, R_b, F_b, S_b, M_b
     v2_whole = "sb" in inspect.signature(fk.forces_warp_v2).parameters
@@ -311,6 +318,29 @@ def main():
                for b in sc_.buckets]
         evals[label + "moments_raw_bwd"] = lambda fns=fns: [f() for f in fns]
         per_launch[label + "moments_raw_bwd"] = fns
+    # the separable K2 and its backward on G = V M of both scenes
+    from softbody_tpu_torch.ops import separable_kernels as sk
+
+    sep_whole = "sb" in inspect.signature(sk.forces_sep).parameters
+    for label, sc_, g, vol, df in (("", sb, gT, vol_m, dfT),
+                                   ("varcol_", blk, gT_b, vol_b, dfT_b)):
+        if sep_whole:                       # one launch over the scene
+            evals[label + "forces_sep"] = lambda sc_=sc_, g=g, vol=vol: sk.forces_sep(
+                sc_, g, vol, h)
+            evals[label + "forces_sep_bwd"] = (lambda sc_=sc_, vol=vol, df=df:
+                                               sk.forces_sep_bwd(sc_, vol, df, h))
+            continue
+        fwd, bwd = [], []                   # one launch per bucket, two passes
+        for b in sc_.buckets:
+            c = slice(b.row_start, b.row_start + b.n_tiles * sc_.rows)
+            fa = (b.restT_rows, b.static_slab, g[:, c], g, vol[c], b.gidx8, h)
+            ba = (b.restT_rows, b.static_slab, vol[c], df[:, c], h)
+            fwd.append(lambda fa=fa: sk.forces_sep(*fa))
+            bwd += [lambda ba=ba: sk.forces_sep_bwd_rows(*ba),
+                    lambda ba=ba: sk.forces_sep_bwd_slab(*ba)]
+        for name, fns in (("forces_sep", fwd), ("forces_sep_bwd", bwd)):
+            evals[label + name] = lambda fns=fns: [f() for f in fns]
+            per_launch[label + name] = fns
     out = {"tree": str(Path(args.tree).resolve()),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -320,19 +350,22 @@ def main():
         pk.reset_launch_counts()
         fn()
         torch.cuda.synchronize()
-        out[f"{key}_launches"] = pk.launch_counts()[key.removeprefix("varcol_")]
+        out[f"{key}_launches"] = sum(pk.launch_counts().values())
         out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
         if key in per_launch:
             out[f"{key}_sum_of_launches_ms"] = sum(
                 cuda_ms(torch, f, args.reps) for f in per_launch[key])
     from softbody_tpu_torch.ops import _build
     out["sass_per_pair"] = {}
-    for source in ("pair_kernels", "fused_kernels"):   # either, by tree
+    for source in _build.SOURCES:           # the tree's own sources
         out["sass_per_pair"].update(sass_per_pair(
             _build.library_path(source),
-            tuple(per_bucket) + v2_kernels + ("moments_mid", "moments_raw_bwd")))
+            tuple(per_bucket) + v2_kernels + ("moments_mid", "moments_raw_bwd",
+                                              "forces_sep", "forces_sep_bwd",
+                                              "forces_sep_bwd_rows",
+                                              "forces_sep_bwd_slab")))
     out["buckets_varcol"] = [[b.slab_len, b.n_tiles] for b in blk.buckets]
-    del fmT, srT_f, fmT_b, srT_b
+    del fmT, srT_f, fmT_b, srT_b, gT, gT_b
     out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))
     out.update({f"j_{k}": v for k, v in step_numbers(
         torch, scene, cfg.replace(pair_def_grad="j"), ratio, x_star, dev).items()})

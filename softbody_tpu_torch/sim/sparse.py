@@ -16,7 +16,8 @@ G = V M per slot from the mid-section's M, and the separable K2
 itself:
 
   ayT -> mid-section -> M -> gT (9, n_slots) = G, row 3a+b
-    -> [forces_sep_all: K2 forces_sep per bucket] -> fT (3, m)
+    -> [forces_sep_all: K2 forces_sep, one launch, svnw from rs6T[3:6]]
+    -> fT (3, m)
 
 With ``cfg.fused_mid`` (Warp pairing only: with ``"j"`` it runs the
 ``"j"`` branch above, as the JAX package does) the mid-section moves into
@@ -27,16 +28,16 @@ the K1 kernel (``ops/fused_kernels.py``):
     -> [forces_v2_all: K2 forces_warp_v2, one launch, term_i and 0.5 V_i in
         the kernel] -> fT (3, m) -> forces (n_slots, 3)
 
-K1 and K2 of the default path (and K1 of the Taichi pairing) and the fused
-path's K1 + mid-section and K2 v2 launch once per force evaluation over
-every tile of every bucket, in the scene's tile schedule
-(``SparseBlocked.schedule``, longest slab first); the Taichi pairing's
-separable K2 launches once per bucket (8 buckets at the ~112k stretch
-scene), the JAX path's granularity.  Tiles are bucket-major, so a bucket's
-rows are a contiguous column range of every lane-major array and the
-per-bucket results concatenate straight into tile order.  The VJP runs backwards through the
-same chain: the K2 backward (its row pass and its slab pass) and the K1
-backward, one launch each over the whole scene (the slab side over
+K1 and K2 of the default path, the Taichi pairing's K1 and separable K2
+and the fused path's K1 + mid-section and K2 v2 launch once per force
+evaluation over every tile of every bucket, in the scene's tile schedule
+(``SparseBlocked.schedule``, longest slab first; the JAX path launches
+once per bucket).  Tiles are bucket-major, so a bucket's rows are a
+contiguous column range of every lane-major array and the per-bucket
+plain versions concatenate straight into tile order.  The VJP runs
+backwards through the same chain: the K2 backward (its row pass and its
+slab pass; the separable K2's is one kernel) and the K1 backward, one
+launch each over the whole scene (the slab side over
 ``SparseBlocked.chunks``), each followed by one fixed-order
 ``slab_to_slots`` into the slots, and autograd through the mid-section
 (the polar through its clamped analytic VJP).

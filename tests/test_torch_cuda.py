@@ -8,7 +8,8 @@ with only the port's dependencies:
 (``--noconftest``: tests/conftest.py sets up JAX.)  The same comparisons at
 full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
-separable K2) and 25-28 (the blocked layout's raw K1 and K2 v2)."""
+separable K2) and 25-28 (the blocked layout's raw K1, K2 v2 and the
+separable K2)."""
 
 import dataclasses
 
@@ -551,30 +552,70 @@ def test_fused_episode_gradient_matches_plain_f64_and_repeats():
 
 
 # ------------------------------------------------ Taichi pairing, blocked layout
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_separable_kernels_match_plain_per_bucket(dtype):
-    dev = _card()
-    cfg, scene, pos, _ = _scene(dtype, dev)
+def _sep_operands(scene, seed):
+    """gT (9, n_slots) = V M with random M, zero past the tile rows; the
+    rows' volumes; a random dfT (3, m)."""
     sb = scene.blocked
     m = sb.n_tiles * sb.rows
-    rng = np.random.default_rng(8)
-    gT = torch.as_tensor(rng.normal(size=(9, sb.n_slots)), dtype=pos.dtype, device=dev)
-    gT[:, m:] = 0
-    dfT = torch.as_tensor(rng.normal(size=(3, m)), dtype=pos.dtype, device=dev)
-    vol = scene.materials.volume[:m]
+    dev, dt = scene.rest_position.device, scene.rest_position.dtype
+    rng = np.random.default_rng(seed)
+    vol = scene.materials.volume[:m].contiguous()
+    gT = torch.zeros((9, sb.n_slots), dtype=dt, device=dev)
+    gT[:, :m] = torch.as_tensor(rng.normal(size=(9, m)), dtype=dt, device=dev) * vol
+    return gT, vol, torch.as_tensor(rng.normal(size=(3, m)), dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_separable_kernels_match_plain_per_bucket(dtype, blocked):
+    """The separable K2 and its backward, one launch each over the sparse
+    scene or a varcol one (slab 936 = 29 x 32 + 8 = 7 x 128 + 40): every
+    bucket's columns against that bucket's plain version, and a second
+    launch bit for bit the first."""
+    dev = _card()
+    cfg, scene, _, _ = _scene(dtype, dev, blocked)
+    sb = scene.blocked
+    gT, vol, dfT = _sep_operands(scene, 8)
     pk.reset_launch_counts()
-    for b in sb.buckets:
-        c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-        fa = (b.restT_rows, b.static_slab, gT[:, c], gT, vol[c], b.gidx8, cfg.h)
-        ba = (b.restT_rows, b.static_slab, vol[c], dfT[:, c], cfg.h)
-        assert _rel(sk.forces_sep(*fa), sk.forces_sep_plain(*fa)) <= TOL[dtype]
-        rows, slab = sk.forces_sep_bwd(*ba)
-        rows_p, slab_p = sk.forces_sep_bwd_plain(*ba)
-        assert _rel(rows, rows_p) <= TOL[dtype]
-        assert _rel(slab, slab_p) <= TOL[dtype]
+    f = sk.forces_sep(sb, gT, vol, cfg.h)
+    dgs, dgr = sk.forces_sep_bwd(sb, vol, dfT, cfg.h)
     counts = pk.launch_counts()
-    assert counts["forces_sep"] == counts["forces_sep_bwd_rows"] == \
-        counts["forces_sep_bwd_slab"] == len(sb.buckets)
+    assert counts == dict.fromkeys(counts, 0) | {"forces_sep": 1, "forces_sep_bwd": 1}
+    e0 = 0
+    for b in sb.buckets:
+        t, slab = b.n_tiles, b.slab_len
+        c = slice(b.row_start, b.row_start + t * sb.rows)
+        seg = slice(e0, e0 + t * slab)
+        e0 += t * slab
+        want = sk.forces_sep_plain(b.restT_rows, b.static_slab, gT[:, c], gT, vol[c],
+                                   b.gidx8, cfg.h)
+        p_dgr, p_dgs = sk.forces_sep_bwd_plain(b.restT_rows, b.static_slab, vol[c],
+                                               dfT[:, c], cfg.h)
+        assert _rel(f[:, c], want) <= TOL[dtype]
+        assert _rel(dgr[:, c], p_dgr) <= TOL[dtype]
+        assert _rel(dgs[:, seg].view(9, t, slab).permute(1, 0, 2), p_dgs) <= TOL[dtype]
+    assert e0 == dgs.shape[1]
+    assert torch.equal(f, sk.forces_sep(sb, gT, vol, cfg.h))
+    again = sk.forces_sep_bwd(sb, vol, dfT, cfg.h)
+    assert torch.equal(again[0], dgs) and torch.equal(again[1], dgr)
+
+
+def test_one_launch_of_each_separable_kernel_per_evaluation():
+    """Path A and path B with the Taichi pairing: one separable K2 launch
+    per force evaluation, one backward launch per backward evaluation."""
+    dev = _card()
+    for blocked in (False, True):
+        cfg, scene, pos, ratio = _scene("float32", dev, blocked)
+        c = cfg.replace(pair_def_grad="j")
+        p = pos.clone().requires_grad_()
+        pk.reset_launch_counts()
+        f = (elastic_forces_pallas if blocked else elastic_forces_sparse)(
+            p, ratio, scene.materials, scene, c)
+        assert pk.launch_counts()["forces_sep"] == 1
+        pk.reset_launch_counts()
+        torch.autograd.grad(f, p, torch.ones_like(f))
+        counts = pk.launch_counts()
+        assert counts["forces_sep_bwd"] == 1 and counts["forces_sep"] == 0, counts
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -614,14 +655,16 @@ def test_separable_and_raw_kernels_refuse_bad_operands():
     cfg, scene, pos, _ = _scene("float32", dev)
     sb = scene.blocked
     b = sb.buckets[0]
-    mb = b.n_tiles * sb.rows
+    m = sb.n_tiles * sb.rows
     gT = torch.zeros((9, sb.n_slots), device=dev)
-    vol = scene.materials.volume[:mb]
+    vol = scene.materials.volume[:m].contiguous()
     with pytest.raises(ValueError, match="9"):
-        sk.forces_sep(b.restT_rows, b.static_slab, gT[:8, :mb], gT, vol, b.gidx8, cfg.h)
-    with pytest.raises(ValueError, match="vol_rows"):
-        sk.forces_sep_bwd_rows(b.restT_rows, b.static_slab, vol[:-1],
-                               torch.zeros((3, mb), device=dev), cfg.h)
+        sk.forces_sep(sb, gT[:8], vol, cfg.h)
+    with pytest.raises(ValueError, match="vol_m"):
+        sk.forces_sep_bwd(sb, vol[:-1], torch.zeros((3, m), device=dev), cfg.h)
+    shifted = torch.zeros((9, sb.n_slots + 1), device=dev)[:, 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.forces_sep(sb, shifted, vol, cfg.h)
     with pytest.raises(TypeError, match="dtype"):
         fk.moments_raw(b.restT_rows, b.static_slab, pos.T.contiguous().double(),
                        b.gidx8, cfg.h)

@@ -127,20 +127,21 @@ def test_forces_sep_all_backward_matches_autograd_of_plain(case):
 
 
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(case):
+    """On CPU tensors the whole-scene wrappers run their scene plain
+    versions (the per-bucket plain versions over every bucket), launch
+    nothing, and are what PLAIN holds."""
     dtype, sb = case["dtype"], case["scene_t"].blocked
     gT, vol, dfT = _t(case["g"].T, dtype), _t(case["vol"], dtype), _t(case["df"].T, dtype)
-    b = sb.buckets[0]
-    c = slice(b.row_start, b.row_start + b.n_tiles * sb.rows)
-    args = (b.restT_rows, b.static_slab, gT[:, c], gT, vol[c], b.gidx8, case["cfg"].h)
-    bargs = (b.restT_rows, b.static_slab, vol[c], dfT[:, c], case["cfg"].h)
+    h = case["cfg"].h
     pk.reset_launch_counts()
-    assert torch.equal(sk.forces_sep(*args), sk.forces_sep_plain(*args))
-    rows, slab = sk.forces_sep_bwd(*bargs)
-    assert torch.equal(rows, sk.forces_sep_bwd_rows(*bargs))
-    assert torch.equal(slab, sk.forces_sep_bwd_slab(*bargs))
+    assert torch.equal(sk.forces_sep(sb, gT, vol, h), sk.forces_sep_scene_plain(sb, gT, vol, h))
+    dgs, dgr = sk.forces_sep_bwd(sb, vol, dfT, h)
+    dgs_p, dgr_p = sk.forces_sep_bwd_scene_plain(sb, vol, dfT, h)
+    assert torch.equal(dgs, dgs_p) and torch.equal(dgr, dgr_p)
     counts = pk.launch_counts()
-    assert all(counts[k] == 0 for k in ("forces_sep", "forces_sep_bwd_rows",
-                                        "forces_sep_bwd_slab"))
+    assert counts["forces_sep"] == counts["forces_sep_bwd"] == 0
+    assert pk.PLAIN.forces_sep is sk.forces_sep_scene_plain
+    assert pk.PLAIN.forces_sep_bwd is sk.forces_sep_bwd_scene_plain
 
 
 # ------------------------------------------------------------ whole forces
