@@ -89,7 +89,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      NEW_BUDGET_S, the cut printed)
  24  path A's gradient, GRAD_STEPS steps in EVAL_CHUNKS chunks: fwd+bwd
      ms/step, peak memory, a bitwise repeat, the f64 gradient over
-     NEW_PREFIX_STEPS steps kernel vs plain under phase 11's gates
+     PREFIX_STEPS steps kernel vs plain under phase 11's gates
  25  path B, the blocked varcol layout of the same body on the pallas
      backend: its build seconds, n_tiles, run length L, slab_len,
      candidate pairs per evaluation (beside the sparse scene's) and static
@@ -111,6 +111,33 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
  28  path B's gradient, as phase 24
  29  the launch counts of phases 23-24 and 27-28 against what each path
      implies: no kernel of another path runs
+
+ 30  the gather backend (build_scene, its (N, K) tables; no K-nearest
+     truncation): build seconds, K, real pairs, table bytes; one
+     evaluation against the sparse kernel path at the same positions,
+     <= 1e-4 of max |f| in f32 and <= 1e-9 in f64
+ 31  the gather forward episode and quiet body, as phase 23 (cut to
+     NEW_BUDGET_S; no pair kernel may launch); 300 steps against phase 6's
+     sparse kernel rollout (<= 1e-3 max |pos - rest|); the CLI's
+     configuration (warp_parity: trapezoidal, dt 1e-6, the ground with its
+     damper), set through update_materials, finite
+ 32  the gather gradient, as phase 24 (bitwise repeat, peak memory,
+     profile); its f64 gradient over PREFIX_STEPS steps against the
+     sparse kernel path's: loss <= 1e-9 relative, max |dg| <= 1e-6 of
+     max |g|
+ 33  the DROP scenario (drop_gap, scale_mass_for_resolution) on the sparse
+     kernel path with a sphere, a box and a plane obstacle and a dynamic
+     contact grid excluding the rest table in slot space (contact_check
+     on): the forward episode cut to NEW_BUDGET_S, every recorded state
+     finite, no overflow, K1/K2 one launch per step; contact_forces_query
+     on 4,096 rows against the all-pairs law over every particle (<= 1e-5
+     of max |f|, with and without the exclude table); one GRAD_STEPS
+     gradient, finite, bitwise repeatable, phase 13's launch counts; a
+     full-size seeded DeepSDF obstacle (3 -> 1024 x 8 -> 1): penalty_force
+     over every slot and its VJP, ms and finite
+ 34  optimize_adam on the main path: 3 steps of GRAD_STEPS-step episodes;
+     2 steps, a resume and 1 step bitwise equal to them; losses finite,
+     distances.json one entry per step
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
@@ -143,8 +170,7 @@ FUSED_BUDGET_S = 15.0      # the same for the fused phases 16-17
 NEW_BUDGET_S = 20.0        # the same for each of the paths A and B (23, 27)
 GRAD_STEPS = 99            # depth of every gradient phase (33 frames, interval 3)
 GRAD_FRAMES = 33
-PREFIX_STEPS = 99          # kernel vs plain f64 gradient prefix, phases 11 and 19
-NEW_PREFIX_STEPS = 30      # the same for the new paths' phases 24 and 28 (10 frames)
+PREFIX_STEPS = 15          # the f64 gradient prefixes, phases 11, 19, 24, 28, 32 (5 frames)
 EVAL_CHUNKS = 3
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -316,11 +342,12 @@ def main():
         + f") pairs/eval={pairs} host build {time.perf_counter() - t0:.1f} s")
 
     say(f"    CUT: every gradient phase runs {GRAD_STEPS} of the episode's {STEPS} "
-        f"steps ({GRAD_FRAMES} frames), the f64 kernel-vs-plain gradients "
-        f"{PREFIX_STEPS} steps (phases 11 and 19) and {NEW_PREFIX_STEPS} (phases 24 "
-        f"and 28); the forward phases are cut to budgets of "
-        f"{TIME_BUDGET_S:.0f} s (default path), {FUSED_BUDGET_S:.0f} s (fused) and "
-        f"{NEW_BUDGET_S:.0f} s (each of paths A and B), each cut printed; width "
+        f"steps ({GRAD_FRAMES} frames); the f64 gradient prefixes (kernel vs plain "
+        f"in phases 11, 19, 24 and 28, gather vs sparse in 32) {PREFIX_STEPS} steps "
+        f"(phases 11 and 19 ran 99, 24 and 28 ran 30, before phases 30-34 were "
+        f"added); the forward phases are cut to budgets of {TIME_BUDGET_S:.0f} s (default path), "
+        f"{FUSED_BUDGET_S:.0f} s (fused) and {NEW_BUDGET_S:.0f} s (each of paths A "
+        f"and B, the gather path and the drop scenario), each cut printed; width "
         f"is never cut")
     x_star = torch.as_tensor(x_star_bands(pts, sb.n_slots, sop),
                              dtype=torch.float32, device=dev)
@@ -525,6 +552,11 @@ def main():
     path_b = phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star,
                            stats, body, ctx)
     phase_counts(path_a, path_b)
+    scene_g = phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star,
+                           body, ctx)
+    phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg)
+    del scene_g
+    phase_adam(torch, np, dev, tag, scene, x_star, ctx)
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
@@ -1170,17 +1202,20 @@ def profile_card(torch, fn, names, per):
 
 def forward_phase(torch, np, dev, tag, num, label, scene, cfg_p, x_star,
                   budget_s, drift_tol, names):
-    """Phases 23 and 27: a path's forward episode (generate_targets from x*,
-    the sampled loss of x = 0 against those targets; ms/step, profile) and
-    its quiet body, cut to ``budget_s``.  Returns (launch counts of the two
+    """Phases 23, 27 and 31: a path's forward episode (generate_targets from
+    x*, the sampled loss of x = 0 against those targets; ms/step, profile)
+    and its quiet body, cut to ``budget_s``; on a slot scene or a gather
+    scene (x* in the scene's space).  Returns (launch counts of the two
     episodes, steps, ms/step)."""
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
     from softbody_tpu_torch.opt.driver import generate_targets, load_targets
     from softbody_tpu_torch.sim.rollout import acc_float, initial_state, rollout, step
 
-    n_slots = scene.blocked.n_slots
-    n = len(scene.slot_of_particle)
+    n_slots = scene.rest_position.shape[0]       # the particles on a gather scene
+    real = (torch.arange(n_slots, device=dev) if scene.slot_of_particle is None
+            else scene.slot_of_particle)
+    n = len(real)
     ratio = compute_ratio(x_star, cfg_p)
     state = initial_state(scene, ratio, cfg_p)
     one = min(host_ms(lambda: step(state, ratio, scene, cfg_p), 3) for _ in range(3))
@@ -1190,7 +1225,7 @@ def forward_phase(torch, np, dev, tag, num, label, scene, cfg_p, x_star,
         say(f"    CUT: {label} episodes run {steps} steps, not {STEPS} (projected "
             f"{projected:.0f} s > {budget_s:.0f} s)")
     cfg_p = cfg_p.replace(frames=steps)
-    sop = scene.slot_of_particle.cpu().numpy()
+    sop = real.cpu().numpy()
     rest = scene.rest_position
     pk.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1222,16 +1257,17 @@ def forward_phase(torch, np, dev, tag, num, label, scene, cfg_p, x_star,
         torch, ten_steps(initial_state(scene, ratio, cfg_p), ratio, scene, cfg_p),
         names, 10)
     if busy > 0:
+        ours_part = f", of which the pair kernels {ours:.3f} ms" if names else ""
         say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in {acts:.0f} "
-            f"device activities per step, of which the pair kernels {ours:.3f} ms; "
-            f"idle share {1 - busy / ms:.3f} of the episode's {ms:.3f} ms/step {tag}")
+            f"device activities per step{ours_part}; idle share {1 - busy / ms:.3f} of "
+            f"the episode's {ms:.3f} ms/step {tag}")
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
     quiet = cfg_p.replace(external_force=(0.0, 0.0, 0.0))
     q_scene = scene._replace(materials=scene.materials._replace(
         external=torch.zeros_like(scene.materials.external)))
     _, fin_q, _ = rollout(torch.zeros(n_slots), q_scene, quiet, n_steps=steps, device=dev)
-    d = (fin_q.position - rest)[scene.slot_of_particle]
+    d = (fin_q.position - rest)[real]
     drift = float(torch.sqrt(torch.mean(torch.sum(d * d, dim=1))))
     say(f"    {label} quiet body, {steps} steps: rms drift from rest {drift:.3e} m "
         f"(tol {drift_tol:g})")
@@ -1245,12 +1281,12 @@ def grad_phase(torch, np, dev, tag, num, label, scene, cfg_g, x_star, scene64,
     """Phases 24 and 28: a path's episode gradient, GRAD_STEPS steps in
     EVAL_CHUNKS chunks at x = 0 against targets from x* (fwd+bwd ms/step,
     peak memory, a bitwise repeat, the profile) and the f64 gradient over
-    NEW_PREFIX_STEPS steps, kernel vs plain path, under phase 11's gates.
+    PREFIX_STEPS steps, kernel vs plain path, under phase 11's gates.
     Returns (launch counts of one gradient, ms/step)."""
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.sim.rollout import episode_value_and_grad_chunked, rollout
 
-    S, P = GRAD_STEPS, NEW_PREFIX_STEPS
+    S, P = GRAD_STEPS, PREFIX_STEPS
     every = S // GRAD_FRAMES
     n_slots = scene.blocked.n_slots
     n = len(scene.slot_of_particle)
@@ -1724,6 +1760,371 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
     counts_grad, ms_grad = grad_phase(torch, np, dev, tag, 28, "varcol", scene_b,
                                       ctx["cfg_g"], x_b, scene_b64, cfg64, names)
     return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps}
+
+
+def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, body, ctx):
+    """Phases 30-32: the gather backend (``build_scene``'s (N, K) tables,
+    ``ops/elasticity``) at full width, against the sparse kernel path.
+    Returns its f32 scene (phase 33 takes the rest table from it)."""
+    from softbody_tpu_torch import warp_parity
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.scenarios import dirichlet_mask
+    from softbody_tpu_torch.sim.rollout import (elastic_forces,
+                                                episode_value_and_grad_chunked, rollout)
+    from softbody_tpu_torch.sim.scene import build_scene, update_materials
+    from softbody_tpu_torch.sim.sparse import elastic_forces_sparse
+
+    n = len(pts)
+    sop = scene.slot_of_particle
+    mask = dirichlet_mask(pts, "stretch")
+    # no K-nearest truncation: the gather tables then hold every pair the
+    # sparse layout holds
+    cfg_g = cfg.replace(backend="gather", max_neighbors=0)
+    x_g = x_star[sop]                                       # particle order
+
+    # ---- 30 the gather scene and one force evaluation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene_g = build_scene(pts, cfg_g, out_num=out_num, dirichlet_mask=mask, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    topo = scene_g.topology
+    counts = topo.mask.sum(1)
+    pairs = int(counts.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in topo)
+    say(f"[30] gather scene: N={n}, K={topo.idx.shape[1]} (neighbour counts max "
+        f"{int(counts.max())}, mean {pairs / n:.1f}), {pairs} real pairs per "
+        f"evaluation; tables {nbytes / 1e9:.3f} GB on the card; build_scene "
+        f"{t_build:.1f} s {tag}")
+    ratio_s = compute_ratio(x_star, cfg)
+    pos_g = torch.as_tensor(body, dtype=torch.float32, device=dev)
+    f_s = elastic_forces_sparse(ctx["pos"], ratio_s, scene.materials, scene, cfg)[sop]
+    f_g = elastic_forces(pos_g, compute_ratio(x_g, cfg_g), scene_g, cfg_g)
+    # the gather forces issue ~2,500 small launches (the polar on
+    # components), more than a sleep kernel covers: the profiler's busy
+    # time, not CUDA events
+    busy_g, acts_g, _ = profile_card(
+        torch, lambda: elastic_forces(pos_g, compute_ratio(x_g, cfg_g), scene_g, cfg_g),
+        (), 1)
+    err32 = rel_err(f_g, f_s)
+    scene64, cfg64 = ctx["scene64"], ctx["cfg64"]
+    t0 = time.perf_counter()
+    scene_g64 = build_scene(pts, cfg_g.replace(dtype="float64"), out_num=out_num,
+                            dirichlet_mask=mask, device=dev)
+    t_build64 = time.perf_counter() - t0
+    pos64 = scene64.rest_position.clone()
+    pos64[sop] = torch.as_tensor(body, dtype=torch.float64, device=dev)
+    f_s64 = elastic_forces_sparse(pos64, compute_ratio(x_star.double(), cfg64),
+                                  scene64.materials, scene64, cfg64)[sop]
+    f_g64 = elastic_forces(pos64[sop], compute_ratio(x_g.double(), cfg_g),
+                           scene_g64, cfg_g.replace(dtype="float64"))
+    err64 = rel_err(f_g64, f_s64)
+    say(f"    one gather evaluation vs the sparse kernel path at the same positions: "
+        f"f32 {err32:.3e} of max |f| (tol 1e-4), f64 {err64:.3e} (tol 1e-9; f64 "
+        f"scene build {t_build64:.1f} s); one gather evaluation keeps the device "
+        f"busy {busy_g:.3f} ms in {acts_g:.0f} activities (profiler) {tag}")
+    if not (err32 <= 1e-4 and err64 <= 1e-9 and bool(torch.isfinite(f_g).all())):
+        fail("the gather forces disagree with the sparse kernel path")
+
+    # ---- 31 the gather forward episode, its quiet body, 300 steps against the
+    # sparse kernel path, and the CLI's configuration
+    counts_fwd, steps, ms = forward_phase(torch, np, dev, tag, 31, "gather", scene_g,
+                                          cfg_g, x_g, NEW_BUDGET_S, 1e-6, ())
+    if any(counts_fwd.values()):
+        fail(f"a pair kernel ran on the gather path: {counts_fwd}")
+    _, fin_g, _ = rollout(x_g, scene_g, cfg_g, n_steps=300, device=dev)
+    fin_k = ctx["fin_k"]
+    dpos = float(torch.max(torch.abs(fin_g.position - fin_k.position[sop])))
+    disp = float(torch.max(torch.abs(fin_k.position - scene.rest_position)))
+    say(f"    300-step gather rollout vs the sparse kernel path (phase 6): max|dpos| "
+        f"= {dpos:.3e}, max|pos - rest| = {disp:.3e}, ratio {dpos / disp:.3e} "
+        f"(tol 1e-3)")
+    if not dpos <= 1e-3 * disp:
+        fail("the gather rollout drifts from the sparse kernel path")
+    # the CLI's configuration (softbody_tpu/cli.py:117-119): warp_parity,
+    # trapezoidal, dt 1e-6, ground collision (here with its damper), no
+    # clamp; the body's base starts in the ground's contact zone.  The same
+    # tables, set through update_materials.
+    cfg_w = warp_parity().replace(h=cfg.h, dtype="float32", backend="gather",
+                                  max_neighbors=0, dt=1e-6, collision_damping=50.0,
+                                  frames=steps)
+    scene_w = update_materials(scene_g, cfg_w, youngs_modulus=cfg_w.youngs_modulus,
+                               poisson_ratio=cfg_w.poisson_ratio,
+                               dirichlet=(1.0, 1.0, 1.0),
+                               external_force=cfg_w.external_force)
+    shift = torch.tensor([0.0, float(scene_g.rest_position[:, 1].min()) - 5e-5, 0.0],
+                         device=dev)
+    scene_w = scene_w._replace(rest_position=scene_g.rest_position - shift)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, fin_w, _ = rollout(torch.zeros(n), scene_w, cfg_w, n_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    ms_w = (time.perf_counter() - t0) * 1e3 / steps
+    low = float(fin_w.position[:, 1].min())
+    say(f"    warp_parity (the CLI's configuration: trapezoidal, dt 1e-6, ground "
+        f"contact with the damper) on the gather path: {steps} steps, {ms_w:.3f} "
+        f"ms/step, lowest particle {low:.3e} m {tag}")
+    if not bool(torch.isfinite(fin_w.position).all()):
+        fail("the warp_parity gather episode is not finite")
+
+    # ---- 32 the gather episode gradient; f64 prefix against the sparse path
+    S, P = GRAD_STEPS, PREFIX_STEPS
+    every = S // GRAD_FRAMES
+    cfg_gg = cfg_g.replace(frames=S, target_frames=GRAD_FRAMES)
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x_g, scene_g, cfg_gg, n_steps=S, record_every=every,
+                                 device=dev)
+    x0 = torch.zeros(n, device=dev)
+    vg = episode_value_and_grad_chunked(scene_g, cfg_gg, EVAL_CHUNKS, S)
+    pk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1 = vg(x0, tp, tv)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = pk.launch_counts()
+    loss2, g2 = vg(x0, tp, tv)
+    ms_grad = t_grad * 1e3 / S
+    gmax = float(torch.max(torch.abs(g1)))
+    repeat = loss1 == loss2 and torch.equal(g1, g2)
+    say(f"[32] gather episode gradient: {S} steps, {GRAD_FRAMES} frames, {EVAL_CHUNKS} "
+        f"chunks, x = 0: loss {loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd {t_grad:.1f} s "
+        f"= {ms_grad:.3f} ms/step, {n * S / t_grad:.4g} particle-steps/s; peak device "
+        f"memory {peak / 2**30:.3f} GiB; second gradient bitwise equal: {repeat} {tag}")
+    if not (math.isfinite(loss1) and loss1 > 0 and gmax > 0 and repeat
+            and bool(torch.isfinite(g1).all()) and not any(counts.values())):
+        fail("the gather gradient is not finite, is zero, does not repeat, or ran "
+             f"a pair kernel ({counts})")
+    n_tp = P // every
+    tp64, tv64 = ctx["tp64"][:n_tp], ctx["tv64"][:n_tp]
+    x64 = torch.zeros(scene64.rest_position.shape[0], dtype=torch.float64, device=dev)
+    cfg_g64 = cfg_gg.replace(dtype="float64")
+    l_s, g_s = episode_value_and_grad_chunked(scene64, cfg64, 1, P)(x64, tp64, tv64)
+    l_g, g_g = episode_value_and_grad_chunked(scene_g64, cfg_g64, 1, P)(
+        x64[sop], tp64[:, sop], tv64[:, sop])
+    dl, dg = abs(l_g - l_s) / l_s, rel_err(g_g, g_s[sop])
+    say(f"    first {P} steps in f64, gather vs the sparse kernel path: loss "
+        f"{l_g:.12g} vs {l_s:.12g} (rel {dl:.3e}, tol 1e-9); max |dg| / max |g| "
+        f"{dg:.3e} (tol 1e-6)")
+    if not (dl <= 1e-9 and dg <= 1e-6):
+        fail("the gather gradient disagrees with the sparse kernel path in f64")
+    short = episode_value_and_grad_chunked(scene_g, cfg_gg, 1, 10)
+    busy, acts, _ = profile_card(torch, lambda: short(x0, tp[:3], tv[:3]), (), 10)
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step of fwd+bwd in {acts:.0f} "
+            f"device activities per step; idle share {1 - busy / ms_grad:.3f} of the "
+            f"gradient's {ms_grad:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+    del scene_g64
+    return scene_g
+
+
+def phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg):
+    """Phase 33: the DROP scenario on the main (sparse kernel) path with a
+    sphere, a plane and a box obstacle and dynamic contact, and a full-size
+    DeepSDF obstacle."""
+    import dataclasses
+    import warnings
+
+    from softbody_tpu_torch import warp_parity
+    from softbody_tpu_torch.models import deepsdf
+    from softbody_tpu_torch.ops import contact as ct
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.ops import obstacles as obs
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.scenarios import (DROP, drop_gap, scale_mass_for_resolution,
+                                              x_star_bands)
+    from softbody_tpu_torch.sim import rollout as ro
+    from softbody_tpu_torch.sim.sparse import build_sparse_scene
+
+    n = len(pts)
+    pts_d = drop_gap(pts, "drop")
+    cfg_d = scale_mass_for_resolution(
+        warp_parity().replace(h=cfg.h, dtype="float32", backend="pallas",
+                              target_frames=FRAMES, **DROP), n, "drop")
+    lo, hi = pts_d.min(0), pts_d.max(0)
+    c = 0.5 * (lo + hi)
+    radius = 0.5 * float(hi[0] - lo[0])
+
+    def base(dx):   # height of the body's base at an offset dx from its axis
+        return float(c[1] - np.sqrt(radius**2 - dx * dx))
+
+    # a sphere under the base (its top 0.2 mm below it), a box under the base
+    # on the other side (likewise), a wall on -z whose margin the body's side
+    # already touches
+    obstacles = obs.make(
+        obs.sphere((c[0] - 0.01, base(0.01) - 2e-4 - 0.02, c[2]), 0.02),
+        obs.box((c[0] + 0.01, base(0.01) - 2e-4 - 0.01, c[2]), (0.008, 0.01, 0.02)),
+        obs.plane((0.0, 0.0, 1.0), float(lo[2]) - 5e-5),
+        stiffness=cfg_d.collision_stiffness)
+    t0 = time.perf_counter()
+    scene_d, sop_d = build_sparse_scene(pts_d, cfg_d, out_num=out_num,
+                                        obstacles=obstacles, device=dev)
+    n_slots = scene_d.blocked.n_slots
+    exclude = ct.slot_exclude(scene_g.topology.idx.cpu().numpy(), sop_d, n_slots)
+    grid = ct.build_contact_grid(lo - 0.01, hi + 0.01, r_c=cfg.h, cap=16,
+                                 stiffness=cfg_d.collision_stiffness, exclude=exclude,
+                                 device=dev)
+    scene_d = scene_d._replace(contact=grid)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    x_d = torch.as_tensor(x_star_bands(pts_d, n_slots, sop_d), dtype=torch.float32,
+                          device=dev)
+    occ = ct.max_occupancy(scene_d.rest_position, grid)
+    say(f"[33] DROP with obstacles (sphere, box, plane; stiffness "
+        f"{cfg_d.collision_stiffness:g}) and dynamic contact (r_c = h = {cfg.h:.4g}, "
+        f"cell {grid.cell:.4g}, grid {grid.dims}, cap {grid.cap}, rest occupancy "
+        f"{occ}, exclude the rest table in slot space, K={exclude.shape[1]}) on the "
+        f"sparse kernel path: N={n}, {n_slots} slots, build {t_build:.1f} s {tag}")
+    ratio = compute_ratio(x_d, cfg_d)
+    state = ro.initial_state(scene_d, ratio, cfg_d)
+    parts = {"step": lambda: ro.step(state, ratio, scene_d, cfg_d),
+             "obstacles": lambda: obs.penalty_force(scene_d.obstacles, state.position),
+             "contact": lambda: ct.contact_forces(state.position, grid)}
+    best = {k: min(host_ms(fn, 3) for _ in range(3)) for k, fn in parts.items()}
+    steps, projected = STEPS, STEPS * best["step"] / 1e3
+    if projected > NEW_BUDGET_S:
+        steps = max(FRAMES, int(STEPS * NEW_BUDGET_S / projected) // FRAMES * FRAMES)
+        say(f"    CUT: the DROP episode runs {steps} steps, not {STEPS} (projected "
+            f"{projected:.0f} s > {NEW_BUDGET_S:.0f} s)")
+    ro._overflow_warned = False
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.no_grad():
+            _, fin, (rec_p, rec_v) = ro.rollout(x_d, scene_d, cfg_d, n_steps=steps,
+                                                record_every=steps // FRAMES, device=dev)
+        torch.cuda.synchronize()
+    t_ep = time.perf_counter() - t0
+    counts = pk.launch_counts()
+    overflow = [w for w in caught if "exceeded cap" in str(w.message)]
+    _, ovf_end = ct.contact_forces(fin.position, grid, with_overflow=True)
+    ms_d = t_ep * 1e3 / steps
+    finite = bool(torch.isfinite(rec_p).all()) and bool(torch.isfinite(rec_v).all())
+    touched = int((obs.sdf(scene_d.obstacles, rec_p[-1][scene_d.slot_of_particle])
+                   < obstacles.margin).sum())
+    say(f"    episode: {steps} steps from x* in {t_ep:.1f} s = {ms_d:.3f} ms/step, "
+        f"{n * 1e3 / ms_d:.4g} particle-steps/s; one step {best['step']:.3f} ms wall, "
+        f"of which the obstacle penalty {best['obstacles']:.3f} ms and the contact "
+        f"forces {best['contact']:.3f} ms (fastest of 3 rounds); {touched} particles "
+        f"within an obstacle's margin at the end; every state finite: {finite}; "
+        f"contact overflow: {bool(overflow) or bool(ovf_end)}; lowest particle "
+        f"{float(rec_p[-1][:, 1].min()):.3e} m {tag}")
+    if not finite or overflow or bool(ovf_end):
+        fail("the DROP + obstacles + contact episode is not finite or overflowed")
+    want = {"moments_v4": steps, "forces_warp_v4": steps}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"DROP episode launches {counts}, expected {want} and 0 for the rest")
+
+    # contact_forces_query on 4,096 rows against the all-pairs law over every
+    # particle: once with the grid's exclude table, once without (every rest
+    # neighbour within r_c then counts, so the forces are far from zero)
+    nq = min(4096, n_slots)
+    g0 = max(0, n_slots // 2 - nq // 2)
+    rows = torch.arange(g0, g0 + nq, device=dev)
+    for label, g in (("with the exclude table", grid),
+                     ("no exclude", dataclasses.replace(grid, exclude=None))):
+        excl = g.exclude
+        f_q = ct.contact_forces_query(fin.position, fin.position[rows], g0, g,
+                                      exclude_q=None if excl is None else excl[rows])
+        f_o = ct.contact_forces_allpairs(fin.position, g, rows=rows)
+        fmax = float(torch.max(torch.abs(f_o)))
+        err = float(torch.max(torch.abs(f_q - f_o))) / fmax if fmax > 0 else float(
+            torch.max(torch.abs(f_q)))
+        say(f"    contact_forces_query on {nq} rows vs the all-pairs law ({label}): "
+            f"max |f| {fmax:.3e}, max |df| / max |f| {err:.3e} (tol 1e-5)")
+        if not (err <= 1e-5 and (excl is not None or fmax > 0)):
+            fail(f"the contact forces ({label}) disagree with the all-pairs law")
+
+    # one 99-step gradient, twice
+    S = GRAD_STEPS
+    cfg_dg = cfg_d.replace(frames=S, target_frames=GRAD_FRAMES)
+    with torch.no_grad():
+        _, _, (tp, tv) = ro.rollout(x_d, scene_d, cfg_dg, n_steps=S,
+                                    record_every=S // GRAD_FRAMES, device=dev)
+    vg = ro.episode_value_and_grad_chunked(scene_d, cfg_dg, EVAL_CHUNKS, S)
+    x0 = torch.zeros(n_slots, device=dev)
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1 = vg(x0, tp, tv)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    counts = pk.launch_counts()
+    loss2, g2 = vg(x0, tp, tv)
+    repeat = loss1 == loss2 and torch.equal(g1, g2)
+    say(f"    gradient: {S} steps, {EVAL_CHUNKS} chunks, x = 0: loss {loss1:.9g}, max "
+        f"|g| {float(torch.max(torch.abs(g1))):.3e}, {t_grad * 1e3 / S:.3f} ms/step; "
+        f"second gradient bitwise equal: {repeat}; launches {counts} {tag}")
+    if not (math.isfinite(loss1) and bool(torch.isfinite(g1).all()) and repeat):
+        fail("the DROP + obstacles + contact gradient is not finite or does not repeat")
+    per_eval = {"moments_v4": 3 * S, "forces_warp_v4": 3 * S, "moments_v4_bwd": S,
+                "forces_warp_v4_bwd_rows": S, "forces_warp_v4_bwd_slab": S,
+                "slab_to_slots": 2 * S}
+    if counts != {k: per_eval.get(k, 0) for k in counts}:
+        fail(f"DROP gradient launches {counts}, expected {per_eval} (phase 13)")
+
+    # a full-size seeded DeepSDF obstacle (3 -> 1024 x 8 -> 1) over every slot
+    params = deepsdf.init_params(torch.Generator().manual_seed(0), device=dev)
+    o_sdf = obs.make(obs.deepsdf(params, scale=1.0, offset=tuple(c)), stiffness=2e4,
+                     margin=1e-4).to(dev)
+    p = fin.position.detach().clone().requires_grad_()
+    ct_ = torch.ones_like(p)
+
+    def penalty_and_vjp():
+        f = obs.penalty_force(o_sdf, p)
+        return f, torch.autograd.grad(f, p, ct_)[0]
+
+    f_sdf, g_sdf = (t.detach() for t in penalty_and_vjp())
+    ms_f = cuda_ms(lambda: obs.penalty_force(o_sdf, p.detach()), 3)
+    ms_v = cuda_ms(penalty_and_vjp, 3)
+    inside = int((obs.sdf(o_sdf, p.detach()) < o_sdf.margin).sum())
+    say(f"    DeepSDF obstacle (3 -> 1024 x 8 -> 1, seeded) over {n_slots} positions: "
+        f"penalty_force {ms_f:.2f} ms, with its VJP {ms_v:.2f} ms (CUDA events); "
+        f"{inside} positions inside its margin; max |f| "
+        f"{float(torch.max(torch.abs(f_sdf))):.3e}, finite: "
+        f"{bool(torch.isfinite(f_sdf).all()) and bool(torch.isfinite(g_sdf).all())} "
+        f"{tag}")
+    if not (bool(torch.isfinite(f_sdf).all()) and bool(torch.isfinite(g_sdf).all())):
+        fail("the DeepSDF obstacle's force or its VJP is not finite")
+
+
+def phase_adam(torch, np, dev, tag, scene, x_star, ctx):
+    """Phase 34: optimize_adam at full width: 3 steps straight; 2 steps, a
+    resume and 1 step; the two iterates bitwise equal."""
+    from softbody_tpu_torch.opt import driver
+
+    cfg_g, tp, tv = ctx["cfg_g"], ctx["tp_g"], ctx["tv_g"]
+    x0 = np.zeros(scene.blocked.n_slots)
+    x_t = x_star.cpu().numpy()
+    kw = dict(n_steps=GRAD_STEPS, eval_chunks=EVAL_CHUNKS, checkpoint_every=1,
+              x_target=x_t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        x3, hist = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
+                                        resume_dir=f"{tmp}/a", opt_dir=f"{tmp}/a_out",
+                                        **kw)
+        t_adam = time.perf_counter() - t0
+        distances = json.loads(open(f"{tmp}/a_out/distances.json").read())
+        losses = json.loads(open(f"{tmp}/a_out/losses.json").read())
+        driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=2, resume_dir=f"{tmp}/b",
+                             **kw)
+        x3b, hist_b = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
+                                           resume_dir=f"{tmp}/b", resume=True, **kw)
+    same = torch.equal(x3, x3b) and hist_b == hist
+    say(f"[34] Adam at full width: 3 steps of {GRAD_STEPS}-step episodes from x = 0 "
+        f"in {t_adam:.1f} s ({t_adam / 3:.1f} s per step): losses {losses}, "
+        f"distances {distances}; 2 steps + resume + 1 step bitwise equal to the "
+        f"straight run: {same} {tag}")
+    if not (same and len(distances) == len(losses) == 3
+            and all(math.isfinite(v) for v in losses)):
+        fail("Adam's resume is not exact, or its artifacts are wrong")
 
 
 def phase_counts(a, b):

@@ -1,17 +1,24 @@
-"""Carry a scene built by the JAX package into the port, and back.
+"""Carry state built by the JAX package into the port, and back.
 
 This system's parameters are the static scene (layout, rest geometry,
-materials, rest correction, row sums) and the inflation field ``x``.
-:func:`scene_from_numpy` takes them as a flat dict of numpy arrays and ints —
-every leaf of a ``softbody_tpu`` sparse or blocked ``Scene`` plus the
-layout's metadata — and returns the port's objects, so both packages
-compute from identical state.  The backward's scatter index is derived from
-the ``gidx8`` arrays and ``slot_of_particle``, so it needs no key of its
-own.  :func:`scene_to_numpy` is its inverse (same keys, no ``x``).
+materials, rest correction, row sums or neighbour tables), its obstacles
+and contact grid, and the inflation field ``x``.  :func:`scene_from_numpy`
+takes a scene as a flat dict of numpy arrays and ints — every leaf of a
+``softbody_tpu`` gather, sparse or blocked ``Scene`` plus the layout's
+metadata — and returns the port's objects, so both packages compute from
+identical state.  The backward's scatter indices (the slot layouts' CSR
+index, the gather table's CSR inverse) are derived from the tables, so
+they need no key of their own.  :func:`scene_to_numpy` is its inverse
+(same keys, no ``x``).  :func:`deepsdf_from_numpy`,
+:func:`obstacles_from_numpy` and :func:`contact_from_numpy` carry the
+DeepSDF parameters, the obstacle set and the contact grid.
 
 Keys of every scene: ``rest_position, mass, volume, mu, lam, free,
-external, rest_corr (3,3,m), slot_of_particle, rs6T (6,m), out_num, rows,
-n_tiles, n_slots, group``, and optionally ``x`` (n_slots,).  A sparse scene
+external, out_num`` and optionally ``x``.  A gather scene adds
+``topology.<field>`` for each field of the JAX ``Topology`` (``idx, mask,
+w, nw, xji, c, vj, sum_c_xji, rest_corr, sum_v_nw``).  A slot scene adds
+``rest_corr (3,3,m), slot_of_particle, rs6T (6,m), rows, n_tiles,
+n_slots, group``, ``x`` being (n_slots,).  A sparse scene
 adds ``n_buckets`` and per bucket k ``bucket{k}.gidx8 / .restT_rows /
 .static_slab / .tile_start``.  A blocked scene (``Blocked``) adds
 ``run_len`` and ``blocked.slab_start (t,9) / .gidx8 (t,slab/8) /
@@ -25,11 +32,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.types import Blocked, DevBucket, Materials, Scene
+from .core.types import Blocked, DevBucket, Materials, Scene, Topology
+from .models.deepsdf import DeepSDFParams
+from .ops import obstacles as obs
 from .ops._build import ROWS
+from .ops.contact import ContactGrid
 from .ops.pair_kernels import schedules, slab_inverse, sparse_blocked
+from .topology.neighbors import topology_to_torch
 
 _MATERIALS = ("mass", "volume", "mu", "lam", "free", "external")
+_TOPOLOGY = Topology._fields[:10]       # the JAX Topology's leaves
 
 
 def scene_from_numpy(d: dict, device):
@@ -41,6 +53,15 @@ def scene_from_numpy(d: dict, device):
 
     def dev(key, dt=dtype):
         return torch.from_numpy(np.array(d[key])).to(device=device, dtype=dt)
+
+    x = dev("x") if "x" in d else None
+    if "topology.idx" in d:
+        topo = Topology(**{f: d[f"topology.{f}"] for f in _TOPOLOGY},
+                        inv_order=None, inv_lengths=None)
+        return Scene(rest_position=dev("rest_position"),
+                     materials=Materials(*(dev(k) for k in _MATERIALS)),
+                     out_num=int(d["out_num"]),
+                     topology=topology_to_torch(topo, dtype, device)), x
 
     real = np.zeros(int(d["n_slots"]), bool)
     real[np.asarray(d["slot_of_particle"])] = True
@@ -56,7 +77,6 @@ def scene_from_numpy(d: dict, device):
         rest_corr=dev("rest_corr"),
         slot_of_particle=dev("slot_of_particle", torch.int64),
     )
-    x = dev("x") if "x" in d else None
     return scene, x
 
 
@@ -108,6 +128,11 @@ def scene_to_numpy(scene: Scene) -> dict:
     def host(t):
         return t.detach().cpu().numpy()
 
+    if scene.topology is not None:
+        d = {"rest_position": host(scene.rest_position), "out_num": scene.out_num}
+        d.update({f"topology.{f}": host(getattr(scene.topology, f)) for f in _TOPOLOGY})
+        d.update({name: host(scene.materials[k]) for k, name in enumerate(_MATERIALS)})
+        return d
     d = {
         "rest_position": host(scene.rest_position),
         "rest_corr": host(scene.rest_corr),
@@ -134,3 +159,46 @@ def scene_to_numpy(scene: Scene) -> dict:
         d[f"bucket{k}.static_slab"] = host(b.static_slab)
         d[f"bucket{k}.tile_start"] = b.tile_start
     return d
+
+
+def deepsdf_from_numpy(weights, biases, device="cpu",
+                       dtype=torch.float32) -> DeepSDFParams:
+    """The JAX package's ``DeepSDFParams`` (as numpy: (in, out) weights and
+    biases) -> the port's, in ``dtype`` on ``device``."""
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    return DeepSDFParams(tuple(dev(w) for w in weights), tuple(dev(b) for b in biases))
+
+
+def obstacles_from_numpy(kinds, params, stiffness, margin, device="cpu"):
+    """The JAX package's ``Obstacles`` (kinds, params as numpy, stiffness,
+    margin) -> the port's on ``device``, every parameter kept at its dtype
+    (the primitives' f32).  A "deepsdf" entry is ((weights, biases), scale,
+    offset)."""
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = []
+    for kind, p in zip(kinds, params):
+        if kind == "deepsdf":
+            (ws, bs), scale, offset = p
+            dt = torch.from_numpy(np.array(ws[0])).dtype
+            out.append(((deepsdf_from_numpy(ws, bs, device, dt), dev(scale),
+                         dev(offset))))
+        else:
+            out.append(tuple(dev(a) for a in p))
+    return obs.Obstacles(kinds=tuple(kinds), params=tuple(out),
+                         stiffness=float(stiffness), margin=float(margin))
+
+
+def contact_from_numpy(lo, cell, dims, cap, r_c, stiffness, exclude=None,
+                       device="cpu") -> ContactGrid:
+    """The JAX package's ``ContactGrid`` fields (``lo`` as numpy, its f32
+    kept; ``exclude`` an (N, K) table or None) -> the port's on ``device``."""
+    return ContactGrid(
+        lo=torch.from_numpy(np.array(lo)).to(device), cell=float(cell),
+        dims=tuple(int(v) for v in dims), cap=int(cap), r_c=float(r_c),
+        stiffness=float(stiffness),
+        exclude=None if exclude is None
+        else torch.from_numpy(np.asarray(exclude, np.int64)).to(device))

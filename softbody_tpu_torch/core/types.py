@@ -1,6 +1,7 @@
 """Core state and scene records.
 
-Counterpart of ``softbody_tpu/core/types.py``, of the sparse-layout records
+Counterpart of ``softbody_tpu/core/types.py`` (``ParticleState``,
+``Materials``, the gather backend's ``Topology`` and ``Scene``), of the sparse-layout records
 of ``softbody_tpu/sim/sparse.py`` (``DevBucket``, ``SparseBlocked``) and of
 the blocked layout's ``Blocked`` (``softbody_tpu/ops/blocked.py``).  JAX
 pytrees become NamedTuples / frozen dataclasses of torch tensors; every
@@ -35,6 +36,40 @@ class Materials(NamedTuple):
     lam: torch.Tensor       # (N,)   second Lame parameter
     free: torch.Tensor      # (N, 3) Dirichlet mask (1 = free, 0 = clamped)
     external: torch.Tensor  # (N, 3) constant external force
+
+
+class Topology(NamedTuple):
+    """Static rest-space neighbour tables of the gather backend, with the
+    rest-space constants precomputed (``softbody_tpu/core/types.py:45-77``).
+
+    A padded (N, K) index table; padding entries point at the particle
+    itself (``idx[i, k] = i``) with ``mask = 0``, so gathers stay in
+    bounds and masked terms vanish.  ``inv_order`` / ``inv_lengths`` are
+    the CSR inverse of ``idx`` (host-built): the flat positions i K + k
+    that read row r are ``inv_order[sum(inv_lengths[:r]) :][:inv_lengths[r]]``,
+    ascending — the fixed order in which the gather's backward adds them
+    (``ops/elasticity.gather``)."""
+
+    idx: torch.Tensor          # (N, K) int64 neighbour indices
+    mask: torch.Tensor         # (N, K) {0, 1} validity
+    w: torch.Tensor            # (N, K) W(X_i - X_j, h)
+    nw: torch.Tensor           # (N, K, 3) grad W(X_i - X_j, h)
+    xji: torch.Tensor          # (N, K, 3) X_j - X_i
+    c: torch.Tensor            # (N, K) w_ij m_j  (A_pq weights)
+    vj: torch.Tensor           # (N, K) V_j mask
+    sum_c_xji: torch.Tensor    # (N, 3) sum_j c_ij X_ji
+    rest_corr: torch.Tensor    # (N, 3, 3) sum_j V_j X_ji (x) nw_ij
+    sum_v_nw: torch.Tensor     # (N, 3) sum_j V_j nw_ij
+    inv_order: torch.Tensor    # (N K,) int64
+    inv_lengths: torch.Tensor  # (N,) int64
+
+    @property
+    def n_particles(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def max_neighbors(self) -> int:
+        return self.idx.shape[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,18 +213,24 @@ class Blocked:
 class Scene(NamedTuple):
     """Everything an episode needs except the design variable ``x``.
 
-    The particle axis is SLOTS; ``slot_of_particle`` maps particle order
-    into it.  ``obstacles`` / ``contact`` are kept so that a scene carrying
-    them is refused (their ports are still open ROADMAP items)."""
+    Exactly one of ``topology`` (the gather backend, ``sim/scene.build_scene``)
+    and ``blocked`` (a sparse or blocked slot layout) is set.  On a slot
+    scene the particle axis is SLOTS and ``slot_of_particle`` maps particle
+    order into it; on a gather scene it is the particles themselves and
+    ``blocked``, ``rest_corr`` and ``slot_of_particle`` are None.
+    ``obstacles`` (``ops/obstacles.Obstacles``) and ``contact``
+    (``ops/contact.ContactGrid``) add their forces in
+    ``sim/rollout.total_force`` on every backend."""
 
     rest_position: torch.Tensor        # (N, 3)
     materials: Materials
     out_num: int                       # outer-shell particles (sim.py:53)
-    blocked: SparseBlocked | Blocked
-    rest_corr: torch.Tensor            # (3, 3, m) static nabla_u rest term
-    slot_of_particle: torch.Tensor     # (n_particles,) int64
+    blocked: SparseBlocked | Blocked | None = None
+    rest_corr: torch.Tensor | None = None        # (3, 3, m) static nabla_u rest term
+    slot_of_particle: torch.Tensor | None = None  # (n_particles,) int64
     obstacles: object = None
     contact: object = None
+    topology: Topology | None = None
 
     @property
     def device(self) -> torch.device:

@@ -12,13 +12,15 @@ This entry point runs that workload at ~100k particles:
 3. pick a ground-truth inflation field x* (radial bands) and generate the
    target trajectory by rolling x* forward: ``--target-frames`` sampled
    frames of ``--steps`` steps;
-4. L-BFGS-B from x0 = 0 (or ``--x0``), writing the reference's artifacts
-   (x.npy, losses.json, distances.json) and ``report.json`` under ``--out``,
-   with a resumable checkpoint in ``{out}/checkpoint``.
+4. L-BFGS-B (or, with ``--optimizer adam``, ``--maxiter`` Adam steps at
+   ``--lr``) from x0 = 0 (or ``--x0``), writing the reference's artifacts
+   (x.npy, losses.json, distances.json: one entry per iteration or step)
+   and ``report.json`` under ``--out``, with a resumable checkpoint in
+   ``{out}/checkpoint``.
 
 Usage: python -m softbody_tpu_torch.inverse_design [--particles 100000]
-           [--steps 3000] [--maxiter 25] [--out out/inverse100k_torch]
-           [--device cuda|cpu]
+           [--steps 3000] [--maxiter 25] [--optimizer lbfgs|adam] [--lr 0.05]
+           [--out out/inverse100k_torch] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true", default=False,
                     help="resume an interrupted run from {out}/checkpoint")
     ap.add_argument("--optimizer", default="lbfgs", choices=["lbfgs", "adam"])
+    ap.add_argument("--lr", type=float, default=0.05, help="Adam's learning rate")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch versions)")
@@ -59,10 +62,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.optimizer == "adam":
-        raise NotImplementedError(
-            "--optimizer adam: the on-device Adam driver is not ported yet "
-            "(ROADMAP queue 1, item 5)")
     import torch
 
     from . import warp_parity
@@ -106,7 +105,7 @@ def main(argv=None) -> dict:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     np.save(out / "x_star.npy", x_star[sop])
 
-    # ---- L-BFGS-B (sim.py:449-461)
+    # ---- L-BFGS-B (sim.py:449-461) or Adam
     x0 = np.zeros(sb.n_slots)
     if args.x0:
         x0 = np.load(args.x0)
@@ -114,13 +113,23 @@ def main(argv=None) -> dict:
             raise ValueError(f"--x0 has shape {x0.shape}, the scene has "
                              f"{sb.n_slots} slots")
     t0 = time.perf_counter()
-    result, history = driver.optimize_lbfgs(
-        scene, cfg, x0, tp, tv, opt_dir=out, x_target=x_star,
-        maxiter=args.maxiter, n_steps=args.steps, eval_chunks=args.eval_chunks,
-        resume_dir=out / "checkpoint", resume=args.resume)
+    if args.optimizer == "adam":
+        _, history = driver.optimize_adam(
+            scene, cfg, x0, tp, tv, steps=args.maxiter, learning_rate=args.lr,
+            n_steps=args.steps, resume_dir=out / "checkpoint", resume=args.resume,
+            eval_chunks=args.eval_chunks, opt_dir=out, x_target=x_star,
+            verbose=True)
+        iterations = evals = len(history["losses"])
+        message = "adam: fixed step budget"
+    else:
+        result, history = driver.optimize_lbfgs(
+            scene, cfg, x0, tp, tv, opt_dir=out, x_target=x_star,
+            maxiter=args.maxiter, n_steps=args.steps, eval_chunks=args.eval_chunks,
+            resume_dir=out / "checkpoint", resume=args.resume)
+        iterations, evals, message = int(result.nit), int(result.nfev), str(result.message)
     wall = time.perf_counter() - t0
-    print(f"L-BFGS: {result.nit} iterations / {result.nfev} evals in "
-          f"{wall:.0f}s — {result.message}", flush=True)
+    print(f"{args.optimizer}: {iterations} iterations / {evals} evals in "
+          f"{wall:.0f}s — {message}", flush=True)
 
     losses, dists = history["losses"], history["distances"]
     report = {
@@ -141,14 +150,14 @@ def main(argv=None) -> dict:
         "steps": args.steps,
         "target_frames": args.target_frames,
         "maxiter": args.maxiter,
-        "iterations": int(result.nit),
-        "function_evals": int(result.nfev),
+        "iterations": iterations,
+        "function_evals": evals,
         "wall_seconds": wall,
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
         "distance_first": dists[0] if dists else None,
         "distance_last": dists[-1] if dists else None,
-        "message": str(result.message),
+        "message": message,
     }
     (out / "report.json").write_text(json.dumps(report, indent=2))
     print(json.dumps(report), flush=True)

@@ -6,11 +6,12 @@
   reference's per-iteration artifacts (x.npy, losses.json, distances.json,
   optional convergence plots) and resuming through utils/checkpoint.py
   (sim.py:449-461);
+* Adam (``optimize_adam``, the JAX package's optax path) on
+  ``torch.optim.Adam``, one value-and-grad per step, with exact resume;
 * the analytic-vs-central-difference gradient check (sim.py:418-436), the
   callback's distance metric and the warm start.
 
-The JAX package's on-device Adam (``optimize_adam``) is not ported yet
-(ROADMAP queue 1, item 5).  Everything runs on the scene's device.
+Everything runs on the scene's device.
 """
 
 from __future__ import annotations
@@ -213,6 +214,107 @@ def optimize_lbfgs(
         if plot:
             _save_plots(opt_dir, history, verbose)
     return result, history
+
+
+def optimize_adam(
+    scene: Scene,
+    cfg: SimConfig,
+    x0,
+    target_p,
+    target_v,
+    steps: int = 200,
+    learning_rate: float = 0.05,
+    n_steps=None,
+    resume_dir=None,
+    resume: bool = False,
+    checkpoint_every: int = 50,
+    eval_chunks: int = 0,
+    opt_dir=None,
+    x_target=None,
+    verbose: bool = False,
+):
+    """Adam over the episode's value and gradient (the JAX package's optax
+    path, ``softbody_tpu/opt/driver.py:230-336``): ``torch.optim.Adam``
+    with optax's defaults (beta 0.9 / 0.999, eps 1e-8, the same update
+    formula up to rounding), one value-and-grad per step — chunked
+    (:func:`episode_value_and_grad_chunked`) when ``eval_chunks > 1``,
+    else :func:`value_and_grad_fn`.  ``steps`` counts steps across
+    restarts.
+
+    ``resume_dir``: every ``checkpoint_every`` steps and at the end, x, the
+    optimizer's ``state_dict()``, the step and the histories are saved
+    there (utils/checkpoint.py); with ``resume=True`` and a checkpoint
+    present the run continues from it.  The moments are in the saved
+    state, so a killed-and-resumed run computes the uninterrupted run's
+    iterates bit for bit (a kill loses the steps since the last save).
+
+    ``opt_dir``: after every step and at the end, the reference's
+    artifacts there, as :func:`optimize_lbfgs` writes them per iteration:
+    x.npy, losses.json and distances.json, one entry per step (empty lists
+    when no step ran).
+
+    Returns (x_final, history): history["losses"] holds each step's loss
+    (at the iterate before its update), history["distances"] each step's
+    ``ratio_distance`` to ``x_target`` after its update (empty without
+    ``x_target``)."""
+    dev, dtype = scene.device, scene.dtype
+    tp = torch.as_tensor(target_p).to(device=dev, dtype=dtype)
+    tv = torch.as_tensor(target_v).to(device=dev, dtype=dtype)
+    if eval_chunks and eval_chunks > 1:
+        vg = episode_value_and_grad_chunked(scene, cfg, eval_chunks, n_steps)
+    else:
+        vg = value_and_grad_fn(scene, cfg, n_steps)
+    x = torch.as_tensor(x0).to(device=dev, dtype=dtype).clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                           foreach=False)
+    history = {"losses": [], "distances": []}
+    if opt_dir is not None:
+        opt_dir = Path(opt_dir)
+        opt_dir.mkdir(parents=True, exist_ok=True)
+    done = 0
+    if resume_dir is not None and resume and (Path(resume_dir) / "x.npy").exists():
+        saved = ckpt.load_opt_state(resume_dir)
+        with torch.no_grad():
+            x.copy_(torch.from_numpy(saved["x"]))
+        if "opt_state" in saved:
+            opt.load_state_dict(saved["opt_state"])
+        done = int(saved["meta"].get("step") or 0)
+        hist_file = Path(resume_dir) / "history.json"
+        if hist_file.exists():
+            h = json.loads(hist_file.read_text())
+            history = {k: list(h.get(k, [])) for k in history}
+        if verbose:
+            print(f"resuming from {resume_dir}: step {done}", flush=True)
+
+    def save():
+        ckpt.save_opt_state(resume_dir, x.detach(), opt_state=opt.state_dict(),
+                            cfg=cfg, step=done)
+        (Path(resume_dir) / "history.json").write_text(json.dumps(history))
+
+    def write_artifacts():
+        if opt_dir is not None:
+            np.save(opt_dir / "x.npy", x.detach().cpu().numpy())
+            (opt_dir / "losses.json").write_text(json.dumps(history["losses"]))
+            (opt_dir / "distances.json").write_text(json.dumps(history["distances"]))
+
+    while done < steps:
+        t0 = time.perf_counter()
+        loss, grad = vg(x.detach(), tp, tv)
+        x.grad = grad
+        opt.step()
+        done += 1
+        history["losses"].append(float(loss))
+        if x_target is not None:
+            history["distances"].append(
+                ratio_distance(x.detach().cpu().numpy(), x_target, cfg))
+        if verbose:
+            print(f"adam loss:  {float(loss)}   "
+                  f"[step {time.perf_counter() - t0:.1f}s]", flush=True)
+        write_artifacts()
+        if resume_dir is not None and (done % checkpoint_every == 0 or done == steps):
+            save()
+    write_artifacts()
+    return x.detach(), history
 
 
 def grad_check(scene: Scene, cfg: SimConfig, x0, deltas, target_p, target_v,

@@ -98,6 +98,7 @@ def build_blocked_scene(
     dirichlet_mask: np.ndarray | None = None,
     external_force: np.ndarray | None = None,
     layout: str = "varcol",
+    obstacles=None,
     device=None,
 ):
     """Returns (scene, slot_of_particle (numpy)); map particle-indexed data
@@ -113,7 +114,8 @@ def build_blocked_scene(
     an all-ones RHS there (the kernel on the card, its plain version on
     the CPU): the forward's - pos_i * rs6 cancels against the raw dots term
     by term, so rs6 must come from the same coefficients, never from a
-    host f64 sum.  ``device=None`` means CUDA, and raises when there is
+    host f64 sum.  ``obstacles`` (an ``ops.obstacles.Obstacles``) moves to
+    ``device`` too.  ``device=None`` means CUDA, and raises when there is
     none."""
     from ..ops.fused_kernels import moments_raw
     from ..ops.pair_common import slab_slots
@@ -202,6 +204,7 @@ def build_blocked_scene(
         blocked=blk,
         rest_corr=dev(rest_corr9.reshape(m, 3, 3)).permute(1, 2, 0).contiguous(),
         slot_of_particle=dev(sop, torch.int64),
+        obstacles=None if obstacles is None else obstacles.to(device),
     )
     return scene, sop
 

@@ -22,9 +22,18 @@ the chunks are added on the host in f64.  ``value_and_grad_fn`` cuts the
 episode as ``cfg.remat_chunk`` says (sqrt-nested remat: chunks of c steps
 and a tail; one chunk for linear remat), so peak memory holds O(T/c)
 boundary states plus one chunk's per-step inputs.
+
+Contact overflow.  With ``cfg.contact_check`` and a contact grid on the
+scene, every step ORs the grid's overflow flag into a device-side
+:class:`ContactCheck`; the runners read it on the host once per episode
+(:func:`rollout`) or per chunk (the no-grad forward of
+:func:`_value_and_grad`, :func:`forward_chunked`) and warn once per
+process, so no step waits for the device.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,7 +41,10 @@ from torch.utils.checkpoint import checkpoint
 from ..config import SimConfig, resolve_device
 from ..core.types import Blocked, Materials, ParticleState, Scene
 from ..ops.collision import ground_penalty
+from ..ops.contact import contact_forces
 from ..ops.elasticity import compute_ratio
+from ..ops.elasticity import elastic_forces as gather_elastic_forces
+from ..ops.obstacles import penalty_force
 from ..ops.pair_kernels import KERNELS, PairOps
 from .blocked import elastic_forces_blocked, elastic_forces_pallas
 
@@ -40,9 +52,11 @@ from .blocked import elastic_forces_blocked, elastic_forces_pallas
 def elastic_forces(pos, ratio, scene: Scene, cfg: SimConfig,
                    pair_ops: PairOps = KERNELS):
     """Backend dispatch of the elastic-force evaluation
-    (``softbody_tpu/sim/rollout.py:29-42``): ``"pallas"`` runs the pair
-    kernels on a sparse or a blocked scene, ``"blocked"`` the plain torch
-    reference on a blocked scene (``pair_ops`` unused)."""
+    (``softbody_tpu/sim/rollout.py:29-42``): ``"gather"`` runs the (N, K)
+    table forces of ``ops/elasticity`` on a ``build_scene`` scene,
+    ``"pallas"`` the pair kernels on a sparse or a blocked scene,
+    ``"blocked"`` the plain torch reference on a blocked scene (``pair_ops``
+    unused but by ``"pallas"``)."""
     if cfg.backend == "pallas":
         return elastic_forces_pallas(pos, ratio, scene.materials, scene, cfg,
                                      pair_ops)
@@ -51,34 +65,92 @@ def elastic_forces(pos, ratio, scene: Scene, cfg: SimConfig,
             raise ValueError('backend="blocked" needs a scene from build_blocked_scene')
         return elastic_forces_blocked(pos, ratio, scene.materials, scene, cfg)
     if cfg.backend == "gather":
-        raise NotImplementedError(
-            'backend="gather" (the (N, K) neighbour-table forces) is not '
-            "ported yet: ROADMAP queue 1, item 6")
+        if scene.topology is None:
+            raise ValueError('backend="gather" needs a scene from build_scene')
+        return gather_elastic_forces(pos, ratio, scene.materials, scene.topology,
+                                     cfg)[0]
     raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
+class ContactCheck:
+    """The contact-overflow flag of one episode or chunk, kept on the device
+    (``cfg.contact_check``): each step ORs in its flag, and the runner reads
+    it on the host once, with :meth:`report`, so no step waits for the
+    device."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.flag = None
+
+    def add(self, overflow: torch.Tensor):
+        self.flag = overflow if self.flag is None else self.flag | overflow
+
+    def report(self):
+        """Warn (once per process) when any step of the run overflowed."""
+        if self.flag is not None and bool(self.flag):
+            _warn_contact_overflow(self.cap)
+
+
+def _warn_contact_overflow(cap: int):
+    """An overfull contact cell means candidates were DROPPED (the cap
+    contract of ``ops/contact.py``): warn once per process instead of
+    letting the episode go on silently with incomplete forces."""
+    global _overflow_warned
+    if not _overflow_warned:
+        _overflow_warned = True
+        warnings.warn(
+            f"dynamic contact cell occupancy exceeded cap={cap}: candidates "
+            "were dropped and contact forces are incomplete; rebuild the "
+            "contact grid with a larger cap or smaller cell_scale",
+            RuntimeWarning, stacklevel=3)
+
+
+_overflow_warned = False
+
+
+def contact_check(scene: Scene, cfg: SimConfig) -> ContactCheck | None:
+    """A fresh :class:`ContactCheck` when the scene's contact is checked."""
+    if scene.contact is None or not cfg.contact_check:
+        return None
+    return ContactCheck(scene.contact.cap)
+
+
+def _report(check: ContactCheck | None):
+    if check is not None:
+        check.report()
+
+
 def total_force(pos, vel, f_el, mats: Materials, cfg: SimConfig,
-                scene: Scene = None):
-    """external + elastic - damping*v + collision (sim.py:246-258)."""
-    if scene is not None and (scene.obstacles is not None
-                              or scene.contact is not None):
-        raise NotImplementedError(
-            "obstacle and particle-contact forces are not ported yet: "
-            "ROADMAP queue 1, item 7")
+                scene: Scene = None, check: ContactCheck | None = None):
+    """external + elastic - damping*v + ground collision (part_1/part_2,
+    sim.py:246-258), plus the scene's obstacle penalty (``ops/obstacles``)
+    and dynamic contact (``ops/contact``) when it has them.  With ``check``
+    the contact's overflow flag is added to it (read later, on the host)."""
     f = mats.external + f_el - cfg.damping * vel
     if cfg.collision:
         f = f + ground_penalty(pos, cfg, vel)
+    if scene is not None and scene.obstacles is not None:
+        f = f + penalty_force(scene.obstacles, pos)
+    if scene is not None and scene.contact is not None:
+        if check is not None:
+            f_c, overflow = contact_forces(pos, scene.contact, with_overflow=True)
+            check.add(overflow)
+        else:
+            f_c = contact_forces(pos, scene.contact)
+        f = f + f_c
     return f
 
 
 def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
-         pair_ops: PairOps = KERNELS) -> ParticleState:
+         pair_ops: PairOps = KERNELS, check: ContactCheck | None = None
+         ) -> ParticleState:
     """One physics step.
 
     trapezoidal (Warp, sim.py:246-258): part_1 advances positions with the
     carried forces, forces are recomputed at the new positions, part_2
     averages.  symplectic (Taichi, sim_taichi.py:167-172): forces at the
-    current state, then semi-implicit Euler."""
+    current state, then semi-implicit Euler.  ``check`` collects the
+    contact-overflow flag (:class:`ContactCheck`)."""
     mats = scene.materials
     dt = cfg.dt
     m = mats.mass[:, None]
@@ -88,16 +160,16 @@ def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
         return elastic_forces(p, ratio, scene, cfg, pair_ops)
 
     if cfg.integrator == "trapezoidal":
-        force1 = total_force(pos, vel, f_el, mats, cfg, scene)
+        force1 = total_force(pos, vel, f_el, mats, cfg, scene, check)
         pos_n = pos + (dt * vel + 0.5 * dt * dt * force1 / m) * mats.free
         f_el_n = el(pos_n)
         # the velocity-damping term reuses v_t in both halves (sim.py:256-257)
-        force2 = total_force(pos_n, vel, f_el_n, mats, cfg, scene)
+        force2 = total_force(pos_n, vel, f_el_n, mats, cfg, scene, check)
         vel_n = vel + dt * (force1 + force2) / (2.0 * m) * mats.free
         return ParticleState(pos_n, vel_n, f_el_n)
 
     f_el_now = el(pos)
-    force = total_force(pos, vel, f_el_now, mats, cfg, scene)
+    force = total_force(pos, vel, f_el_now, mats, cfg, scene, check)
     vel_n = vel + dt * force / m * mats.free
     pos_n = pos + dt * vel_n * mats.free
     return ParticleState(pos_n, vel_n, f_el_now)
@@ -154,12 +226,13 @@ def acc_float(acc) -> float:
     return float(acc[0]) + float(acc[1])
 
 
-def _step_fn(scene: Scene, cfg: SimConfig, pair_ops: PairOps):
+def _step_fn(scene: Scene, cfg: SimConfig, pair_ops: PairOps,
+             check: ContactCheck | None = None):
     """``step`` as the episode runs it: under a per-step checkpoint when
     ``cfg.remat`` is set and autograd is recording."""
 
     def plain(state, ratio):
-        return step(state, ratio, scene, cfg, pair_ops)
+        return step(state, ratio, scene, cfg, pair_ops, check)
 
     if not cfg.remat:
         return plain
@@ -236,21 +309,24 @@ def rollout(x, scene: Scene, cfg: SimConfig, target_p=None, target_v=None,
             rec_p.append(st.position)
             rec_v.append(st.velocity)
 
+    check = contact_check(scene, cfg)
     state, acc = _run_steps(state, acc_init(scene.dtype, device), ratio,
-                            _step_fn(scene, cfg, pair_ops), 0, n_steps,
+                            _step_fn(scene, cfg, pair_ops, check), 0, n_steps,
                             target_p, target_v, cfg, n_steps, record)
+    _report(check)
     recorded = (torch.stack(rec_p), torch.stack(rec_v)) if record_every else None
     return (acc if acc_pair else acc_scalar(acc)), state, recorded
 
 
 def _chunk_primal(state, x, k0: int, tp, tv, scene: Scene, cfg: SimConfig,
-                  length: int, n_steps: int, pair_ops: PairOps = KERNELS):
+                  length: int, n_steps: int, pair_ops: PairOps = KERNELS,
+                  check: ContactCheck | None = None):
     """One episode chunk: ``length`` steps from global step ``k0``.  Returns
     (state_out, chunk loss (hi, lo) pair).  Differentiable wrt (state, x)."""
     ratio = compute_ratio(x, cfg)
     return _run_steps(state, acc_init(scene.dtype, scene.device), ratio,
-                      _step_fn(scene, cfg, pair_ops), k0, length, tp, tv, cfg,
-                      n_steps)
+                      _step_fn(scene, cfg, pair_ops, check), k0, length, tp, tv,
+                      cfg, n_steps)
 
 
 def _grad_of(outputs, cotangents, inputs):
@@ -277,8 +353,10 @@ def _value_and_grad(x, tp, tv, scene: Scene, cfg: SimConfig, sizes,
         states, loss = [], 0.0       # host f64 keeps the compensated precision
         for k0, length in zip(k0s, sizes):
             states.append(state)
+            check = contact_check(scene, cfg)
             state, acc = _chunk_primal(state, x, k0, tp, tv, scene, cfg,
-                                       length, n_steps, pair_ops)
+                                       length, n_steps, pair_ops, check)
+            _report(check)
             loss = loss + acc_float(acc)
     cot = [torch.zeros_like(t) for t in state]
     grad = torch.zeros_like(x)
@@ -334,12 +412,14 @@ def forward_chunked(x, scene: Scene, cfg: SimConfig, n_steps, chunk_len,
     with torch.no_grad():
         ratio = compute_ratio(x, cfg)
         state = initial_state(scene, ratio, cfg)
-        step_fn = _step_fn(scene, cfg, KERNELS)
         done = 0
         while done < n_steps:
             length = min(chunk_len, n_steps - done)
-            state, _ = _run_steps(state, None, ratio, step_fn, done, length,
-                                  None, None, cfg, n_steps)
+            check = contact_check(scene, cfg)
+            state, _ = _run_steps(state, None, ratio,
+                                  _step_fn(scene, cfg, KERNELS, check), done,
+                                  length, None, None, cfg, n_steps)
+            _report(check)
             done += length
             if record_every and (done % record_every == 0 or done == n_steps):
                 recorded.append(state.position)

@@ -70,13 +70,15 @@ def build_sparse_scene(
     dirichlet_mask: np.ndarray | None = None,
     external_force: np.ndarray | None = None,
     group: int = GROUP,
+    obstacles=None,
     device=None,
 ):
     """Returns (scene, slot_of_particle (numpy)).
 
     Host side in numpy f64 (layout, rest density, rest correction, static
-    row sums), then every array moves to ``device`` in ``cfg.dtype``.
-    ``device=None`` means CUDA, and raises when there is none."""
+    row sums), then every array moves to ``device`` in ``cfg.dtype``
+    (``obstacles``, an ``ops.obstacles.Obstacles``, too).  ``device=None``
+    means CUDA, and raises when there is none."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     rest = np.asarray(points, dtype=np.float64)
@@ -148,6 +150,7 @@ def build_sparse_scene(
         blocked=sb,
         rest_corr=dev(rest_corr9.reshape(m, 3, 3)).permute(1, 2, 0).contiguous(),
         slot_of_particle=dev(sop, torch.int64),
+        obstacles=None if obstacles is None else obstacles.to(device),
     )
     return scene, sop
 

@@ -1,19 +1,26 @@
-"""Static rest-space neighbour reductions (numpy, host f64).
+"""Static rest-space neighbour tables and reductions (numpy, host f64).
 
-The port's own copy of ``neighbor_csr`` and ``rest_density_and_corr`` from
-``softbody_tpu/topology/neighbors.py``: rho, volume, the nabla_u rest
-correction and the static moment row sums, over the TRUE pair list from the
-C++ CSR hash grid — O(pairs), no per-particle Python loop.  Also the numpy
-cubic-spline ``W`` / ``nabla_W`` that module takes from
-``softbody_tpu/oracle/sim.py``.
+The port's own copy of ``softbody_tpu/topology/neighbors.py``:
+
+* the gather backend's padded (N, K) tables — ``neighbor_lists`` (the C++
+  hash grid, then scipy's cKDTree, then a numpy cell hash),
+  ``build_topology`` and ``topology_to_torch``;
+* ``neighbor_csr`` and ``rest_density_and_corr``: rho, volume, the
+  nabla_u rest correction and the static moment row sums over the TRUE
+  pair list, O(pairs), for the slot layouts;
+* the numpy cubic-spline ``W`` / ``nabla_W`` that module takes from
+  ``softbody_tpu/oracle/sim.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import SimConfig
+from ..core.types import Topology
 from ..native import hashgrid as _native
+from ..ops.elasticity import index_inverse
 
 
 def W(xij: np.ndarray, h: float) -> np.ndarray:
@@ -34,6 +41,126 @@ def nabla_W(xij: np.ndarray, h: float) -> np.ndarray:
     q_safe = np.where(q > 0, q, 1.0)
     far = 0.25 * c * (-3.0) * (2.0 - q) ** 2 * xij / (q_safe * h * h)
     return np.where(q < 1.0, near, np.where(q < 2.0, far, 0.0))
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def neighbor_lists_numpy(rest: np.ndarray, radius: float):
+    """Pure-NumPy uniform-grid neighbour search. Returns list-of-arrays
+    (j != i, ascending)."""
+    n = rest.shape[0]
+    keys = np.floor(rest / radius).astype(np.int64)
+    k = keys - keys.min(axis=0)
+    packed = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+    order = np.argsort(packed, kind="stable")
+    sorted_keys = packed[order]
+    uniq, first = np.unique(sorted_keys, return_index=True)
+    bucket_of = {int(u): (int(f), int(np.searchsorted(sorted_keys, u, side="right")))
+                 for u, f in zip(uniq, first)}
+    r2 = radius * radius
+    out = []
+    for i in range(n):
+        ki = k[i]
+        cand = []
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    key = int(((ki[0] + dx) << 42) | ((ki[1] + dy) << 21) | (ki[2] + dz))
+                    rng = bucket_of.get(key)
+                    if rng is not None:
+                        cand.append(order[rng[0]:rng[1]])
+        cand = np.concatenate(cand) if cand else np.empty(0, dtype=np.int64)
+        d2 = np.sum((rest[cand] - rest[i]) ** 2, axis=-1)
+        out.append(np.sort(cand[(d2 < r2) & (cand != i)]))
+    return out
+
+
+def neighbor_lists(rest: np.ndarray, radius: float):
+    """Neighbour lists within ``radius`` (self excluded), from the best
+    builder present: the native hash grid, scipy's cKDTree, numpy."""
+    if _native.available():
+        off, idx = _native.neighbor_csr(rest, radius)
+        return [idx[off[i]:off[i + 1]] for i in range(len(rest))]
+    try:
+        from scipy.spatial import cKDTree
+    except ImportError:
+        return neighbor_lists_numpy(rest, radius)
+    pairs = cKDTree(rest).query_ball_point(rest, r=radius * (1 - 1e-12))
+    return [np.asarray([j for j in js if j != i], dtype=np.int64)
+            for i, js in enumerate(pairs)]
+
+
+def build_topology(rest: np.ndarray, mass: np.ndarray, cfg: SimConfig,
+                   volume: np.ndarray | None = None):
+    """The padded (N, K) neighbour table and its cached rest-space
+    quantities, all numpy f64 (``topology_to_torch`` moves them).  K is the
+    largest neighbour count rounded up to 8, capped at
+    ``cfg.max_neighbors``, where each row keeps its K nearest.  Returns
+    (Topology as numpy, rho, volume); the CSR inverse fields are None
+    here."""
+    rest = np.asarray(rest, dtype=np.float64)
+    mass = np.asarray(mass, dtype=np.float64)
+    n = rest.shape[0]
+    lists = neighbor_lists(rest, 2.0 * cfg.h)
+    counts = np.array([len(js) for js in lists])
+    kmax = int(counts.max()) if n else 0
+    K = max(_round_up(max(kmax, 1), 8), 8)
+    if cfg.max_neighbors and K > cfg.max_neighbors:
+        K = cfg.max_neighbors
+
+    idx = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, K))
+    mask = np.zeros((n, K), dtype=np.float64)
+    for i, js in enumerate(lists):
+        if len(js) > K:  # keep the K nearest
+            d2 = np.sum((rest[js] - rest[i]) ** 2, axis=-1)
+            js = js[np.argsort(d2)[:K]]
+        idx[i, : len(js)] = js
+        mask[i, : len(js)] = 1.0
+
+    xij = rest[:, None, :] - rest[idx]          # X_i - X_j  (N, K, 3)
+    w = W(xij, cfg.h) * mask
+    nw = nabla_W(xij, cfg.h) * mask[..., None]
+    xji = -xij * mask[..., None]
+
+    # the self term of the density follows cfg.self_density (sim.py:163
+    # excludes it, sim_taichi.py:97-98 includes it)
+    rho = np.sum(mass[idx] * w, axis=1)
+    if cfg.self_density:
+        rho = rho + mass * (1.0 / (np.pi * cfg.h**3))  # W(0, h)
+    if volume is None:
+        volume = mass / rho
+
+    c = w * mass[idx]
+    vj = volume[idx] * mask
+    topo = Topology(
+        idx=idx.astype(np.int32),
+        mask=mask,
+        w=w,
+        nw=nw,
+        xji=xji,
+        c=c,
+        vj=vj,
+        sum_c_xji=np.einsum("ij,ija->ia", c, xji),
+        rest_corr=np.einsum("ij,ija,ijb->iab", vj, xji, nw),
+        sum_v_nw=np.einsum("ij,ija->ia", vj, nw),
+        inv_order=None,
+        inv_lengths=None,
+    )
+    return topo, rho, volume
+
+
+def topology_to_torch(topo: Topology, dtype: torch.dtype, device) -> Topology:
+    """Move a host-built (numpy f64) Topology to ``device`` in ``dtype``,
+    with the CSR inverse of its index table."""
+    def cast(a):
+        return torch.from_numpy(np.array(a, np.float64)).to(device=device, dtype=dtype)
+
+    idx = torch.from_numpy(np.asarray(topo.idx, np.int64)).to(device)
+    order, lengths = index_inverse(idx, idx.shape[0])
+    return Topology(idx=idx, **{f: cast(getattr(topo, f)) for f in Topology._fields[1:10]},
+                    inv_order=order, inv_lengths=lengths)
 
 
 def neighbor_csr(rest: np.ndarray, radius: float):

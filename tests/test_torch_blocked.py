@@ -265,7 +265,7 @@ def test_blocked_backend_and_gather_dispatch():
     ratio = torch.zeros(scene.blocked.n_slots, dtype=torch.float64)
     with pytest.raises(ValueError, match="build_blocked_scene"):
         elastic_forces(scene.rest_position, ratio, scene, cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="build_scene"):
         elastic_forces(scene.rest_position, ratio, scene, cfg.replace(backend="gather"))
 
 

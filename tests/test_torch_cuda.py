@@ -9,7 +9,8 @@ with only the port's dependencies:
 full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
 separable K2) and 25-28 (the blocked layout's raw K1, K2 v2 and the
-separable K2)."""
+separable K2); the gather backend's fixed-order backward and the contact
+forces, which have no hand-written kernel, are phases 30-33."""
 
 import dataclasses
 
@@ -684,3 +685,58 @@ def test_new_paths_episode_gradient_matches_plain_f64_and_repeats(path):
     loss1, g1 = _episode_grad("float32", dev, pk.KERNELS, **kw)
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS, **kw)
     assert loss1 == loss2 and torch.equal(g1, g2)
+
+
+def test_gather_backward_repeats_bitwise_on_the_card():
+    """The gather backend's row gather adds each row's readers in the CSR
+    order of its table (ops/elasticity.gather), so a gradient through the
+    gather forces repeats bit for bit on the card, and matches the CPU."""
+    from softbody_tpu_torch.sim.scene import build_scene
+    from softbody_tpu_torch.sim.rollout import elastic_forces
+
+    dev = _card()
+    pts, out_num = inflatable_sphere(n_outer=600)
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype="float32", backend="gather",
+                                max_neighbors=0)
+    rng = np.random.default_rng(11)
+    pos_np = pts + rng.normal(scale=0.05 * cfg.h, size=pts.shape)
+    x_np = rng.normal(scale=0.5, size=len(pts))
+    ct_np = rng.normal(size=pts.shape)
+
+    def vjp(device):
+        scene = build_scene(pts, cfg, out_num=out_num, device=device)
+        p = torch.as_tensor(pos_np, dtype=torch.float32, device=device).requires_grad_()
+        x = torch.as_tensor(x_np, dtype=torch.float32, device=device).requires_grad_()
+        f = elastic_forces(p, compute_ratio(x, cfg), scene, cfg)
+        return (f,) + torch.autograd.grad(f, (p, x), torch.as_tensor(
+            ct_np, dtype=torch.float32, device=device))
+
+    a, b, cpu = vjp(dev), vjp(dev), vjp("cpu")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    for u, v in zip(a, cpu):
+        assert _rel(u.cpu(), v) <= 1e-4
+
+
+def test_contact_forces_on_the_card_match_the_cpu():
+    """Dynamic contact re-binned on the card (f32) against the same call on
+    the CPU, 1e-5 of max |f|, its overflow flag alike, and its gradient
+    bitwise repeatable (the position gather's fixed-order backward)."""
+    from softbody_tpu_torch.ops.contact import build_contact_grid, contact_forces
+
+    dev = _card()
+    pos_np = np.random.default_rng(12).uniform(0.0, 1.0, (4000, 3))
+    exclude = np.random.default_rng(13).integers(0, 4000, (4000, 8))
+    grid = build_contact_grid([-0.1] * 3, [1.1] * 3, r_c=0.05, cap=16, stiffness=1e4,
+                              exclude=exclude)
+    out = {}
+    for device in ("cpu", dev):
+        p = torch.as_tensor(pos_np, dtype=torch.float32, device=device).requires_grad_()
+        f, ovf = contact_forces(p, grid.to(device), with_overflow=True)
+        g = [torch.autograd.grad(torch.sum(contact_forces(p, grid.to(device)) ** 2), p)[0]
+             for _ in range(2)]
+        out[str(device)] = (f.detach().cpu(), bool(ovf), g[0].cpu(), g[1].cpu())
+    f_c, o_c, g_c, _ = out["cpu"]
+    f_d, o_d, g_d, g_d2 = out[str(dev)]
+    assert float(torch.abs(f_c).max()) > 0 and o_c == o_d
+    assert _rel(f_d, f_c) <= 1e-5
+    assert torch.equal(g_d, g_d2) and _rel(g_d, g_c) <= 1e-4

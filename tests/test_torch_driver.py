@@ -200,5 +200,8 @@ def test_inverse_design_entry_point_on_cpu(tmp_path):
     report = inverse_design.main(common + ["--maxiter", "0", "--out",
                                            str(tmp_path / "b")])
     assert report["iterations"] == 0 and report["loss_first"] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse_design.main(common + ["--optimizer", "adam"])
+    # Adam: one step, its artifacts (tests/test_torch_adam.py holds the rest)
+    report = inverse_design.main(common + ["--optimizer", "adam", "--maxiter", "1",
+                                           "--out", str(tmp_path / "c")])
+    assert report["iterations"] == 1 and report["optimizer"] == "adam"
+    assert len(json.loads((tmp_path / "c" / "distances.json").read_text())) == 1

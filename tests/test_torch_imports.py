@@ -29,7 +29,10 @@ for name in mods:
 for name in ("softbody_tpu_torch.utils.checkpoint",
              "softbody_tpu_torch.inverse_design", "softbody_tpu_torch.opt.driver",
              "softbody_tpu_torch.ops.separable_kernels", "softbody_tpu_torch.ops.blocked",
-             "softbody_tpu_torch.topology.blocks", "softbody_tpu_torch.sim.blocked"):
+             "softbody_tpu_torch.topology.blocks", "softbody_tpu_torch.sim.blocked",
+             "softbody_tpu_torch.sim.scene", "softbody_tpu_torch.ops.elasticity",
+             "softbody_tpu_torch.ops.obstacles", "softbody_tpu_torch.ops.contact",
+             "softbody_tpu_torch.models.deepsdf", "softbody_tpu_torch.geometry.compose"):
     assert name in mods, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -62,6 +65,8 @@ def test_entry_points_default_to_cuda():
         build_sparse_scene(pts, cfg, out_num=out_num)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         softbody_tpu_torch.build_blocked_scene(pts, cfg, out_num=out_num)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        softbody_tpu_torch.build_scene(pts, cfg, out_num=out_num)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rollout(x, scene, cfg, n_steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):

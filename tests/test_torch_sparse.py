@@ -66,16 +66,17 @@ def test_own_scene_build_gives_the_same_forces(setup):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("override,match", [
-    ({"backend": "gather"}, "item 6"),
-    ({"backend": "gather", "pair_def_grad": "j"}, "item 6"),
-    ({"pair_dtype": "bfloat16"}, "item 8"),
+@pytest.mark.parametrize("override,error,match", [
+    ({"backend": "gather"}, ValueError, "build_scene"),
+    ({"backend": "gather", "pair_def_grad": "j"}, ValueError, "build_scene"),
+    ({"pair_dtype": "bfloat16"}, NotImplementedError, "item 8"),
 ])
-def test_unported_options_raise(setup, override, match):
+def test_unported_options_raise(setup, override, error, match):
     """What the port does not run yet raises, naming its ROADMAP item, at
     the rollout's force dispatch (the Taichi pairing runs since slice 4:
-    tests/test_torch_separable.py)."""
+    tests/test_torch_separable.py); the gather backend runs since slice 10
+    (tests/test_torch_gather.py), on a ``build_scene`` scene only."""
     _, _, cfg, _, scene_t, _, _ = setup
     ratio = torch.full((scene_t.blocked.n_slots,), 0.5, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         elastic_forces(scene_t.rest_position, ratio, scene_t, cfg.replace(**override))
