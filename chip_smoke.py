@@ -87,7 +87,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      x = 0): ms/step, particle-steps/s, the profiler's activities per step
      and idle share; its quiet body, rms drift < 1e-6 m (both cut to
      NEW_BUDGET_S, the cut printed)
- 24  path A's gradient, GRAD_STEPS steps in EVAL_CHUNKS chunks: fwd+bwd
+ 24  path A's gradient, PATH_GRAD_STEPS steps in EVAL_CHUNKS chunks: fwd+bwd
      ms/step, peak memory, a bitwise repeat, the f64 gradient over
      PREFIX_STEPS steps kernel vs plain under phase 11's gates
  25  path B, the blocked varcol layout of the same body on the pallas
@@ -131,13 +131,39 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      on): the forward episode cut to NEW_BUDGET_S, every recorded state
      finite, no overflow, K1/K2 one launch per step; contact_forces_query
      on 4,096 rows against the all-pairs law over every particle (<= 1e-5
-     of max |f|, with and without the exclude table); one GRAD_STEPS
+     of max |f|, with and without the exclude table); one PATH_GRAD_STEPS
      gradient, finite, bitwise repeatable, phase 13's launch counts; a
      full-size seeded DeepSDF obstacle (3 -> 1024 x 8 -> 1): penalty_force
      over every slot and its VJP, ms and finite
- 34  optimize_adam on the main path: 3 steps of GRAD_STEPS-step episodes;
+ 34  optimize_adam on the main path: 3 steps of PATH_GRAD_STEPS-step episodes;
      2 steps, a resume and 1 step bitwise equal to them; losses finite,
      distances.json one entry per step
+
+ 35  the CLI, softbody_tpu_torch.cli.main, on its procedural sphere at
+     --procedural 35000 (N = 102,372) on --backend pallas and gather, and
+     at 2000 on --backend blocked (the plain reference), --frames
+     CLI_FRAMES (printed cut), one scene build per backend shared by its
+     invocations: --set_target --render (targets (N, 3) in particle space,
+     the rendered sphere-cloud scene with N spheres), --init (a finite
+     mean), --debug (5 finite analytic / numeric pairs), L-BFGS --maxiter
+     1 from a zeros warm start (ends, finite; the body falls freely, so
+     its loss is rounding noise and scipy may stop at iteration 0), two
+     Adam steps and a --resume to 3 (history.json 3 finite losses, the
+     printed last loss; --debug and Adam on pallas and gather only); each
+     flow's launches as the trapezoidal path implies on pallas, none on
+     gather, and the blocked build's one raw K1;
+     pallas vs gather targets <= 1e-3 of the displacement (+ 32 f32 ulps
+     of the coordinates) and, with --dtype float64 at CLI_F64_N, <= 1e-9
+ 36  examples/inflate_demo on --backend pallas (path B's kernels) at its
+     default width, INFLATE_CUT (printed cut): Adam's and the L-BFGS
+     polish's losses fall, its artifacts are written, the launches as
+     path B implies
+ 37  examples/million_particles at full width (--particles 1000000, N =
+     1,158,168), MILLION_STEPS forward steps and one MILLION_GRAD_STEPS
+     gradient (printed cut): N / slots / tiles / pairs per step equal
+     out/million_r5's, every recorded state finite, the frames and their
+     scenes written, the launches; ms/step, particle-steps/s, gradient
+     ms/step, peak device memory and the device's idle share printed
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
@@ -165,13 +191,24 @@ import time
 TOL = 1e-4                 # f32, another summation order over <= 1024 entries
 STEPS = 3000
 FRAMES = 100
-TIME_BUDGET_S = 20.0       # cut the episodes' steps if phases 5-7 would exceed it
-FUSED_BUDGET_S = 15.0      # the same for the fused phases 16-17
-NEW_BUDGET_S = 20.0        # the same for each of the paths A and B (23, 27)
-GRAD_STEPS = 99            # depth of every gradient phase (33 frames, interval 3)
-GRAD_FRAMES = 33
+TIME_BUDGET_S = 12.0       # cut the episodes' steps if phases 5-7 would exceed it
+FUSED_BUDGET_S = 10.0      # the same for the fused phases 16-17
+NEW_BUDGET_S = 12.0        # the same for paths A and B, gather and drop (23, 27, 31, 33)
+GRAD_STEPS = 99            # the main path's gradients, phases 11, 12, 19 (33 frames,
+GRAD_FRAMES = 33           # interval 3); at 48 steps phase 12's |g| is below scipy's gtol
+PATH_GRAD_STEPS = 48       # the other gradients, phases 24, 28, 32, 33, 34 (16 frames)
+PATH_GRAD_FRAMES = 16
 PREFIX_STEPS = 15          # the f64 gradient prefixes, phases 11, 19, 24, 28, 32 (5 frames)
 EVAL_CHUNKS = 3
+CLI_N = 35_000             # phase 35: --procedural; the CLI sizes the shell from it,
+                           # so 35000 gives N = 102,372 (100000 gives 480,286)
+CLI_BLOCKED_N = 2000       # phase 35: --backend blocked, the plain reference
+CLI_FRAMES = 50            # phase 35: --frames (the CLI's episode is 3000 steps)
+CLI_F64_N = 20_000         # phase 35: --dtype float64, pallas vs gather targets
+INFLATE_CUT = ["--frames", "40", "--adam-steps", "4", "--lbfgs-iters", "2"]  # phase 36
+MILLION_N = 1_000_000      # phase 37: --particles (N = 1,158,168)
+MILLION_STEPS = 300        # phase 37: --steps (the example's 3000)
+MILLION_GRAD_STEPS = 30    # phase 37: --grad-steps (3000), in 3 chunks (40)
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # K2 v2 and its passes run K2 v4's pair loops (svnw is the scene's static
@@ -341,14 +378,17 @@ def main():
         + " ".join(f"{b.slab_len}:{b.n_tiles}" for b in sb.buckets)
         + f") pairs/eval={pairs} host build {time.perf_counter() - t0:.1f} s")
 
-    say(f"    CUT: every gradient phase runs {GRAD_STEPS} of the episode's {STEPS} "
-        f"steps ({GRAD_FRAMES} frames); the f64 gradient prefixes (kernel vs plain "
+    say(f"    CUT: the main path's gradients (phases 11, 12, 19) run {GRAD_STEPS} of "
+        f"the episode's {STEPS} steps ({GRAD_FRAMES} frames), the other gradients "
+        f"(24, 28, 32, 33, 34) {PATH_GRAD_STEPS} ({PATH_GRAD_FRAMES} frames; 99 before "
+        f"phases 35-37 were added); the f64 gradient prefixes (kernel vs plain "
         f"in phases 11, 19, 24 and 28, gather vs sparse in 32) {PREFIX_STEPS} steps "
         f"(phases 11 and 19 ran 99, 24 and 28 ran 30, before phases 30-34 were "
-        f"added); the forward phases are cut to budgets of {TIME_BUDGET_S:.0f} s (default path), "
+        f"added); the forward phases are cut to "
+        f"budgets of {TIME_BUDGET_S:.0f} s (default path), "
         f"{FUSED_BUDGET_S:.0f} s (fused) and {NEW_BUDGET_S:.0f} s (each of paths A "
-        f"and B, the gather path and the drop scenario), each cut printed; width "
-        f"is never cut")
+        f"and B, the gather path and the drop scenario; 20, 15 and 20 s before "
+        f"phases 35-37 were added), each cut printed; width is never cut")
     x_star = torch.as_tensor(x_star_bands(pts, sb.n_slots, sop),
                              dtype=torch.float32, device=dev)
     ratio = compute_ratio(x_star, cfg)
@@ -557,6 +597,9 @@ def main():
     phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg)
     del scene_g
     phase_adam(torch, np, dev, tag, scene, x_star, ctx)
+    phase_cli(torch, np, dev, tag)
+    phase_inflate(torch, np, dev, tag)
+    phase_million(torch, np, dev, tag)
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
@@ -1278,7 +1321,7 @@ def forward_phase(torch, np, dev, tag, num, label, scene, cfg_p, x_star,
 
 def grad_phase(torch, np, dev, tag, num, label, scene, cfg_g, x_star, scene64,
                cfg64, names):
-    """Phases 24 and 28: a path's episode gradient, GRAD_STEPS steps in
+    """Phases 24 and 28: a path's episode gradient, PATH_GRAD_STEPS steps in
     EVAL_CHUNKS chunks at x = 0 against targets from x* (fwd+bwd ms/step,
     peak memory, a bitwise repeat, the profile) and the f64 gradient over
     PREFIX_STEPS steps, kernel vs plain path, under phase 11's gates.
@@ -1286,8 +1329,8 @@ def grad_phase(torch, np, dev, tag, num, label, scene, cfg_g, x_star, scene64,
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.sim.rollout import episode_value_and_grad_chunked, rollout
 
-    S, P = GRAD_STEPS, PREFIX_STEPS
-    every = S // GRAD_FRAMES
+    S, P = PATH_GRAD_STEPS, PREFIX_STEPS
+    every = S // PATH_GRAD_FRAMES
     n_slots = scene.blocked.n_slots
     n = len(scene.slot_of_particle)
     with torch.no_grad():
@@ -1308,7 +1351,7 @@ def grad_phase(torch, np, dev, tag, num, label, scene, cfg_g, x_star, scene64,
     ms = t_grad * 1e3 / S
     gmax = float(torch.max(torch.abs(g1)))
     repeat = loss1 == loss2 and torch.equal(g1, g2)
-    say(f"[{num}] {label} episode gradient: {S} steps, {GRAD_FRAMES} frames, "
+    say(f"[{num}] {label} episode gradient: {S} steps, {PATH_GRAD_FRAMES} frames, "
         f"{EVAL_CHUNKS} chunks, x = 0: loss {loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd "
         f"{t_grad:.1f} s = {ms:.3f} ms/step, {n * S / t_grad:.4g} particle-steps/s; "
         f"peak device memory {peak / 2**30:.3f} GiB; second gradient bitwise equal: "
@@ -1869,9 +1912,9 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
         fail("the warp_parity gather episode is not finite")
 
     # ---- 32 the gather episode gradient; f64 prefix against the sparse path
-    S, P = GRAD_STEPS, PREFIX_STEPS
-    every = S // GRAD_FRAMES
-    cfg_gg = cfg_g.replace(frames=S, target_frames=GRAD_FRAMES)
+    S, P = PATH_GRAD_STEPS, PREFIX_STEPS
+    every = S // PATH_GRAD_FRAMES
+    cfg_gg = cfg_g.replace(frames=S, target_frames=PATH_GRAD_FRAMES)
     with torch.no_grad():
         _, _, (tp, tv) = rollout(x_g, scene_g, cfg_gg, n_steps=S, record_every=every,
                                  device=dev)
@@ -1890,7 +1933,7 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
     ms_grad = t_grad * 1e3 / S
     gmax = float(torch.max(torch.abs(g1)))
     repeat = loss1 == loss2 and torch.equal(g1, g2)
-    say(f"[32] gather episode gradient: {S} steps, {GRAD_FRAMES} frames, {EVAL_CHUNKS} "
+    say(f"[32] gather episode gradient: {S} steps, {PATH_GRAD_FRAMES} frames, {EVAL_CHUNKS} "
         f"chunks, x = 0: loss {loss1:.9g}, max |g| {gmax:.3e}; fwd+bwd {t_grad:.1f} s "
         f"= {ms_grad:.3f} ms/step, {n * S / t_grad:.4g} particle-steps/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; second gradient bitwise equal: {repeat} {tag}")
@@ -2042,12 +2085,12 @@ def phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg):
         if not (err <= 1e-5 and (excl is not None or fmax > 0)):
             fail(f"the contact forces ({label}) disagree with the all-pairs law")
 
-    # one 99-step gradient, twice
-    S = GRAD_STEPS
-    cfg_dg = cfg_d.replace(frames=S, target_frames=GRAD_FRAMES)
+    # one PATH_GRAD_STEPS-step gradient, twice
+    S = PATH_GRAD_STEPS
+    cfg_dg = cfg_d.replace(frames=S, target_frames=PATH_GRAD_FRAMES)
     with torch.no_grad():
         _, _, (tp, tv) = ro.rollout(x_d, scene_d, cfg_dg, n_steps=S,
-                                    record_every=S // GRAD_FRAMES, device=dev)
+                                    record_every=S // PATH_GRAD_FRAMES, device=dev)
     vg = ro.episode_value_and_grad_chunked(scene_d, cfg_dg, EVAL_CHUNKS, S)
     x0 = torch.zeros(n_slots, device=dev)
     pk.reset_launch_counts()
@@ -2099,26 +2142,32 @@ def phase_adam(torch, np, dev, tag, scene, x_star, ctx):
     """Phase 34: optimize_adam at full width: 3 steps straight; 2 steps, a
     resume and 1 step; the two iterates bitwise equal."""
     from softbody_tpu_torch.opt import driver
+    from softbody_tpu_torch.sim.rollout import rollout
 
-    cfg_g, tp, tv = ctx["cfg_g"], ctx["tp_g"], ctx["tv_g"]
+    S = PATH_GRAD_STEPS
+    cfg_g = ctx["cfg_g"].replace(frames=S, target_frames=PATH_GRAD_FRAMES)
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S,
+                                 record_every=S // PATH_GRAD_FRAMES, device=dev)
     x0 = np.zeros(scene.blocked.n_slots)
     x_t = x_star.cpu().numpy()
-    kw = dict(n_steps=GRAD_STEPS, eval_chunks=EVAL_CHUNKS, checkpoint_every=1,
-              x_target=x_t)
+    kw = dict(n_steps=S, eval_chunks=EVAL_CHUNKS, checkpoint_every=1, x_target=x_t)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        x3, hist = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
-                                        resume_dir=f"{tmp}/a", opt_dir=f"{tmp}/a_out",
-                                        **kw)
+        x3, l3 = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
+                                      resume_dir=f"{tmp}/a", opt_dir=f"{tmp}/a_out",
+                                      **kw)
         t_adam = time.perf_counter() - t0
         distances = json.loads(open(f"{tmp}/a_out/distances.json").read())
         losses = json.loads(open(f"{tmp}/a_out/losses.json").read())
         driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=2, resume_dir=f"{tmp}/b",
                              **kw)
-        x3b, hist_b = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
-                                           resume_dir=f"{tmp}/b", resume=True, **kw)
-    same = torch.equal(x3, x3b) and hist_b == hist
-    say(f"[34] Adam at full width: 3 steps of {GRAD_STEPS}-step episodes from x = 0 "
+        x3b, l3b = driver.optimize_adam(scene, cfg_g, x0, tp, tv, steps=3,
+                                        resume_dir=f"{tmp}/b", resume=True, **kw)
+    # (x_final, losses), as the JAX driver returns them; losses.json the same
+    same = (torch.equal(x3, x3b) and np.array_equal(l3b, l3)
+            and l3.tolist() == losses)
+    say(f"[34] Adam at full width: 3 steps of {S}-step episodes from x = 0 "
         f"in {t_adam:.1f} s ({t_adam / 3:.1f} s per step): losses {losses}, "
         f"distances {distances}; 2 steps + resume + 1 step bitwise equal to the "
         f"straight run: {same} {tag}")
@@ -2127,10 +2176,354 @@ def phase_adam(torch, np, dev, tag, scene, x_star, ctx):
         fail("Adam's resume is not exact, or its artifacts are wrong")
 
 
+def trapezoidal_grad(S):
+    """Launches of one trapezoidal gradient of S steps on the sparse kernel
+    path: phase 13's per step, plus the initial state's force evaluation
+    (forward and recompute) and its backward (K2 only: the rest positions
+    carry no gradient)."""
+    return {"moments_v4": 3 * S + 2, "forces_warp_v4": 3 * S + 2,
+            "moments_v4_bwd": S, "forces_warp_v4_bwd_rows": S + 1,
+            "forces_warp_v4_bwd_slab": S + 1, "slab_to_slots": 2 * S + 1}
+
+
+def scaled(counts, k):
+    return {key: k * v for key, v in counts.items()}
+
+
+def added(*counts):
+    out = {}
+    for c in counts:
+        for key, v in c.items():
+            out[key] = out.get(key, 0) + v
+    return out
+
+
+def gate_counts(label, got, want):
+    """Fail unless ``got`` has ``want``'s launches and 0 for every other kernel."""
+    bad = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        fail(f"{label}: launches (got, expected) {bad}")
+
+
+def memoized_builders():
+    """Patch the scene builders the CLI calls so that its invocations on one
+    backend and body share one build (the CLI builds its scene per call).
+    Returns a function that undoes the patch."""
+    from softbody_tpu_torch.sim import blocked, scene, sparse
+
+    memo, undo = {}, []
+    for mod, name in ((sparse, "build_sparse_scene"), (scene, "build_scene"),
+                      (blocked, "build_blocked_scene")):
+        real = getattr(mod, name)
+
+        def build(pts, cfg, *a, _real=real, _name=name, **kw):
+            key = (_name, len(pts), cfg)
+            if key not in memo:
+                memo[key] = _real(pts, cfg, *a, **kw)
+            return memo[key]
+
+        setattr(mod, name, build)
+        undo.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in undo:
+            setattr(mod, name, real)
+        memo.clear()
+
+    return restore
+
+
+def phase_cli(torch, np, dev, tag):
+    """Phase 35: ``softbody_tpu_torch.cli.main`` at ~100k (the CLI's
+    procedural sphere, --procedural CLI_N) on --backend pallas and gather, and at 2,000 on
+    --backend blocked (the plain reference): --set_target with --render,
+    --init, --debug, one L-BFGS iteration, two Adam steps and a --resume."""
+    import contextlib
+    import io
+    import re
+
+    from softbody_tpu_torch import cli
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.opt import driver
+
+    F = CLI_FRAMES
+    say(f"[35] the CLI (python -m softbody_tpu_torch.cli) at --procedural {CLI_N} on "
+        f"--backend pallas and gather, {CLI_BLOCKED_N} on blocked {tag}")
+    say(f"    CUT: --frames {F} (the CLI's default episode is 3000 steps); Adam "
+        f"runs 2 steps and resumes for 1 (the CLI's 200); --debug and Adam not on "
+        f"blocked; one build per backend is shared by its invocations")
+    restore = memoized_builders()
+    real_adam = driver.optimize_adam
+    per_eval = trapezoidal_grad(F)
+    fwd = {"moments_v4": F + 1, "forces_warp_v4": F + 1}    # trapezoidal: S + 1
+    targets = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for backend, n in (("pallas", CLI_N), ("gather", CLI_N),
+                               ("blocked", CLI_BLOCKED_N)):
+                out = f"{tmp}/{backend}"
+                os.makedirs(out)
+                base = ["-n", "sphere", "--procedural", str(n), "--frames", str(F),
+                        "--backend", backend, "--out-dir", out]
+
+                def run(*extra, adam_steps=None):
+                    if adam_steps is not None:
+                        driver.optimize_adam = (lambda *a, **k: real_adam(
+                            *a, steps=adam_steps, **k))
+                    pk.reset_launch_counts()
+                    buf = io.StringIO()
+                    t0 = time.perf_counter()
+                    try:
+                        with contextlib.redirect_stdout(buf):
+                            cli.main(base + list(extra))
+                        torch.cuda.synchronize()
+                    finally:
+                        driver.optimize_adam = real_adam
+                    return buf.getvalue(), pk.launch_counts(), time.perf_counter() - t0
+
+                kernels = backend == "pallas"
+                secs = {}
+                text, counts, secs["set_target+render"] = run("--set_target", "--render")
+                tdir = f"{out}/target/sphere"
+                pos = np.load(f"{tdir}/position_{F}.npy")
+                rest = np.load(f"{tdir}/position_1.npy")
+                n_p = pos.shape[0]
+                scene_file = f"{out}/render/sphere/.pbrt/scene.pbrt"
+                spheres = open(scene_file).read().count('Shape "sphere"')
+                if not (pos.shape == (n_p, 3) and os.path.exists(f"{tdir}/velocity_{F}.npy")
+                        and np.isfinite(pos).all() and spheres == n_p + 1):
+                    fail(f"{backend}: --set_target / --render artifacts are wrong "
+                         f"(targets {pos.shape}, {spheres} spheres)")
+                targets[backend] = (pos, rest)
+                # the blocked build computes its static row sums with one raw K1
+                gate_counts(f"{backend} --set_target --render", counts,
+                            scaled(fwd, 2) if kernels else
+                            {"moments_raw": 1} if backend == "blocked" else {})
+
+                text, counts, secs["init"] = run("--init")
+                mean = [float(v) for v in re.findall(r"[-+0-9.e]+",
+                                                     text.split("mean:")[-1])]
+                if not (len(mean) == 3 and all(math.isfinite(v) for v in mean)):
+                    fail(f"{backend}: --init printed no finite mean: {text[-200:]!r}")
+                gate_counts(f"{backend} --init", counts, fwd if kernels else {})
+
+                # blocked (the plain reference, small bodies only): the flows that
+                # differentiate run on pallas and gather
+                full = backend != "blocked"
+                pairs = ["not run"] * 3
+                if full:
+                    text, counts, secs["debug"] = run("--debug")
+                    pairs = re.findall(r"grad ana:\s*(\S+)\s*; grad num:\s*(\S+)", text)
+                    if not (len(pairs) == 5
+                            and all(math.isfinite(float(a)) and math.isfinite(float(b))
+                                    for a, b in pairs)):
+                        fail(f"{backend}: --debug lines {pairs} are not 5 finite pairs")
+                    gate_counts(f"{backend} --debug", counts,
+                                added(per_eval, scaled(fwd, 10)) if kernels else {})
+
+                zeros = f"{out}/zeros.npy"
+                np.save(zeros, np.zeros(n_p))
+                # the procedural body falls freely: nothing strains it, so every x
+                # gives its trajectory up to rounding, the loss is rounding noise
+                # and scipy may stop at iteration 0 on its gradient test (gtol
+                # 1e-10); phases 12 and 36 gate the loss falling on strained bodies
+                text, counts, secs["lbfgs"] = run("--maxiter", "1", "--warm-start", zeros)
+                evals = [float(v) for v in re.findall(r"^loss:\s+(\S+)", text, re.M)]
+                logf = f"{out}/opt/sphere/losses.json"
+                logged = json.loads(open(logf).read()) if os.path.exists(logf) else []
+                done = re.search(r"L-BFGS done: (.*)", text)
+                if not (evals and done and all(math.isfinite(v) for v in evals)
+                        and len(logged) <= 1 and all(v <= evals[0] for v in logged)
+                        and os.path.exists(f"{out}/opt/sphere/x.npy")):
+                    fail(f"{backend}: the L-BFGS flow failed (evaluations {evals}, "
+                         f"losses.json {logged}, {text[-300:]!r})")
+                gate_counts(f"{backend} L-BFGS", counts,
+                            scaled(per_eval, len(evals)) if kernels else {})
+
+                hist = {"losses": "not run"}
+                if full:
+                    _, counts_a, secs["adam 2"] = run(
+                        "--optimizer", "adam", "--warm-start", zeros, adam_steps=2)
+                    text, counts_r, secs["adam resume"] = run(
+                        "--optimizer", "adam", "--warm-start", zeros, "--resume",
+                        adam_steps=3)
+                    ck = f"{out}/opt/sphere/checkpoint"
+                    hist = json.loads(open(f"{ck}/history.json").read())
+                    meta = json.loads(open(f"{ck}/meta.json").read())
+                    last = float(text.split("adam final loss:")[-1])
+                    if not (meta["step"] == 3 and len(hist["losses"]) == 3
+                            and last == hist["losses"][-1]
+                            and all(math.isfinite(v) for v in hist["losses"])):
+                        fail(f"{backend}: Adam + --resume: step {meta['step']}, losses "
+                             f"{hist['losses']}, printed {last}")
+                    gate_counts(f"{backend} Adam", counts_a,
+                                scaled(per_eval, 2) if kernels else {})
+                    gate_counts(f"{backend} Adam --resume", counts_r,
+                                per_eval if kernels else {})
+                say(f"    {backend}: N={n_p}; L-BFGS evaluations {evals} -> "
+                    f"losses.json {logged} (scipy: {done.group(1)}); --debug "
+                    f"(analytic, numeric) {pairs[2]}; "
+                    f"Adam losses {hist['losses']}; seconds per flow "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+                    + f"; launches as the path implies {tag}")
+            # the same targets in f64 on a smaller body: --dtype float64 stays
+            # on the card (its kernels have f64 instantiations)
+            for backend in ("pallas", "gather"):
+                out = f"{tmp}/{backend}64"
+                cli.main(["-n", "sphere", "--procedural", str(CLI_F64_N), "--frames",
+                          str(F), "--backend", backend, "--dtype", "float64",
+                          "--out-dir", out, "--set_target"])
+                targets[backend + "64"] = tuple(
+                    np.load(f"{out}/target/sphere/position_{i}.npy") for i in (F, 1))
+    finally:
+        restore()
+    # f32: 50 steps move the body by ~2e-5 m, a few hundred f32 ulps of its
+    # ~0.1 m coordinates, so two summation orders differ by a few ulps of the
+    # coordinates as well as by a share of the displacement
+    for label, tol, ulps in (("", 1e-3, 32), ("64", 1e-9, 0)):
+        (pos_p, rest), (pos_g, _) = targets["pallas" + label], targets["gather" + label]
+        disp = float(np.abs(pos_g - rest).max())
+        dev_pg = float(np.abs(pos_p - pos_g).max())
+        floor = ulps * float(np.spacing(np.float32(np.abs(pos_g).max())))
+        say(f"    targets at frame {F}, pallas vs gather in f{label or '32'} (N="
+            f"{len(pos_g)}): max |dpos| {dev_pg:.3e}, max displacement {disp:.3e} "
+            f"(ratio {dev_pg / disp:.3e}; tol {tol:g} of it"
+            + (f" + {ulps} f32 ulps of max |pos| = {floor:.3e})" if ulps else ")"))
+        if not dev_pg <= tol * disp + floor:
+            fail(f"the pallas and gather CLI targets disagree (f{label or '32'})")
+
+
+def phase_inflate(torch, np, dev, tag):
+    """Phase 36: ``examples/inflate_demo`` on --backend pallas (path B's
+    kernels: the raw K1, K2 v2 and their backwards), cut to INFLATE_CUT."""
+    from softbody_tpu_torch.examples import inflate_demo
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.opt import driver
+
+    seen = {}
+    real_adam, real_lbfgs = driver.optimize_adam, driver.optimize_lbfgs
+
+    def adam(scene, *a, **k):
+        seen["scene"] = scene
+        return real_adam(scene, *a, **k)
+
+    def lbfgs(*a, **k):
+        res, hist = real_lbfgs(*a, **k)
+        seen["nfev"] = int(res.nfev)
+        return res, hist
+
+    driver.optimize_adam, driver.optimize_lbfgs = adam, lbfgs
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            report = inflate_demo.main(["--backend", "pallas", "--out", tmp] + INFLATE_CUT)
+            written = sorted(os.listdir(tmp))
+    finally:
+        driver.optimize_adam, driver.optimize_lbfgs = real_adam, real_lbfgs
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = pk.launch_counts()
+    S, steps = int(INFLATE_CUT[1]), int(INFLATE_CUT[3])
+    nb = len(seen["scene"].blocked.buckets)
+    evals = steps + seen["nfev"]
+    per_eval = {"moments_raw": (3 * S + 2) * nb, "forces_warp_v2": 3 * S + 2,
+                "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S + 1,
+                "forces_warp_v2_bwd_slab": S + 1, "slab_to_slots": 2 * S + 1}
+    # the targets' and the final rollout's forward episodes, and the build's
+    # one raw K1 call for the static row sums
+    want = added(scaled(per_eval, evals), {"moments_raw": 2 * (S + 1) * nb + 1,
+                                           "forces_warp_v2": 2 * (S + 1)})
+    a, lb = report["adam_loss"], report["lbfgs_loss"]
+    say(f"[36] inflate_demo --backend pallas {' '.join(INFLATE_CUT)} (CUT: its "
+        f"defaults are --frames 200 --adam-steps 60 --lbfgs-iters 5): "
+        f"{len(seen['scene'].slot_of_particle)} particles, {nb} bucket(s); Adam "
+        f"{a[0]:.4e} -> {a[1]:.4e}, L-BFGS {lb}, {seen['nfev']} evaluations; "
+        f"ratio RMS error {report['ratio_rms_error']:.4f}; {secs:.1f} s; artifacts "
+        f"{written}; launches {counts} {tag}")
+    if not (a[1] < a[0] and lb and lb[-1] < a[1]
+            and {"report.json", "scene_first.pbrt", "scene_final.pbrt"} <= set(written)):
+        fail("inflate_demo: the losses did not fall or its artifacts are missing")
+    gate_counts("inflate_demo (path B)", counts, want)
+
+
+def phase_million(torch, np, dev, tag):
+    """Phase 37: ``examples/million_particles`` at full width (N =
+    1,158,168), its steps cut; the scene against ``out/million_r5``."""
+    import re
+
+    from softbody_tpu_torch.examples import million_particles as mp
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.sim.rollout import initial_state
+
+    ref = json.loads(open("out/million_r5/report.json").read())
+    line = open("out/million_r5.log").read().splitlines()[2]
+    slots, tiles = (int(v) for v in re.search(r"slots=(\d+) tiles=(\d+)", line).groups())
+    S, G, chunks = MILLION_STEPS, MILLION_GRAD_STEPS, 3
+    pk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = mp.parse_args(["--particles", str(MILLION_N), "--steps", str(S),
+                              "--grad-steps", str(G), "--grad-chunks", str(chunks),
+                              "--render-every", "100", "--chunk-steps", "100",
+                              "--out", tmp])
+        say(f"[37] million_particles at --particles {MILLION_N} (CUT: --steps {S} "
+            f"--grad-steps {G} --grad-chunks {chunks}; the JAX run's 3000 / 500 / 40) "
+            f"{tag}")
+        report, scene, cfg, x = mp.run(args)
+        torch.cuda.synchronize()
+        counts = pk.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        final = np.load(f"{tmp}/final_positions.npy")
+        frames = sorted(f for f in os.listdir(f"{tmp}/frames") if f.startswith("positions_"))
+        scenes = [os.path.exists(f"{tmp}/frames/.pbrt_{i:04d}/scene.pbrt")
+                  for i in range(len(frames))]
+        finite = bool(np.isfinite(final).all()) and all(
+            np.isfinite(np.load(f"{tmp}/frames/{f}")).all() for f in frames)
+    sb = scene.blocked
+    got = (report["n_particles"], sb.n_slots, sb.n_tiles, report["pairs_per_step"])
+    want = (ref["n_particles"], slots, tiles, ref["pairs_per_step"])
+    ms = report["wall_seconds"] * 1e3 / S
+    ms_g = report["grad_wall_seconds"] * 1e3 / G
+    static = (sb.rest_rows.numel() + sb.static_all.numel() + sb.gidx_all.numel()
+              + sb.schedule.numel() * 2) * 4
+    say(f"    scene N / slots / tiles / pairs per step {got} (out/million_r5: {want}); "
+        f"{len(sb.buckets)} buckets, {static / 1e6:.1f} MB of static arrays; host "
+        f"build {report['build_seconds']:.1f} s")
+    say(f"    forward {ms:.3f} ms/step, {report['particle_steps_per_sec']:.4g} "
+        f"particle-steps/s; gradient {ms_g:.3f} ms/step, loss "
+        f"{report['grad_loss']:.9g}, |g| {report['grad_norm']:.6g}; peak device "
+        f"memory {peak / 2**30:.3f} GiB; frames {len(frames)} with scenes {scenes}; "
+        f"every state finite: {finite} {tag}")
+    if got != want:
+        fail("the 1.16M scene differs from out/million_r5's")
+    if not (finite and len(frames) == S // 100 and all(scenes)
+            and math.isfinite(report["grad_loss"]) and math.isfinite(report["grad_norm"])):
+        fail("million_particles: a state is not finite or a frame is missing")
+    per_grad = {"moments_v4": 3 * G, "forces_warp_v4": 3 * G, "moments_v4_bwd": G,
+                "forces_warp_v4_bwd_rows": G, "forces_warp_v4_bwd_slab": G,
+                "slab_to_slots": 2 * G}
+    want_c = added(per_grad, {"moments_v4": 1 + S, "forces_warp_v4": 1 + S})
+    say(f"    launches {counts}; expected {want_c} (a one-step warm-up, {S} forward "
+        f"steps, one {G}-step gradient as phase 13)")
+    gate_counts("million_particles", counts, want_c)
+    ratio = compute_ratio(x, cfg)
+    busy, acts, ours = profile_card(
+        torch, ten_steps(initial_state(scene, ratio, cfg), ratio, scene, cfg),
+        ("moments_v4_kernel", "forces_warp_v4_kernel"), 10)
+    if busy > 0:
+        say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in {acts:.0f} "
+            f"device activities per step, of which the two pair kernels {ours:.3f} "
+            f"ms; idle share {1 - busy / ms:.3f} of the episode's {ms:.3f} ms/step {tag}")
+    else:
+        say("    profile: the profiler saw no device time; idle share not measured")
+
+
 def phase_counts(a, b):
     """Phase 29: the launch counts of phases 23-24 (path A) and 27-28 (path
     B) against what each path implies; every other kernel 0."""
-    S = GRAD_STEPS
+    S = PATH_GRAD_STEPS
     # symplectic: one force evaluation per step, two forward episodes; one
     # gradient runs the forward kernels 3 times per step and the backward
     # ones once (phase 13)

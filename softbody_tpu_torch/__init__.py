@@ -12,10 +12,12 @@ layout (``build_blocked_scene``; ``backend="pallas"`` runs its pair
 kernels, ``backend="blocked"`` its plain torch reference), and on the
 gather backend (``build_scene``, ``backend="gather"``); implicit obstacles
 (analytic and DeepSDF) and dynamic particle contact on every backend: the
-forward episode, its gradient and the L-BFGS and Adam drivers —
+forward episode, its gradient and the L-BFGS and Adam drivers, behind the
+reference's CLI and two examples —
 
   config          — SimConfig + parity presets, torch dtype / device helpers
-  geometry        — procedural bodies, multi-body composition
+  geometry        — procedural bodies, multi-body composition, the asset
+                    readers (PLY, OBJ) and the reference body transform
   scenarios       — the stretch / drop scenario constants and helpers
   native          — g++/ctypes CSR neighbour builder
   topology        — rest neighbours and the gather backend's (N, K) tables,
@@ -29,10 +31,14 @@ forward episode, its gradient and the L-BFGS and Adam drivers —
   sim             — gather, sparse and blocked scene builds, elastic forces,
                     episode runner with remat and the chunked value-and-grad
   opt             — target generation, L-BFGS-B, Adam, grad check
-  utils           — checkpoint / resume (the JAX package's file formats)
+  utils           — checkpoint / resume (the JAX package's file formats),
+                    the Eigen binary formats, the host allocator, profiling
+  render          — PBRT scene writers, frame adapters, video, preview
   convert         — JAX-built scene, obstacles, contact grid and DeepSDF
                     (as numpy) <-> port objects
   inverse_design  — the product entry point (python -m ...)
+  cli             — the reference's experiment CLI (python -m ...)
+  examples        — inflate_demo, million_particles (python -m ...)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,1 +1,1 @@
-"""Procedural bodies (numpy)."""
+"""Procedural bodies, multi-body composition and asset IO (numpy)."""

@@ -1,6 +1,6 @@
 """Procedural point-cloud bodies (numpy).
 
-The port's own copy of ``inflatable_sphere`` and ``suggest_h`` from
+The port's own copy of ``inflatable_sphere``, ``box_fill`` and ``suggest_h`` from
 ``softbody_tpu/geometry/shapes.py``: outer shell + inner filling, the
 two-layer structure of the reference's .ply assets (sim.py:41-53).
 """
@@ -50,6 +50,15 @@ def inflatable_sphere(
     inner = ball_fill(radius * 0.92, spacing, jitter=0.05, seed=seed)
     pts = np.vstack([outer, inner]) + np.asarray(center, dtype=np.float64)
     return pts, n_outer
+
+
+def box_fill(lo, hi, spacing: float) -> np.ndarray:
+    """Grid-fill an axis-aligned box [lo, hi]."""
+    lo = np.asarray(lo, dtype=np.float64)
+    hi = np.asarray(hi, dtype=np.float64)
+    axes = [np.arange(lo[d], hi[d] + 1e-12, spacing) for d in range(3)]
+    gx, gy, gz = np.meshgrid(*axes, indexing="ij")
+    return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
 
 
 def suggest_h(points: np.ndarray, target_neighbors: int = 30) -> float:

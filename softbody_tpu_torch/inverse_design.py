@@ -114,12 +114,14 @@ def main(argv=None) -> dict:
                              f"{sb.n_slots} slots")
     t0 = time.perf_counter()
     if args.optimizer == "adam":
-        _, history = driver.optimize_adam(
+        _, losses = driver.optimize_adam(
             scene, cfg, x0, tp, tv, steps=args.maxiter, learning_rate=args.lr,
             n_steps=args.steps, resume_dir=out / "checkpoint", resume=args.resume,
             eval_chunks=args.eval_chunks, opt_dir=out, x_target=x_star,
             verbose=True)
-        iterations = evals = len(history["losses"])
+        losses = [float(v) for v in losses]
+        dists = json.loads((out / "distances.json").read_text())
+        iterations = evals = len(losses)
         message = "adam: fixed step budget"
     else:
         result, history = driver.optimize_lbfgs(
@@ -127,11 +129,11 @@ def main(argv=None) -> dict:
             maxiter=args.maxiter, n_steps=args.steps, eval_chunks=args.eval_chunks,
             resume_dir=out / "checkpoint", resume=args.resume)
         iterations, evals, message = int(result.nit), int(result.nfev), str(result.message)
+        losses, dists = history["losses"], history["distances"]
     wall = time.perf_counter() - t0
     print(f"{args.optimizer}: {iterations} iterations / {evals} evals in "
           f"{wall:.0f}s — {message}", flush=True)
 
-    losses, dists = history["losses"], history["distances"]
     report = {
         "run_id": datetime.datetime.now().isoformat(timespec="seconds"),
         "scenario": args.scenario,

@@ -253,10 +253,11 @@ def optimize_adam(
     x.npy, losses.json and distances.json, one entry per step (empty lists
     when no step ran).
 
-    Returns (x_final, history): history["losses"] holds each step's loss
-    (at the iterate before its update), history["distances"] each step's
-    ``ratio_distance`` to ``x_target`` after its update (empty without
-    ``x_target``)."""
+    Returns (x_final, losses), as the JAX package does: x detached on the
+    scene's device, ``losses`` a float64 array of each step's loss (at the
+    iterate before its update), the resumed steps' included.  Each step's
+    ``ratio_distance`` to ``x_target`` after its update goes to
+    ``opt_dir``'s distances.json (and to the checkpoint's history.json)."""
     dev, dtype = scene.device, scene.dtype
     tp = torch.as_tensor(target_p).to(device=dev, dtype=dtype)
     tv = torch.as_tensor(target_v).to(device=dev, dtype=dtype)
@@ -314,7 +315,7 @@ def optimize_adam(
         if resume_dir is not None and (done % checkpoint_every == 0 or done == steps):
             save()
     write_artifacts()
-    return x.detach(), history
+    return x.detach(), np.asarray(history["losses"], np.float64)
 
 
 def grad_check(scene: Scene, cfg: SimConfig, x0, deltas, target_p, target_v,

@@ -31,6 +31,50 @@ STRETCH = dict(dt=1e-5, youngs_modulus=1e3, collision=False,
 SCENARIOS = {"drop": DROP, "stretch": STRETCH}
 
 
+def add_physics_args(ap):
+    """The physics override flags of the examples and tools (argparse)."""
+    ap.add_argument("--v0y", type=float, default=None)
+    ap.add_argument("--ext-y", type=float, default=None)
+    ap.add_argument("--dt", type=float, default=None)
+    ap.add_argument("--integrator", default=None,
+                    choices=[None, "trapezoidal", "symplectic"])
+    ap.add_argument("--damping", type=float, default=None)
+    ap.add_argument("--mass", type=float, default=None)
+    ap.add_argument("--youngs", type=float, default=None)
+    ap.add_argument("--scale-a", type=float, default=None)
+    ap.add_argument("--scale-b", type=float, default=None)
+    ap.add_argument("--collision-stiffness", type=float, default=None)
+    ap.add_argument("--collision-damping", type=float, default=None)
+    ap.add_argument("--pair-def-grad", default=None, choices=[None, "i", "j"])
+    ap.add_argument("--scenario", default=None,
+                    choices=[None, "drop", "stretch"],
+                    help="named base scenario (overrides applied on top)")
+
+
+def apply_physics_args(cfg, args):
+    """``cfg`` with the named scenario of ``args`` and then each override
+    that ``add_physics_args`` parsed applied."""
+    name = getattr(args, "scenario", None)
+    if name:
+        cfg = cfg.replace(**SCENARIOS[name])
+    over = {}
+    for arg, field in [("dt", "dt"), ("integrator", "integrator"),
+                       ("damping", "damping"), ("mass", "mass"),
+                       ("youngs", "youngs_modulus"),
+                       ("scale_a", "scale_a"), ("scale_b", "scale_b"),
+                       ("collision_stiffness", "collision_stiffness"),
+                       ("collision_damping", "collision_damping"),
+                       ("pair_def_grad", "pair_def_grad")]:
+        v = getattr(args, arg, None)
+        if v is not None:
+            over[field] = v
+    if getattr(args, "v0y", None) is not None:
+        over["initial_velocity"] = (0.0, args.v0y, 0.0)
+    if getattr(args, "ext_y", None) is not None:
+        over["external_force"] = (0.0, args.ext_y, 0.0)
+    return cfg.replace(**over) if over else cfg
+
+
 def scale_mass_for_resolution(cfg, n: int, scenario="drop"):
     """Drop scenario: hold BODY mass constant across resolutions (per-particle
     mass 1e-4 * DROP_REF_N / n, external force scaled alike), so density and

@@ -1,1 +1,2 @@
-"""Host-side utilities (checkpoint / resume)."""
+"""Host-side utilities: checkpoint / resume, the Eigen binary formats and
+folder helpers, the host allocator, profiling."""

@@ -4,8 +4,9 @@ entry point.
 
 Tolerances: three Adam steps on the small gather body (f64, the top clamped
 so that it strains, targets from a random x*) against JAX's
-``optimize_adam`` 1e-9 relative, losses and iterates; a killed-and-resumed
-run equals the straight run bit for bit, on the single-program and on the
+``optimize_adam`` 1e-9 relative, losses and iterates; both return
+``(x_final, losses)`` with ``losses`` an ndarray; a killed-and-resumed run
+equals the straight run bit for bit, on the single-program and on the
 chunked gradient."""
 
 import json
@@ -44,23 +45,26 @@ def setup():
     return pts, out_num, mask, cfg, scene_t, x_true, tp.numpy(), tv.numpy()
 
 
-def test_three_adam_steps_match_optax(setup):
+def test_three_adam_steps_match_optax(setup, tmp_path):
     pts, out_num, mask, cfg, scene_t, x_true, tp, tv = setup
     scene_j = jbuild_scene(pts, cfg, out_num=out_num, dirichlet_mask=mask)
     x0 = np.zeros(len(pts))
     x_j, losses_j = jdriver.optimize_adam(scene_j, cfg, x0, jnp.asarray(tp),
                                           jnp.asarray(tv), steps=3,
                                           learning_rate=0.05, n_steps=N_STEPS)
-    x_t, hist = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
-                                     learning_rate=0.05, n_steps=N_STEPS,
-                                     x_target=x_true)
+    x_t, losses = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
+                                       learning_rate=0.05, n_steps=N_STEPS,
+                                       x_target=x_true, opt_dir=tmp_path)
     losses_j = np.asarray(losses_j)
-    assert len(hist["losses"]) == len(hist["distances"]) == 3
+    distances = json.loads((tmp_path / "distances.json").read_text())
+    assert isinstance(losses, np.ndarray) and losses.dtype == np.float64
+    assert losses.shape == losses_j.shape == (3,) and len(distances) == 3
     assert losses_j[2] < losses_j[0]
-    np.testing.assert_allclose(hist["losses"], losses_j, rtol=TOL, atol=0)
+    np.testing.assert_allclose(losses, losses_j, rtol=TOL, atol=0)
+    assert json.loads((tmp_path / "losses.json").read_text()) == losses.tolist()
     x_j = np.asarray(x_j)
     assert np.abs(x_t.numpy() - x_j).max() <= TOL * np.abs(x_j).max()
-    assert hist["distances"][-1] == driver.ratio_distance(x_t.numpy(), x_true, cfg)
+    assert distances[-1] == driver.ratio_distance(x_t.numpy(), x_true, cfg)
 
 
 @pytest.mark.parametrize("eval_chunks", [0, 2])
@@ -69,23 +73,26 @@ def test_kill_and_resume_is_exact(setup, tmp_path, eval_chunks):
     x0 = np.zeros(scene_t.rest_position.shape[0])
     kw = dict(learning_rate=0.05, n_steps=N_STEPS, eval_chunks=eval_chunks,
               x_target=x_true, checkpoint_every=2)
-    x_straight, h_straight = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
+    x_straight, l_straight = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
                                                   resume_dir=tmp_path / "a", **kw)
     # "killed" after the checkpoint at step 2, then resumed to step 3
     driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=2, resume_dir=tmp_path / "b",
                          **kw)
     meta = json.loads((tmp_path / "b" / "meta.json").read_text())
     assert meta["step"] == 2 and (tmp_path / "b" / "opt_state.pt").exists()
-    x_resumed, h_resumed = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
+    x_resumed, l_resumed = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
                                                 resume_dir=tmp_path / "b", resume=True,
                                                 **kw)
     assert torch.equal(x_resumed, x_straight)
-    assert h_resumed == h_straight and len(h_straight["losses"]) == 3
+    assert np.array_equal(l_resumed, l_straight) and l_straight.shape == (3,)
+    hist = json.loads((tmp_path / "b" / "history.json").read_text())
+    assert hist == json.loads((tmp_path / "a" / "history.json").read_text())
+    assert hist["losses"] == l_straight.tolist() and len(hist["distances"]) == 3
     # a spent budget returns the saved iterate untouched
-    x_again, h_again = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
+    x_again, l_again = driver.optimize_adam(scene_t, cfg, x0, tp, tv, steps=3,
                                             resume_dir=tmp_path / "b", resume=True,
                                             **kw)
-    assert torch.equal(x_again, x_straight) and h_again == h_straight
+    assert torch.equal(x_again, x_straight) and np.array_equal(l_again, l_straight)
 
 
 def test_inverse_design_with_adam_writes_its_artifacts(tmp_path):

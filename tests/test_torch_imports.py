@@ -1,5 +1,6 @@
 """PyTorch port: the package imports neither jax nor anything of
-softbody_tpu, and its entry points run on CUDA unless asked for the CPU."""
+softbody_tpu (nor matplotlib or imageio, which its render helpers import
+when called), and its entry points run on CUDA unless asked for the CPU."""
 
 import subprocess
 import sys
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 import softbody_tpu_torch
-from softbody_tpu_torch import inverse_design, warp_parity
+from softbody_tpu_torch import cli, inverse_design, warp_parity
+from softbody_tpu_torch.examples import inflate_demo, million_particles
 from softbody_tpu_torch.config import resolve_device
 from softbody_tpu_torch.opt.driver import generate_targets
 from softbody_tpu_torch.sim.rollout import rollout
@@ -32,11 +34,20 @@ for name in ("softbody_tpu_torch.utils.checkpoint",
              "softbody_tpu_torch.topology.blocks", "softbody_tpu_torch.sim.blocked",
              "softbody_tpu_torch.sim.scene", "softbody_tpu_torch.ops.elasticity",
              "softbody_tpu_torch.ops.obstacles", "softbody_tpu_torch.ops.contact",
-             "softbody_tpu_torch.models.deepsdf", "softbody_tpu_torch.geometry.compose"):
+             "softbody_tpu_torch.models.deepsdf", "softbody_tpu_torch.geometry.compose",
+             "softbody_tpu_torch.cli", "softbody_tpu_torch.geometry.io",
+             "softbody_tpu_torch.utils.io", "softbody_tpu_torch.utils.hostmem",
+             "softbody_tpu_torch.utils.profiling", "softbody_tpu_torch.render.pbrt",
+             "softbody_tpu_torch.render.adapters", "softbody_tpu_torch.render.video",
+             "softbody_tpu_torch.render.preview",
+             "softbody_tpu_torch.examples.inflate_demo",
+             "softbody_tpu_torch.examples.million_particles"):
     assert name in mods, name
+# matplotlib and imageio are absent on the card's machine: imported lazily
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "softbody_tpu" or m.startswith("softbody_tpu."))
+             or m == "softbody_tpu" or m.startswith("softbody_tpu.")
+             or m.split(".")[0] in ("matplotlib", "imageio"))
 print(len(mods), bad)
 assert not bad, bad
 """
@@ -75,6 +86,15 @@ def test_entry_points_default_to_cuda():
         inverse_design.main(["--particles", "300", "--steps", "2",
                              "--target-frames", "1", "--out",
                              str(REPO / "_never_written")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-n", "x", "--procedural", "300", "--frames", "2", "--set_target",
+                  "--out-dir", str(REPO / "_never_written")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inflate_demo.main(["--particles", "300", "--frames", "2",
+                           "--out", str(REPO / "_never_written")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        million_particles.main(["--particles", "300", "--steps", "2",
+                                "--out", str(REPO / "_never_written")])
     assert not (REPO / "_never_written").exists()
     # asked for the CPU, they run there
     _, fin, _ = rollout(x, scene, cfg, n_steps=1, device="cpu")

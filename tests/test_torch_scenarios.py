@@ -49,3 +49,26 @@ def test_bodies_and_scenario_helpers_match_jax():
     sop = rng.permutation(n_slots)[:len(body)]
     np.testing.assert_array_equal(scenarios.x_star_bands(body, n_slots, sop),
                                   jscen.x_star_bands(body, n_slots, sop))
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--scenario", "drop"],
+    ["--scenario", "stretch", "--dt", "2e-5", "--youngs", "500", "--v0y", "-0.1"],
+    ["--integrator", "trapezoidal", "--damping", "1e-3", "--mass", "2e-4",
+     "--scale-a", "2", "--scale-b", "1", "--collision-stiffness", "1e4",
+     "--collision-damping", "5", "--pair-def-grad", "j", "--ext-y", "-0.5"],
+])
+def test_physics_args_match_jax(argv):
+    import argparse
+
+    ap, ap_j = argparse.ArgumentParser(), argparse.ArgumentParser()
+    scenarios.add_physics_args(ap)
+    jscen.add_physics_args(ap_j)
+    args, args_j = ap.parse_args(argv), ap_j.parse_args(argv)
+    assert vars(args) == vars(args_j)
+    got = scenarios.apply_physics_args(config.warp_parity(), args)
+    want = jscen.apply_physics_args(jconfig.warp_parity(), args_j)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    if not argv:
+        assert got == config.warp_parity()
