@@ -135,7 +135,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      gradient, finite, bitwise repeatable, phase 13's launch counts; a
      full-size seeded DeepSDF obstacle (3 -> 1024 x 8 -> 1): penalty_force
      over every slot and its VJP, ms and finite
- 34  optimize_adam on the main path: 3 steps of PATH_GRAD_STEPS-step episodes;
+ 34  optimize_adam on the main path: 3 steps of ADAM_STEPS-step episodes;
      2 steps, a resume and 1 step bitwise equal to them; losses finite,
      distances.json one entry per step
 
@@ -164,12 +164,38 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      out/million_r5's, every recorded state finite, the frames and their
      scenes written, the launches; ms/step, particle-steps/s, gradient
      ms/step, peak device memory and the device's idle share printed
+ 38  the bf16 K2 slab (cfg.pair_dtype="bfloat16"): K2 v4 and its two backward
+     passes on a bf16 slab, one launch each, each bucket's columns vs its
+     plain version on the same slab (1e-4), a bitwise repeat, ms next to
+     the f32 rows; the bf16 cotangent scatter slab_to_slots_bf16 vs plain
+ 39  the default path with the bf16 slab: one step's wall time vs f32, a
+     300-step episode from x* vs phase 6's f32 one (drift <= 5% of the
+     displacement), the quiet body over phase 7's steps through
+     probe_stability.drift_records (rms < 1e-6 m, the repo's gate for a
+     cheaper pair mode), and a PATH_GRAD_STEPS gradient vs f32's on the
+     same targets: cosine > 0.85, norm within 10%
+     (tests/test_pair_dtype.py:91-92)
+ 40  that gradient's launches (the bf16 kernels' JSON launches)
+ 41  path B with the bf16 slab: K2 v2 and its passes on the varcol tiles vs
+     plain, then phase 39's checks at B_BF16_STEPS (quiet body at path B's
+     own 1e-4)
+ 42  the sparse SPMD episode (parallel/sparse_shard.py) in 2 gloo ranks on
+     the one card, n_shards=2 layout of the same body: which collectives
+     gloo takes on CUDA tensors (the refused ones staged through host
+     memory, printed); per variant (all-gather, halo) an SPMD_FWD_STEPS
+     forward episode and a PATH_GRAD_STEPS gradient vs the single-device
+     path on the same
+     layout (positions 1e-6 of the displacement, losses 1e-5, gradient
+     1e-3 of max |g|: f32, other summation orders), launches per rank per
+     evaluation, ms/step, peak memory per rank; no scaling is measured
+ 43  parallel.dryrun_multichip(2) on the card (gloo)
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
 product loop, for the v4 path's kernels and the scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
-gradient each, for the separable K2 and the raw K1; ms per force
+gradient each, for the separable K2 and the raw K1; from phases 39 and
+41, one bf16 gradient each, for the bf16 K2 kernels; ms per force
 evaluation on the sparse scene, one launch each, but the raw K1's, per
 launch on the varcol scene),
 the card line, and the last line
@@ -191,9 +217,9 @@ import time
 TOL = 1e-4                 # f32, another summation order over <= 1024 entries
 STEPS = 3000
 FRAMES = 100
-TIME_BUDGET_S = 12.0       # cut the episodes' steps if phases 5-7 would exceed it
-FUSED_BUDGET_S = 10.0      # the same for the fused phases 16-17
-NEW_BUDGET_S = 12.0        # the same for paths A and B, gather and drop (23, 27, 31, 33)
+TIME_BUDGET_S = 8.0        # cut the episodes' steps if phases 5-7 would exceed it
+FUSED_BUDGET_S = 6.0       # the same for the fused phases 16-17
+NEW_BUDGET_S = 8.0         # the same for paths A and B, gather and drop (23, 27, 31, 33)
 GRAD_STEPS = 99            # the main path's gradients, phases 11, 12, 19 (33 frames,
 GRAD_FRAMES = 33           # interval 3); at 48 steps phase 12's |g| is below scipy's gtol
 PATH_GRAD_STEPS = 48       # the other gradients, phases 24, 28, 32, 33, 34 (16 frames)
@@ -203,12 +229,15 @@ EVAL_CHUNKS = 3
 CLI_N = 35_000             # phase 35: --procedural; the CLI sizes the shell from it,
                            # so 35000 gives N = 102,372 (100000 gives 480,286)
 CLI_BLOCKED_N = 2000       # phase 35: --backend blocked, the plain reference
-CLI_FRAMES = 50            # phase 35: --frames (the CLI's episode is 3000 steps)
+CLI_FRAMES = 8             # phase 35: --frames (the CLI's episode is 3000 steps)
 CLI_F64_N = 20_000         # phase 35: --dtype float64, pallas vs gather targets
 INFLATE_CUT = ["--frames", "40", "--adam-steps", "4", "--lbfgs-iters", "2"]  # phase 36
 MILLION_N = 1_000_000      # phase 37: --particles (N = 1,158,168)
-MILLION_STEPS = 300        # phase 37: --steps (the example's 3000)
+MILLION_STEPS = 200        # phase 37: --steps (the example's 3000)
 MILLION_GRAD_STEPS = 30    # phase 37: --grad-steps (3000), in 3 chunks (40)
+B_BF16_STEPS = 100         # phase 41: path B's bf16 forward episode and quiet body
+ADAM_STEPS = 24            # phase 34: Adam's episodes (8 frames)
+SPMD_FWD_STEPS = 24        # phase 42: the SPMD forward episodes (gradients: 48)
 PEAK_FP32 = 67e12          # H100 SXM FP32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # K2 v2 and its passes run K2 v4's pair loops (svnw is the scene's static
@@ -222,6 +251,9 @@ FLOPS_PER_PAIR = {"moments_v4": 72, "forces_warp_v4": 74,   # as the kernels do 
                   "moments_mid": 72, "forces_warp_v2": 74, "moments_raw_bwd": 67,
                   "forces_warp_v2_bwd_rows": 71, "forces_warp_v2_bwd_slab": 118,
                   "forces_sep": 43, "forces_sep_bwd": 42, "moments_raw": 72}
+FLOPS_PER_PAIR.update({f"{k}_bf16": FLOPS_PER_PAIR[k] for k in (   # the bf16 K2 slab
+    "forces_warp_v4", "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab",
+    "forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")})
 # moments_mid's per-row epilogue, counted from csrc/mid.cuh: A | Y from the
 # warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the SVD's U
 # and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
@@ -388,7 +420,10 @@ def main():
         f"budgets of {TIME_BUDGET_S:.0f} s (default path), "
         f"{FUSED_BUDGET_S:.0f} s (fused) and {NEW_BUDGET_S:.0f} s (each of paths A "
         f"and B, the gather path and the drop scenario; 20, 15 and 20 s before "
-        f"phases 35-37 were added), each cut printed; width is never cut")
+        f"phases 35-37 were added, 12, 10 and 12 s before phases 38-43); the CLI's "
+        f"flows run {CLI_FRAMES} frames (50 before phases 38-43), Adam's "
+        f"episodes {ADAM_STEPS} steps ({PATH_GRAD_STEPS}) and the million-particle "
+        f"episode {MILLION_STEPS} steps (300); each cut printed; width is never cut")
     x_star = torch.as_tensor(x_star_bands(pts, sb.n_slots, sop),
                              dtype=torch.float32, device=dev)
     ratio = compute_ratio(x_star, cfg)
@@ -418,7 +453,7 @@ def main():
         f"per bucket on the card {tag}")
     stats = {k: {"ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
                  "max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None}
-             for k in list(FLOPS_PER_PAIR) + ["slab_to_slots"]}
+             for k in list(FLOPS_PER_PAIR) + ["slab_to_slots", "slab_to_slots_bf16"]}
     f32 = 4
     k1 = pk.moments_v4(sb, posT, posT[:, :m], cfg.h)
     k2 = pk.forces_warp_v4(sb, f9T, srT, cfg.h)
@@ -592,6 +627,7 @@ def main():
     path_b = phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star,
                            stats, body, ctx)
     phase_counts(path_a, path_b)
+    path_b_raw = path_b["grad"]["moments_raw"]
     scene_g = phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star,
                            body, ctx)
     phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg)
@@ -600,11 +636,16 @@ def main():
     phase_cli(torch, np, dev, tag)
     phase_inflate(torch, np, dev, tag)
     phase_million(torch, np, dev, tag)
+    bf16_launches = phase_bf16(torch, np, dev, tag, scene, cfg, x_star, stats, ctx, path_b)
+    del path_b
+    staged = phase_spmd(torch, np, dev, tag, pts, out_num, cfg, lambda ns, s: torch.as_tensor(
+        x_star_bands(pts, ns, s), dtype=torch.float32, device=dev))
+    phase_dryrun(torch, tag, staged)
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
                 **{k: path_a["grad"][k] for k in ("forces_sep", "forces_sep_bwd")},
-                "moments_raw": path_b["grad"]["moments_raw"]}
+                "moments_raw": path_b_raw, **bf16_launches}
     kernels = kernel_json(stats, launches)
     say(f"    total {time.perf_counter() - T_START:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1802,7 +1843,8 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
                                        dirichlet_mask=dirichlet_mask(pts, "stretch"))
     counts_grad, ms_grad = grad_phase(torch, np, dev, tag, 28, "varcol", scene_b,
                                       ctx["cfg_g"], x_b, scene_b64, cfg64, names)
-    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps}
+    return {"fwd": counts_fwd, "grad": counts_grad, "steps": steps, "scene": scene_b,
+            "x": x_b, "v2": (fmT, srT, dfT)}
 
 
 def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, body, ctx):
@@ -2144,11 +2186,11 @@ def phase_adam(torch, np, dev, tag, scene, x_star, ctx):
     from softbody_tpu_torch.opt import driver
     from softbody_tpu_torch.sim.rollout import rollout
 
-    S = PATH_GRAD_STEPS
-    cfg_g = ctx["cfg_g"].replace(frames=S, target_frames=PATH_GRAD_FRAMES)
+    S = ADAM_STEPS
+    cfg_g = ctx["cfg_g"].replace(frames=S, target_frames=S // 3)
     with torch.no_grad():
-        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S,
-                                 record_every=S // PATH_GRAD_FRAMES, device=dev)
+        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S, record_every=3,
+                                 device=dev)
     x0 = np.zeros(scene.blocked.n_slots)
     x_t = x_star.cpu().numpy()
     kw = dict(n_steps=S, eval_chunks=EVAL_CHUNKS, checkpoint_every=1, x_target=x_t)
@@ -2520,6 +2562,370 @@ def phase_million(torch, np, dev, tag):
         say("    profile: the profiler saw no device time; idle share not measured")
 
 
+def phase_bf16(torch, np, dev, tag, scene, cfg, x_star, stats, ctx, path_b):
+    """Phases 38-41: ``cfg.pair_dtype = "bfloat16"`` on the default path
+    (38-40) and on path B (41).  Returns the bf16 kernels' launches."""
+    from softbody_tpu_torch.sim.rollout import rollout
+
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(38)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    say(f"[38] the bf16 K2 slab (cfg.pair_dtype): K2 v4 and its two backward passes, "
+        f"one launch each over all {sb.n_tiles} tiles on a bf16 slab (f32 arithmetic), "
+        f"kernel vs plain per bucket on the card {tag}")
+    f9T = torch.eye(3, device=dev).reshape(9, 1) + 0.1 * rand(9, m)
+    srT = rand(15, sb.n_slots)
+    srT[:, m:] = 0
+    bf16_kernels(torch, tag, "sparse scene", sb, f9T, srT, rand(3, m), cfg.h, stats, False)
+    for key in ("forces_warp_v4", "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab"):
+        a, b = stats[key + "_bf16"], stats[key]
+        say(f"    {key}: bf16 slab {a['ms']:.4f} ms vs f32 {b['ms']:.4f} ms per "
+            f"evaluation (phase 3 or 9; bounds {a['bound_ms']:.4f} and "
+            f"{b.get('bound_ms', math.nan):.4f}: the bf16 slab's bytes are "
+            f"{a['bytes'] / 1e6:.1f} MB, the f32 one's {b['bytes'] / 1e6:.1f} MB) {tag}")
+    counts = bf16_path(torch, np, dev, tag, 39, "the default path", scene, cfg, x_star,
+                       ctx["fin_k"], 300, ctx["steps"], 1e-6, "forces_warp_v4")
+    say(f"[40] (the bf16 gradient above: launches {dict((k, v) for k, v in counts.items() if v)})")
+
+    scene_b, x_b = path_b["scene"], path_b["x"]
+    blk = scene_b.blocked
+    fmT, srT_b, dfT = path_b["v2"]
+    say(f"[41] path B (varcol) with the bf16 K2 slab: K2 v2 and its two backward passes, "
+        f"one launch each over the {blk.n_tiles} varcol tiles, kernel vs plain {tag}")
+    bf16_kernels(torch, tag, "varcol scene", blk, fmT, srT_b, dfT, cfg.h, stats, True)
+    _, fin_b, _ = rollout(x_b, scene_b, cfg, n_steps=B_BF16_STEPS, device=dev)
+    say(f"    CUT: path B's bf16 episode and quiet body run {B_BF16_STEPS} steps, its "
+        f"gradient {PATH_GRAD_STEPS}")
+    counts_b = bf16_path(torch, np, dev, tag, 41, "path B (varcol)", scene_b, cfg, x_b,
+                         fin_b, B_BF16_STEPS, B_BF16_STEPS, 1e-4, "forces_warp_v2")
+    return {**{k: counts[k] for k in counts if k.startswith("forces_warp_v4") and
+               k.endswith("_bf16")}, "slab_to_slots_bf16": counts["slab_to_slots_bf16"],
+            **{k: counts_b[k] for k in counts_b if k.startswith("forces_warp_v2") and
+               k.endswith("_bf16")}}
+
+
+def bf16_kernels(torch, tag, label, sb, rec, srT, dfT, h, stats, v2):
+    """The K2 kernels on a bf16 slab (K2 v4 and its passes on the sparse
+    scene, ``v2`` K2 v2 and its passes on the varcol one) through
+    ``whole_scene_held`` against their plain versions on the same slab, and
+    the bf16 cotangent scatter against its plain version: into ``stats``."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
+    f32 = 4
+    srb = srT.to(torch.bfloat16)
+    m = sb.n_tiles * sb.rows
+    k2 = "forces_warp_v2" if v2 else "forces_warp_v4"
+    mod = fk if v2 else pk
+    fwd, rows_, slab_ = (getattr(mod, k2), getattr(mod, f"{k2}_bwd_rows"),
+                         getattr(mod, f"{k2}_bwd_slab"))
+    names = (f"{k2}_bf16", f"{k2}_bwd_rows_bf16", f"{k2}_bwd_slab_bf16")
+    launch = {names[0]: lambda: fwd(sb, rec, srb, h),
+              names[1]: lambda: rows_(sb, rec, srb, dfT, h),
+              names[2]: lambda: slab_(sb, rec, srb, dfT, h)}
+    plain_fwd = fk.forces_warp_v2_plain if v2 else pk.forces_warp_v4_plain
+    plain_bwd = fk.forces_warp_v2_bwd_plain if v2 else pk.forces_warp_v4_bwd_plain
+
+    def per_bucket(b, c, seg, got):
+        a = (b.restT_rows, b.static_slab, rec[:, c], srb, b.gidx8)
+        p_rows, p_dsr = plain_bwd(*a, dfT[:, c], h)
+        held = {
+            names[0]: (got[names[0]][:, c], plain_fwd(*a, h)),
+            names[1]: (got[names[1]][:, c], p_rows),
+            names[2]: (scene_slots(torch, sb, got[names[2]][:, seg], seg, pk.slab_to_slots),
+                       scene_slots(torch, sb, p_dsr.permute(1, 0, 2).reshape(15, -1), seg,
+                                   pk.slab_to_slots_plain)),
+        }
+        return held, [((names[0],), lambda: plain_fwd(*a, h)),
+                      (names[1:], lambda: plain_bwd(*a, dfT[:, c], h))]
+
+    n_entries = pk.n_entries(sb)
+    uniq = int(torch.unique(sb.gidx_all).numel()) * sb.group
+    tiles = (sb.rest_rows.numel() + sb.static_all.numel()) * f32 + sb.gidx_all.numel() * 4
+    rows_side = tiles + sb.schedule.numel() * 8
+    k = rec.shape[0]                       # 9 (v4: F) or 19 (v2: F | M | V)
+    bf = 2 * 15 * uniq                     # the slab's bytes, half the f32 slab's
+    nbytes = {   # each input read once, each output written once
+        names[0]: rows_side + (k + 3 + 3) * m * f32 + bf,
+        names[1]: rows_side + ((1 if v2 else 0) + 3 + 3 + (19 if v2 else 9)) * m * f32 + bf,
+        names[2]: tiles + sb.chunks.numel() * 8 + ((10 if v2 else 9) + 3) * m * f32 + bf
+        + 15 * n_entries * f32,
+    }
+    whole_scene_held(torch, tag, label, sb, launch, per_bucket, nbytes, stats, 10 if v2 else 50)
+    # the cotangent scatter: f32 sums per bucket, each rounded to bf16 and
+    # added in bf16, last bucket first (where the JAX package rounds)
+    st = stats["slab_to_slots_bf16"]
+    dsr = launch[names[2]]()
+    args = (dsr, sb.slab_ptr, sb.slab_idx, sb.bucket_starts, sb.n_slots, sb.group)
+    got, want = pk.slab_to_slots_bf16(*args).float(), pk.slab_to_slots_bf16_plain(*args).float()
+    flips = float((got != want).float().mean())
+    err = float((got - want).abs().max() / want.abs().max())
+    say(f"      slab_to_slots_bf16 ({label}): kernel vs plain {err:.2e} of max "
+        f"|plain|, {flips:.2e} of the values one bf16 rounding apart (tol 2^-7 and "
+        f"5e-3: another f32 order within a bucket)")
+    if not (err <= 2.0 ** -7 and flips <= 5e-3):
+        fail(f"slab_to_slots_bf16 disagrees with its plain version on the {label}")
+    st["max_abs_err"] = max(st["max_abs_err"], float((got - want).abs().max()))
+    st["max_rel_err"] = max(st["max_rel_err"], err)
+    if not v2:
+        kept = sb.slab_idx.numel() * sb.group
+        st.update(ms=cuda_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
+                  launch_ms=host_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
+                  plain_ms=cuda_ms(lambda: pk.slab_to_slots_bf16_plain(*args), 2),
+                  flops=15 * kept,
+                  bytes=15 * kept * f32 + 15 * sb.n_slots * 2
+                  + (sb.slab_idx.numel() + sb.slab_ptr.numel()) * 4)
+        summarize("slab_to_slots_bf16", st, 1, tag)
+
+
+def bf16_path(torch, np, dev, tag, num, label, scene, cfg, x_star, fin_f32, steps_f32,
+              quiet_steps, quiet_tol, k2):
+    """A path's bf16 checks (phases 39-40 and 41's second half): one step's
+    wall time against f32's; the forward episode of ``steps_f32`` steps
+    against the f32 one (``fin_f32``, drift <= 5% of the displacement); the
+    quiet body over ``quiet_steps`` (``probe_stability.drift_records``, rms
+    < ``quiet_tol``); a PATH_GRAD_STEPS gradient against f32's (cosine >
+    0.85, norm within 10%), its launches.  Returns the launches."""
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.probe_stability import drift_records
+    from softbody_tpu_torch.sim.rollout import (episode_value_and_grad_chunked,
+                                                initial_state, rollout, step)
+
+    cfg16 = cfg.replace(pair_dtype="bfloat16")
+    n_slots = scene.blocked.n_slots
+    sop = scene.slot_of_particle.cpu().numpy()
+    ratio = compute_ratio(x_star, cfg)
+    state = initial_state(scene, ratio, cfg)
+    one = {c.pair_dtype: min(host_ms(lambda: step(state, ratio, scene, c), 3)
+                             for _ in range(3)) for c in (cfg, cfg16)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, fin, _ = rollout(x_star, scene, cfg16, n_steps=steps_f32, device=dev)
+    torch.cuda.synchronize()
+    ms16 = (time.perf_counter() - t0) * 1e3 / steps_f32
+    rest = scene.rest_position
+    disp = float((fin_f32.position - rest).abs().max())
+    drift = float((fin.position - fin_f32.position).abs().max())
+    say(f"[{num}] {label}, bf16 K2 slab: one step {one['bfloat16']:.3f} ms wall vs f32 "
+        f"{one['float32']:.3f} ms (fastest of 3 rounds); {steps_f32}-step episode from x* "
+        f"{ms16:.3f} ms/step; final positions vs the f32 path's max |dpos| {drift:.3e} "
+        f"= {drift / disp:.3e} of the displacement {disp:.3e} (tol 5e-2) {tag}")
+    if not (drift <= 0.05 * disp and bool(torch.isfinite(fin.position).all())):
+        fail(f"the bf16 slab's {label} episode drifts from the f32 path")
+    quiet = cfg16.replace(external_force=(0.0, 0.0, 0.0))
+    q_scene = scene._replace(materials=scene.materials._replace(
+        external=torch.zeros_like(scene.materials.external)))
+    rec = drift_records(torch.zeros(n_slots, device=dev), q_scene, sop, quiet,
+                        quiet_steps, quiet_steps, dev)[-1]
+    say(f"    bf16 quiet body (probe_stability.drift_records), {quiet_steps} steps: rms "
+        f"drift {rec['rms']:.3e} m, max {rec['max_disp']:.3e} m, max |v - rigid| "
+        f"{rec['max_v_rigid']:.3e} m/s (tol rms < {quiet_tol:g})")
+    if not rec["rms"] < quiet_tol:
+        fail(f"a quiet body drifts on the {label} path with the bf16 slab")
+    S = PATH_GRAD_STEPS
+    cfg_g = cfg.replace(frames=S, target_frames=PATH_GRAD_FRAMES)
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x_star, scene, cfg_g, n_steps=S,
+                                 record_every=S // PATH_GRAD_FRAMES, device=dev)
+    x0 = torch.zeros(n_slots, device=dev)
+    grads, counts, ms = {}, None, 0.0
+    for c in (cfg_g, cfg_g.replace(pair_dtype="bfloat16")):
+        pk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = episode_value_and_grad_chunked(scene, c, EVAL_CHUNKS, S)(x0, tp, tv)
+        torch.cuda.synchronize()
+        grads[c.pair_dtype] = (loss, g.double())
+        if c.pair_dtype == "bfloat16":
+            counts, ms = pk.launch_counts(), (time.perf_counter() - t0) * 1e3 / S
+    (l32, a), (l16, b) = grads["float32"], grads["bfloat16"]
+    cos = float(a @ b / (a.norm() * b.norm()))
+    ratio_n = float(b.norm() / a.norm())
+    say(f"    bf16 {S}-step gradient ({EVAL_CHUNKS} chunks, x = 0): loss {l16:.9g} vs "
+        f"f32 {l32:.9g}; cosine with the f32 gradient {cos:.6f} (tol > 0.85), norm "
+        f"ratio {ratio_n:.6f} (tol within 10%); fwd+bwd {ms:.3f} ms/step {tag}")
+    if not (cos > 0.85 and abs(ratio_n - 1) <= 0.10 and math.isfinite(l16)):
+        fail(f"the bf16 slab's {label} gradient lost the f32 gradient's direction")
+    want = {k2: 0, f"{k2}_bf16": 3 * S, f"{k2}_bwd_rows_bf16": S,
+            f"{k2}_bwd_slab_bf16": S, "slab_to_slots_bf16": S, "slab_to_slots": S}
+    say(f"    launches of the bf16 gradient: " + ", ".join(
+        f"{k} {counts[k]}" for k in want) + f"; expected {want}")
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"the bf16 {label} gradient launched {k} {counts[k]} times, expected {v}")
+    return counts
+
+
+def spmd_rank(group, path, cfg, x, tp, tv, tp_g, tv_g, s_fwd, s_grad):
+    """One rank of phase 42 (spawned): the sharded episode and gradient of
+    the scene saved at ``path``, with the all-gather and the halo source,
+    each timed and counted on this rank."""
+    import torch
+
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.parallel import sparse_shard as ss
+
+    scene = torch.load(path, weights_only=False, map_location=group.device)
+    out = {}
+    for halo in (False, True):
+        t0 = time.perf_counter()
+        run = ss.shard_sparse(scene, group, halo)
+        t_shard = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(group.device)
+        pk.reset_launch_counts()
+        torch.cuda.synchronize(group.device)
+        t0 = time.perf_counter()
+        loss, (pos, vel) = ss.sparse_sharded_episode(x, scene, cfg, tp, tv, group, s_fwd,
+                                                     halo, run)
+        torch.cuda.synchronize(group.device)
+        t_fwd = time.perf_counter() - t0
+        c_fwd = pk.launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss_g, g = ss.sparse_sharded_value_and_grad(
+            scene, cfg.replace(frames=s_grad, target_frames=tp_g.shape[0]), group, s_grad,
+            halo, run)(x, tp_g, tv_g)
+        torch.cuda.synchronize(group.device)
+        t_grad = time.perf_counter() - t0
+        c_grad = pk.launch_counts()
+        out["halo" if halo else "all_gather"] = {
+            "loss": float(loss), "pos": pos if group.rank == 0 else None,
+            "loss_g": loss_g, "g": g if group.rank == 0 else None, "t_shard": t_shard,
+            "ms_fwd": t_fwd * 1e3 / s_fwd, "ms_grad": t_grad * 1e3 / s_grad,
+            "c_fwd": c_fwd, "c_grad": c_grad, "halo_rows": getattr(run.plan, "halo_rows", 0),
+            "peak": torch.cuda.max_memory_allocated(group.device)}
+    return out
+
+
+def probe_gloo(sh, world):
+    """{collective: None or why it failed} for gloo on CUDA tensors, each
+    collective in its own spawned ranks, all at once (a refused one may
+    end its ranks instead of raising)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        try:
+            return sh.spawn(sh.probe_collectives, world, (name,), device="cuda",
+                            backend="gloo")[0][name]
+        except Exception as e:       # noqa: BLE001 - the rank died: reported
+            return f"the ranks ended: {type(e).__name__}: {e}".splitlines()[0]
+
+    with ThreadPoolExecutor(len(sh.COLLECTIVES)) as ex:
+        return dict(zip(sh.COLLECTIVES, ex.map(one, sh.COLLECTIVES)))
+
+
+def phase_spmd(torch, np, dev, tag, pts, out_num, cfg, x_star_fn):
+    """Phase 42: the sparse SPMD episode in 2 gloo ranks on the one card."""
+    from softbody_tpu_torch.parallel import sharding as sh
+    from softbody_tpu_torch.scenarios import dirichlet_mask
+    from softbody_tpu_torch.sim.rollout import rollout, value_and_grad_fn
+    from softbody_tpu_torch.sim.sparse import build_sparse_scene
+
+    world = 2
+    say(f"[42] the sparse SPMD episode (parallel/sparse_shard.py): {world} gloo ranks on "
+        f"the one card, n_shards={world} layout; a correctness run of the SPMD code "
+        f"and its kernels, which measures no scaling (both ranks share the card's "
+        f"SMs and memory) {tag}")
+    probe = probe_gloo(sh, world)
+    staged = sorted(k for k, v in probe.items() if v)
+    say("    gloo on CUDA tensors, each collective in its own pair of ranks: " + "; ".join(
+        f"{k} {'ok' if v is None else 'refused (' + v[:90] + ')'}" for k, v in probe.items())
+        + f" -> staged through host memory: {staged or 'none'}")
+    t0 = time.perf_counter()
+    scene, sop = build_sparse_scene(pts, cfg, out_num=out_num, n_shards=world, device=dev,
+                                    dirichlet_mask=dirichlet_mask(pts, "stretch"))
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    x = x_star_fn(sb.n_slots, sop)
+    S, G = SPMD_FWD_STEPS, PATH_GRAD_STEPS
+    cfg_s = cfg.replace(frames=G, target_frames=PATH_GRAD_FRAMES)
+    with torch.no_grad():
+        _, _, (tp, tv) = rollout(x, scene, cfg_s, n_steps=G,
+                                 record_every=G // PATH_GRAD_FRAMES, device=dev)
+    x0 = torch.zeros(sb.n_slots, device=dev)
+    say(f"    scene: slots {sb.n_slots}, tiles {sb.n_tiles} in {len(sb.buckets)} buckets "
+        f"({world} shards of {len(sb.buckets) // world}), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the single-device path on the same layout
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_one, fin, _ = rollout(x0, scene, cfg_s, tp, tv, n_steps=S, device=dev)
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t0) * 1e3 / S
+    t0 = time.perf_counter()
+    lg_one, g_one = value_and_grad_fn(scene, cfg_s, n_steps=G)(x0, tp, tv)
+    torch.cuda.synchronize()
+    ms_g_one = (time.perf_counter() - t0) * 1e3 / G
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.pt")
+        torch.save(scene, path)
+        res = sh.spawn(spmd_rank, world, path, cfg_s, x0.cpu(), tp.cpu(), tv.cpu(),
+                       tp.cpu(), tv.cpu(), S, G, device="cuda", backend="gloo",
+                       host=staged)
+    disp = float((fin.position[:m] - scene.rest_position[:m]).abs().max())
+    gmax = float(g_one.abs().max())
+    say(f"    one device, same layout: forward {S} steps {ms_one:.3f} ms/step, loss "
+        f"{float(l_one):.9g}; {G}-step gradient {ms_g_one:.3f} ms/step, loss "
+        f"{lg_one:.9g}, max |g| {gmax:.3e}")
+    for var in ("all_gather", "halo"):
+        r0 = res[0][var]
+        dpos = float((r0["pos"] - fin.position[:m].cpu()).abs().max())
+        dl = abs(r0["loss"] - float(l_one)) / float(l_one)
+        dlg = abs(r0["loss_g"] - lg_one) / lg_one
+        dg = float((r0["g"] - g_one.cpu()).abs().max()) / gmax
+        same = all(r[var]["loss"] == r0["loss"] for r in res)
+        say(f"    {var}: forward {S} steps vs one device: max |dpos| {dpos:.3e} = "
+            f"{dpos / disp:.3e} of the displacement (tol 1e-6), loss rel {dl:.3e} (tol "
+            f"1e-5); {G}-step gradient loss rel {dlg:.3e} (tol 1e-5), max |dg| / max |g| "
+            f"{dg:.3e} (tol 1e-3: f32, another summation order of the ranks' "
+            f"cotangents and losses); the loss the same on every rank: {same}")
+        for rank, r in enumerate(res):
+            rv = r[var]
+            evals = {k: v for k, v in rv["c_fwd"].items() if v}
+            say(f"      rank {rank}: shard built in {rv['t_shard']:.1f} s (halo rows "
+                f"{rv['halo_rows']}); launches per forward evaluation "
+                + ", ".join(f"{k} {v / S:g}" for k, v in evals.items())
+                + f"; per gradient {dict((k, v) for k, v in rv['c_grad'].items() if v)}"
+                + f"; forward {rv['ms_fwd']:.3f} ms/step, gradient {rv['ms_grad']:.3f} "
+                f"ms/step; peak device memory {rv['peak'] / 2**30:.3f} GiB {tag}")
+            # the gradient: one autograd pass over the episode, each step's
+            # forces once forward and once in its checkpoint's recompute;
+            # the first step's K1 reads the rest state, a constant, so its
+            # backward does not run
+            want_g = {"moments_v4": 2 * G, "forces_warp_v4": 2 * G, "moments_v4_bwd": G - 1,
+                      "forces_warp_v4_bwd_rows": G, "forces_warp_v4_bwd_slab": G,
+                      "slab_to_slots": 2 * G - 1}
+            want_f = {"moments_v4": S, "forces_warp_v4": S}
+            got_f = {k: v for k, v in rv["c_fwd"].items() if v}
+            got_g = {k: v for k, v in rv["c_grad"].items() if v}
+            if got_f != want_f or got_g != want_g:
+                fail(f"{var} rank {rank}: launches {got_f} / {got_g}, expected {want_f} / "
+                     f"{want_g}")
+        if not (dpos <= 1e-6 * disp and dl <= 1e-5 and dlg <= 1e-5 and dg <= 1e-3
+                and same and bool(torch.isfinite(r0["g"]).all())):
+            fail(f"the {var} SPMD episode disagrees with the single-device path")
+    return staged
+
+
+def phase_dryrun(torch, tag, staged):
+    """Phase 43: ``parallel.dryrun_multichip(2)`` on the card."""
+    from softbody_tpu_torch.parallel import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, device="cuda", backend="gloo", host=staged)
+    say(f"[43] dryrun_multichip(2) on the card (gloo, staged {staged or 'none'}): "
+        + "; ".join(f"{k} loss {v[0]:.6g}" for k, v in out[0].items())
+        + f", finite losses and gradients on every rank, halo vs all-gather gradient "
+        f"within rtol 1e-4 in {time.perf_counter() - t0:.1f} s {tag}")
+    if set(out[0]) != {"gather", "sparse", "halo"}:
+        fail("dryrun_multichip did not run every path")
+
+
 def phase_counts(a, b):
     """Phase 29: the launch counts of phases 23-24 (path A) and 27-28 (path
     B) against what each path implies; every other kernel 0."""
@@ -2563,6 +2969,15 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "forces_sep": ("pair_kernels", "pair_kernels.py:690"),
     "forces_sep_bwd": ("pair_kernels", "pair_kernels.py:716"),
     "moments_raw": ("fused_kernels", "pair_kernels.py:307"),
+    # the bf16 K2 slab (cfg.pair_dtype): the same bodies on a bf16 slab
+    # (pair_kernels.py:856-858, :962), and its cotangent's scatter
+    "forces_warp_v4_bf16": ("pair_kernels", "pair_kernels.py:879"),
+    "forces_warp_v4_bwd_rows_bf16": ("pair_kernels", "pair_kernels.py:1038"),
+    "forces_warp_v4_bwd_slab_bf16": ("pair_kernels", "pair_kernels.py:1038"),
+    "forces_warp_v2_bf16": ("pair_kernels", "pair_kernels.py:822"),
+    "forces_warp_v2_bwd_rows_bf16": ("pair_kernels", "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_slab_bf16": ("pair_kernels", "pair_kernels.py:936"),
+    "slab_to_slots_bf16": ("pair_kernels", "packed.py:931"),
 }
 
 

@@ -89,7 +89,7 @@ def _sparse_from_numpy(d, real, device, dtype):
               np.asarray(d[f"bucket{k}.static_slab"]), int(d[f"bucket{k}.tile_start"]))
              for k in range(int(d["n_buckets"]))]
     sb = sparse_blocked(parts, np.asarray(d["rs6T"]), len(real), int(d["group"]),
-                        real, device, dtype, int(d["rows"]))
+                        real, device, dtype, int(d["rows"]), int(d.get("n_shards", 1)))
     if sb.n_tiles != int(d["n_tiles"]):
         raise ValueError(f"the buckets hold {sb.n_tiles} tiles, n_tiles is "
                          f"{int(d['n_tiles'])}")
@@ -153,6 +153,8 @@ def scene_to_numpy(scene: Scene) -> dict:
             d[f"blocked.{key}"] = host(getattr(sb.bucket, key))
         return d
     d["n_buckets"] = len(sb.buckets)
+    if sb.n_shards > 1:
+        d["n_shards"] = sb.n_shards
     for k, b in enumerate(sb.buckets):
         d[f"bucket{k}.gidx8"] = host(b.gidx8)
         d[f"bucket{k}.restT_rows"] = host(b.restT_rows)

@@ -11,6 +11,7 @@ tensor of one scene lives on one device and has one floating dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -99,6 +100,14 @@ class DevBucket:
         return self.tile_start * self.rows
 
 
+def _bucket_starts(buckets, device) -> torch.Tensor:
+    starts, n = [], 0
+    for b in buckets:
+        starts.append(n)
+        n += b.gidx8.numel()
+    return torch.tensor(starts, dtype=torch.int32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseBlocked:
     """Sparse-bucketed topology (lives in ``Scene.blocked``).
@@ -140,6 +149,16 @@ class SparseBlocked:
     gidx_all: torch.Tensor     # (sum_b t_b slab_b / group,) int32
     schedule: torch.Tensor     # (n_tiles, 4) int64
     chunks: torch.Tensor       # (sum_b t_b ceil(slab_b / 128), 5) int64
+    n_shards: int = 1          # > 1: the shard-major layout of the SPMD path
+                               # (parallel/sparse_shard.py): the buckets are
+                               # n_shards equal-shape runs, one per shard
+
+    @functools.cached_property
+    def bucket_starts(self) -> torch.Tensor:
+        """(n_buckets,) int32 on the scene's device: each bucket's first
+        entry of the buckets' gidx8 end to end (``slab_idx``'s units), where
+        the bf16 slab's cotangent scatter rounds (built at first use)."""
+        return _bucket_starts(self.buckets, self.slab_ptr.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +199,11 @@ class Blocked:
     slab_idx: torch.Tensor     # (n_tiles * slab / group,) int32, live groups only
     schedule: torch.Tensor     # (n_tiles, 4) int64
     chunks: torch.Tensor       # (n_tiles * ceil(slab / 128), 5) int64
+
+    @functools.cached_property
+    def bucket_starts(self) -> torch.Tensor:
+        """As ``SparseBlocked.bucket_starts``: one bucket, [0]."""
+        return _bucket_starts(self.buckets, self.slab_ptr.device)
 
     @property
     def buckets(self) -> tuple:

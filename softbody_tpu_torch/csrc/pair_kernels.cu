@@ -110,10 +110,22 @@
 //     (its argument is always normal); K2's sums as multiply-add chains.
 //   * Plain FP32 FMAs (never TF32 — a reduced-precision dot destabilised
 //     the episode on the TPU).
+//   * The bf16 K2 slab (cfg.pair_dtype = "bfloat16", storage only): K2 v4,
+//     K2 v2 and their backward passes take a type parameter TS for srT.
+//     The ring copies the bf16 S | R groups (a group of 8 is one 16-byte
+//     piece) past the stage's f32 fields, and the walk converts each entry
+//     once into the f32 fields before the pair loop reads them (upcasting
+//     per pair cost every lane 15 conversions per pair, +27% on the card);
+//     the slab pass upcasts its own entry once.  Every pair product stays
+//     plain f32.
 //
 // Entry points have a plain C interface for ctypes; each returns
 // cudaGetLastError() of its launch.  Kernels launch on the caller's stream
 // and allocate nothing.
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mid.cuh"
@@ -125,18 +137,36 @@ constexpr int RG_WARPS = 4;                  // warps per tile (block)
 constexpr int RG_THREADS = 32 * RG_WARPS;
 constexpr int CH = 32;                       // slab entries per stage
 constexpr int NSTAGE = 2;                    // stages per warp's ring
-constexpr int K1_FIELDS = 8;                 // rest_3, m, V | pos_3
-constexpr int K2_FIELDS = 19;                // rest_3, V | S_6, R^T_9
+constexpr int K1_STATIC = 5, K1_GATHER = 3;  // rest_3, m, V | pos_3
+constexpr int K2_STATIC = 4, K2_GATHER = 15; // rest_3, V | S_6, R^T_9
 constexpr int K1_OUT = 18;
 constexpr int K2_OUT = 3;
 constexpr int SR_ROWS = 15;                  // the K2 slot record S_6 | R^T_9
 
-template <typename T>
-constexpr size_t ragged_smem(int fields, int outs) {
+// One ring stage's length in T: ns static fields and ng gathered fields of
+// T; when the gathered fields come in another type TS (the bf16 K2 slab,
+// cfg.pair_dtype), the stage also holds them as copied, after the T ones,
+// and the walk converts them to T once per entry (stage_len's layout).
+template <typename T, typename TS = T>
+__host__ __device__ constexpr int stage_len(int ns, int ng) {
+  return (ns + ng) * CH + (sizeof(TS) == sizeof(T) ? 0 : ng * CH * (int)sizeof(TS) /
+                                                           (int)sizeof(T));
+}
+
+template <typename T, typename TS = T>
+constexpr size_t ragged_smem(int ns, int ng, int outs) {
   // the rings, then (aliasing them) the warps' partial sums
-  return sizeof(T) * (size_t)(RG_WARPS * (NSTAGE * fields * CH > outs * ROWS
-                                              ? NSTAGE * fields * CH
+  return sizeof(T) * (size_t)(RG_WARPS * (NSTAGE * stage_len<T, TS>(ns, ng) > outs * ROWS
+                                              ? NSTAGE * stage_len<T, TS>(ns, ng)
                                               : outs * ROWS));
+}
+
+// A gathered slab value as the kernels' type: the bf16 slab is storage
+// only, upcast once per load, and all pair arithmetic stays in T.
+template <typename T, typename TS>
+__device__ __forceinline__ T up(TS x) {
+  if constexpr (std::is_same_v<TS, __nv_bfloat16>) return (T)__bfloat162float(x);
+  else return (T)x;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -241,21 +271,26 @@ __device__ __forceinline__ Four<T> four(const T* buf, int field, int j) {
 // f at buf[f * CH + e - e0].  Fields 0..NS-1 are the static slab's rows
 // srow[f] (each contiguous in the tile's (5, slab) block); the NG after
 // them are rows of the lane-major `src` (stride ld) at the entries' slots,
-// gathered per slot group.  Lane l < CH / group holds gval = the gidx of
+// gathered per slot group, of type TS (T, or the bf16 K2 slab: then copied
+// as bf16 past the stage's T fields, stage_len's layout).  Lane l < CH / group
+// holds gval = the gidx of
 // the stage's group l (past the slab any valid gidx, its copies being
-// zeros).  Every copy is 16 bytes.  With
+// zeros).  Every copy is 16 bytes (a bf16 group of 8 is one).  With
 // TAIL the slab may end inside the stage: the pieces of entries past it (a
 // multiple of the group, so a piece is wholly in or out) are zeros, copied
 // from an address inside the slab.  Without, every piece is copied as is
 // (the bounds checks cost the sparse scene's kernels 3-5% on the card).
-template <typename T, int NS, int NG, bool TAIL>
+template <typename T, int NS, int NG, bool TAIL, typename TS>
 __device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
                                             int slab, const int (&srow)[NS],
-                                            const T* __restrict__ src, int64_t ld,
+                                            const TS* __restrict__ src, int64_t ld,
                                             int e0, int32_t gval, int group,
                                             int lane) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER = CH / VEC;              // 16-byte copies per field
+  constexpr int GVEC = 16 / sizeof(TS);
+  constexpr int GPER = CH / GVEC;            // ... per gathered field
+  TS* gbuf = reinterpret_cast<TS*>(buf + (std::is_same_v<T, TS> ? NS : NS + NG) * CH);
   for (int q = lane; q < NS * PER; q += 32) {
     const int f = q / PER, k = q % PER;
     if constexpr (TAIL) {
@@ -267,37 +302,39 @@ __device__ __forceinline__ void issue_stage(T* buf, const T* __restrict__ st,
       cp_async16(buf + f * CH + k * VEC, st + (int64_t)srow[f] * slab + e0 + k * VEC);
     }
   }
-  const int gpc = group / VEC;               // copies per group and field
-  for (int q0 = 0; q0 < NG * PER; q0 += 32) {   // uniform trip count: shfl below
+  const int gpc = group / GVEC;              // copies per group and field
+  for (int q0 = 0; q0 < NG * GPER; q0 += 32) {   // uniform trip count: shfl below
     const int q = q0 + lane;
-    const int k = q % PER;
+    const int k = q % GPER;
     const int32_t g = __shfl_sync(0xffffffffu, gval, k / gpc);
     if constexpr (TAIL) {
-      if (q < NG * PER)
-        cp_async16_zfill(buf + (NS + q / PER) * CH + k * VEC,
-                         src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC,
-                         e0 + k * VEC < slab ? 16 : 0);
+      if (q < NG * GPER)
+        cp_async16_zfill(gbuf + (q / GPER) * CH + k * GVEC,
+                         src + (q / GPER) * ld + (int64_t)g * group + (k % gpc) * GVEC,
+                         e0 + k * GVEC < slab ? 16 : 0);
     } else {
-      if (q < NG * PER)
-        cp_async16(buf + (NS + q / PER) * CH + k * VEC,
-                   src + (q / PER) * ld + (int64_t)g * group + (k % gpc) * VEC);
+      if (q < NG * GPER)
+        cp_async16(gbuf + (q / GPER) * CH + k * GVEC,
+                   src + (q / GPER) * ld + (int64_t)g * group + (k % gpc) * GVEC);
     }
   }
 }
 
 // The pipelined walk of one warp over chunks [c0, c1) of its tile: once a
-// stage has landed, prep(buf) rescales its entries in place (lane l its
-// entries l, l + 32, ...), then stage(buf) consumes it.  gi is the tile's
-// gidx row.
-template <typename T, int NS, int NG, int FIELDS, bool TAIL, typename Prep,
+// stage has landed (and gathered fields of another type TS are converted to
+// T, each entry once: lane l its entries l, l + 32, ...), prep(buf)
+// rescales its entries in place (lane l its entries), then stage(buf)
+// consumes it: field f at buf[f * CH + e] as T.  gi is the tile's gidx row.
+template <typename T, int NS, int NG, bool TAIL, typename TS, typename Prep,
           typename Stage>
 __device__ __forceinline__ void walk_chunks(T* ring, const T* __restrict__ st,
                                             int slab, const int (&srow)[NS],
-                                            const T* __restrict__ src, int64_t ld,
+                                            const TS* __restrict__ src, int64_t ld,
                                             const int32_t* __restrict__ gi,
                                             int group, int c0, int c1, int lane,
                                             Prep prep, Stage stage) {
   if (c0 >= c1) return;
+  constexpr int STAGE = stage_len<T, TS>(NS, NG);
   const int ngr = CH / group;
   // lane l < ngr holds the gidx of group l of the chunk (with TAIL, only
   // while that group lies inside the slab; past it the copies are zeros)
@@ -311,14 +348,19 @@ __device__ __forceinline__ void walk_chunks(T* ring, const T* __restrict__ st,
   g = (has(c0 + 1) && c0 + 1 < c1) ? gi[(c0 + 1) * ngr + lane] : 0;
   for (int c = c0; c < c1; ++c) {
     if (c + 1 < c1)
-      issue_stage<T, NS, NG, TAIL>(ring + ((c + 1 - c0) % NSTAGE) * (FIELDS * CH),
+      issue_stage<T, NS, NG, TAIL>(ring + ((c + 1 - c0) % NSTAGE) * STAGE,
                                    st, slab, srow, src, ld, (c + 1) * CH, g, group,
                                    lane);
     cp_async_commit();                       // (empty on the last chunk)
     if (has(c + 2) && c + 2 < c1) g = gi[(c + 2) * ngr + lane];   // in flight
     cp_async_wait_prev();                    // this lane's copies of chunk c
     __syncwarp();                            // ... and every other lane's
-    T* buf = ring + ((c - c0) % NSTAGE) * (FIELDS * CH);
+    T* buf = ring + ((c - c0) % NSTAGE) * STAGE;
+    if constexpr (!std::is_same_v<T, TS>) {
+      const TS* raw = reinterpret_cast<const TS*>(buf + (NS + NG) * CH);
+      for (int i = lane; i < NG * CH; i += 32) buf[NS * CH + i] = up<T>(raw[i]);
+      __syncwarp();
+    }
     prep(buf);
     __syncwarp();
     stage(buf);
@@ -457,8 +499,8 @@ __device__ __forceinline__ void k1_forward(
   for (int k = 0; k < K1_OUT; ++k) acc[k] = T(0);
   const int srow[5] = {0, 1, 2, 3, 4};
   const T c4h3 = T(3) * c4h;
-  walk_chunks<T, 5, 3, K1_FIELDS, false>(
-      smem + warp * (NSTAGE * K1_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+  walk_chunks<T, K1_STATIC, K1_GATHER, false>(
+      smem + warp * (NSTAGE * stage_len<T>(K1_STATIC, K1_GATHER)), static_all + s.st_off, s.slab, srow,
       posT, ld_pos, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
       [&](T* buf) {
         for (int e = lane; e < CH; e += 32) {
@@ -574,12 +616,13 @@ moments_mid_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
 // F_i, and fT = termj.  V2: f9T is the (19, ld_f9) record F_9 | M_9 | V_i,
 // and f_a = 0.5 V_i (termj_a + sum_b M_i[a][b] svnw_b), svnw_b = the
 // static row sum rs6T[3 + b] (rs6T unread by v4).  TAIL: a slab may end
-// inside a stage (the ring's zero-fill form).
-template <typename T, bool V2, bool TAIL>
+// inside a stage (the ring's zero-fill form).  TS: srT's type (T, or bf16
+// with cfg.pair_dtype; upcast once per load).
+template <typename T, bool V2, bool TAIL, typename TS>
 __device__ __forceinline__ void k2_forward(
     T* smem, const int64_t* __restrict__ sched, const T* __restrict__ rest_rows,
     const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
-    const T* __restrict__ f9T, int64_t ld_f9, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ f9T, int64_t ld_f9, const TS* __restrict__ srT, int64_t ld_sr,
     const T* __restrict__ rs6T, int64_t ld_rs6, T* __restrict__ fT, int64_t ld_out,
     int group, T inv_h, T c4h) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -592,8 +635,9 @@ __device__ __forceinline__ void k2_forward(
   for (int k = 0; k < 9; ++k) F[k] = f9T[k * ld_f9 + col];
   T acc[K2_OUT] = {T(0), T(0), T(0)};
   const int srow[4] = {0, 1, 2, 4};          // rest_3, V
-  walk_chunks<T, 4, 15, K2_FIELDS, TAIL>(
-      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+  walk_chunks<T, K2_STATIC, K2_GATHER, TAIL>(
+      smem + warp * (NSTAGE * stage_len<T, TS>(K2_STATIC, K2_GATHER)),
+      static_all + s.st_off, s.slab, srow,
       srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
       [&](T* buf) {
         for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h;
@@ -611,35 +655,35 @@ __device__ __forceinline__ void k2_forward(
   });
 }
 
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(RG_THREADS, 5)
 forces_warp_v4_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
                       const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
                       const T* __restrict__ static_all,      // per tile (5, slab)
                       const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
                       const T* __restrict__ f9T, int64_t ld_f9,  // (9, ld_f9)
-                      const T* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr): S_6 | R^T_9
+                      const TS* __restrict__ srT, int64_t ld_sr, // (15, ld_sr): S_6 | R^T_9
                       T* __restrict__ fT, int64_t ld_out,        // (3, ld_out)
                       int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  k2_forward<T, false, false>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+  k2_forward<T, false, false, TS>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
                               static_all, gidx_all, f9T, ld_f9, srT, ld_sr, nullptr, 0,
                               fT, ld_out, group, inv_h, c4h);
 }
 
-template <typename T, bool TAIL>
+template <typename T, bool TAIL, typename TS>
 __global__ void __launch_bounds__(RG_THREADS, 5)
 forces_warp_v2_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
                       const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
                       const T* __restrict__ static_all,      // per tile (5, slab)
                       const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
                       const T* __restrict__ fmT, int64_t ld_fm,    // (19, ld_fm): F_9 | M_9 | V
-                      const T* __restrict__ srT, int64_t ld_sr,    // (15, ld_sr): S_6 | R^T_9
+                      const TS* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr): S_6 | R^T_9
                       const T* __restrict__ rs6T, int64_t ld_rs6,  // (6, ld_rs6)
                       T* __restrict__ fT, int64_t ld_out,          // (3, ld_out)
                       int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  k2_forward<T, true, TAIL>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+  k2_forward<T, true, TAIL, TS>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
                             static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T, ld_rs6,
                             fT, ld_out, group, inv_h, c4h);
 }
@@ -659,7 +703,7 @@ int launch_moments(const void* sched, int n_sched, const void* rest_rows,
                    int64_t ld_pos, const void* posT_rows, int64_t ld_rows,
                    void* ayT, int64_t ld_out, int group, double inv_h, double c4,
                    double c4h, void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K1_FIELDS, K1_OUT);
+  constexpr size_t smem = ragged_smem<T>(K1_STATIC, K1_GATHER, K1_OUT);
   static const cudaError_t attr = allow_smem(moments_v4_kernel<T>, smem);
   if (attr != cudaSuccess) return (int)attr;
   moments_v4_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
@@ -678,7 +722,7 @@ int launch_moments_mid(const void* sched, int n_sched, const void* rest_rows,
                        int64_t ld_fm, void* srT, int64_t ld_sr, void* ayT, int64_t ld_ay,
                        int64_t m, int64_t n_sr, int group, double inv_h, double c4,
                        double c4h, int corotated, int sweeps, void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K1_FIELDS, K1_OUT);
+  constexpr size_t smem = ragged_smem<T>(K1_STATIC, K1_GATHER, K1_OUT);
   static const cudaError_t attr = allow_smem(moments_mid_kernel<T>, smem);
   if (attr != cudaSuccess) return (int)attr;
   moments_mid_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
@@ -690,34 +734,34 @@ int launch_moments_mid(const void* sched, int n_sched, const void* rest_rows,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int launch_forces(const void* sched, int n_sched, const void* rest_rows,
                   const void* static_all, const void* gidx_all, const void* f9T,
                   int64_t ld_f9, const void* srT, int64_t ld_sr, void* fT,
                   int64_t ld_out, int group, double inv_h, double c4h,
                   void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2_OUT);
-  static const cudaError_t attr = allow_smem(forces_warp_v4_kernel<T>, smem);
+  constexpr size_t smem = ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v4_kernel<T, TS>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  forces_warp_v4_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+  forces_warp_v4_kernel<T, TS><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
-      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const T*)srT, ld_sr,
+      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const TS*)srT, ld_sr,
       (T*)fT, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool TAIL>
+template <typename T, bool TAIL, typename TS = T>
 int launch_forces_v2(const void* sched, int n_sched, const void* rest_rows,
                      const void* static_all, const void* gidx_all, const void* fmT,
                      int64_t ld_fm, const void* srT, int64_t ld_sr, const void* rs6T,
                      int64_t ld_rs6, void* fT, int64_t ld_out, int group,
                      double inv_h, double c4h, void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2_OUT);
-  static const cudaError_t attr = allow_smem(forces_warp_v2_kernel<T, TAIL>, smem);
+  constexpr size_t smem = ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v2_kernel<T, TAIL, TS>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  forces_warp_v2_kernel<T, TAIL><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+  forces_warp_v2_kernel<T, TAIL, TS><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
-      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const TS*)srT, ld_sr,
       (const T*)rs6T, ld_rs6, (T*)fT, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
@@ -1007,12 +1051,12 @@ __device__ __forceinline__ void k2b_rows_stage(const T* buf, T xi0, T xi1, T xi2
 // forces_warp_v4_bwd_rows_kernel or forces_warp_v2_bwd_rows_kernel): out
 // (9, ld_out) = df9.  V2: df is scaled by 0.5 V_i (fmT row 18), and out is
 // (19, ld_out) = [dF_9 | dM_9 | 0], dM[3a + b] = df_a svnw_b with svnw_b =
-// rs6T[3 + b] (fmT and rs6T unread by v4).  TAIL as for k2_forward.
-template <typename T, bool V2, bool TAIL>
+// rs6T[3 + b] (fmT and rs6T unread by v4).  TAIL and TS as for k2_forward.
+template <typename T, bool V2, bool TAIL, typename TS>
 __device__ __forceinline__ void k2_bwd_rows(
     T* smem, const int64_t* __restrict__ sched, const T* __restrict__ rest_rows,
     const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
-    const T* __restrict__ fmT, int64_t ld_fm, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ fmT, int64_t ld_fm, const TS* __restrict__ srT, int64_t ld_sr,
     const T* __restrict__ rs6T, int64_t ld_rs6, const T* __restrict__ dfT,
     int64_t ld_df, T* __restrict__ out, int64_t ld_out, int group, T inv_h, T c4h) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1032,8 +1076,9 @@ __device__ __forceinline__ void k2_bwd_rows(
   for (int k = 0; k < K2B_OUT; ++k) acc[k] = T(0);
   const int srow[4] = {0, 1, 2, 4};          // rest_3, V
   const T c4h12 = T(12) * c4h, nih = -inv_h, nih2 = T(-0.5) * inv_h;
-  walk_chunks<T, 4, 15, K2_FIELDS, TAIL>(
-      smem + warp * (NSTAGE * K2_FIELDS * CH), static_all + s.st_off, s.slab, srow,
+  walk_chunks<T, K2_STATIC, K2_GATHER, TAIL>(
+      smem + warp * (NSTAGE * stage_len<T, TS>(K2_STATIC, K2_GATHER)),
+      static_all + s.st_off, s.slab, srow,
       srT, ld_sr, gidx_all + s.gi_off, group, s.c0, s.c1, lane,
       [&](T* buf) {
         for (int e = lane; e < CH; e += 32) buf[3 * CH + e] *= c4h12;
@@ -1060,36 +1105,36 @@ __device__ __forceinline__ void k2_bwd_rows(
   }
 }
 
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(RG_THREADS, 5)
 forces_warp_v4_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
                                const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
                                const T* __restrict__ static_all,      // per tile (5, slab)
                                const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
-                               const T* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr): S_6 | R^T_9
+                               const TS* __restrict__ srT, int64_t ld_sr, // (15, ld_sr): S_6 | R^T_9
                                const T* __restrict__ dfT, int64_t ld_df,  // (3, ld_df)
                                T* __restrict__ df9T, int64_t ld_out,      // (9, ld_out)
                                int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  k2_bwd_rows<T, false, false>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+  k2_bwd_rows<T, false, false, TS>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
                                static_all, gidx_all, nullptr, 0, srT, ld_sr, nullptr, 0,
                                dfT, ld_df, df9T, ld_out, group, inv_h, c4h);
 }
 
-template <typename T, bool TAIL>
+template <typename T, bool TAIL, typename TS>
 __global__ void __launch_bounds__(RG_THREADS, 5)
 forces_warp_v2_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
                                const T* __restrict__ rest_rows,       // (n_tiles, 3, ROWS)
                                const T* __restrict__ static_all,      // per tile (5, slab)
                                const int32_t* __restrict__ gidx_all,  // per tile (slab / group)
                                const T* __restrict__ fmT, int64_t ld_fm,    // (19, ld_fm)
-                               const T* __restrict__ srT, int64_t ld_sr,    // (15, ld_sr)
+                               const TS* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
                                const T* __restrict__ rs6T, int64_t ld_rs6,  // (6, ld_rs6)
                                const T* __restrict__ dfT, int64_t ld_df,    // (3, ld_df)
                                T* __restrict__ dfmT, int64_t ld_out,        // (19, ld_out)
                                int group, T inv_h, T c4h) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  k2_bwd_rows<T, true, TAIL>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
+  k2_bwd_rows<T, true, TAIL, TS>(reinterpret_cast<T*>(smem_raw), sched, rest_rows,
                               static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T, ld_rs6,
                               dfT, ld_df, dfmT, ld_out, group, inv_h, c4h);
 }
@@ -1098,12 +1143,12 @@ forces_warp_v2_bwd_rows_kernel(const int64_t* __restrict__ sched,     // (n_sche
 // kernel is forces_warp_v4_bwd_slab_kernel or _v2_): dsr (15, ld_out), a
 // tile's entry s at column gi_off * group + s.  f9T holds F_i in rows 0-8
 // (v2: the fmT record, whose row 18, V_i, scales df by 0.5 V_i).  rec is
-// the block's staged rows.
-template <typename T, bool V2>
+// the block's staged rows.  TS: srT's type, upcast once per load.
+template <typename T, bool V2, typename TS>
 __device__ __forceinline__ void k2_bwd_slab(
     T* rec, const int64_t* __restrict__ chunks, const T* __restrict__ rest_rows,
     const T* __restrict__ static_all, const int32_t* __restrict__ gidx_all,
-    const T* __restrict__ f9T, int64_t ld_f9, const T* __restrict__ srT, int64_t ld_sr,
+    const T* __restrict__ f9T, int64_t ld_f9, const TS* __restrict__ srT, int64_t ld_sr,
     const T* __restrict__ dfT, int64_t ld_df, T* __restrict__ dsr, int64_t ld_out,
     int group, T inv_h, T c4h) {
   const BChunk c = bchunk_of(chunks);
@@ -1130,12 +1175,12 @@ __device__ __forceinline__ void k2_bwd_slab(
   T S[6], Rt[9], dS[6], dRt[9];
 #pragma unroll
   for (int f = 0; f < 6; ++f) {
-    S[f] = srT[f * ld_sr + slot];
+    S[f] = up<T>(srT[f * ld_sr + slot]);
     dS[f] = T(0);
   }
 #pragma unroll
   for (int f = 0; f < 9; ++f) {
-    Rt[f] = srT[(6 + f) * ld_sr + slot];
+    Rt[f] = up<T>(srT[(6 + f) * ld_sr + slot]);
     dRt[f] = T(0);
   }
   __syncthreads();
@@ -1179,35 +1224,35 @@ __device__ __forceinline__ void k2_bwd_slab(
   for (int f = 0; f < 9; ++f) dsr[(6 + f) * ld_out + col] = vj * dRt[f];
 }
 
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(BCH)
 forces_warp_v4_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
                                const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
                                const T* __restrict__ static_all,       // per tile (5, slab)
                                const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
                                const T* __restrict__ f9T, int64_t ld_f9,   // (9, ld_f9)
-                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
+                               const TS* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr)
                                const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
                                T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
                                int group, T inv_h, T c4h) {
   __shared__ __align__(32) T rec[ROWS * K2B_REC];
-  k2_bwd_slab<T, false>(rec, chunks, rest_rows, static_all, gidx_all, f9T, ld_f9, srT,
+  k2_bwd_slab<T, false, TS>(rec, chunks, rest_rows, static_all, gidx_all, f9T, ld_f9, srT,
                         ld_sr, dfT, ld_df, dsr, ld_out, group, inv_h, c4h);
 }
 
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(BCH)
 forces_warp_v2_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chunks, 5)
                                const T* __restrict__ rest_rows,        // (n_tiles, 3, ROWS)
                                const T* __restrict__ static_all,       // per tile (5, slab)
                                const int32_t* __restrict__ gidx_all,   // per tile (slab / group)
                                const T* __restrict__ fmT, int64_t ld_fm,   // (19, ld_fm)
-                               const T* __restrict__ srT, int64_t ld_sr,   // (15, ld_sr)
+                               const TS* __restrict__ srT, int64_t ld_sr,  // (15, ld_sr)
                                const T* __restrict__ dfT, int64_t ld_df,   // (3, ld_df)
                                T* __restrict__ dsr, int64_t ld_out,        // (15, ld_out)
                                int group, T inv_h, T c4h) {
   __shared__ __align__(32) T rec[ROWS * K2B_REC];
-  k2_bwd_slab<T, true>(rec, chunks, rest_rows, static_all, gidx_all, fmT, ld_fm, srT,
+  k2_bwd_slab<T, true, TS>(rec, chunks, rest_rows, static_all, gidx_all, fmT, ld_fm, srT,
                        ld_sr, dfT, ld_df, dsr, ld_out, group, inv_h, c4h);
 }
 
@@ -1246,7 +1291,7 @@ forces_warp_v2_bwd_slab_kernel(const int64_t* __restrict__ chunks,     // (n_chu
 //   its chunk-0 blocks also write the row term, which needs no pair loop.
 //   One launch per evaluation each; no atomics.
 
-constexpr int SEP_FIELDS = 12;               // rest_3 | G_9
+constexpr int SEP_STATIC = 3;                // rest_3 | G_9 (SEP_G)
 constexpr int SEP_OUT = 3;
 constexpr int SEPB_REC = 8;                  // bwd row record: x_3, d_3, pad
 constexpr int SEP_G = 9;                     // rows of gT and of the cotangents
@@ -1300,8 +1345,8 @@ forces_sep_kernel(const int64_t* __restrict__ sched,     // (n_sched, 4)
   const T xi0 = rr[lane], xi1 = rr[ROWS + lane], xi2 = rr[2 * ROWS + lane];
   T acc[SEP_OUT] = {T(0), T(0), T(0)};
   const int srow[3] = {0, 1, 2};             // rest_3
-  walk_chunks<T, 3, SEP_G, SEP_FIELDS, TAIL>(
-      smem + warp * (NSTAGE * SEP_FIELDS * CH), static_all + s.st_off, s.slab, srow, gT,
+  walk_chunks<T, SEP_STATIC, SEP_G, TAIL>(
+      smem + warp * (NSTAGE * stage_len<T>(SEP_STATIC, SEP_G)), static_all + s.st_off, s.slab, srow, gT,
       ld_g, gidx_all + s.gi_off, group, s.c0, s.c1, lane, [](T*) {},
       [&](const T* buf) { sep_stage(buf, xi0, xi1, xi2, inv_h, acc); });
   // f_a = 0.5 V_i (c4h termj_a + sum_b (G_i[a][b] / V_safe) svnw_b)
@@ -1410,6 +1455,44 @@ slab_to_slots_kernel(const T* __restrict__ buf,          // (k, ld_buf)
   out[f * ld_out + slot] = acc;
 }
 
+// The bf16 K2 slab's cotangent (cfg.pair_dtype): bf16, rounded where the
+// JAX package rounds it.  Its K2 VJP returns each bucket's f32 slot sums as
+// bf16 (packed.py: dsr_packed.astype), and autograd adds the buckets' bf16
+// cotangents of the one slab in bf16, last bucket first.  So per (field,
+// slot): its readers walked last to first (bucket-major, as slab_idx lists
+// them), summed in f32 per bucket, each bucket's sum rounded to bf16 and
+// added to the running bf16 total.  bstart (n_b,): each bucket's first
+// group entry, in slab_idx's units.
+__global__ void __launch_bounds__(SCATTER_THREADS)
+slab_to_slots_bf16_kernel(const float* __restrict__ buf, int64_t ld_buf,
+                          const int32_t* __restrict__ ptr,
+                          const int32_t* __restrict__ idx,
+                          const int32_t* __restrict__ bstart, int n_b,
+                          __nv_bfloat16* __restrict__ out, int64_t ld_out, int k,
+                          int n_slots, int group) {
+  const int64_t i = (int64_t)blockIdx.x * SCATTER_THREADS + threadIdx.x;
+  if (i >= (int64_t)k * n_slots) return;
+  const int f = (int)(i / n_slots);
+  const int slot = (int)(i % n_slots);
+  const int g = slot / group;
+  const float* b = buf + f * ld_buf + slot % group;
+  float total = 0.f, acc = 0.f;
+  int bk = n_b - 1;
+  for (int e = ptr[g + 1] - 1; e >= ptr[g]; --e) {
+    const int32_t p = idx[e];
+    if (p < bstart[bk]) {                    // an earlier bucket: round this one's
+      total = __bfloat162float(__float2bfloat16_rn(
+          total + __bfloat162float(__float2bfloat16_rn(acc))));
+      acc = 0.f;
+      while (p < bstart[bk]) --bk;
+    }
+    acc += b[(int64_t)p * group];
+  }
+  total = __bfloat162float(__float2bfloat16_rn(
+      total + __bfloat162float(__float2bfloat16_rn(acc))));
+  out[f * ld_out + slot] = __float2bfloat16_rn(total);
+}
+
 template <typename T>
 int launch_moments_bwd(const void* chunks, int n_chunks, const void* rest_rows,
                        const void* static_all, const void* dayT, int64_t ld_day,
@@ -1437,37 +1520,38 @@ int launch_moments_raw_bwd(const void* chunks, int n_chunks, const void* rest_ro
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int launch_forces_bwd_rows(const void* sched, int n_sched, const void* rest_rows,
                            const void* static_all, const void* gidx_all,
                            const void* srT, int64_t ld_sr, const void* dfT,
                            int64_t ld_df, void* df9T, int64_t ld_out, int group,
                            double inv_h, double c4h, void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2B_OUT);
-  static const cudaError_t attr = allow_smem(forces_warp_v4_bwd_rows_kernel<T>, smem);
+  constexpr size_t smem = ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2B_OUT);
+  static const cudaError_t attr = allow_smem(forces_warp_v4_bwd_rows_kernel<T, TS>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  forces_warp_v4_bwd_rows_kernel<T><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
+  forces_warp_v4_bwd_rows_kernel<T, TS>
+      <<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
-      (const int32_t*)gidx_all, (const T*)srT, ld_sr, (const T*)dfT, ld_df,
+      (const int32_t*)gidx_all, (const TS*)srT, ld_sr, (const T*)dfT, ld_df,
       (T*)df9T, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int launch_forces_bwd_slab(const void* chunks, int n_chunks, const void* rest_rows,
                            const void* static_all, const void* gidx_all,
                            const void* f9T, int64_t ld_f9, const void* srT,
                            int64_t ld_sr, const void* dfT, int64_t ld_df, void* dsr,
                            int64_t ld_out, int group, double inv_h, double c4h,
                            void* stream) {
-  forces_warp_v4_bwd_slab_kernel<T><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
+  forces_warp_v4_bwd_slab_kernel<T, TS><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
       (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
-      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const T*)srT, ld_sr,
+      (const int32_t*)gidx_all, (const T*)f9T, ld_f9, (const TS*)srT, ld_sr,
       (const T*)dfT, ld_df, (T*)dsr, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool TAIL>
+template <typename T, bool TAIL, typename TS = T>
 int launch_forces_v2_bwd_rows(const void* sched, int n_sched, const void* rest_rows,
                               const void* static_all, const void* gidx_all,
                               const void* fmT, int64_t ld_fm, const void* srT,
@@ -1475,29 +1559,29 @@ int launch_forces_v2_bwd_rows(const void* sched, int n_sched, const void* rest_r
                               const void* dfT, int64_t ld_df, void* dfmT,
                               int64_t ld_out, int group, double inv_h, double c4h,
                               void* stream) {
-  constexpr size_t smem = ragged_smem<T>(K2_FIELDS, K2B_OUT);
+  constexpr size_t smem = ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2B_OUT);
   static const cudaError_t attr =
-      allow_smem(forces_warp_v2_bwd_rows_kernel<T, TAIL>, smem);
+      allow_smem(forces_warp_v2_bwd_rows_kernel<T, TAIL, TS>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  forces_warp_v2_bwd_rows_kernel<T, TAIL>
+  forces_warp_v2_bwd_rows_kernel<T, TAIL, TS>
       <<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
           (const int64_t*)sched, (const T*)rest_rows, (const T*)static_all,
-          (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+          (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const TS*)srT, ld_sr,
           (const T*)rs6T, ld_rs6, (const T*)dfT, ld_df, (T*)dfmT, ld_out, group,
           (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int launch_forces_v2_bwd_slab(const void* chunks, int n_chunks, const void* rest_rows,
                               const void* static_all, const void* gidx_all,
                               const void* fmT, int64_t ld_fm, const void* srT,
                               int64_t ld_sr, const void* dfT, int64_t ld_df, void* dsr,
                               int64_t ld_out, int group, double inv_h, double c4h,
                               void* stream) {
-  forces_warp_v2_bwd_slab_kernel<T><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
+  forces_warp_v2_bwd_slab_kernel<T, TS><<<n_chunks, BCH, 0, (cudaStream_t)stream>>>(
       (const int64_t*)chunks, (const T*)rest_rows, (const T*)static_all,
-      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const T*)srT, ld_sr,
+      (const int32_t*)gidx_all, (const T*)fmT, ld_fm, (const TS*)srT, ld_sr,
       (const T*)dfT, ld_df, (T*)dsr, ld_out, group, (T)inv_h, (T)c4h);
   return (int)cudaGetLastError();
 }
@@ -1508,7 +1592,7 @@ int launch_forces_sep(const void* sched, int n_sched, const void* rest_rows,
                       int64_t ld_g, const void* vol, const void* rs6T, int64_t ld_rs6,
                       void* fT, int64_t ld_out, int group, double inv_h, double c4h,
                       void* stream) {
-  constexpr size_t smem = ragged_smem<T>(SEP_FIELDS, SEP_OUT);
+  constexpr size_t smem = ragged_smem<T>(SEP_STATIC, SEP_G, SEP_OUT);
   static const cudaError_t attr = allow_smem(forces_sep_kernel<T, TAIL>, smem);
   if (attr != cudaSuccess) return (int)attr;
   forces_sep_kernel<T, TAIL><<<n_sched, RG_THREADS, smem, (cudaStream_t)stream>>>(
@@ -1572,48 +1656,53 @@ int kernel_info(K kernel, size_t smem, int threads, int* out) {
   return (int)rc;
 }
 
-template <typename T>
+template <typename T, typename TS = T>
 int ragged_info(int which, int* out) {
   switch (which) {
     case 0:
-      return kernel_info(moments_v4_kernel<T>, ragged_smem<T>(K1_FIELDS, K1_OUT),
+      return kernel_info(moments_v4_kernel<T>, ragged_smem<T>(K1_STATIC, K1_GATHER, K1_OUT),
                          RG_THREADS, out);
     case 1:
-      return kernel_info(forces_warp_v4_kernel<T>, ragged_smem<T>(K2_FIELDS, K2_OUT),
-                         RG_THREADS, out);
+      return kernel_info(forces_warp_v4_kernel<T, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2_OUT), RG_THREADS, out);
     case 2:
       return kernel_info(moments_v4_bwd_kernel<T>, 0, BCH / K1B_EPT, out);
     case 3:
-      return kernel_info(forces_warp_v4_bwd_rows_kernel<T>,
-                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+      return kernel_info(forces_warp_v4_bwd_rows_kernel<T, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2B_OUT), RG_THREADS,
+                         out);
     case 4:
-      return kernel_info(forces_warp_v4_bwd_slab_kernel<T>, 0, BCH, out);
+      return kernel_info(forces_warp_v4_bwd_slab_kernel<T, TS>, 0, BCH, out);
     case 5:
-      return kernel_info(forces_warp_v2_kernel<T, false>,
-                         ragged_smem<T>(K2_FIELDS, K2_OUT), RG_THREADS, out);
+      return kernel_info(forces_warp_v2_kernel<T, false, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2_OUT), RG_THREADS,
+                         out);
     case 6:
-      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, false>,
-                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, false, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2B_OUT), RG_THREADS,
+                         out);
     case 7:
-      return kernel_info(forces_warp_v2_bwd_slab_kernel<T>, 0, BCH, out);
+      return kernel_info(forces_warp_v2_bwd_slab_kernel<T, TS>, 0, BCH, out);
     case 8:
-      return kernel_info(forces_warp_v2_kernel<T, true>,
-                         ragged_smem<T>(K2_FIELDS, K2_OUT), RG_THREADS, out);
+      return kernel_info(forces_warp_v2_kernel<T, true, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2_OUT), RG_THREADS,
+                         out);
     case 9:
-      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, true>,
-                         ragged_smem<T>(K2_FIELDS, K2B_OUT), RG_THREADS, out);
+      return kernel_info(forces_warp_v2_bwd_rows_kernel<T, true, TS>,
+                         ragged_smem<T, TS>(K2_STATIC, K2_GATHER, K2B_OUT), RG_THREADS,
+                         out);
     case 10:
-      return kernel_info(moments_mid_kernel<T>, ragged_smem<T>(K1_FIELDS, K1_OUT),
+      return kernel_info(moments_mid_kernel<T>, ragged_smem<T>(K1_STATIC, K1_GATHER, K1_OUT),
                          RG_THREADS, out);
     case 11:
       return kernel_info(moments_raw_bwd_kernel<T, false, true>, 0, BCH / K1B_EPT, out);
     case 12:
       return kernel_info(moments_raw_bwd_kernel<T, true, false>, 0, BCH / K1B_EPT, out);
     case 13:
-      return kernel_info(forces_sep_kernel<T, false>, ragged_smem<T>(SEP_FIELDS, SEP_OUT),
+      return kernel_info(forces_sep_kernel<T, false>, ragged_smem<T>(SEP_STATIC, SEP_G, SEP_OUT),
                          RG_THREADS, out);
     case 14:
-      return kernel_info(forces_sep_kernel<T, true>, ragged_smem<T>(SEP_FIELDS, SEP_OUT),
+      return kernel_info(forces_sep_kernel<T, true>, ragged_smem<T>(SEP_STATIC, SEP_G, SEP_OUT),
                          RG_THREADS, out);
     case 15:
       return kernel_info(forces_sep_bwd_kernel<T, false>, 0, BCH / SEPB_EPT, out);
@@ -1628,8 +1717,10 @@ int ragged_info(int which, int* out) {
 
 extern "C" {
 
-int sb_ragged_info(int which, int f64, int* out) {
-  return f64 ? ragged_info<double>(which, out) : ragged_info<float>(which, out);
+// mode 0: f32, 1: f64, 2: f32 with the bf16 K2 slab (its six kernels)
+int sb_ragged_info(int which, int mode, int* out) {
+  if (mode == 2) return ragged_info<float, __nv_bfloat16>(which, out);
+  return mode ? ragged_info<double>(which, out) : ragged_info<float>(which, out);
 }
 
 int sb_rows() { return ROWS; }
@@ -1797,5 +1888,95 @@ SB_BWD_ENTRIES(f64, double)
 
 SB_SEP_ENTRIES(f32, float)
 SB_SEP_ENTRIES(f64, double)
+
+// The bf16 K2 slab (cfg.pair_dtype = "bfloat16"): K2 v4, K2 v2 and their
+// backward passes in f32 on a bf16 srT, the argument lists of their f32
+// entry points.
+using bf16 = __nv_bfloat16;
+
+int sb_forces_warp_v4_bf16(const void* sched, int n_sched, const void* rest_rows,
+                           const void* static_all, const void* gidx_all,
+                           const void* f9T, int64_t ld_f9, const void* srT,
+                           int64_t ld_sr, void* fT, int64_t ld_out, int group,
+                           double inv_h, double c4h, void* stream) {
+  return launch_forces<float, bf16>(sched, n_sched, rest_rows, static_all, gidx_all,
+                                    f9T, ld_f9, srT, ld_sr, fT, ld_out, group, inv_h,
+                                    c4h, stream);
+}
+
+int sb_forces_warp_v2_bf16(const void* sched, int n_sched, const void* rest_rows,
+                           const void* static_all, const void* gidx_all,
+                           const void* fmT, int64_t ld_fm, const void* srT,
+                           int64_t ld_sr, const void* rs6T, int64_t ld_rs6, void* fT,
+                           int64_t ld_out, int group, double inv_h, double c4h,
+                           int tail, void* stream) {
+  return (tail ? launch_forces_v2<float, true, bf16>
+               : launch_forces_v2<float, false, bf16>)(
+      sched, n_sched, rest_rows, static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T,
+      ld_rs6, fT, ld_out, group, inv_h, c4h, stream);
+}
+
+int sb_forces_warp_v4_bwd_rows_bf16(const void* sched, int n_sched,
+                                    const void* rest_rows, const void* static_all,
+                                    const void* gidx_all, const void* srT,
+                                    int64_t ld_sr, const void* dfT, int64_t ld_df,
+                                    void* df9T, int64_t ld_out, int group,
+                                    double inv_h, double c4h, void* stream) {
+  return launch_forces_bwd_rows<float, bf16>(sched, n_sched, rest_rows, static_all,
+                                             gidx_all, srT, ld_sr, dfT, ld_df, df9T,
+                                             ld_out, group, inv_h, c4h, stream);
+}
+
+int sb_forces_warp_v4_bwd_slab_bf16(const void* chunks, int n_chunks,
+                                    const void* rest_rows, const void* static_all,
+                                    const void* gidx_all, const void* f9T,
+                                    int64_t ld_f9, const void* srT, int64_t ld_sr,
+                                    const void* dfT, int64_t ld_df, void* dsr,
+                                    int64_t ld_out, int group, double inv_h,
+                                    double c4h, void* stream) {
+  return launch_forces_bwd_slab<float, bf16>(chunks, n_chunks, rest_rows, static_all,
+                                             gidx_all, f9T, ld_f9, srT, ld_sr, dfT,
+                                             ld_df, dsr, ld_out, group, inv_h, c4h,
+                                             stream);
+}
+
+int sb_forces_warp_v2_bwd_rows_bf16(const void* sched, int n_sched,
+                                    const void* rest_rows, const void* static_all,
+                                    const void* gidx_all, const void* fmT,
+                                    int64_t ld_fm, const void* srT, int64_t ld_sr,
+                                    const void* rs6T, int64_t ld_rs6, const void* dfT,
+                                    int64_t ld_df, void* dfmT, int64_t ld_out,
+                                    int group, double inv_h, double c4h, int tail,
+                                    void* stream) {
+  return (tail ? launch_forces_v2_bwd_rows<float, true, bf16>
+               : launch_forces_v2_bwd_rows<float, false, bf16>)(
+      sched, n_sched, rest_rows, static_all, gidx_all, fmT, ld_fm, srT, ld_sr, rs6T,
+      ld_rs6, dfT, ld_df, dfmT, ld_out, group, inv_h, c4h, stream);
+}
+
+int sb_slab_to_slots_bf16(const void* buf, int64_t ld_buf, const void* ptr,
+                          const void* idx, const void* bstart, int n_b, void* out,
+                          int64_t ld_out, int k, int n_slots, int group,
+                          void* stream) {
+  const int64_t n = (int64_t)k * n_slots;
+  const int blocks = (int)((n + SCATTER_THREADS - 1) / SCATTER_THREADS);
+  slab_to_slots_bf16_kernel<<<blocks, SCATTER_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)buf, ld_buf, (const int32_t*)ptr, (const int32_t*)idx,
+      (const int32_t*)bstart, n_b, (bf16*)out, ld_out, k, n_slots, group);
+  return (int)cudaGetLastError();
+}
+
+int sb_forces_warp_v2_bwd_slab_bf16(const void* chunks, int n_chunks,
+                                    const void* rest_rows, const void* static_all,
+                                    const void* gidx_all, const void* fmT,
+                                    int64_t ld_fm, const void* srT, int64_t ld_sr,
+                                    const void* dfT, int64_t ld_df, void* dsr,
+                                    int64_t ld_out, int group, double inv_h,
+                                    double c4h, void* stream) {
+  return launch_forces_v2_bwd_slab<float, bf16>(chunks, n_chunks, rest_rows,
+                                                static_all, gidx_all, fmT, ld_fm, srT,
+                                                ld_sr, dfT, ld_df, dsr, ld_out, group,
+                                                inv_h, c4h, stream);
+}
 
 }  // extern "C"

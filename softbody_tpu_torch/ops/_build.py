@@ -74,6 +74,13 @@ SIGNATURES = {
     },
 }
 
+# The K2 kernels that also take a bf16 srT slab (cfg.pair_dtype="bfloat16"),
+# in f32: sb_<name>_bf16, with their f32 entry point's arguments.
+BF16 = ("forces_warp_v4", "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab",
+        "forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
+# ... and the scatter of that slab's cotangent, f32 sums into bf16
+SLAB_TO_SLOTS_BF16 = [_P, _I64, _P, _P, _P, _I32, _P, _I64, _I32, _I32, _I32, _P]
+
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -145,8 +152,11 @@ def library(source: str = "pair_kernels") -> ctypes.CDLL:
             lib.sb_error_string.restype = ctypes.c_char_p
             lib.sb_ragged_info.argtypes = [_I32, _I32, _P]
             lib.sb_ragged_info.restype = _I32
+            lib.sb_slab_to_slots_bf16.argtypes = SLAB_TO_SLOTS_BF16
+            lib.sb_slab_to_slots_bf16.restype = _I32
         for name, args in SIGNATURES[source].items():
-            for suffix in ("f32", "f64"):
+            suffixes = ("f32", "f64", "bf16") if name in BF16 else ("f32", "f64")
+            for suffix in suffixes:
                 fn = getattr(lib, f"sb_{name}_{suffix}")
                 fn.argtypes = args
                 fn.restype = _I32

@@ -86,11 +86,12 @@ def _eye(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
-def deformation(pos: torch.Tensor, topo: Topology, cfg: SimConfig):
+def deformation(pos: torch.Tensor, topo: Topology, cfg: SimConfig, source=None):
     """A_pq, R, F (each (N, 3, 3)) from current positions: one (N, K, 3)
-    position gather."""
+    position gather, from ``source`` when given (the rows' neighbours on a
+    shard, ``parallel/``), else from ``pos``."""
     _no_tf32()
-    pj = gather_topo(pos, topo)                            # (N, K, 3)
+    pj = gather_topo(pos if source is None else source, topo)   # (N, K, 3)
     pji = pj - pos[:, None, :]
     # A_pq_i = sum_j c_ij p_ji (x) X_ji   (sim.py:170-183)
     A = torch.einsum("ij,ija,ijb->iab", topo.c, pji, topo.xji)
@@ -116,7 +117,8 @@ def stvk_stress(F, mu, lam, scale):
     return S * scale[:, None, None]
 
 
-def elastic_forces(pos, ratio, mats: Materials, topo: Topology, cfg: SimConfig):
+def elastic_forces(pos, ratio, mats: Materials, topo: Topology, cfg: SimConfig,
+                   exchange=None):
     """Pairwise antisymmetrized elastic forces (compute_elastic_forces,
     sim.py:218-235 / sim_taichi.py:147-158).  Returns (forces (N, 3),
     (R, F, S)).
@@ -125,18 +127,29 @@ def elastic_forces(pos, ratio, mats: Materials, topo: Topology, cfg: SimConfig):
     V_i M_i sum_j V_j nW_ij with M = R F S.  With F_pair = F_j (Taichi,
     ``pair_def_grad="j"``) the pair term separates: one gather of G = V M.
     With F_pair = F_i (Warp, sim.py:233) it mixes i and j: gathers of
-    V_j S_j and R_j."""
-    _, R, F = deformation(pos, topo, cfg)
+    V_j S_j and R_j.
+
+    ``exchange(a)`` maps a per-row array (rows, k) to the array the table
+    ``topo.idx`` indexes: on a shard of the particle mesh the rows are the
+    rank's and the neighbours come from an all-gather or a halo exchange
+    (``parallel/``), two per evaluation (positions, then the pair
+    operands); None on one device."""
+    src = (lambda a: a) if exchange is None else exchange
+    _, R, F = deformation(pos, topo, cfg, None if exchange is None else src(pos))
     scale = cfg.stiffness_scale(ratio)
     S = stvk_stress(F, mats.mu, mats.lam, scale)
     M = R @ F @ S                                          # R_i F_i S_i
     term_i = torch.einsum("iab,ib->ia", M, topo.sum_v_nw)
+    n, K = topo.idx.shape
     if cfg.pair_def_grad == "j":
-        Gj = gather_topo(mats.volume[:, None, None] * M, topo)   # (N, K, 3, 3)
+        G = (mats.volume[:, None, None] * M).reshape(n, 9)
+        Gj = gather_topo(src(G), topo).reshape(n, K, 3, 3)      # (N, K, 3, 3)
         term_j = torch.einsum("ijab,ijb->ia", Gj, topo.nw)
     else:
-        VSj = gather_topo(mats.volume[:, None, None] * S, topo)
-        Rj = gather_topo(R, topo)
+        rec = torch.cat([(mats.volume[:, None, None] * S).reshape(n, 9),
+                         R.reshape(n, 9)], dim=1)
+        rj = gather_topo(src(rec), topo)
+        VSj, Rj = rj[..., :9].reshape(n, K, 3, 3), rj[..., 9:].reshape(n, K, 3, 3)
         y = torch.einsum("iab,ijbc,ijc->ija", F, VSj, topo.nw)   # F_i (V_j S_j) nW
         term_j = torch.einsum("ijab,ijb->ia", Rj, y)             # R_j y
     return 0.5 * mats.volume[:, None] * (term_j + term_i), (R, F, S)

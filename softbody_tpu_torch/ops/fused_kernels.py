@@ -79,7 +79,8 @@ from torch.autograd.function import once_differentiable
 from ..sim.blocked import mid_rows
 from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, _no_tf32, aligned,
                           bucket_cols, centered_moments, check_lane_major,
-                          check_scene, check_tiles, check_vector, entry,
+                          check_scene, check_slab, check_tiles, check_vector,
+                          bf16_counted, counter, entry,
                           flat_entries, has_tail, k1_lhs, n_entries, on,
                           raise_on, raw_moments_bwd, slab_slots,
                           spline_constants, stream, tile_chunked, warp_nw,
@@ -285,11 +286,11 @@ def _launch_moments_mid(sb, posT, posT_rows, rs, scale, h, corotated, emit_ay=Fa
 def _check_v2(sb, fmT, srT, dfT=None, chunks=False):
     """Operand checks of one whole-scene K2 v2 launch (with ``chunks``, of
     the backward's slab pass)."""
-    device, dtype = srT.device, srT.dtype
+    device, dtype = fmT.device, fmT.dtype
     check_scene(sb, dtype, device, chunks)
     m = sb.n_tiles * sb.rows
     check_lane_major("fmT", fmT, dtype, device, FM_FIELDS, m)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
+    check_slab(srT, dtype, device, sb)
     if dfT is not None:
         check_lane_major("dfT", dfT, dtype, device, 3, m)
     if not chunks:      # the epilogue's svnw; the ring copies 16-byte pieces of srT
@@ -306,14 +307,14 @@ def _launch_forces_v2(sb, fmT, srT, h):
     if sb.n_tiles == 0:
         return out
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v2", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v2", dtype, srT.dtype)(
         sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
         sb.rs6T.data_ptr(), sb.rs6T.stride(0), out.data_ptr(), out.stride(0),
         sb.group, inv_h, c4h, has_tail(sb, RAGGED_CHUNK), stream())
     raise_on(rc, "forces_warp_v2")
-    forces_warp_v2.launches += 1
+    counter(forces_warp_v2, srT).launches += 1
     return out
 
 
@@ -324,7 +325,7 @@ def _launch_forces_v2_bwd_rows(sb, fmT, srT, dfT, h):
     if sb.n_tiles == 0:
         return dfm
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v2_bwd_rows", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v2_bwd_rows", dtype, srT.dtype)(
         sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
@@ -332,7 +333,7 @@ def _launch_forces_v2_bwd_rows(sb, fmT, srT, dfT, h):
         dfm.data_ptr(), dfm.stride(0), sb.group, inv_h, c4h, has_tail(sb, RAGGED_CHUNK),
         stream())
     raise_on(rc, "forces_warp_v2_bwd_rows")
-    forces_warp_v2_bwd_rows.launches += 1
+    counter(forces_warp_v2_bwd_rows, srT).launches += 1
     return dfm
 
 
@@ -343,14 +344,14 @@ def _launch_forces_v2_bwd_slab(sb, fmT, srT, dfT, h):
     if sb.n_tiles == 0:
         return dsr
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v2_bwd_slab", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v2_bwd_slab", dtype, srT.dtype)(
         sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0),
         dfT.data_ptr(), dfT.stride(0), dsr.data_ptr(), dsr.stride(0),
         sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v2_bwd_slab")
-    forces_warp_v2_bwd_slab.launches += 1
+    counter(forces_warp_v2_bwd_slab, srT).launches += 1
     return dsr
 
 
@@ -407,6 +408,7 @@ def moments_mid(sb, posT, posT_rows, rs, scale, h, corotated, emit_ay=False):
     return fn(sb, posT, posT_rows, rs, scale, h, corotated, emit_ay)
 
 
+@bf16_counted
 def forces_warp_v2(sb, fmT, srT, h):
     """K2 v2 over every tile of the scene ``sb``: fT (3, m) from fmT (19, m)
     and srT (15, n_slots); one launch on the card,
@@ -430,6 +432,7 @@ def moments_raw_bwd(sb, dayT, h, rows=False):
     return fn(sb, dayT, h, rows)
 
 
+@bf16_counted
 def forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h):
     """The K2 v2 backward's row pass over the scene: dfmT (19, m)."""
     fn = on("forces_warp_v2_bwd_rows", dfT,
@@ -437,6 +440,7 @@ def forces_warp_v2_bwd_rows(sb, fmT, srT, dfT, h):
     return fn(sb, fmT, srT, dfT, h)
 
 
+@bf16_counted
 def forces_warp_v2_bwd_slab(sb, fmT, srT, dfT, h):
     """The K2 v2 backward's slab pass over the scene: dsr (15, n_entries)."""
     fn = on("forces_warp_v2_bwd_slab", dfT,
@@ -519,7 +523,8 @@ class _MomentsRaw(torch.autograd.Function):
 
 class _ForcesWarpV2(torch.autograd.Function):
     """K2 v2 over the whole scene: (fmT (19, m), srT (15, n_slots)) -> fT
-    (3, m)."""
+    (3, m); srT may be bfloat16 (``cfg.pair_dtype``), the arithmetic
+    fmT's."""
 
     @staticmethod
     def forward(ctx, fmT, srT, sb, h, ops):
@@ -532,9 +537,10 @@ class _ForcesWarpV2(torch.autograd.Function):
     def backward(ctx, dfT):
         sb, ops = ctx.sb, ctx.ops
         fmT, srT = ctx.saved_tensors
+        from .pair_kernels import slab_cotangent    # pair_kernels imports this module
+
         dfm, dsr = ops.forces_v2_bwd(sb, fmT, srT, dfT.contiguous(), ctx.h)
-        dsrT = ops.to_slots(dsr, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
-        return dfm, dsrT, None, None, None
+        return dfm, slab_cotangent(ops, dsr, sb, srT), None, None, None
 
 
 def moments_mid_all(posT, posT_rows, scale, sb, rs: RowStatic, h, corotated, ops):

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 
 import numpy as np
 import torch
@@ -216,13 +217,14 @@ def warp_termj(restT_rows, static_slab, f9T, srT, gidx8, h):
     """K2's Warp-pairing sum termj fT (3, t*rows).
 
     f9T (9, t*rows): F_i, row 3c+d = F_i[c, d]; srT (15, n_slots): the
-    per-slot [S_6 | R^T_9] record.  Per pair nw = gfac V_j dx,
+    per-slot [S_6 | R^T_9] record (a bfloat16 one is upcast once, then the
+    same arithmetic: ``cfg.pair_dtype``).  Per pair nw = gfac V_j dx,
     Z_d = sum_b nw_b S_j[d, b]; D = R^T-rows @ Z over the slab; then
     termj[a] = sum_{c,d} F_i[c, d] D[3c+a, d] (the JAX association)."""
     _no_tf32()
     t, _, rows = restT_rows.shape
     slab = static_slab.shape[2]
-    sT = srT[:, slab_slots(gidx8, slab)]                     # (15, t, slab)
+    sT = srT[:, slab_slots(gidx8, slab)].to(restT_rows.dtype)   # (15, t, slab)
     nw = warp_nw(restT_rows, static_slab, h)
     Z = torch.stack(
         [sum(nw[b] * sT[SYM6[3 * d + b]][:, None, :] for b in range(3))
@@ -250,7 +252,7 @@ def warp_termj_bwd(restT_rows, static_slab, f9T, srT, gidx8, dfT, h):
     _no_tf32()
     t, _, rows = restT_rows.shape
     slab = static_slab.shape[2]
-    sT = srT[:, slab_slots(gidx8, slab)][:, :, None, :]     # (15, t, 1, slab)
+    sT = srT[:, slab_slots(gidx8, slab)].to(restT_rows.dtype)[:, :, None, :]
     nw = warp_nw(restT_rows, static_slab, h)                 # (t, rows, slab)
     z = [sum(nw[b] * sT[SYM6[3 * d + b]] for b in range(3)) for d in range(3)]
     fi = f9T.reshape(9, t, rows, 1)
@@ -340,13 +342,25 @@ BWD_CHUNK = 128
 
 def aligned(name, x, lane_major=False):
     """The whole-scene kernels copy 16-byte pieces: a 16-byte base and, for
-    a lane-major operand, a row stride of a multiple of 4 elements."""
+    a lane-major operand, a row stride of a multiple of 16 bytes."""
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary "
                          f"(address {x.data_ptr():#x})")
-    if lane_major and x.stride(0) % 4:
-        raise ValueError(f"{name}'s leading dimension must be a multiple of 4 "
+    per = 16 // x.element_size()
+    if lane_major and x.stride(0) % per:
+        raise ValueError(f"{name}'s leading dimension must be a multiple of {per} "
                          f"elements, got {x.stride(0)}")
+
+
+def check_slab(srT, dtype, device, sb):
+    """The K2 slot record srT (15, n_slots): the kernels' ``dtype``, or
+    bfloat16 under float32 arithmetic (``cfg.pair_dtype``: storage only, a
+    slot group of 8 one 16-byte piece)."""
+    slab_dtype = torch.bfloat16 if srT.dtype == torch.bfloat16 else dtype
+    if slab_dtype == torch.bfloat16 and (dtype != torch.float32 or sb.group % 8):
+        raise TypeError(f"a bfloat16 srT takes float32 kernels and slot groups of "
+                        f"a multiple of 8, got {dtype} and {sb.group}")
+    check_lane_major("srT", srT, slab_dtype, device, SR_FIELDS, sb.n_slots)
 
 
 def whole_pieces(sb, piece, name):
@@ -426,10 +440,28 @@ def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def entry(source, name, dtype):
-    """The C entry point ``sb_<name>_<f32|f64>`` of csrc/<source>.cu."""
+def entry(source, name, dtype, slab_dtype=None):
+    """The C entry point ``sb_<name>_<f32|f64>`` of csrc/<source>.cu, or
+    ``sb_<name>_bf16`` (float32 on a bfloat16 K2 slab) when ``slab_dtype``
+    is bfloat16."""
     lib = _build.library(source)
+    if slab_dtype == torch.bfloat16:
+        return getattr(lib, f"sb_{name}_bf16")
     return getattr(lib, f"sb_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def bf16_counted(fn):
+    """Give the K2 wrapper ``fn`` a second launch counter, ``fn.bf16``
+    (named ``<name>_bf16``), for its kernel's bfloat16-slab instantiation.
+    Returns ``fn``."""
+    fn.bf16 = types.SimpleNamespace(__name__=f"{fn.__name__}_bf16", launches=0)
+    return fn
+
+
+def counter(fn, srT):
+    """What a launch of ``fn``'s kernel on ``srT`` counts on: ``fn``, or its
+    bfloat16-slab counter."""
+    return fn.bf16 if srT.dtype == torch.bfloat16 else fn
 
 
 def on(name, x, plain, launch):

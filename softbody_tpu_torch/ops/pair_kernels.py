@@ -32,6 +32,12 @@ Counterpart of ``softbody_tpu/ops/pallas/pair_kernels.py`` +
   into (k, n_slots) in a fixed order through the scene's CSR inverse of the
   buckets' ``gidx8`` (no float atomics: the episode gradient is bitwise
   repeatable).  The JAX path's ``scatter_packed_raw_T`` is XLA, not Pallas.
+* The bf16 K2 slab (``cfg.pair_dtype = "bfloat16"``): the K2 wrappers here
+  and in ``ops/fused_kernels.py`` take a bfloat16 srT under float32
+  arithmetic and launch its instantiation of the same kernel, counted on
+  the wrapper's ``bf16`` counter (``forces_warp_v4_bf16``, ...); the slab's
+  cotangent, bf16, comes from :func:`slab_to_slots_bf16`, rounded where
+  the JAX VJP rounds it (:func:`slab_cotangent`).
 
 Each has a plain PyTorch version (``*_plain``): explicit formulas on the
 tile's candidate slots, from the pair sums of ``ops/pair_common.py``
@@ -72,10 +78,10 @@ from ..core.types import DevBucket, SparseBlocked
 from . import _build
 from . import fused_kernels as fk
 from . import separable_kernels as sk
-from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, aligned, bucket_cols,
-                          centered_moments, check, check_lane_major,
-                          check_scene, entry, flat_entries, n_entries,
-                          on, raise_on, raw_moments_bwd, spline_constants,
+from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, aligned, bf16_counted,
+                          bucket_cols, centered_moments, check, check_lane_major,
+                          check_scene, check_slab, counter, entry, flat_entries,
+                          n_entries, on, raise_on, raw_moments_bwd, spline_constants,
                           stream, warp_termj, warp_termj_bwd, whole_pieces)
 
 
@@ -247,7 +253,7 @@ def schedules(n_tiles, slab_lens, tile_starts, group: int, device):
 
 
 def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
-                   rows: int = _build.ROWS) -> SparseBlocked:
+                   rows: int = _build.ROWS, n_shards: int = 1) -> SparseBlocked:
     """A :class:`SparseBlocked` on ``device`` from host buckets ``parts``:
     per bucket (gidx8 (t_b, slab_b / group), restT_rows (t_b, 3, rows),
     static_slab (t_b, 5, slab_b), tile_start), numpy, holding tiles
@@ -255,7 +261,7 @@ def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
     marks the particle slots (:func:`slab_inverse`).  The buckets' arrays
     are views of the scene-wide ``rest_rows`` / ``static_all`` /
     ``gidx_all``, which the ragged kernels read through ``schedule`` and
-    ``chunks``."""
+    ``chunks``; ``n_shards`` the layout's (``SparseBlocked.n_shards``)."""
     counts = [np.shape(p[1])[0] for p in parts]
     starts = [int(p[3]) for p in parts]
     if starts != [int(x) for x in np.cumsum([0] + counts[:-1])]:
@@ -290,7 +296,7 @@ def sparse_blocked(parts, rs6T, n_slots: int, group: int, real, device, dtype,
         n_tiles=sum(counts), n_slots=n_slots, group=group,
         slab_ptr=dev(ptr, torch.int32), slab_idx=dev(idx, torch.int32),
         rest_rows=rest_rows, static_all=static_all, gidx_all=gidx_all,
-        schedule=sched, chunks=chunks)
+        schedule=sched, chunks=chunks, n_shards=int(n_shards))
 
 
 def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
@@ -306,6 +312,23 @@ def slab_to_slots_plain(buf, slab_ptr, slab_idx, n_slots, group):
     return sums.reshape(n_groups, k, group).permute(1, 0, 2).reshape(k, n_slots)
 
 
+def slab_to_slots_bf16_plain(buf, slab_ptr, slab_idx, bstart, n_slots, group):
+    """Plain scatter of the bf16 K2 slab's cotangent: buf (k, n_entries) ->
+    (k, n_slots) bfloat16, rounded where the JAX package rounds it: each
+    bucket's slot sums (:func:`slab_to_slots_plain` over its entries) to
+    bfloat16, then the buckets added in bfloat16, last first.  ``bstart``
+    (n_buckets,) int32: the scene's ``bucket_starts``."""
+    starts = [int(x) for x in bstart] + [buf.shape[1] // group]
+    total = None
+    for b in reversed(range(len(starts) - 1)):
+        part = torch.zeros_like(buf)
+        cols = slice(starts[b] * group, starts[b + 1] * group)
+        part[:, cols] = buf[:, cols]
+        c = slab_to_slots_plain(part, slab_ptr, slab_idx, n_slots, group).to(torch.bfloat16)
+        total = c if total is None else (total.float() + c.float()).to(torch.bfloat16)
+    return total
+
+
 # ------------------------------------------------------------ kernel launches
 RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
           "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab", "forces_warp_v2",
@@ -318,7 +341,8 @@ RAGGED = ("moments_v4", "forces_warp_v4", "moments_v4_bwd",
 def ragged_info() -> dict:
     """What the card gives the whole-scene kernels (K1/K2 v4, K2 v2 and
     their backwards, the fused K1 + mid-section, the raw K1 backward, the
-    separable K2 and its backward):
+    separable K2 and its backward; the K2 ones also on the bf16 slab,
+    dtype "float32/bfloat16"):
     {(kernel, dtype):
     {registers, static_smem, local_bytes, dynamic_smem, blocks_per_sm,
     threads}} (cudaFuncGetAttributes,
@@ -328,9 +352,12 @@ def ragged_info() -> dict:
             "blocks_per_sm", "threads")
     out = {}
     for which, name in enumerate(RAGGED):
-        for f64, dtype in enumerate(("float32", "float64")):
+        modes = ["float32", "float64"]
+        if name.split(" ")[0] in _build.BF16:
+            modes.append("float32/bfloat16")
+        for mode, dtype in enumerate(modes):
             buf = (ctypes.c_int * len(keys))()
-            raise_on(lib.sb_ragged_info(which, f64, buf), f"{name} attributes")
+            raise_on(lib.sb_ragged_info(which, mode, buf), f"{name} attributes")
             out[name, dtype] = dict(zip(keys, buf))
     return out
 
@@ -358,24 +385,24 @@ def _launch_moments(sb, posT, posT_rows, h):
 
 
 def _launch_forces(sb, f9T, srT, h):
-    device, dtype = srT.device, srT.dtype
+    device, dtype = f9T.device, f9T.dtype
     check_scene(sb, dtype, device)
     whole_pieces(sb, RAGGED_CHUNK, "forces_warp_v4")
     m = sb.n_tiles * sb.rows
     check_lane_major("f9T", f9T, dtype, device, 9, m)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
+    check_slab(srT, dtype, device, sb)
     aligned("srT", srT, lane_major=True)
     out = torch.empty((3, m), dtype=dtype, device=device)
     if sb.n_tiles == 0:
         return out
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v4", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v4", dtype, srT.dtype)(
         sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         f9T.data_ptr(), f9T.stride(0), srT.data_ptr(), srT.stride(0),
         out.data_ptr(), out.stride(0), sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4")
-    forces_warp_v4.launches += 1
+    counter(forces_warp_v4, srT).launches += 1
     return out
 
 
@@ -408,7 +435,7 @@ def _check_forces_bwd(sb, f9T, srT, dfT, chunks):
     check_scene(sb, dtype, device, chunks)
     m = sb.n_tiles * sb.rows
     check_lane_major("f9T", f9T, dtype, device, 9, m)
-    check_lane_major("srT", srT, dtype, device, SR_FIELDS, sb.n_slots)
+    check_slab(srT, dtype, device, sb)
     check_lane_major("dfT", dfT, dtype, device, 3, m)
     return device, dtype, m
 
@@ -423,13 +450,13 @@ def _launch_forces_bwd_rows(sb, f9T, srT, dfT, h):
     if sb.n_tiles == 0:
         return df9
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v4_bwd_rows", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v4_bwd_rows", dtype, srT.dtype)(
         sb.schedule.data_ptr(), sb.n_tiles, sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         srT.data_ptr(), srT.stride(0), dfT.data_ptr(), dfT.stride(0),
         df9.data_ptr(), df9.stride(0), sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4_bwd_rows")
-    forces_warp_v4_bwd_rows.launches += 1
+    counter(forces_warp_v4_bwd_rows, srT).launches += 1
     return df9
 
 
@@ -440,14 +467,14 @@ def _launch_forces_bwd_slab(sb, f9T, srT, dfT, h):
     if sb.n_tiles == 0:
         return dsr
     inv_h, _, c4h = spline_constants(h, dtype)
-    rc = entry("pair_kernels", "forces_warp_v4_bwd_slab", dtype)(
+    rc = entry("pair_kernels", "forces_warp_v4_bwd_slab", dtype, srT.dtype)(
         sb.chunks.data_ptr(), sb.chunks.shape[0], sb.rest_rows.data_ptr(),
         sb.static_all.data_ptr(), sb.gidx_all.data_ptr(),
         f9T.data_ptr(), f9T.stride(0), srT.data_ptr(), srT.stride(0),
         dfT.data_ptr(), dfT.stride(0), dsr.data_ptr(), dsr.stride(0),
         sb.group, inv_h, c4h, stream())
     raise_on(rc, "forces_warp_v4_bwd_slab")
-    forces_warp_v4_bwd_slab.launches += 1
+    counter(forces_warp_v4_bwd_slab, srT).launches += 1
     return dsr
 
 
@@ -478,6 +505,34 @@ def _launch_slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
     return out
 
 
+def _launch_slab_to_slots_bf16(buf, slab_ptr, slab_idx, bstart, n_slots, group):
+    device = buf.device
+    check_lane_major("buf", buf, torch.float32, device, buf.shape[0])
+    check("slab_ptr", slab_ptr, torch.int32, device, 1)
+    check("slab_idx", slab_idx, torch.int32, device, 1)
+    check("bstart", bstart, torch.int32, device, 1)
+    if slab_ptr.shape[0] != n_slots // group + 1 or n_slots % group:
+        raise ValueError(f"slab_ptr has {slab_ptr.shape[0]} entries for "
+                         f"{n_slots} slots in groups of {group}")
+    if buf.shape[1] % group or buf.shape[1] < slab_idx.shape[0] * group:
+        raise ValueError(f"buf has {buf.shape[1]} entries, the index reads "
+                         f"{slab_idx.shape[0] * group} in groups of {group}")
+    if not (slab_ptr.is_contiguous() and slab_idx.is_contiguous()
+            and bstart.is_contiguous()) or bstart.shape[0] == 0:
+        raise ValueError("slab_ptr, slab_idx and a non-empty bstart must be contiguous")
+    k = buf.shape[0]
+    out = torch.empty((k, n_slots), dtype=torch.bfloat16, device=device)
+    if k == 0 or n_slots == 0:
+        return out
+    rc = _build.library("pair_kernels").sb_slab_to_slots_bf16(
+        buf.data_ptr(), buf.stride(0), slab_ptr.data_ptr(), slab_idx.data_ptr(),
+        bstart.data_ptr(), bstart.shape[0], out.data_ptr(), out.stride(0), k, n_slots,
+        group, stream())
+    raise_on(rc, "slab_to_slots_bf16")
+    slab_to_slots_bf16.launches += 1
+    return out
+
+
 # ------------------------------------------------------------ device dispatch
 def moments_v4(sb, posT, posT_rows, h):
     """K1 over every tile of the scene ``sb``: centered moments ayT (18, m)
@@ -487,6 +542,7 @@ def moments_v4(sb, posT, posT_rows, h):
     return fn(sb, posT, posT_rows, h)
 
 
+@bf16_counted
 def forces_warp_v4(sb, f9T, srT, h):
     """K2 over every tile of the scene ``sb``: Warp-pairing termj fT (3, m)
     from f9T (9, m) and srT (15, n_slots); one launch on the card,
@@ -503,6 +559,7 @@ def moments_v4_bwd(sb, dayT, h):
     return fn(sb, dayT, h)
 
 
+@bf16_counted
 def forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, h):
     """The K2 backward's row pass over the scene: df9T (9, m)."""
     fn = on("forces_warp_v4_bwd_rows", dfT,
@@ -510,6 +567,7 @@ def forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, h):
     return fn(sb, f9T, srT, dfT, h)
 
 
+@bf16_counted
 def forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, h):
     """The K2 backward's slab pass over the scene: dsr (15, n_entries)."""
     fn = on("forces_warp_v4_bwd_slab", dfT,
@@ -534,18 +592,42 @@ def slab_to_slots(buf, slab_ptr, slab_idx, n_slots, group):
     return fn(buf, slab_ptr, slab_idx, n_slots, group)
 
 
+def slab_to_slots_bf16(buf, slab_ptr, slab_idx, bstart, n_slots, group):
+    """The bf16 K2 slab's cotangent scatter (k, n_entries) float32 ->
+    (k, n_slots) bfloat16; see :func:`slab_to_slots_bf16_plain`."""
+    fn = on("slab_to_slots_bf16", buf, slab_to_slots_bf16_plain,
+            _launch_slab_to_slots_bf16)
+    return fn(buf, slab_ptr, slab_idx, bstart, n_slots, group)
+
+
+def slab_cotangent(ops, dsr, sb, srT):
+    """The slab cotangent of a K2 backward, (15, n_slots) in srT's dtype:
+    ``ops.to_slots``, or on a bf16 slab ``ops.to_slots_bf16`` (its rounding
+    is the JAX package's)."""
+    if srT.dtype != torch.bfloat16:
+        return ops.to_slots(dsr, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
+    return ops.to_slots_bf16(dsr, sb.slab_ptr, sb.slab_idx, sb.bucket_starts,
+                             sb.n_slots, sb.group)
+
+
 COUNTED = (moments_v4, forces_warp_v4, moments_v4_bwd, forces_warp_v4_bwd_rows,
            forces_warp_v4_bwd_slab, slab_to_slots) + fk.COUNTED + sk.COUNTED
+# the six K2 kernels on a bfloat16 slab (cfg.pair_dtype), counted apart
+BF16_COUNTED = tuple(fn.bf16 for fn in (forces_warp_v4, forces_warp_v4_bwd_rows,
+                                        forces_warp_v4_bwd_slab, fk.forces_warp_v2,
+                                        fk.forces_warp_v2_bwd_rows,
+                                        fk.forces_warp_v2_bwd_slab)) + (slab_to_slots_bf16,)
 
 
 def reset_launch_counts():
-    for fn in COUNTED:
+    for fn in COUNTED + BF16_COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}, every path's kernels."""
-    return {fn.__name__: fn.launches for fn in COUNTED}
+    """{kernel name: launches since the last reset}, every path's kernels
+    (the bfloat16-slab K2 kernels as ``<name>_bf16``)."""
+    return {fn.__name__: fn.launches for fn in COUNTED + BF16_COUNTED}
 
 
 reset_launch_counts()
@@ -573,19 +655,20 @@ class PairOps(NamedTuple):
     moments_raw: Callable
     forces_sep: Callable
     forces_sep_bwd: Callable
+    to_slots_bf16: Callable
 
 
 KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
                   forces_warp_v4_bwd, slab_to_slots, fk.moments_mid,
                   fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd,
-                  fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd)
+                  fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd, slab_to_slots_bf16)
 PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 moments_v4_bwd_scene_plain, forces_warp_v4_bwd_scene_plain,
                 slab_to_slots_plain,
                 fk.moments_mid_scene_plain, fk.forces_warp_v2_scene_plain,
                 fk.moments_raw_bwd_scene_plain, fk.forces_warp_v2_bwd_scene_plain,
                 fk.moments_raw_plain, sk.forces_sep_scene_plain,
-                sk.forces_sep_bwd_scene_plain)
+                sk.forces_sep_bwd_scene_plain, slab_to_slots_bf16_plain)
 
 
 class _MomentsV4(torch.autograd.Function):
@@ -608,7 +691,8 @@ class _MomentsV4(torch.autograd.Function):
 
 
 class _ForcesWarpV4(torch.autograd.Function):
-    """K2 over every bucket: (f9T (9, m), srT (15, n_slots)) -> termjT (3, m)."""
+    """K2 over every bucket: (f9T (9, m), srT (15, n_slots)) -> termjT (3, m);
+    srT may be bfloat16 (``cfg.pair_dtype``), the arithmetic f9T's."""
 
     @staticmethod
     def forward(ctx, f9T, srT, sb, h, ops):
@@ -622,8 +706,7 @@ class _ForcesWarpV4(torch.autograd.Function):
         sb, ops = ctx.sb, ctx.ops
         f9T, srT = ctx.saved_tensors
         df9, dsr = ops.forces_bwd(sb, f9T, srT, dfT.contiguous(), ctx.h)
-        dsrT = ops.to_slots(dsr, sb.slab_ptr, sb.slab_idx, sb.n_slots, sb.group)
-        return df9, dsrT, None, None, None
+        return df9, slab_cotangent(ops, dsr, sb, srT), None, None, None
 
 
 def moments_all(posT, posT_rows, sb, h, ops: PairOps = KERNELS):

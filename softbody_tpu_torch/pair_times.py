@@ -117,7 +117,8 @@ def step_numbers(torch, scene, cfg, ratio, x, dev):
 def sass_per_pair(lib_path, names):
     """{name: SASS instructions per pair of the f32 kernel ``name``} (and
     ``name_tail`` for its ragged-tail instantiation, the one whose first
-    bool template argument is true): the shortest backward-branch loop
+    bool template argument is true, and ``..._bf16`` for the bf16 K2
+    slab's): the shortest backward-branch loop
     holding a MUFU and a shared-memory load (the pair loop; not the
     mid-section's Jacobi sweeps), its length over its MUFU count (one
     rsqrt per pair)."""
@@ -136,6 +137,8 @@ def sass_per_pair(lib_path, names):
             continue
         if "_kernelIfLb1E" in fn.split()[0]:   # the ragged-tail instantiation
             name += "_tail"
+        if "bfloat16" in fn.split()[0]:        # the bf16 K2 slab's
+            name += "_bf16"
         ins = [(int(a, 16), op) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         loops = []

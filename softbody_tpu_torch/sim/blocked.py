@@ -268,13 +268,12 @@ def elastic_forces_pallas(pos_slots, ratio_slots, mats: Materials, scene: Scene,
     # the kernel modules import this module's mid_rows: imported here
     from ..ops.fused_kernels import forces_v2_all, moments_raw_all
     from ..ops.pair_kernels import KERNELS
-    from .sparse import elastic_forces_sparse, separable_forces, slot_rows, unsupported
+    from .sparse import elastic_forces_sparse, pair_slab, separable_forces, slot_rows
 
     pair_ops = KERNELS if pair_ops is None else pair_ops
     if isinstance(scene.blocked, SparseBlocked):
         return elastic_forces_sparse(pos_slots, ratio_slots, mats, scene, cfg,
                                      pair_ops)
-    unsupported(cfg)
     blk: Blocked = scene.blocked
     m = blk.n_tiles * blk.rows
     posT = pos_slots.T.contiguous()
@@ -291,7 +290,7 @@ def elastic_forces_pallas(pos_slots, ratio_slots, mats: Materials, scene: Scene,
                       + [M[a][b] for a in range(3) for b in range(3)] + [vol_m])
     srT = slot_rows([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
                     + [R[a][c] for c in range(3) for a in range(3)], blk.n_slots)
-    fT = forces_v2_all(fmT, srT, blk, cfg.h, pair_ops)         # (3, m)
+    fT = forces_v2_all(fmT, pair_slab(srT, cfg), blk, cfg.h, pair_ops)  # (3, m)
     out = torch.zeros_like(pos_slots)
     out[:m] = fT.T
     return out

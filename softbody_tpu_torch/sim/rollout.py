@@ -142,21 +142,28 @@ def total_force(pos, vel, f_el, mats: Materials, cfg: SimConfig,
 
 
 def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
-         pair_ops: PairOps = KERNELS, check: ContactCheck | None = None
-         ) -> ParticleState:
+         pair_ops: PairOps = KERNELS, check: ContactCheck | None = None,
+         elastic_fn=None) -> ParticleState:
     """One physics step.
 
     trapezoidal (Warp, sim.py:246-258): part_1 advances positions with the
     carried forces, forces are recomputed at the new positions, part_2
     averages.  symplectic (Taichi, sim_taichi.py:167-172): forces at the
     current state, then semi-implicit Euler.  ``check`` collects the
-    contact-overflow flag (:class:`ContactCheck`)."""
+    contact-overflow flag (:class:`ContactCheck`).
+
+    ``elastic_fn(pos) -> forces`` replaces the backend dispatch (JAX's hook
+    of the same name): the SPMD paths (``parallel/``) run their exchanged
+    force evaluation through this same integrator body, so the step's
+    semantics live in one place."""
     mats = scene.materials
     dt = cfg.dt
     m = mats.mass[:, None]
     pos, vel, f_el = state
 
     def el(p):
+        if elastic_fn is not None:
+            return elastic_fn(p)
         return elastic_forces(p, ratio, scene, cfg, pair_ops)
 
     if cfg.integrator == "trapezoidal":
@@ -176,13 +183,15 @@ def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
 
 
 def initial_state(scene: Scene, ratio, cfg: SimConfig,
-                  pair_ops: PairOps = KERNELS) -> ParticleState:
-    """startup kernel + initial force evaluation (sim.py:342,349-351,261-266)."""
+                  pair_ops: PairOps = KERNELS, elastic_fn=None) -> ParticleState:
+    """startup kernel + initial force evaluation (sim.py:342,349-351,261-266);
+    ``elastic_fn`` as in :func:`step`."""
     pos = scene.rest_position
     vel = torch.tensor(cfg.initial_velocity, dtype=pos.dtype,
                        device=pos.device).expand_as(pos).contiguous()
     if cfg.integrator == "trapezoidal":
-        f_el = elastic_forces(pos, ratio, scene, cfg, pair_ops)
+        f_el = (elastic_forces(pos, ratio, scene, cfg, pair_ops)
+                if elastic_fn is None else elastic_fn(pos))
     else:
         f_el = torch.zeros_like(pos)
     return ParticleState(pos, vel, f_el)
@@ -227,12 +236,14 @@ def acc_float(acc) -> float:
 
 
 def _step_fn(scene: Scene, cfg: SimConfig, pair_ops: PairOps,
-             check: ContactCheck | None = None):
+             check: ContactCheck | None = None, elastic=None):
     """``step`` as the episode runs it: under a per-step checkpoint when
-    ``cfg.remat`` is set and autograd is recording."""
+    ``cfg.remat`` is set and autograd is recording.  ``elastic(pos,
+    ratio)``, when given, is the step's ``elastic_fn`` (the SPMD paths)."""
 
     def plain(state, ratio):
-        return step(state, ratio, scene, cfg, pair_ops, check)
+        hook = None if elastic is None else (lambda p: elastic(p, ratio))
+        return step(state, ratio, scene, cfg, pair_ops, check, hook)
 
     if not cfg.remat:
         return plain

@@ -72,8 +72,12 @@ def build_sparse_scene(
     group: int = GROUP,
     obstacles=None,
     device=None,
+    n_shards: int = 1,
 ):
     """Returns (scene, slot_of_particle (numpy)).
+
+    ``n_shards > 1`` builds the shard-major layout the SPMD episode runs on
+    (``parallel/sparse_shard.py``; slot groups of 8 only, as in JAX).
 
     Host side in numpy f64 (layout, rest density, rest correction, static
     row sums), then every array moves to ``device`` in ``cfg.dtype``
@@ -84,7 +88,11 @@ def build_sparse_scene(
     rest = np.asarray(points, dtype=np.float64)
     n = rest.shape[0]
     layout = build_sparse_layout(rest, 2.0 * cfg.h, rows=rows,
-                                 max_buckets=max_buckets, group=group)
+                                 max_buckets=max_buckets, group=group,
+                                 n_shards=n_shards)
+    if layout.n_shards > 1 and int(layout.group) != 8:
+        raise ValueError("SPMD sparse scenes take group=8: the shard sources "
+                         "and halo plans move 8-slot groups")
     rows = layout.rows
     ns = layout.n_slots
     sop = layout.slot_of_particle
@@ -138,7 +146,8 @@ def build_sparse_scene(
             volume[sl][:, None, :],
         ], axis=1)
         parts.append((b.group_ids, np.swapaxes(rr, 1, 2), static, int(tid[0])))
-    sb = sparse_blocked(parts, rs6.T, ns, gsz, real, device, dtype, rows)
+    sb = sparse_blocked(parts, rs6.T, ns, gsz, real, device, dtype, rows,
+                        layout.n_shards)
     mats = Materials(
         mass=dev(mass_integ), volume=dev(volume), mu=dev(mu), lam=dev(lam),
         free=dev(free), external=dev(ext),
@@ -155,11 +164,12 @@ def build_sparse_scene(
     return scene, sop
 
 
-def unsupported(cfg: SimConfig):
-    """Raise for the options the port does not run yet."""
-    if cfg.pair_dtype == "bfloat16":
-        raise NotImplementedError(
-            'pair_dtype="bfloat16" is not ported yet: ROADMAP queue 1, item 8')
+def pair_slab(srT, cfg: SimConfig):
+    """The K2 slot record as K2 reads it: bfloat16 with ``cfg.pair_dtype
+    = "bfloat16"`` (storage only: the kernels upcast each value once and do
+    all pair arithmetic in the simulation dtype, as the JAX kernels do), else
+    as it is."""
+    return srT.to(torch.bfloat16) if cfg.pair_dtype == "bfloat16" else srT
 
 
 def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
@@ -172,12 +182,13 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     ``pair_ops``: :data:`~softbody_tpu_torch.ops.pair_kernels.KERNELS`
     (default: the CUDA kernels on the card, the plain versions on the CPU)
     or ``PLAIN`` (the plain versions on any device — the card-side
-    yardstick)."""
-    unsupported(cfg)
+    yardstick).  ``cfg.pair_dtype = "bfloat16"`` stores K2's slot record in
+    bfloat16 (:func:`pair_slab`); the fused path does not take it and the
+    unfused one runs, as in the JAX package (``sim/sparse.py:342-343``)."""
     sb: SparseBlocked = scene.blocked
     m = sb.n_tiles * sb.rows
     posT = pos_slots.T.contiguous()                            # (3, n_slots)
-    if cfg.fused_mid and cfg.pair_def_grad == "i":
+    if cfg.fused_mid and cfg.pair_def_grad == "i" and cfg.pair_dtype != "bfloat16":
         return _fused_forces(pos_slots, posT, ratio_slots, mats, scene, cfg,
                              pair_ops)
 
@@ -195,7 +206,7 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
     srT[:, :m] = torch.stack(
         [S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
         + [R[a][c] for c in range(3) for a in range(3)])
-    termjT = forces_all(f9T, srT, sb, cfg.h, pair_ops)         # (3, m)
+    termjT = forces_all(f9T, pair_slab(srT, cfg), sb, cfg.h, pair_ops)  # (3, m)
     rs6T = sb.rs6T
     f_comp = [
         0.5 * vol_m * (termjT[a]

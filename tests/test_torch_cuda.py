@@ -9,8 +9,9 @@ with only the port's dependencies:
 full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
 separable K2) and 25-28 (the blocked layout's raw K1, K2 v2 and the
-separable K2); the gather backend's fixed-order backward and the contact
-forces, which have no hand-written kernel, are phases 30-33."""
+separable K2), 38-41 (the K2 kernels on a bf16 slab, ``cfg.pair_dtype``);
+the gather backend's fixed-order backward and the contact forces, which
+have no hand-written kernel, are phases 30-33."""
 
 import dataclasses
 
@@ -740,3 +741,80 @@ def test_contact_forces_on_the_card_match_the_cpu():
     assert float(torch.abs(f_c).max()) > 0 and o_c == o_d
     assert _rel(f_d, f_c) <= 1e-5
     assert torch.equal(g_d, g_d2) and _rel(g_d, g_c) <= 1e-4
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_bf16_slab_kernels_match_plain(blocked):
+    """The K2 kernels on a bf16 slab (``cfg.pair_dtype``; f32 arithmetic):
+    v4 and its two backward passes on the sparse scene, v2 and its two on
+    the varcol scene (slab ending inside a stage and a chunk), each one
+    launch counted on its ``_bf16`` counter, against the plain version on
+    the same bf16 slab (1e-4 of max |plain|), a second launch bit for bit
+    the first; the cotangent scatter against its plain version (bf16 both:
+    equal but where another f32 order tips a rounding, by at most 2^-7 of
+    the largest value)."""
+    dev = _card()
+    cfg, scene, pos, _ = _scene("float32", dev, blocked)
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    rng = np.random.default_rng(14)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    srT = rand(15, sb.n_slots)
+    srT[:, m:] = 0
+    srT = srT.to(torch.bfloat16)
+    dfT = rand(3, m)
+    pk.reset_launch_counts()
+    if blocked:
+        fmT = rand(19, m)
+        fmT[18] = scene.materials.volume[:m]
+        got = _v2_launches(sb, fmT, srT, dfT, cfg.h)
+        names = ("forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
+        counts = pk.launch_counts()
+        _hold_v2_per_bucket(sb, fmT, srT, dfT, cfg.h, got, TOL["float32"])
+        again = _v2_launches(sb, fmT, srT, dfT, cfg.h)
+    else:
+        f9T = rand(9, m)
+        launch = lambda: (pk.forces_warp_v4(sb, f9T, srT, cfg.h),
+                          pk.forces_warp_v4_bwd_rows(sb, f9T, srT, dfT, cfg.h),
+                          pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, cfg.h))
+        got = launch()
+        counts = pk.launch_counts()
+        names = ("forces_warp_v4", "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab")
+        want = (pk.forces_warp_v4_scene_plain(sb, f9T, srT, cfg.h),
+                *pk.forces_warp_v4_bwd_scene_plain(sb, f9T, srT, dfT, cfg.h))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and _rel(g, w) <= TOL["float32"]
+        again = launch()
+    assert counts == dict.fromkeys(counts, 0) | {f"{n}_bf16": 1 for n in names}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    args = (got[2], sb.slab_ptr, sb.slab_idx, sb.bucket_starts, sb.n_slots, sb.group)
+    pk.reset_launch_counts()
+    k, p = pk.slab_to_slots_bf16(*args).float(), pk.slab_to_slots_bf16_plain(*args).float()
+    assert pk.launch_counts()["slab_to_slots_bf16"] == 1
+    assert (k != p).float().mean() < 5e-3
+    assert float(torch.abs(k - p).max()) <= 2.0 ** -7 * float(torch.abs(p).max())
+
+
+def test_bf16_path_launches_its_kernels():
+    """One force evaluation and its VJP with ``pair_dtype="bfloat16"``: the
+    default path and path B launch the bf16 K2 kernels once each and the
+    bf16 cotangent scatter once, the f32 K2 kernels never; the fused path
+    with bf16 runs the unfused one."""
+    dev = _card()
+    for blocked, fused in ((False, False), (False, True), (True, False)):
+        cfg, scene, pos, ratio = _scene("float32", dev, blocked)
+        c = cfg.replace(pair_dtype="bfloat16", fused_mid=fused)
+        p = pos.clone().requires_grad_()
+        pk.reset_launch_counts()
+        f = (elastic_forces_pallas if blocked else elastic_forces_sparse)(
+            p, ratio, scene.materials, scene, c)
+        torch.autograd.grad(f, p, torch.ones_like(f))
+        counts = pk.launch_counts()
+        k2 = "forces_warp_v2" if blocked else "forces_warp_v4"
+        for n in (k2, f"{k2}_bwd_rows", f"{k2}_bwd_slab"):
+            assert counts[n] == 0 and counts[f"{n}_bf16"] == 1, (n, counts)
+        assert counts["slab_to_slots_bf16"] == 1 and counts["slab_to_slots"] == 1
+        assert counts["moments_mid"] == 0, counts

@@ -122,7 +122,21 @@ def test_fused_path_goes_through_the_fused_ops(setup, monkeypatch):
 
 @pytest.mark.parametrize("override", [{"pair_def_grad": "j", "pair_dtype": "bfloat16"},
                                       {"pair_dtype": "bfloat16"}])
-def test_fused_path_keeps_the_unported_refusals(setup, override):
-    cfg, _, scene_t, pos, x, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(cfg.replace(**override), scene_t, pos, x)
+def test_fused_path_with_bf16_runs_what_jax_runs(setup, override):
+    """``fused_mid`` with the bf16 K2 slab takes the unfused bf16 path
+    (``softbody_tpu/sim/sparse.py:342-343``), and the Taichi pairing never
+    reads ``pair_dtype``: each equals that path bit for bit, and JAX's
+    forces for the same config to TOL_JAX (f64 arithmetic: no S | R value
+    rounds differently to bf16 in the two packages)."""
+    cfg, scene_j, scene_t, pos, x, _ = setup
+    c = cfg.replace(**override)
+    got = _port(c, scene_t, pos, x)
+    same = (cfg.replace(pair_def_grad="j") if "pair_def_grad" in override
+            else c.replace(fused_mid=False))
+    assert np.array_equal(got, _port(same, scene_t, pos, x))
+    want = np.asarray(jax.jit(lambda p, xv: jforces(
+        p, jratio(xv, c), scene_j.materials, scene_j, c, interpret=True))(
+        to_jax(pos, "float64"), to_jax(x, "float64")))
+    assert _rel(got, want) < TOL_JAX
+    if "pair_def_grad" not in override:              # the slab's rounding shows
+        assert _rel(got, _port(cfg, scene_t, pos, x)) > 1e-6

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import softbody_tpu_torch
-from softbody_tpu_torch import cli, inverse_design, warp_parity
+from softbody_tpu_torch import cli, inverse_design, probe_stability, warp_parity
+from softbody_tpu_torch.parallel import dryrun_multichip
 from softbody_tpu_torch.examples import inflate_demo, million_particles
 from softbody_tpu_torch.config import resolve_device
 from softbody_tpu_torch.opt.driver import generate_targets
@@ -41,7 +42,11 @@ for name in ("softbody_tpu_torch.utils.checkpoint",
              "softbody_tpu_torch.render.adapters", "softbody_tpu_torch.render.video",
              "softbody_tpu_torch.render.preview",
              "softbody_tpu_torch.examples.inflate_demo",
-             "softbody_tpu_torch.examples.million_particles"):
+             "softbody_tpu_torch.examples.million_particles",
+             "softbody_tpu_torch.probe_stability", "softbody_tpu_torch.topology.sort",
+             "softbody_tpu_torch.parallel.sharding", "softbody_tpu_torch.parallel.halo",
+             "softbody_tpu_torch.parallel.sparse_shard",
+             "softbody_tpu_torch.parallel.dryrun"):
     assert name in mods, name
 # matplotlib and imageio are absent on the card's machine: imported lazily
 bad = sorted(m for m in sys.modules
@@ -95,6 +100,11 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         million_particles.main(["--particles", "300", "--steps", "2",
                                 "--out", str(REPO / "_never_written")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_stability.main(["--particles", "300", "--steps", "2",
+                              "--record-every", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(2)
     assert not (REPO / "_never_written").exists()
     # asked for the CPU, they run there
     _, fin, _ = rollout(x, scene, cfg, n_steps=1, device="cpu")

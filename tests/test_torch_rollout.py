@@ -110,3 +110,29 @@ def test_generate_targets_reference_layout(tmp_path):
     np.testing.assert_array_equal(tv, vel)
     with pytest.raises(ValueError, match="multiple"):
         generate_targets(x, scene, cfg, tmp_path, n_steps=5, device="cpu")
+
+
+@pytest.mark.parametrize("preset", ["stretch", "warp_parity"])
+def test_elastic_fn_hook_reproduces_step(preset):
+    """``elastic_fn`` given as the default force evaluation reproduces
+    ``initial_state`` and ``step`` bit for bit, symplectic (stretch) and
+    trapezoidal (warp_parity), as the SPMD paths rely on."""
+    from softbody_tpu_torch import warp_parity as twarp
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.sim.rollout import elastic_forces, initial_state, step
+
+    pts, out_num, h = small_body()
+    extra = STRETCH if preset == "stretch" else {}
+    cfg = twarp().replace(h=h, dtype="float64", backend="pallas", **extra)
+    scene, sop = build_sparse_scene(pts, cfg, out_num=out_num, device="cpu")
+    x = np.zeros(scene.blocked.n_slots)
+    x[sop] = np.random.default_rng(4).normal(scale=0.5, size=len(sop))
+    ratio = compute_ratio(torch.as_tensor(x), cfg)
+    hook = lambda p: elastic_forces(p, ratio, scene, cfg)  # noqa: E731
+    a = initial_state(scene, ratio, cfg)
+    b = initial_state(scene, ratio, cfg, elastic_fn=hook)
+    for _ in range(3):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        a, b = step(a, ratio, scene, cfg), step(b, ratio, scene, cfg, elastic_fn=hook)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert float((a.position - scene.rest_position).abs().max()) > 0

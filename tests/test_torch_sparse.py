@@ -69,14 +69,35 @@ def test_own_scene_build_gives_the_same_forces(setup):
 @pytest.mark.parametrize("override,error,match", [
     ({"backend": "gather"}, ValueError, "build_scene"),
     ({"backend": "gather", "pair_def_grad": "j"}, ValueError, "build_scene"),
-    ({"pair_dtype": "bfloat16"}, NotImplementedError, "item 8"),
 ])
 def test_unported_options_raise(setup, override, error, match):
-    """What the port does not run yet raises, naming its ROADMAP item, at
-    the rollout's force dispatch (the Taichi pairing runs since slice 4:
+    """What the port does not run on a sparse scene raises at the rollout's
+    force dispatch (the Taichi pairing runs since slice 4:
     tests/test_torch_separable.py); the gather backend runs since slice 10
-    (tests/test_torch_gather.py), on a ``build_scene`` scene only."""
+    (tests/test_torch_gather.py), on a ``build_scene`` scene only.  The
+    bf16 K2 slab runs: :func:`test_bf16_slab_matches_jax`."""
     _, _, cfg, _, scene_t, _, _ = setup
     ratio = torch.full((scene_t.blocked.n_slots,), 0.5, dtype=torch.float64)
     with pytest.raises(error, match=match):
         elastic_forces(scene_t.rest_position, ratio, scene_t, cfg.replace(**override))
+
+
+def test_bf16_slab_matches_jax(setup):
+    """``pair_dtype="bfloat16"`` through the rollout's force dispatch
+    against JAX's, f64 arithmetic on the bf16 K2 slab: TOL (no S | R value
+    rounds differently to bf16 in the two packages in f64; the f32 case:
+    tests/test_torch_bf16.py)."""
+    pts, _, cfg, scene_j, scene_t, sop, _ = setup
+    c = cfg.replace(pair_dtype="bfloat16")
+    pos = perturbed(scene_j, sop, 3e-2 * cfg.h, 6)
+    x = np.zeros(scene_j.blocked.n_slots)
+    x[sop] = np.random.default_rng(16).normal(scale=0.5, size=len(sop))
+    want = np.asarray(jax.jit(lambda p, xv: jforces(
+        p, jratio(xv, c), scene_j.materials, scene_j, c, interpret=True))(
+        to_jax(pos, "float64"), to_jax(x, "float64")))
+    ratio = compute_ratio(torch.as_tensor(x), c)
+    got = elastic_forces(torch.as_tensor(pos), ratio, scene_t, c).numpy()
+    f32 = elastic_forces(torch.as_tensor(pos), ratio, scene_t, cfg).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < TOL * scale
+    assert np.abs(got - f32).max() > 1e-6 * scale      # the slab's rounding shows
