@@ -7,11 +7,13 @@ top-15% Dirichlet clamp, f32) — and holds every hand-written kernel on that
 path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
-  2  kernel build (nvcc, from csrc/ in this checkout); the whole-scene
-     kernels' (K1/K2 v4 forward and their backwards, K2 v2 and its
-     backward passes, the fused K1 + mid-section, the raw K1 backward, the
-     separable K2 and its backward) registers, shared memory, spills and
-     resident blocks per SM, f32 and f64
+  2  kernel build (nvcc, from csrc/ in this checkout: one process per
+     source, pair_kernels.cu, fused_kernels.cu and mid_kernels.cu, all
+     started together); the whole-scene kernels' (K1/K2 v4 forward and
+     their backwards, K2 v2 and its backward passes, the fused K1 +
+     mid-section, the raw K1 backward, the separable K2 and its backward)
+     registers, shared memory, spills and resident blocks per SM, f32 and
+     f64 (the mid-section kernels' registers and spills: ptxas lines)
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -24,7 +26,8 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      max |dpos| <= 1e-3 max |pos - rest|
   7  quiet body: no load, x = 0, 3000 steps, rms drift from rest < 1e-6 m
   8  the launch counts of phase 5 against the launches the path implies
-     (K1 and K2: one per force evaluation)
+     (K1, the mid-section mid_records and K2: one per force evaluation);
+     the profiler's device activities per step
      (phases 5-7 run fewer steps when they would exceed TIME_BUDGET_S;
      the cut is printed)
   9  the K1 backward and the two K2 backward passes, one launch each over
@@ -45,7 +48,8 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      chunks, into a temporary directory: the losses strictly decrease,
      x.npy / losses.json / distances.json exist, every gradient is finite
  13  the launch counts of phases 11 and 12 against the launches the
-     gradient path implies
+     gradient path implies (mid_records with K1 and K2, mid_records_bwd
+     with the K1 backward)
 
  14  the fused K1 + mid-section path (cfg.fused_mid): the fused
      moments_mid and the raw K1 backward moments_raw_bwd with its row term,
@@ -71,8 +75,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      fwd+bwd ms/step, peak memory, busy share; bitwise repeat; kernel vs
      plain fused path over PREFIX_STEPS steps in f64 (phase 11's gates)
  20  the launch counts of phases 16 and 19 against what the fused path
-     implies (each of its kernels one launch per evaluation; none of the
-     v4 kernels, K1/K2 and their backwards)
+     implies (each of its kernels one launch per evaluation, and
+     mid_records_bwd once per backward evaluation; none of the v4 kernels,
+     K1/K2 and their backwards, and no mid_records)
 
  21  path A, the Taichi pairing (pair_def_grad="j") on the sparse scene:
      the separable K2 forces_sep and its backward forces_sep_bwd, one
@@ -110,7 +115,8 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      gate rms drift < 1e-4 m (uncentered true-f32 raw dots)
  28  path B's gradient, as phase 24
  29  the launch counts of phases 23-24 and 27-28 against what each path
-     implies: no kernel of another path runs
+     implies (mid_records / mid_records_bwd once per forward / backward
+     evaluation on both): no kernel of another path runs
 
  30  the gather backend (build_scene, its (N, K) tables; no K-nearest
      truncation): build seconds, K, real pairs, table bytes; one
@@ -189,15 +195,25 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      1e-3 of max |g|: f32, other summation orders), launches per rank per
      evaluation, ms/step, peak memory per rank; no scaling is measured
  43  parallel.dryrun_multichip(2) on the card (gloo)
+ 44  the mid-section kernels (csrc/mid_kernels.cu): mid_records and
+     mid_records_bwd, one launch each over every row, against their plain
+     versions (the eager mid-section, autograd through it) on the sparse
+     scene's rows (phase 6's stepped state, and the body at rest: F = I,
+     S = 0) and the varcol scene's (its raw dots with their - pos_i * rs6
+     correction), f32 (<= 1e-4 of max |plain|) and f64 (<= 1e-10), srT's
+     padding columns zero, a bitwise repeat; ms per launch, the plain
+     version's ms and the bound
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
-product loop, for the v4 path's kernels and the scatter; from phase 19, one
+product loop, for the v4 path's kernels, the mid-section kernels and the
+scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; from phases 39 and
 41, one bf16 gradient each, for the bf16 K2 kernels; ms per force
 evaluation on the sparse scene, one launch each, but the raw K1's, per
-launch on the varcol scene),
+launch on the varcol scene; the mid-section kernels' on the sparse scene's
+stepped rows),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -255,9 +271,16 @@ FLOPS_PER_PAIR.update({f"{k}_bf16": FLOPS_PER_PAIR[k] for k in (   # the bf16 K2
     "forces_warp_v4", "forces_warp_v4_bwd_rows", "forces_warp_v4_bwd_slab",
     "forces_warp_v2", "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")})
 # moments_mid's per-row epilogue, counted from csrc/mid.cuh: A | Y from the
-# warp sums (180), A^T A (45), 24 Jacobi rotations (~68 each), the SVD's U
-# and R = U V^T (~180), R^T Y, F, E, S and M = R F S (~240)
+# warp sums (180), A^T A (45), 24 Jacobi rotations (~67 each), the SVD's U
+# and R = U V^T (~200), R^T Y, F, E, S and M = R F S (~240)
 MID_FLOPS_PER_ROW = 2250
+# the mid-section kernels (csrc/mid_kernels.cu), per row: the forward is
+# that epilogue without the warp sums (2,090; the raw-dot correction adds
+# 36); the backward recomputes it but M (~2,000) and back-propagates M =
+# R F S (144), F S (105), the stress (36), F^T F (81), R^T Y (99) and the
+# polar's VJP (216) (~2,690; the correction adds 72)
+MID_RECORDS_FLOPS = {"mid_records": (2090, 36), "mid_records_bwd": (2690, 72)}
+MID_STEPS = 5              # phase 44: steps from the stretched body to its strained rows
 T_START = time.perf_counter()
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time, longer than any timed batch's enqueue
 
@@ -355,12 +378,12 @@ def main():
     from softbody_tpu_torch import warp_parity
     from softbody_tpu_torch.geometry.shapes import suggest_h
     from softbody_tpu_torch.ops import _build
+    from softbody_tpu_torch.ops import mid_kernels as mk
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
     from softbody_tpu_torch.opt.driver import generate_targets, load_targets
     from softbody_tpu_torch.scenarios import (STRETCH, dirichlet_mask, fit_body,
                                               x_star_bands)
-    from softbody_tpu_torch.sim.blocked import mid_section
     from softbody_tpu_torch.sim.rollout import acc_float, rollout, step, initial_state
     from softbody_tpu_torch.sim.sparse import build_sparse_scene, elastic_forces_sparse
 
@@ -439,13 +462,10 @@ def main():
     pos = torch.as_tensor(pos_np, dtype=torch.float32, device=dev)
     posT = pos.T.contiguous()
     ayT = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN)
-    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
-    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
-    R, F, S, M, _ = mid_section(A, Y, ratio, scene.materials, scene, cfg, m)
-    f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])
-    srT = torch.zeros((15, sb.n_slots), dtype=torch.float32, device=dev)
-    srT[:, :m] = torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
-                             + [R[a][c] for c in range(3) for a in range(3)])
+    rs = mk.row_static(sb, scene.materials, scene.rest_corr)
+    scale = cfg.stiffness_scale(ratio[:m])
+    fmT, srT = mk.mid_records_plain(ayT, rs, scale, cfg.corotated, sb.n_slots)
+    f9T = fmT[:9].contiguous()
 
     # ---- 3 the two ragged kernels: one launch per evaluation, each bucket's
     # columns held against that bucket's plain version
@@ -453,7 +473,8 @@ def main():
         f"per bucket on the card {tag}")
     stats = {k: {"ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
                  "max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None}
-             for k in list(FLOPS_PER_PAIR) + ["slab_to_slots", "slab_to_slots_bf16"]}
+             for k in list(FLOPS_PER_PAIR) + ["slab_to_slots", "slab_to_slots_bf16"]
+             + list(MID_RECORDS_FLOPS)}
     f32 = 4
     k1 = pk.moments_v4(sb, posT, posT[:, :m], cfg.h)
     k2 = pk.forces_warp_v4(sb, f9T, srT, cfg.h)
@@ -514,7 +535,7 @@ def main():
         "step": lambda: step(state, ratio, scene, cfg),
         "forces": lambda: elastic_forces_sparse(state.position, ratio,
                                                 scene.materials, scene, cfg),
-        "mid": lambda: mid_section(A, Y, ratio, scene.materials, scene, cfg, m),
+        "mid": lambda: mk.mid_records(ayT, rs, scale, cfg.corotated, sb.n_slots),
     }
     best = {k: math.inf for k in parts}
     for _ in range(5):
@@ -522,7 +543,7 @@ def main():
             best[k] = min(best[k], host_ms(fn, 5))
     ms_step = best["step"]
     say(f"    one step: {ms_step:.3f} ms wall; elastic forces {best['forces']:.3f} "
-        f"ms, of which mid-section {best['mid']:.3f} ms; integrator and the rest "
+        f"ms, of which the mid-section kernel's call {best['mid']:.3f} ms; integrator and the rest "
         f"{ms_step - best['forces']:.3f} ms; K1 {stats['moments_v4']['ms']:.3f} ms, "
         f"K2 {stats['forces_warp_v4']['ms']:.3f} ms device time (fastest of 5 "
         f"rounds) {tag}")
@@ -594,13 +615,13 @@ def main():
 
     # ---- 8 launch counts of the main path (phase 5)
     evals = 2 * steps      # symplectic: one force evaluation per step, none at start
-    want = evals           # one launch of each ragged kernel per evaluation
+    want = evals           # one launch of each forward kernel per evaluation
     say(f"[8] launches on the forward path: " + ", ".join(
         f"{k} {v}" for k, v in launches_fwd.items())
         + f" (expected {want} for each forward kernel = one launch x {evals} force "
         f"evaluations, 0 for the backward ones)")
     for k, v in launches_fwd.items():
-        expect = want if k in ("moments_v4", "forces_warp_v4") else 0
+        expect = want if k in ("moments_v4", "mid_records", "forces_warp_v4") else 0
         if v != expect:
             fail(f"{k} launched {v} times on the forward path, expected {expect}")
 
@@ -608,11 +629,11 @@ def main():
     # profiler's tracing must not slow what the phases above measured)
     busy_ms, activities, pair_ms = profile_card(
         torch, ten_steps(initial_state(scene, ratio, cfg), ratio, scene, cfg),
-        ("moments_v4_kernel", "forces_warp_v4_kernel"), 10)
+        ("moments_v4_kernel", "mid_records_kernel", "forces_warp_v4_kernel"), 10)
     if busy_ms > 0:
         say(f"    profile: device busy {busy_ms:.3f} ms/step over 10 steps in "
-            f"{activities:.0f} device activities per step, of which the "
-            f"two pair kernels {pair_ms:.3f} ms; idle share "
+            f"{activities:.0f} device activities per step, of which the two pair "
+            f"kernels and the mid-section kernel {pair_ms:.3f} ms; idle share "
             f"{1 - busy_ms / ms_ep:.3f} of the episode's {ms_ep:.3f} ms/step {tag}")
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
@@ -637,10 +658,12 @@ def main():
     phase_inflate(torch, np, dev, tag)
     phase_million(torch, np, dev, tag)
     bf16_launches = phase_bf16(torch, np, dev, tag, scene, cfg, x_star, stats, ctx, path_b)
+    scene_b, x_b = path_b["scene"], path_b["x"]
     del path_b
     staged = phase_spmd(torch, np, dev, tag, pts, out_num, cfg, lambda ns, s: torch.as_tensor(
         x_star_bands(pts, ns, s), dtype=torch.float32, device=dev))
     phase_dryrun(torch, tag, staged)
+    phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats)
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
@@ -924,11 +947,11 @@ def phase_grad(torch, np, dev, tag, scene, sop, cfg, x_star, stats, pos,
     # runs each step's forces 3 times (the no-grad forward keeping chunk
     # boundaries, the chunk's recompute under autograd, the per-step
     # checkpoint's recompute in the backward) and backward once:
-    #   K1, K2 forward:               3 S (one launch over every tile)
-    #   K1 bwd, K2 bwd rows and slab: S (one launch over every tile)
+    #   K1, mid-section, K2 forward:  3 S (one launch over every tile or row)
+    #   K1 bwd, mid-section bwd, K2 bwd rows and slab: S (one launch each)
     #   slab_to_slots:                2 S (one after K1's, one after K2's)
-    per_eval = {"moments_v4": 3 * S, "forces_warp_v4": 3 * S,
-                "moments_v4_bwd": S, "forces_warp_v4_bwd_rows": S,
+    per_eval = {"moments_v4": 3 * S, "mid_records": 3 * S, "forces_warp_v4": 3 * S,
+                "moments_v4_bwd": S, "mid_records_bwd": S, "forces_warp_v4_bwd_rows": S,
                 "forces_warp_v4_bwd_slab": S, "slab_to_slots": 2 * S}
     say(f"[13] launches of one gradient (phase 11): {counts_grad}; of the "
         f"L-BFGS run (phase 12, {res.nfev} evaluations): {counts_opt}; "
@@ -1239,11 +1262,12 @@ def phase_fused(torch, np, dev, tag, scene, cfg, x_star, stats, pos, ctx):
     # forward: one fused K1 + mid-section and one K2 v2 over the scene per
     # step, two episodes.
     # Gradient (as phase 13): forward kernels 3 times per step, backward
-    # kernels once (the raw K1 backward and each K2 v2 pass one launch),
-    # slab_to_slots twice (after the raw K1 and the K2 v2 backward); none
-    # of the v4 kernels.
+    # kernels once (the mid-section's VJP, the raw K1 backward and each K2
+    # v2 pass one launch), slab_to_slots twice (after the raw K1 and the K2
+    # v2 backward); none of the v4 kernels, no mid_records (the forward's
+    # mid-section is moments_mid's epilogue).
     fwd = {"moments_mid": 2 * steps, "forces_warp_v2": 2 * steps}
-    per_eval = {"moments_mid": 3 * S, "forces_warp_v2": 3 * S,
+    per_eval = {"moments_mid": 3 * S, "forces_warp_v2": 3 * S, "mid_records_bwd": S,
                 "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S,
                 "forces_warp_v2_bwd_slab": S, "slab_to_slots": 2 * S}
     say(f"[20] fused launches: forward episode (phase 16) {counts_fwd}; one "
@@ -2103,7 +2127,7 @@ def phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg):
         f"{float(rec_p[-1][:, 1].min()):.3e} m {tag}")
     if not finite or overflow or bool(ovf_end):
         fail("the DROP + obstacles + contact episode is not finite or overflowed")
-    want = {"moments_v4": steps, "forces_warp_v4": steps}
+    want = {"moments_v4": steps, "mid_records": steps, "forces_warp_v4": steps}
     if counts != {k: want.get(k, 0) for k in counts}:
         fail(f"DROP episode launches {counts}, expected {want} and 0 for the rest")
 
@@ -2149,9 +2173,9 @@ def phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg):
         f"second gradient bitwise equal: {repeat}; launches {counts} {tag}")
     if not (math.isfinite(loss1) and bool(torch.isfinite(g1).all()) and repeat):
         fail("the DROP + obstacles + contact gradient is not finite or does not repeat")
-    per_eval = {"moments_v4": 3 * S, "forces_warp_v4": 3 * S, "moments_v4_bwd": S,
-                "forces_warp_v4_bwd_rows": S, "forces_warp_v4_bwd_slab": S,
-                "slab_to_slots": 2 * S}
+    per_eval = {"moments_v4": 3 * S, "mid_records": 3 * S, "forces_warp_v4": 3 * S,
+                "moments_v4_bwd": S, "mid_records_bwd": S, "forces_warp_v4_bwd_rows": S,
+                "forces_warp_v4_bwd_slab": S, "slab_to_slots": 2 * S}
     if counts != {k: per_eval.get(k, 0) for k in counts}:
         fail(f"DROP gradient launches {counts}, expected {per_eval} (phase 13)")
 
@@ -2221,11 +2245,12 @@ def phase_adam(torch, np, dev, tag, scene, x_star, ctx):
 def trapezoidal_grad(S):
     """Launches of one trapezoidal gradient of S steps on the sparse kernel
     path: phase 13's per step, plus the initial state's force evaluation
-    (forward and recompute) and its backward (K2 only: the rest positions
-    carry no gradient)."""
-    return {"moments_v4": 3 * S + 2, "forces_warp_v4": 3 * S + 2,
-            "moments_v4_bwd": S, "forces_warp_v4_bwd_rows": S + 1,
-            "forces_warp_v4_bwd_slab": S + 1, "slab_to_slots": 2 * S + 1}
+    (forward and recompute) and its backward (the mid-section's and K2's
+    only: the rest positions carry no gradient, x does)."""
+    return {"moments_v4": 3 * S + 2, "mid_records": 3 * S + 2,
+            "forces_warp_v4": 3 * S + 2, "moments_v4_bwd": S, "mid_records_bwd": S + 1,
+            "forces_warp_v4_bwd_rows": S + 1, "forces_warp_v4_bwd_slab": S + 1,
+            "slab_to_slots": 2 * S + 1}
 
 
 def scaled(counts, k):
@@ -2297,7 +2322,8 @@ def phase_cli(torch, np, dev, tag):
     restore = memoized_builders()
     real_adam = driver.optimize_adam
     per_eval = trapezoidal_grad(F)
-    fwd = {"moments_v4": F + 1, "forces_warp_v4": F + 1}    # trapezoidal: S + 1
+    fwd = {"moments_v4": F + 1, "mid_records": F + 1,      # trapezoidal: S + 1
+           "forces_warp_v4": F + 1}
     targets = {}
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2469,12 +2495,14 @@ def phase_inflate(torch, np, dev, tag):
     S, steps = int(INFLATE_CUT[1]), int(INFLATE_CUT[3])
     nb = len(seen["scene"].blocked.buckets)
     evals = steps + seen["nfev"]
-    per_eval = {"moments_raw": (3 * S + 2) * nb, "forces_warp_v2": 3 * S + 2,
-                "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S + 1,
-                "forces_warp_v2_bwd_slab": S + 1, "slab_to_slots": 2 * S + 1}
+    per_eval = {"moments_raw": (3 * S + 2) * nb, "mid_records": 3 * S + 2,
+                "forces_warp_v2": 3 * S + 2, "moments_raw_bwd": S, "mid_records_bwd": S + 1,
+                "forces_warp_v2_bwd_rows": S + 1, "forces_warp_v2_bwd_slab": S + 1,
+                "slab_to_slots": 2 * S + 1}
     # the targets' and the final rollout's forward episodes, and the build's
     # one raw K1 call for the static row sums
     want = added(scaled(per_eval, evals), {"moments_raw": 2 * (S + 1) * nb + 1,
+                                           "mid_records": 2 * (S + 1),
                                            "forces_warp_v2": 2 * (S + 1)})
     a, lb = report["adam_loss"], report["lbfgs_loss"]
     say(f"[36] inflate_demo --backend pallas {' '.join(INFLATE_CUT)} (CUT: its "
@@ -2543,20 +2571,22 @@ def phase_million(torch, np, dev, tag):
     if not (finite and len(frames) == S // 100 and all(scenes)
             and math.isfinite(report["grad_loss"]) and math.isfinite(report["grad_norm"])):
         fail("million_particles: a state is not finite or a frame is missing")
-    per_grad = {"moments_v4": 3 * G, "forces_warp_v4": 3 * G, "moments_v4_bwd": G,
-                "forces_warp_v4_bwd_rows": G, "forces_warp_v4_bwd_slab": G,
-                "slab_to_slots": 2 * G}
-    want_c = added(per_grad, {"moments_v4": 1 + S, "forces_warp_v4": 1 + S})
+    per_grad = {"moments_v4": 3 * G, "mid_records": 3 * G, "forces_warp_v4": 3 * G,
+                "moments_v4_bwd": G, "mid_records_bwd": G, "forces_warp_v4_bwd_rows": G,
+                "forces_warp_v4_bwd_slab": G, "slab_to_slots": 2 * G}
+    want_c = added(per_grad, {"moments_v4": 1 + S, "mid_records": 1 + S,
+                              "forces_warp_v4": 1 + S})
     say(f"    launches {counts}; expected {want_c} (a one-step warm-up, {S} forward "
         f"steps, one {G}-step gradient as phase 13)")
     gate_counts("million_particles", counts, want_c)
     ratio = compute_ratio(x, cfg)
     busy, acts, ours = profile_card(
         torch, ten_steps(initial_state(scene, ratio, cfg), ratio, scene, cfg),
-        ("moments_v4_kernel", "forces_warp_v4_kernel"), 10)
+        ("moments_v4_kernel", "mid_records_kernel", "forces_warp_v4_kernel"), 10)
     if busy > 0:
         say(f"    profile: device busy {busy:.3f} ms/step over 10 steps in {acts:.0f} "
-            f"device activities per step, of which the two pair kernels {ours:.3f} "
+            f"device activities per step, of which the two pair kernels and the "
+            f"mid-section kernel {ours:.3f} "
             f"ms; idle share {1 - busy / ms:.3f} of the episode's {ms:.3f} ms/step {tag}")
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
@@ -2897,10 +2927,11 @@ def phase_spmd(torch, np, dev, tag, pts, out_num, cfg, x_star_fn):
             # forces once forward and once in its checkpoint's recompute;
             # the first step's K1 reads the rest state, a constant, so its
             # backward does not run
-            want_g = {"moments_v4": 2 * G, "forces_warp_v4": 2 * G, "moments_v4_bwd": G - 1,
+            want_g = {"moments_v4": 2 * G, "mid_records": 2 * G, "forces_warp_v4": 2 * G,
+                      "moments_v4_bwd": G - 1, "mid_records_bwd": G,
                       "forces_warp_v4_bwd_rows": G, "forces_warp_v4_bwd_slab": G,
                       "slab_to_slots": 2 * G - 1}
-            want_f = {"moments_v4": S, "forces_warp_v4": S}
+            want_f = {"moments_v4": S, "mid_records": S, "forces_warp_v4": S}
             got_f = {k: v for k, v in rv["c_fwd"].items() if v}
             got_g = {k: v for k, v in rv["c_grad"].items() if v}
             if got_f != want_f or got_g != want_g:
@@ -2926,6 +2957,121 @@ def phase_dryrun(torch, tag, staged):
         fail("dryrun_multichip did not run every path")
 
 
+def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
+    """Phase 44: mid_records and mid_records_bwd against their plain
+    versions on every row of the sparse scene and of the varcol scene (its
+    raw dots with their correction), strained (the stretched, jittered body
+    of phases 3-4 after MID_STEPS steps) and at rest, in f32 and f64; ms,
+    plain ms and bound per launch (the sparse strained rows' f32 numbers
+    into ``stats``).  At rest F = I and S and M are rounding noise of the
+    same size in both versions, so there the errors are taken against the
+    strained rows' max |plain|."""
+    from softbody_tpu_torch.ops import fused_kernels as fk
+    from softbody_tpu_torch.ops import mid_kernels as mk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.sim.rollout import initial_state, step
+
+    say(f"[44] the mid-section kernels (csrc/mid_kernels.cu): mid_records and "
+        f"mid_records_bwd, one launch each over every row, kernel vs plain {tag}")
+    rng = np.random.default_rng(44)
+    tols = {torch.float32: TOL, torch.float64: 1e-10}
+    ratio = ctx["ratio"]
+    with torch.no_grad():
+        st = initial_state(scene, ratio, cfg)._replace(position=ctx["pos"])
+        for _ in range(MID_STEPS):
+            st = step(st, ratio, scene, cfg)
+    strained = st.position
+    if not bool(torch.isfinite(strained).all()):
+        fail(f"the stretched body is not finite after {MID_STEPS} steps")
+    strained_b = scene_b.rest_position.clone()
+    strained_b[scene_b.slot_of_particle] = strained[scene.slot_of_particle]
+    names = ("fmT", "srT", "dayT", "dscale", "dposT_rows")
+    for label, sc, ratio_s, pos_s in (
+            ("sparse", scene, ratio, strained),
+            ("varcol", scene_b, compute_ratio(x_b, cfg), strained_b)):
+        sb = sc.blocked
+        m, n_sr = sb.n_tiles * sb.rows, sb.n_slots
+        raw = label == "varcol"
+        ref = {}                    # (dtype, output): the strained rows' max |plain|
+        for state, pos in (("strained", pos_s), ("at rest", sc.rest_position)):
+            posT = pos.T.contiguous()
+            ayT = (fk.moments_raw_all(posT, sb, cfg.h, pk.PLAIN) if raw
+                   else pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN))
+            base = (ayT, mk.row_static(sb, sc.materials, sc.rest_corr),
+                    cfg.stiffness_scale(ratio_s[:m]), posT[:, :m] if raw else None,
+                    sb.rs6T if raw else None,
+                    torch.as_tensor(rng.normal(size=(19, m)), device=dev),
+                    torch.as_tensor(rng.normal(size=(15, m)), device=dev))
+            for dt in (torch.float32, torch.float64):
+                ay, rs, sc_, p, r6, dfm, dsr = [
+                    None if a is None else mk.RowStatic(*(f.to(dt) for f in a))
+                    if isinstance(a, mk.RowStatic) else a.to(dt) for a in base]
+                fwd = (lambda: mk.mid_records(ay, rs, sc_, cfg.corotated, n_sr, p, r6))
+                bwd = (lambda: mk.mid_records_bwd(ay, rs, sc_, cfg.corotated, dfm, dsr, p,
+                                                  r6))
+                pk.reset_launch_counts()
+                got = fwd() + bwd()
+                torch.cuda.synchronize()
+                counts = pk.launch_counts()
+                if counts != dict.fromkeys(counts, 0) | {"mid_records": 1,
+                                                         "mid_records_bwd": 1}:
+                    fail(f"mid-section kernels on the {label} rows: launches {counts}")
+                want = (mk.mid_records_plain(ay, rs, sc_, cfg.corotated, n_sr, p, r6)
+                        + mk.mid_records_bwd_plain(ay, rs, sc_, cfg.corotated, dfm, dsr,
+                                                   p, r6))
+                errs = {}
+                for nm, g, w in zip(names, got, want):
+                    if w is None:
+                        continue
+                    if not bool(torch.isfinite(g).all()):
+                        fail(f"mid-section kernels, {label} {state} {dt}: non-finite {nm}")
+                    if state == "strained":
+                        ref[dt, nm] = float(torch.max(torch.abs(w)))
+                    diff = float(torch.max(torch.abs(g - w)))
+                    errs[nm] = diff / ref[dt, nm]
+                    if dt == torch.float32:
+                        key = "mid_records" if nm in ("fmT", "srT") else "mid_records_bwd"
+                        stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], diff)
+                        stats[key]["max_rel_err"] = max(stats[key]["max_rel_err"], errs[nm])
+                again = fwd() + bwd()
+                same = all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+                pad = not got[1][:, m:].any()
+                say(f"    {label} rows (m = {m}), {state}, {str(dt)[6:]}: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" of the strained rows' max |plain| (tol {tols[dt]:g}); srT's "
+                    f"{n_sr - m} padding columns zero: {pad}; bitwise repeat: {same}")
+                if not (max(errs.values()) <= tols[dt] and same and pad):
+                    fail(f"the mid-section kernels disagree with their plain versions "
+                         f"({label} {state} {dt})")
+                if state != "strained" or dt != torch.float32:
+                    continue
+                f32 = 4
+                corr = 9 * m if raw else 0
+                work = {
+                    "mid_records": (fwd, lambda: mk.mid_records_plain(
+                        ay, rs, sc_, cfg.corotated, n_sr, p, r6),
+                        (31 * m + corr + 19 * m + 15 * n_sr) * f32),
+                    "mid_records_bwd": (bwd, lambda: mk.mid_records_bwd_plain(
+                        ay, rs, sc_, cfg.corotated, dfm, dsr, p, r6),
+                        (63 * m + corr + 19 * m + (3 * m if raw else 0)) * f32),
+                }
+                for key, (kern, plain, nbytes) in work.items():
+                    per_row, extra = MID_RECORDS_FLOPS[key]
+                    flops = (per_row + (extra if raw else 0)) * m
+                    ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 2)
+                    if label == "sparse":
+                        st = stats[key]
+                        st.update(ms=ms, launch_ms=host_ms(kern, 50), plain_ms=plain_ms,
+                                  flops=flops, bytes=nbytes)
+                        summarize(key, st, 1, tag)
+                    else:
+                        bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+                        say(f"    {key} on the varcol rows: {ms:.4f} ms device per launch "
+                            f"vs bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                            f"{flops / 1e9:.3f} GFLOP); plain {plain_ms:.3f} ms {tag}")
+
+
 def phase_counts(a, b):
     """Phase 29: the launch counts of phases 23-24 (path A) and 27-28 (path
     B) against what each path implies; every other kernel 0."""
@@ -2934,13 +3080,17 @@ def phase_counts(a, b):
     # gradient runs the forward kernels 3 times per step and the backward
     # ones once (phase 13)
     want = {
-        ("A", "fwd"): {"moments_v4": 2 * a["steps"], "forces_sep": 2 * a["steps"]},
-        ("A", "grad"): {"moments_v4": 3 * S, "forces_sep": 3 * S, "moments_v4_bwd": S,
-                        "forces_sep_bwd": S, "slab_to_slots": 2 * S},
-        ("B", "fwd"): {"moments_raw": 2 * b["steps"], "forces_warp_v2": 2 * b["steps"]},
-        ("B", "grad"): {"moments_raw": 3 * S, "forces_warp_v2": 3 * S,
-                        "moments_raw_bwd": S, "forces_warp_v2_bwd_rows": S,
-                        "forces_warp_v2_bwd_slab": S, "slab_to_slots": 2 * S},
+        ("A", "fwd"): {"moments_v4": 2 * a["steps"], "mid_records": 2 * a["steps"],
+                       "forces_sep": 2 * a["steps"]},
+        ("A", "grad"): {"moments_v4": 3 * S, "mid_records": 3 * S, "forces_sep": 3 * S,
+                        "moments_v4_bwd": S, "mid_records_bwd": S, "forces_sep_bwd": S,
+                        "slab_to_slots": 2 * S},
+        ("B", "fwd"): {"moments_raw": 2 * b["steps"], "mid_records": 2 * b["steps"],
+                       "forces_warp_v2": 2 * b["steps"]},
+        ("B", "grad"): {"moments_raw": 3 * S, "mid_records": 3 * S, "forces_warp_v2": 3 * S,
+                        "moments_raw_bwd": S, "mid_records_bwd": S,
+                        "forces_warp_v2_bwd_rows": S, "forces_warp_v2_bwd_slab": S,
+                        "slab_to_slots": 2 * S},
     }
     got = {("A", "fwd"): a["fwd"], ("A", "grad"): a["grad"],
            ("B", "fwd"): b["fwd"], ("B", "grad"): b["grad"]}
@@ -2978,6 +3128,10 @@ REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
     "forces_warp_v2_bwd_rows_bf16": ("pair_kernels", "pair_kernels.py:936"),
     "forces_warp_v2_bwd_slab_bf16": ("pair_kernels", "pair_kernels.py:936"),
     "slab_to_slots_bf16": ("pair_kernels", "packed.py:931"),
+    # the mid-section and its VJP (the XLA reference _mid_xla and jax.vjp of
+    # it in _fused_vjp_bwd, where the TPU path has no Pallas body)
+    "mid_records": ("mid_kernels", "packed.py:533"),
+    "mid_records_bwd": ("mid_kernels", "packed.py:634"),
 }
 
 

@@ -3,11 +3,13 @@ whole-scene kernels, one launch per evaluation each: the v4 path's K1/K2
 forward and backward, the fused path's K1 + mid-section, K2 v2 of the
 fused path and the blocked layout and its backward, the raw K1's backward,
 the Taichi pairing's separable K2 and its backward, and the fixed-order
-scatter) and csrc/fused_kernels.cu (the raw K1 of the blocked layout),
-each including csrc/common.cuh (pair_kernels.cu also csrc/mid.cuh).
+scatter), csrc/fused_kernels.cu (the raw K1 of the blocked layout) and
+csrc/mid_kernels.cu (the mid-section and its VJP as their own launches),
+each including csrc/common.cuh (pair_kernels.cu and mid_kernels.cu also
+csrc/mid.cuh).
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
-one library per source, into the package's git-ignored build directory at
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+(and ``--fmad=false`` for mid_kernels.cu), one library per source, into the package's git-ignored build directory at
 first use, from the sources in the repository only; the missing libraries
 are compiled by one nvcc process each, all started together.  The libraries
 have a plain C interface and are loaded with ctypes.  A library's name
@@ -29,12 +31,19 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pair_kernels", "fused_kernels")
+SOURCES = ("pair_kernels", "fused_kernels", "mid_kernels")
 HEADERS = ("common.cuh", "mid.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per source: the mid-section kernels round every operation on its own, as
+# their plain version does (csrc/mid_kernels.cu says why)
+SOURCE_FLAGS = {"mid_kernels": ["--fmad=false"]}
+
+
+def flags(source: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, [])
 
 # ctypes argument types of each entry point sb_<name>_<f32|f64>
 _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
@@ -72,6 +81,13 @@ SIGNATURES = {
         "moments_raw": [_P, _P, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _F64,
                         _F64, _F64, _P],
     },
+    "mid_kernels": {
+        "mid_records": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _I64, _P, _P,
+                        _I64, _P, _I64, _I64, _I64, _I32, _I32, _P],
+        "mid_records_bwd": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P,
+                            _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _I32, _I32,
+                            _P],
+    },
 }
 
 # The K2 kernels that also take a bf16 srT slab (cfg.pair_dtype="bfloat16"),
@@ -105,7 +121,7 @@ def source_path(source: str) -> Path:
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(source_path(source).read_bytes()
                             + b"".join((CSRC / h).read_bytes() for h in HEADERS)
-                            + " ".join(NVCC_FLAGS).encode())
+                            + " ".join(flags(source)).encode())
     return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
 
 
@@ -122,7 +138,7 @@ def build() -> dict:
     for s in missing:
         tmp = out[s].with_name(f"{out[s].name}.{os.getpid()}.tmp")
         procs[s] = (tmp, subprocess.Popen(
-            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(source_path(s))],
+            [compiler, *flags(s), "-o", str(tmp), str(source_path(s))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for s, (tmp, proc) in procs.items():

@@ -63,20 +63,18 @@ its ``launches`` attribute; any other device raises.
 :func:`moments_mid_all` / :func:`moments_raw_all` / :func:`forces_v2_all`
 are the differentiable ops over a scene, going through a
 ``pair_kernels.PairOps`` (its ``KERNELS`` or ``PLAIN`` table).  The
-backward of :func:`moments_mid_all` rebuilds the mid-section from the
-saved A | Y under autograd (the port's counterpart of ``packed._mid_xla``;
-the polar through its clamped VJP), then runs one :func:`moments_raw_bwd`
-and one ``slab_to_slots``.
+backward of :func:`moments_mid_all` runs the mid-section's VJP on the
+saved A | Y (``ops/mid_kernels.mid_records_bwd``, the counterpart of
+``jax.vjp`` of ``packed._mid_xla``: one launch on the card), then one
+:func:`moments_raw_bwd` and one ``slab_to_slots``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..sim.blocked import mid_rows
+from .mid_kernels import FM_FIELDS, SWEEPS, RowStatic, mid_records_plain, row_static
 from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, _no_tf32, aligned,
                           bucket_cols, centered_moments, check_lane_major,
                           check_scene, check_slab, check_tiles, check_vector,
@@ -86,47 +84,8 @@ from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, _no_tf32, aligned,
                           spline_constants, stream, tile_chunked, warp_nw,
                           warp_termj, warp_termj_bwd, whole_pieces)
 
-FM_FIELDS = 19     # rows of fmT: F_9 | M_9 | V_i
-SWEEPS = 8         # Jacobi sweeps of the polar (mat3.polar3's default)
-
-
-class RowStatic(NamedTuple):
-    """The fused kernel's per-row static operands, lane-major views of the
-    scene's arrays: mu / lam / vol (k,), rcT (9, k) the rest correction,
-    row 3a+b = rc[a][b].  (The static row sums, the rest of JAX's
-    ``stat_rows`` record, are the scene's own ``rs6T``.)"""
-
-    mu: torch.Tensor
-    lam: torch.Tensor
-    vol: torch.Tensor
-    rcT: torch.Tensor
-
-    def cols(self, c: slice) -> "RowStatic":
-        return RowStatic(self.mu[c], self.lam[c], self.vol[c], self.rcT[:, c])
-
-
-def row_static(sb, mats, rest_corr) -> RowStatic:
-    """The :class:`RowStatic` of every tile row of a scene: ``sb`` its
-    SparseBlocked, ``mats`` its Materials, ``rest_corr`` (3, 3, m)."""
-    m = sb.n_tiles * sb.rows
-    return RowStatic(mats.mu[:m], mats.lam[:m], mats.volume[:m], rest_corr.reshape(9, m))
-
 
 # ------------------------------------------------------------- plain versions
-def mid_records(ayT, rs: RowStatic, scale, corotated: bool):
-    """The mid-section from K1's A | Y rows ayT (18, k): (fmT (19, k),
-    srT (15, k)).  Differentiable (the polar through its clamped VJP)."""
-    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
-    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
-    R, F, S, M = mid_rows(A, Y, rs.rcT.unflatten(0, (3, 3)), rs.mu, rs.lam,
-                          scale, corotated)
-    fmT = torch.stack([F[a][b] for a in range(3) for b in range(3)]
-                      + [M[a][b] for a in range(3) for b in range(3)] + [rs.vol])
-    srT = torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
-                      + [R[a][c] for c in range(3) for a in range(3)])
-    return fmT, srT
-
-
 def moments_mid_plain(restT_rows, static_slab, posT, posT_rows, rs: RowStatic,
                       scale, gidx8, h, corotated, emit_ay=False):
     """Plain fused K1 + mid-section of one bucket: (fmT (19, t*rows),
@@ -134,7 +93,7 @@ def moments_mid_plain(restT_rows, static_slab, posT, posT_rows, rs: RowStatic,
     :func:`~.pair_common.centered_moments`; scale (t*rows,) is the rows'
     stiffness scale."""
     ayT = centered_moments(restT_rows, static_slab, posT, posT_rows, gidx8, h)
-    fmT, srT = mid_records(ayT, rs, scale, corotated)
+    fmT, srT = mid_records_plain(ayT, rs, scale, corotated, ayT.shape[1])
     return fmT, srT, (ayT if emit_ay else None)
 
 
@@ -485,12 +444,11 @@ class _MomentsMid(torch.autograd.Function):
         sb, rs, ops = ctx.sb, ctx.rs, ctx.ops
         ayT, scale = ctx.saved_tensors
         m = sb.n_tiles * sb.rows
-        with torch.enable_grad():
-            ay = ayT.detach().requires_grad_()
-            sc = scale.detach().requires_grad_()
-            fm, sr = mid_records(ay, rs, sc, ctx.corotated)
-            dayT, dscale = torch.autograd.grad((fm, sr), (ay, sc),
-                                               (dfmT, dsrT[:, :m]))
+        # the mid-section's VJP from the saved A | Y (packed._fused_vjp_bwd's
+        # jax.vjp of _mid_xla): one launch
+        dayT, dscale, _ = ops.mid_records_bwd(ayT, rs, scale, ctx.corotated,
+                                              dfmT.contiguous(),
+                                              dsrT.contiguous()[:, :m])
         # the slab side, and the rows' own positions entering as
         # -pos_i * rowsum against the static row sums (as the JAX VJP
         # takes them): one launch
@@ -546,9 +504,9 @@ class _ForcesWarpV2(torch.autograd.Function):
 def moments_mid_all(posT, posT_rows, scale, sb, rs: RowStatic, h, corotated, ops):
     """Differentiable fused K1 + mid-section over every tile of ``sb``:
     (fmT (19, m), srT (15, n_slots)), one launch on the card.  Its backward
-    rebuilds the mid-section from the saved A | Y under autograd, then runs
-    one raw K1 backward launch (with the row term) and one
-    ``slab_to_slots``."""
+    is one ``mid_records_bwd`` launch on the saved A | Y
+    (``ops/mid_kernels.py``), one raw K1 backward launch (with the row
+    term) and one ``slab_to_slots``."""
     return _MomentsMid.apply(posT, posT_rows, scale, sb, rs, h, corotated, ops)
 
 

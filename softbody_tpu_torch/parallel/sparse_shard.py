@@ -48,10 +48,10 @@ from ..config import SimConfig
 from ..core.types import Materials, Scene, SparseBlocked
 from ..ops.contact import contact_forces_query
 from ..ops.elasticity import gather
+from ..ops.mid_kernels import mid_records_all, row_static
 from ..ops.pair_kernels import KERNELS, PairOps, forces_all, moments_all, sparse_blocked
 from ..ops.separable_kernels import forces_sep_all
-from ..sim.blocked import mid_section
-from ..sim.sparse import pair_slab, slot_rows
+from ..sim.sparse import pair_slab, term_i_forces
 from .sharding import Group, group_episode
 
 
@@ -271,21 +271,16 @@ def _elastic_local(pos_loc, ratio_loc, run: ShardRun, cfg: SimConfig, group: Gro
     m_loc = pos_loc.shape[0]
     posT = pos_loc.T.contiguous()
     ayT = moments_all(run.source(posT), posT, sb, cfg.h, pair_ops)   # (18, m_loc)
-    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
-    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
-    R, F, S, M, vol_m = mid_section(A, Y, ratio_loc, lscene.materials, lscene, cfg, m_loc)
+    fmT, srT = mid_records_all(ayT, cfg.stiffness_scale(ratio_loc[:m_loc]),
+                               row_static(sb, lscene.materials, lscene.rest_corr),
+                               cfg.corotated, m_loc, pair_ops)
     if cfg.pair_def_grad == "j":
-        gT = slot_rows([vol_m * M[a][b] for a in range(3) for b in range(3)], m_loc)
-        f = forces_sep_all(run.source(gT), vol_m, sb, cfg.h, pair_ops).T
+        gT = fmT[18] * fmT[9:18]                                        # G = V M
+        f = forces_sep_all(run.source(gT), fmT[18], sb, cfg.h, pair_ops).T
     else:
-        f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])
-        srT = pair_slab(torch.stack([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
-                                    + [R[a][c] for c in range(3) for a in range(3)]), cfg)
-        termjT = forces_all(f9T, run.source(srT), sb, cfg.h, pair_ops)  # (3, m_loc)
-        rs6T = sb.rs6T
-        f = torch.stack([
-            0.5 * vol_m * (termjT[a] + sum(M[a][b_] * rs6T[3 + b_] for b_ in range(3)))
-            for a in range(3)], dim=1)
+        termjT = forces_all(fmT[:9], run.source(pair_slab(srT, cfg)), sb, cfg.h,
+                            pair_ops)                                   # (3, m_loc)
+        f = term_i_forces(fmT, termjT, sb.rs6T).T
     if run.contact is not None:
         pos_all = group.all_gather(pos_loc, 0)
         f = f + contact_forces_query(pos_all, pos_loc, run.rows.start, run.contact,

@@ -11,20 +11,22 @@ volume, Dirichlet frozen) and whose ``blocked`` is a
 torch reference (``ops/blocked.py``), ``"pallas"`` is
 :func:`elastic_forces_pallas`, the pair kernels:
 
-  posT -> [moments_raw_all: raw K1 moments_raw] -> ayT (18, m)
-    -> A, Y = dots - pos_i * rs6 (rs6: the same kernel on an all-ones RHS)
-    -> mid-section (eager torch) -> "i": [forces_v2_all: K2 forces_warp_v2,
-       one launch over every tile] on fmT = [F | M | V] and srT =
-       [S_6 | R^T_9]; "j": [forces_sep_all: the separable K2] on G = V M
+  posT -> [moments_raw_all: raw K1 moments_raw] -> ayT (18, m) raw dots
+    -> [mid_records_all on the raw dots: A, Y = dots - pos_i * rs6 (rs6:
+       the same kernel on an all-ones RHS), the polar, F, S and M, one
+       launch] -> fmT = [F | M | V] (19, m), srT = [S_6 | R^T_9]
+       (15, n_slots)
+    -> "i": [forces_v2_all: K2 forces_warp_v2, one launch over every tile];
+       "j": [forces_sep_all: the separable K2] on G = V M
        -> forces (n_slots, 3)
 
 The blocked path ignores ``cfg.fused_mid``, as the JAX package's does.
 
-The mid-section (:func:`mid_rows`, :func:`mid_section`) is plain eager
-torch on component lists of (m,) tensors: polar rotation, deformation
-gradient, StVK stress and M = R F S.  It is a long chain of small
-elementwise kernels (the Jacobi polar alone is ~2000), so on the card it is
-launch-bound, not a pair kernel.
+The mid-section on component lists of (k,) tensors (:func:`mid_rows`,
+:func:`mid_section`: polar rotation, deformation gradient, StVK stress and
+M = R F S) is the plain version of ``ops/mid_kernels``' kernels (which run
+it on the card, one launch per evaluation, on every path the pallas
+backend takes), and the plain reference's own.
 """
 
 from __future__ import annotations
@@ -259,16 +261,18 @@ def elastic_forces_pallas(pos_slots, ratio_slots, mats: Materials, scene: Scene,
     """The ``pallas`` backend: the pair kernels on either scene type (a
     sparse scene goes to ``sim/sparse.elastic_forces_sparse``).  On a
     blocked scene (counterpart of ``softbody_tpu/sim/blocked.py:251-328``):
-    the raw K1, the - pos_i * rs6 correction, the eager mid-section, then
-    the Warp pairing's K2 v2 on [F | M | V] rows and the [S_6 | R^T_9] slot
-    record, or the Taichi pairing's separable K2 on G = V M.
+    the raw K1, the mid-section kernel on its raw dots (the - pos_i * rs6
+    correction first), then the Warp pairing's K2 v2 on [F | M | V] rows
+    and the [S_6 | R^T_9] slot record, or the Taichi pairing's separable
+    K2 on G = V M.
 
     ``pair_ops``: ``ops.pair_kernels.KERNELS`` (the default: kernels on the
     card, plain versions on the CPU) or ``PLAIN``."""
     # the kernel modules import this module's mid_rows: imported here
     from ..ops.fused_kernels import forces_v2_all, moments_raw_all
+    from ..ops.mid_kernels import mid_records_all, row_static
     from ..ops.pair_kernels import KERNELS
-    from .sparse import elastic_forces_sparse, pair_slab, separable_forces, slot_rows
+    from .sparse import elastic_forces_sparse, pair_slab, separable_forces
 
     pair_ops = KERNELS if pair_ops is None else pair_ops
     if isinstance(scene.blocked, SparseBlocked):
@@ -278,18 +282,13 @@ def elastic_forces_pallas(pos_slots, ratio_slots, mats: Materials, scene: Scene,
     m = blk.n_tiles * blk.rows
     posT = pos_slots.T.contiguous()
     ayT = moments_raw_all(posT, blk, cfg.h, pair_ops)          # (18, m) raw dots
-    # row 3b+a is the raw [a][b] component; subtract pos_i[a] * rs6[b]
-    p, rs6T = posT[:, :m], blk.rs6T
-    A = [[ayT[3 * b + a] - p[a] * rs6T[b] for b in range(3)] for a in range(3)]
-    Y = [[ayT[9 + 3 * b + a] - p[a] * rs6T[3 + b] for b in range(3)]
-         for a in range(3)]
-    R, F, S, M, vol_m = mid_section(A, Y, ratio_slots, mats, scene, cfg, m)
+    # row 3b+a is the raw [a][b] component: the kernel subtracts
+    # pos_i[a] * rs6[b] first
+    fmT, srT = mid_records_all(ayT, cfg.stiffness_scale(ratio_slots[:m]),
+                               row_static(blk, mats, scene.rest_corr), cfg.corotated,
+                               blk.n_slots, pair_ops, posT[:, :m], blk.rs6T)
     if cfg.pair_def_grad == "j":
-        return separable_forces(pos_slots, M, vol_m, blk, cfg, pair_ops)
-    fmT = torch.stack([F[a][b] for a in range(3) for b in range(3)]
-                      + [M[a][b] for a in range(3) for b in range(3)] + [vol_m])
-    srT = slot_rows([S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
-                    + [R[a][c] for c in range(3) for a in range(3)], blk.n_slots)
+        return separable_forces(pos_slots, fmT, blk, cfg, pair_ops)
     fT = forces_v2_all(fmT, pair_slab(srT, cfg), blk, cfg.h, pair_ops)  # (3, m)
     out = torch.zeros_like(pos_slots)
     out[:m] = fT.T

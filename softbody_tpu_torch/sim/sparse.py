@@ -5,17 +5,18 @@ Per force evaluation (Warp pairing, ``pair_def_grad="i"``):
 
   pos (n_slots, 3) -> posT (3, n_slots)
     -> [moments_all: K1 moments_v4, one launch] -> ayT (18, m)
-    -> A, Y components -> mid-section (polar, F, S, M; plain torch)
-    -> f9T (9, m), per-slot record srT (15, n_slots) = [S_6 | R^T_9]
-    -> [forces_all: K2 forces_warp_v4, one launch] -> termjT (3, m)
+    -> [mid_records_all: the mid-section (polar, F, S, M), one launch]
+    -> fmT (19, m) = [F_9 | M_9 | V_i], per-slot record srT (15, n_slots)
+       = [S_6 | R^T_9]
+    -> [forces_all: K2 forces_warp_v4 on F_9, one launch] -> termjT (3, m)
     -> f_i = 0.5 V_i (termj + M_i rs6T[3:6])  -> forces (n_slots, 3)
 
 With the Taichi pairing (``pair_def_grad="j"``) ``separable_forces`` forms
-G = V M per slot from the mid-section's M, and the separable K2
+G = V M per slot from fmT, and the separable K2
 (``ops/separable_kernels.py``) applies term_i and the 0.5 V_i scale
 itself:
 
-  ayT -> mid-section -> M -> gT (9, n_slots) = G, row 3a+b
+  ayT -> mid_records_all -> fmT -> gT (9, n_slots) = G, row 3a+b
     -> [forces_sep_all: K2 forces_sep, one launch, svnw from rs6T[3:6]]
     -> fT (3, m)
 
@@ -39,8 +40,9 @@ backwards through the same chain: the K2 backward (its row pass and its
 slab pass; the separable K2's is one kernel) and the K1 backward, one
 launch each over the whole scene (the slab side over
 ``SparseBlocked.chunks``), each followed by one fixed-order
-``slab_to_slots`` into the slots, and autograd through the mid-section
-(the polar through its clamped analytic VJP).
+``slab_to_slots`` into the slots, and the mid-section's VJP between them
+(``ops/mid_kernels.mid_records_bwd``, one launch; the polar through its
+clamped analytic VJP).
 """
 
 from __future__ import annotations
@@ -51,13 +53,13 @@ import torch
 from ..config import SimConfig, resolve_device, torch_dtype
 from ..core.types import Materials, Scene, SparseBlocked
 from ..ops.blocked import far_grid
-from ..ops.fused_kernels import forces_v2_all, moments_mid_all, row_static
+from ..ops.fused_kernels import forces_v2_all, moments_mid_all
+from ..ops.mid_kernels import mid_records_all, row_static
 from ..ops.pair_kernels import (KERNELS, PairOps, forces_all, moments_all,
                                 sparse_blocked)
 from ..ops.separable_kernels import forces_sep_all
 from ..topology.neighbors import rest_density_and_corr
 from ..topology.sparse import GROUP, build_sparse_layout
-from .blocked import mid_section
 from .scene import lame_parameters
 
 
@@ -193,29 +195,23 @@ def elastic_forces_sparse(pos_slots, ratio_slots, mats: Materials,
                              pair_ops)
 
     ayT = moments_all(posT, posT[:, :m], sb, cfg.h, pair_ops)  # (18, m)
-    # ayT row 3b+a is the final A / Y component [a][b]
-    A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
-    Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
-    R, F, S, M, vol_m = mid_section(A, Y, ratio_slots, mats, scene, cfg, m)
+    fmT, srT = mid_records_all(ayT, cfg.stiffness_scale(ratio_slots[:m]),
+                               row_static(sb, mats, scene.rest_corr), cfg.corotated,
+                               sb.n_slots, pair_ops)
     if cfg.pair_def_grad == "j":
-        return separable_forces(pos_slots, M, vol_m, sb, cfg, pair_ops)
-
-    f9T = torch.stack([F[c][d] for c in range(3) for d in range(3)])  # (9, m)
-    srT = torch.zeros((15, sb.n_slots), dtype=pos_slots.dtype,
-                      device=pos_slots.device)
-    srT[:, :m] = torch.stack(
-        [S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2]]
-        + [R[a][c] for c in range(3) for a in range(3)])
-    termjT = forces_all(f9T, pair_slab(srT, cfg), sb, cfg.h, pair_ops)  # (3, m)
-    rs6T = sb.rs6T
-    f_comp = [
-        0.5 * vol_m * (termjT[a]
-                       + sum(M[a][b_] * rs6T[3 + b_] for b_ in range(3)))
-        for a in range(3)
-    ]
+        return separable_forces(pos_slots, fmT, sb, cfg, pair_ops)
+    termjT = forces_all(fmT[:9], pair_slab(srT, cfg), sb, cfg.h, pair_ops)  # (3, m)
     out = torch.zeros_like(pos_slots)
-    out[:m] = torch.stack(f_comp, dim=1)
+    out[:m] = term_i_forces(fmT, termjT, sb.rs6T).T
     return out
+
+
+def term_i_forces(fmT, termjT, rs6T):
+    """K2 v4's epilogue: f_a = 0.5 V_i (termj_a + sum_b M_i[a][b] svnw_b),
+    svnw = rs6T[3:6], from fmT (19, m) = [F_9 | M_9 | V_i] -> (3, m)."""
+    M = fmT[9:18].view(3, 3, -1)
+    sv = rs6T[3:6]
+    return 0.5 * fmT[18] * (termjT + (M[:, 0] * sv[0] + M[:, 1] * sv[1] + M[:, 2] * sv[2]))
 
 
 def slot_rows(comps, n_slots: int):
@@ -226,16 +222,19 @@ def slot_rows(comps, n_slots: int):
     return torch.cat([rows, pad], dim=1)
 
 
-def separable_forces(pos_slots, M, vol_m, sb, cfg: SimConfig, pair_ops: PairOps):
+def separable_forces(pos_slots, fmT, sb, cfg: SimConfig, pair_ops: PairOps):
     """The Taichi pairing's K2 (``softbody_tpu/sim/sparse.py:398-406``):
-    from M (component lists) and vol_m (m,) to the forces (n_slots, 3)
-    through the separable kernel on G = V M, term_i and the 0.5 V_i scale
-    in the kernel.  Shared with the blocked layout
-    (``sim/blocked.elastic_forces_pallas``)."""
-    gT = slot_rows([vol_m * M[a][b] for a in range(3) for b in range(3)], sb.n_slots)
-    fT = forces_sep_all(gT, vol_m, sb, cfg.h, pair_ops)        # (3, m)
+    from the mid-section's fmT (19, m) = [F_9 | M_9 | V_i] to the forces
+    (n_slots, 3) through the separable kernel on G = V M (gT (9, n_slots),
+    zero past the tile rows), term_i and the 0.5 V_i scale in the kernel.
+    Shared with the blocked layout (``sim/blocked.elastic_forces_pallas``)
+    and the SPMD episode (``parallel/sparse_shard.py``, on the rank's
+    source)."""
+    m = fmT.shape[1]
+    gT = torch.cat([fmT[18] * fmT[9:18], fmT.new_zeros((9, sb.n_slots - m))], dim=1)
+    fT = forces_sep_all(gT, fmT[18], sb, cfg.h, pair_ops)      # (3, m)
     out = torch.zeros_like(pos_slots)
-    out[:fT.shape[1]] = fT.T
+    out[:m] = fT.T
     return out
 
 

@@ -9,7 +9,8 @@ with only the port's dependencies:
 full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
 separable K2) and 25-28 (the blocked layout's raw K1, K2 v2 and the
-separable K2), 38-41 (the K2 kernels on a bf16 slab, ``cfg.pair_dtype``);
+separable K2), 38-41 (the K2 kernels on a bf16 slab, ``cfg.pair_dtype``),
+44 (the mid-section kernels ``mid_records`` / ``mid_records_bwd``);
 the gather backend's fixed-order backward and the contact forces, which
 have no hand-written kernel, are phases 30-33."""
 
@@ -22,6 +23,7 @@ import torch
 from softbody_tpu_torch import warp_parity
 from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
 from softbody_tpu_torch.ops import fused_kernels as fk
+from softbody_tpu_torch.ops import mid_kernels as mk
 from softbody_tpu_torch.ops import pair_kernels as pk
 from softbody_tpu_torch.ops import separable_kernels as sk
 from softbody_tpu_torch.ops.elasticity import compute_ratio
@@ -146,7 +148,7 @@ def test_kernels_refuse_bad_operands():
     wide = torch.zeros((15, sb.n_slots + 2), device=dev)[:, :sb.n_slots]
     with pytest.raises(ValueError, match="multiple of 4"):
         pk.forces_warp_v4(sb, f9T, wide, cfg.h)
-    with pytest.raises(TypeError, match="float32 or float64"):
+    with pytest.raises(TypeError, match="dtype"):
         pk.forces_warp_v4(sb, f9T, srT.to(torch.int32), cfg.h)
 
 
@@ -264,7 +266,7 @@ def test_episode_gradient_is_bitwise_repeatable():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    others = {fn.__name__ for fn in fk.COUNTED + sk.COUNTED}
+    others = {fn.__name__ for fn in fk.COUNTED + sk.COUNTED + pk.BF16_COUNTED}
     assert all(v > 0 for k, v in counts.items() if k not in others), counts
     assert all(counts[k] == 0 for k in others), counts
 
@@ -548,9 +550,10 @@ def test_fused_episode_gradient_matches_plain_f64_and_repeats():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS, fused=True)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    fused = [fn for fn in fk.COUNTED if fn is not fk.moments_raw]
+    fused = [fn for fn in fk.COUNTED if fn is not fk.moments_raw] + [mk.mid_records_bwd]
     assert all(counts[fn.__name__] > 0 for fn in fused), counts
     assert counts["moments_v4"] == counts["forces_warp_v4"] == counts["moments_raw"] == 0
+    assert counts["mid_records"] == 0, counts
 
 
 # ------------------------------------------------ Taichi pairing, blocked layout
@@ -818,3 +821,109 @@ def test_bf16_path_launches_its_kernels():
             assert counts[n] == 0 and counts[f"{n}_bf16"] == 1, (n, counts)
         assert counts["slab_to_slots_bf16"] == 1 and counts["slab_to_slots"] == 1
         assert counts["moments_mid"] == 0, counts
+
+
+# ------------------------------------------------------- the mid-section kernels
+def _mid_operands(scene, cfg, pos, ratio, blocked, seed):
+    """The mid-section's operands at ``pos``: K1's A | Y rows (the blocked
+    layout's raw dots, with their correction operands), the rows' statics
+    and stiffness scale, and random cotangents dfmT (19, m), dsrT (15, m)."""
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    posT = pos.T.contiguous()
+    if blocked:
+        ayT, corr = fk.moments_raw_all(posT, sb, cfg.h, pk.PLAIN), (posT[:, :m], sb.rs6T)
+    else:
+        ayT, corr = pk.moments_all(posT, posT[:, :m], sb, cfg.h, pk.PLAIN), (None, None)
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=pos.dtype, device=pos.device)
+
+    return (ayT, mk.row_static(sb, scene.materials, scene.rest_corr),
+            cfg.stiffness_scale(ratio[:m]), corr, rand(19, m), rand(15, m))
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("corotated", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mid_kernels_match_plain(dtype, corotated, blocked):
+    """mid_records and mid_records_bwd, one launch each over every row,
+    against their plain versions (the eager mid-section and autograd
+    through it) on a jittered body and on the body at rest, centered dots
+    (sparse scene) and raw dots with their correction (blocked scene);
+    srT's columns past the rows zero; a second launch bit for bit the
+    first.  At rest F = I and S, M are rounding noise in both versions, so
+    there the errors are taken against the jittered rows' max |plain|."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked)
+    sb = scene.blocked
+    m = sb.n_tiles * sb.rows
+    tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
+    ref = []
+    for at in (pos, scene.rest_position):
+        ayT, rs, scale, corr, dfmT, dsrT = _mid_operands(scene, cfg, at, ratio, blocked, 3)
+
+        def launch():
+            return (mk.mid_records(ayT, rs, scale, corotated, sb.n_slots, *corr)
+                    + mk.mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, *corr))
+
+        pk.reset_launch_counts()
+        got = launch()
+        counts = pk.launch_counts()
+        assert counts == dict.fromkeys(counts, 0) | {"mid_records": 1, "mid_records_bwd": 1}
+        want = (mk.mid_records_plain(ayT, rs, scale, corotated, sb.n_slots, *corr)
+                + mk.mid_records_bwd_plain(ayT, rs, scale, corotated, dfmT, dsrT, *corr))
+        if not ref:
+            ref = [None if w is None else float(torch.max(torch.abs(w))) for w in want]
+        for g, w, r in zip(got, want, ref):
+            if w is None:
+                assert g is None
+                continue
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            err = float(torch.max(torch.abs(g - w))) / r
+            assert err <= tol, err
+        assert got[1].shape == (15, sb.n_slots) and not got[1][:, m:].any()
+        assert all(torch.equal(x, y) for x, y in zip(got, launch()) if x is not None)
+
+
+def test_one_mid_launch_per_evaluation():
+    """One force evaluation and its VJP: the default path, path A and path
+    B launch mid_records once and mid_records_bwd once, the fused path only
+    the backward; the plain path launches neither."""
+    dev = _card()
+    runs = ((False, {}), (False, {"pair_def_grad": "j"}), (False, {"fused_mid": True}),
+            (True, {}), (True, {"pair_def_grad": "j"}))
+    for blocked, over in runs:
+        cfg, scene, pos, ratio = _scene("float32", dev, blocked)
+        c = cfg.replace(**over)
+        for ops in (pk.KERNELS, pk.PLAIN):
+            p = pos.clone().requires_grad_()
+            pk.reset_launch_counts()
+            f = elastic_forces_pallas(p, ratio, scene.materials, scene, c, ops)
+            fwd = pk.launch_counts()
+            pk.reset_launch_counts()
+            torch.autograd.grad(f, p, torch.ones_like(f))
+            bwd = pk.launch_counts()
+            kern = ops is pk.KERNELS
+            fused = c.fused_mid and not blocked
+            assert fwd["mid_records"] == (kern and not fused), (over, fwd)
+            assert (fwd["mid_records_bwd"], bwd["mid_records"]) == (0, 0), (over, bwd)
+            assert bwd["mid_records_bwd"] == kern, (over, bwd)
+
+
+def test_mid_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev)
+    n = scene.blocked.n_slots
+    ayT, rs, scale, _, dfmT, dsrT = _mid_operands(scene, cfg, pos, ratio, False, 2)
+    with pytest.raises(ValueError, match="18"):
+        mk.mid_records(ayT[:17], rs, scale, True, n)
+    with pytest.raises(TypeError, match="dtype"):
+        mk.mid_records(ayT, rs, scale.double(), True, n)
+    with pytest.raises(ValueError, match="both"):
+        mk.mid_records(ayT, rs, scale, True, n, ayT[:3], None)
+    with pytest.raises(ValueError, match="fewer"):
+        mk.mid_records(ayT, rs, scale, True, ayT.shape[1] - 1)
+    with pytest.raises(ValueError, match="19"):
+        mk.mid_records_bwd(ayT, rs, scale, True, dfmT[:18], dsrT)

@@ -96,7 +96,8 @@ def test_fused_vjp_matches_jax(setup):
 
 def test_fused_path_goes_through_the_fused_ops(setup, monkeypatch):
     """The fused config calls only the fused entries of the PairOps table
-    (forward and backward), the unfused one only the v4 entries."""
+    (forward and backward) and the mid-section's VJP, the unfused one only
+    the v4 entries and the mid-section's forward and VJP."""
     cfg, _, scene_t, pos, x, ct = setup
     seen = []
 
@@ -115,8 +116,9 @@ def test_fused_path_goes_through_the_fused_ops(setup, monkeypatch):
                                   scene_t.materials, scene_t, c, ops)
         torch.autograd.grad(f, p, torch.as_tensor(ct))
         want = ({"moments_mid", "forces_v2", "moments_raw_bwd", "forces_v2_bwd",
-                 "to_slots"} if fused else
-                {"moments", "forces", "moments_bwd", "forces_bwd", "to_slots"})
+                 "to_slots", "mid_records_bwd"} if fused else
+                {"moments", "forces", "moments_bwd", "forces_bwd", "to_slots",
+                 "mid_records", "mid_records_bwd"})
         assert set(seen) == want
 
 

@@ -221,6 +221,7 @@ def test_fused_mid_with_taichi_pairing_runs_the_j_branch(forces_case):
     seen.clear()
     f_fm, g_fm = _port(cfg.replace(fused_mid=True), scene_t, pos, x, ct, ops)
     assert set(seen) == fused == {"moments", "moments_bwd", "forces_sep",
-                                  "forces_sep_bwd", "to_slots"}
+                                  "forces_sep_bwd", "to_slots", "mid_records",
+                                  "mid_records_bwd"}
     assert np.array_equal(f_fm, f_j)
     assert all(np.array_equal(a, b) for a, b in zip(g_fm, g_j))
