@@ -13,7 +13,7 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      their backwards, K2 v2 and its backward passes, the fused K1 +
      mid-section, the raw K1 backward, the separable K2 and its backward)
      registers, shared memory, spills and resident blocks per SM, f32 and
-     f64 (the mid-section kernels' registers and spills: ptxas lines)
+     f64 (the mid-section kernels' too, and their ptxas lines)
   3  K1 moments_v4 and K2 forces_warp_v4, one launch each over every tile of
      every bucket: each bucket's columns vs that bucket's plain version on
      the card (max error relative to max |plain| <= 1e-4), a bitwise
@@ -200,8 +200,11 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      versions (the eager mid-section, autograd through it) on the sparse
      scene's rows (phase 6's stepped state, and the body at rest: F = I,
      S = 0) and the varcol scene's (its raw dots with their - pos_i * rs6
-     correction), f32 (<= 1e-4 of max |plain|) and f64 (<= 1e-10), srT's
-     padding columns zero, a bitwise repeat; ms per launch, the plain
+     correction), f32 (<= 1e-4 of max |plain|; the forward bitwise the
+     plain version's) and f64 (<= 1e-10), srT's padding columns zero, a
+     bitwise repeat; ragged row counts on the sparse rows (not a multiple
+     of a block's 128 rows, under one block, srT wider than the rows, a
+     row stride that is not a multiple of 4); ms per launch, the plain
      version's ms and the bound
 
 Each phase's first line ends with the seconds since the start.  Then one
@@ -407,7 +410,9 @@ def main():
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"    ptxas {source}: {line.strip()}")
-    for (key, dt), a in pk.ragged_info().items():
+    attrs = list(pk.ragged_info().items()) + [
+        (key, a | {"dynamic_smem": 0}) for key, a in mk.kernel_info().items()]
+    for (key, dt), a in attrs:
         warps = a["threads"] // 32 * a["blocks_per_sm"]
         say(f"    {key} {dt}: {a['registers']} registers, {a['local_bytes']} B local "
             f"(stack and spills), {a['static_smem']} B static + {a['dynamic_smem']} B "
@@ -2987,6 +2992,7 @@ def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
     strained_b = scene_b.rest_position.clone()
     strained_b[scene_b.slot_of_particle] = strained[scene.slot_of_particle]
     names = ("fmT", "srT", "dayT", "dscale", "dposT_rows")
+    ragged = {}                 # dtype: the sparse strained rows' operands
     for label, sc, ratio_s, pos_s in (
             ("sparse", scene, ratio, strained),
             ("varcol", scene_b, compute_ratio(x_b, cfg), strained_b)):
@@ -3037,13 +3043,20 @@ def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
                 again = fwd() + bwd()
                 same = all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
                 pad = not got[1][:, m:].any()
+                # f32: every operation rounds as the plain version's does
+                bit = dt != torch.float32 or all(torch.equal(g, w)
+                                                 for g, w in zip(got[:2], want[:2]))
                 say(f"    {label} rows (m = {m}), {state}, {str(dt)[6:]}: "
                     + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
                     + f" of the strained rows' max |plain| (tol {tols[dt]:g}); srT's "
-                    f"{n_sr - m} padding columns zero: {pad}; bitwise repeat: {same}")
-                if not (max(errs.values()) <= tols[dt] and same and pad):
+                    f"{n_sr - m} padding columns zero: {pad}; bitwise repeat: {same}"
+                    + ("; forward bitwise the plain version's: " + str(bit)
+                       if dt == torch.float32 else ""))
+                if not (max(errs.values()) <= tols[dt] and same and pad and bit):
                     fail(f"the mid-section kernels disagree with their plain versions "
                          f"({label} {state} {dt})")
+                if label == "sparse" and state == "strained":
+                    ragged[dt] = (ay, rs, sc_, dfm, dsr)
                 if state != "strained" or dt != torch.float32:
                     continue
                 f32 = 4
@@ -3070,6 +3083,62 @@ def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
                         say(f"    {key} on the varcol rows: {ms:.4f} ms device per launch "
                             f"vs bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
                             f"{flops / 1e9:.3f} GFLOP); plain {plain_ms:.3f} ms {tag}")
+    mid_ragged(torch, ragged, cfg.corotated, tols)
+
+
+def odd_stride(torch, x):
+    """x (k, n) as a view with row stride n + 3 starting one element into
+    its buffer (not a multiple of 4, not 16-byte aligned)."""
+    buf = torch.full((x.shape[0], x.shape[1] + 3), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    buf[:, 1:1 + x.shape[1]] = x
+    return buf[:, 1:1 + x.shape[1]]
+
+
+def mid_ragged(torch, ragged, corotated, tols):
+    """Phase 44's ragged cases on the first k of the sparse scene's strained
+    rows: k not a multiple of a block's 128 rows, k under one block, srT
+    wider than the rows, and every lane-major operand with a row stride that is
+    not a multiple of 4 on a base that is not 16-byte aligned; one launch
+    each, against the plain versions (f32 forward bitwise)."""
+    from softbody_tpu_torch.ops import mid_kernels as mk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+
+    threads = mk.kernel_info()["mid_records", "float32"]["threads"]   # rows a block
+    for dt, (ay, rs, sc_, dfm, dsr) in ragged.items():
+        m = ay.shape[1]
+        for k, n_sr, odd in ((m - 77, m - 77, False), (threads - 28, 1000, False),
+                             (m - 77, m + 1000, True)):
+            c = slice(0, k)
+            ops = (ay[:, c], rs.cols(c), sc_[c], dfm[:, c], dsr[:, c])
+            if odd:
+                vec = (lambda v: odd_stride(torch, v[None])[0])
+                ops = (odd_stride(torch, ops[0]),
+                       mk.RowStatic(vec(ops[1].mu), vec(ops[1].lam), vec(ops[1].vol),
+                                    odd_stride(torch, ops[1].rcT)),
+                       vec(ops[2]), odd_stride(torch, ops[3]), odd_stride(torch, ops[4]))
+            a, r, s_, df, ds = ops
+            pk.reset_launch_counts()
+            got = (mk.mid_records(a, r, s_, corotated, n_sr)
+                   + mk.mid_records_bwd(a, r, s_, corotated, df, ds))
+            torch.cuda.synchronize()
+            counts = pk.launch_counts()
+            want = (mk.mid_records_plain(a, r, s_, corotated, n_sr)
+                    + mk.mid_records_bwd_plain(a, r, s_, corotated, df, ds))
+            errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
+            bit = dt != torch.float32 or all(torch.equal(g, w)
+                                             for g, w in zip(got[:2], want[:2]))
+            pad = not got[1][:, k:].any()
+            one = counts == dict.fromkeys(counts, 0) | {"mid_records": 1,
+                                                        "mid_records_bwd": 1}
+            say(f"    ragged {str(dt)[6:]}: k = {k} rows, n_sr = {n_sr}"
+                + (f", row stride {a.stride(0)} off a 16-byte boundary" if odd else "")
+                + f": max error {max(errs):.2e} of max |plain| (tol {tols[dt]:g}), "
+                f"forward bitwise {bit}, padding zero {pad}, one launch each {one}")
+            if not (max(errs) <= tols[dt] and bit and pad and one
+                    and all(bool(torch.isfinite(g).all()) for g in got if g is not None)):
+                fail(f"the mid-section kernels on {k} rows (n_sr {n_sr}, odd stride "
+                     f"{odd}, {dt}) disagree with their plain versions")
 
 
 def phase_counts(a, b):

@@ -26,7 +26,11 @@ __device__ __forceinline__ void givens(T app, T aqq, T apq, T& c, T& s) {
   const bool small = abs_t(apq) < T(1e-30);
   const T apq_safe = small ? T(1) : apq;
   const T theta = (aqq - app) / (T(2) * apq_safe);
-  T t = sign_t(theta) / (abs_t(theta) + sqrt_t(T(1) + theta * theta));
+  // sign / x as sign * (1 / x): the same value in every case (sign is -1,
+  // 0 or 1, x >= 1, inf or NaN; negation and multiplying by 1 or 0 are
+  // exact), and a correctly rounded reciprocal is a shorter dependent chain
+  // than a division (csrc/mid_kernels.cu)
+  T t = sign_t(theta) * (T(1) / (abs_t(theta) + sqrt_t(T(1) + theta * theta)));
   if (theta == T(0)) t = T(1);
   const T cc = T(1) / sqrt_t(T(1) + t * t);
   const T ss = t * cc;

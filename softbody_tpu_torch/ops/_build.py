@@ -89,6 +89,10 @@ SIGNATURES = {
                             _P],
     },
 }
+# the ring kernels (csrc/mid_kernels.cu): the one-wave entry points' arguments
+SIGNATURES["mid_kernels"].update(
+    mid_records_ring=SIGNATURES["mid_kernels"]["mid_records"],
+    mid_records_bwd_ring=SIGNATURES["mid_kernels"]["mid_records_bwd"])
 
 # The K2 kernels that also take a bf16 srT slab (cfg.pair_dtype="bfloat16"),
 # in f32: sb_<name>_bf16, with their f32 entry point's arguments.
@@ -170,6 +174,11 @@ def library(source: str = "pair_kernels") -> ctypes.CDLL:
             lib.sb_ragged_info.restype = _I32
             lib.sb_slab_to_slots_bf16.argtypes = SLAB_TO_SLOTS_BF16
             lib.sb_slab_to_slots_bf16.restype = _I32
+        if source == "mid_kernels":
+            lib.sb_mid_info.argtypes = [_I32, _I32, _P]
+            lib.sb_mid_info.restype = _I32
+            lib.sb_mid_ring_plan.argtypes = [_I32, _I32, _I64, _P]
+            lib.sb_mid_ring_plan.restype = _I32
         for name, args in SIGNATURES[source].items():
             suffixes = ("f32", "f64", "bf16") if name in BF16 else ("f32", "f64")
             for suffix in suffixes:

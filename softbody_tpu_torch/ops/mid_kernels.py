@@ -21,9 +21,15 @@ compiles the same function, ``softbody_tpu/sim/blocked.py`` ::
   None).
 
 On the card each is one launch of csrc/mid_kernels.cu (one thread per row,
-the forward recomputed in registers for the backward, mid.cuh's per-row
-routines, which the fused K1's epilogue also runs); on the CPU the wrapper
-runs the plain version: :func:`mid_records_plain`, the eager mid-section of
+every block at once, the forward recomputed in registers for the
+backward, mid.cuh's per-row routines, which the fused K1's epilogue also
+runs; :func:`kernel_info` gives what the card allots them).
+:func:`mid_records_ring` and :func:`mid_records_bwd_ring` launch the same
+functions in persistent blocks that stage rows through a cp.async ring
+(:func:`ring_plan` gives their launch), bit for bit the same outputs: the
+design measured against the one-wave kernels and left off every path
+(``pair_times.py`` times both).  On the CPU each wrapper runs the plain
+version: :func:`mid_records_plain`, the eager mid-section of
 ``sim/blocked.mid_rows`` on component lists, and
 :func:`mid_records_bwd_plain`, autograd through it (the polar through its
 clamped analytic VJP).  :func:`mid_records_all` is the differentiable op
@@ -33,17 +39,23 @@ over them, going through a ``pair_kernels.PairOps`` (``KERNELS`` or
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..sim.blocked import mid_rows
+from . import _build
 from .pair_common import (SR_FIELDS, check_lane_major, check_vector, entry, on, raise_on,
                           stream)
 
 FM_FIELDS = 19     # rows of fmT: F_9 | M_9 | V_i
 SWEEPS = 8         # Jacobi sweeps of the polar (mat3.polar3's default)
+# the kernels' instantiations, in sb_mid_info's order
+INSTANCES = ("mid_records", "mid_records (correction)", "mid_records_bwd",
+             "mid_records_bwd (correction)")
 
 
 class RowStatic(NamedTuple):
@@ -111,6 +123,33 @@ def mid_records_bwd_plain(ayT, rs: RowStatic, scale, corotated: bool, dfmT, dsrT
 
 
 # ------------------------------------------------------------ kernel launches
+def kernel_info() -> dict:
+    """What the card gives each instantiation of csrc/mid_kernels.cu:
+    {(instance, dtype): {registers, local_bytes, static_smem, threads,
+    blocks_per_sm}} (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a card."""
+    lib = _build.library("mid_kernels")
+    keys = ("registers", "local_bytes", "static_smem", "threads", "blocks_per_sm")
+    out = {}
+    for which, name in enumerate(INSTANCES):
+        for mode, dtype in enumerate(("float32", "float64")):
+            buf = (ctypes.c_int * len(keys))()
+            raise_on(lib.sb_mid_info(which, mode, buf), f"{name} attributes")
+            out[name, dtype] = dict(zip(keys, buf))
+    return out
+
+
+def ring_plan(instance: str, dtype, m: int) -> dict:
+    """The ring kernels' launch at m rows on the current card, for an
+    instance of :data:`INSTANCES`: {grid, stages, smem_bytes,
+    blocks_per_sm}.  Needs a card."""
+    buf = (ctypes.c_int * 4)()
+    raise_on(_build.library("mid_kernels").sb_mid_ring_plan(
+        INSTANCES.index(instance), int(dtype == torch.float64), m, buf),
+        f"{instance} ring plan")
+    return dict(zip(("grid", "stages", "smem_bytes", "blocks_per_sm"), buf))
+
+
 def _check(ayT, rs, scale, posT_rows, rs6T):
     """Operand checks of either launch; returns (device, dtype, m)."""
     device, dtype = ayT.device, ayT.dtype
@@ -137,9 +176,11 @@ def _corr(posT_rows, rs6T):
     return posT_rows.data_ptr(), posT_rows.stride(0), rs6T.data_ptr(), rs6T.stride(0)
 
 
-def _launch_mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None):
+def _launch_mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None,
+                        ring=False):
     """(fmT (19, m), srT (15, n_sr)): one thread per column of srT, the
-    columns past the m rows only zeroing their record."""
+    columns past the m rows only zeroing their record (with ``ring``, the
+    ring kernel: one thread per row of each tile it walks)."""
     device, dtype, m = _check(ayT, rs, scale, posT_rows, rs6T)
     if n_sr < m:
         raise ValueError(f"srT has {n_sr} columns, fewer than the {m} rows")
@@ -147,20 +188,21 @@ def _launch_mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=No
     srT = torch.empty((SR_FIELDS, n_sr), dtype=dtype, device=device)
     if n_sr == 0:
         return fmT, srT
-    rc = entry("mid_kernels", "mid_records", dtype)(
+    name = "mid_records_ring" if ring else "mid_records"
+    rc = entry("mid_kernels", name, dtype)(
         ayT.data_ptr(), ayT.stride(0), *_corr(posT_rows, rs6T),
         rs.mu.data_ptr(), rs.lam.data_ptr(), rs.vol.data_ptr(), rs.rcT.data_ptr(),
         rs.rcT.stride(0), scale.data_ptr(), fmT.data_ptr(), fmT.stride(0),
         srT.data_ptr(), srT.stride(0), m, n_sr, int(corotated), SWEEPS, stream())
-    raise_on(rc, "mid_records")
-    mid_records.launches += 1
+    raise_on(rc, name)
+    (mid_records_ring if ring else mid_records).launches += 1
     return fmT, srT
 
 
 def _launch_mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=None,
-                            rs6T=None):
+                            rs6T=None, ring=False):
     """(dayT (18, m), dscale (m,), dposT_rows (3, m) or None): one thread per
-    row."""
+    row (with ``ring``, through the ring kernel)."""
     device, dtype, m = _check(ayT, rs, scale, posT_rows, rs6T)
     check_lane_major("dfmT", dfmT, dtype, device, FM_FIELDS, m)
     check_lane_major("dsrT", dsrT, dtype, device, SR_FIELDS, m)
@@ -169,15 +211,16 @@ def _launch_mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=Non
     dpos = None if posT_rows is None else torch.empty((3, m), dtype=dtype, device=device)
     if m == 0:
         return dayT, dscale, dpos
-    rc = entry("mid_kernels", "mid_records_bwd", dtype)(
+    name = "mid_records_bwd_ring" if ring else "mid_records_bwd"
+    rc = entry("mid_kernels", name, dtype)(
         ayT.data_ptr(), ayT.stride(0), *_corr(posT_rows, rs6T),
         rs.mu.data_ptr(), rs.lam.data_ptr(), rs.rcT.data_ptr(), rs.rcT.stride(0),
         scale.data_ptr(), dfmT.data_ptr(), dfmT.stride(0), dsrT.data_ptr(),
         dsrT.stride(0), dayT.data_ptr(), dayT.stride(0), dscale.data_ptr(),
         None if dpos is None else dpos.data_ptr(), 0 if dpos is None else dpos.stride(0),
         m, int(corotated), SWEEPS, stream())
-    raise_on(rc, "mid_records_bwd")
-    mid_records_bwd.launches += 1
+    raise_on(rc, name)
+    (mid_records_bwd_ring if ring else mid_records_bwd).launches += 1
     return dayT, dscale, dpos
 
 
@@ -198,6 +241,27 @@ def mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=None, rs6T=
 
 
 COUNTED = (mid_records, mid_records_bwd)
+
+
+def mid_records_ring(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None):
+    """:func:`mid_records` through the ring kernel (persistent blocks, each
+    walking tiles of rows staged by cp.async): the same outputs bit for
+    bit; on no path, so not in :data:`COUNTED` (its own ``launches``
+    count)."""
+    fn = on("mid_records_ring", ayT, mid_records_plain,
+            functools.partial(_launch_mid_records, ring=True))
+    return fn(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T)
+
+
+def mid_records_bwd_ring(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=None, rs6T=None):
+    """:func:`mid_records_bwd` through the ring kernel (as
+    :func:`mid_records_ring`)."""
+    fn = on("mid_records_bwd_ring", dfmT, mid_records_bwd_plain,
+            functools.partial(_launch_mid_records_bwd, ring=True))
+    return fn(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows, rs6T)
+
+
+mid_records_ring.launches = mid_records_bwd_ring.launches = 0
 
 
 # ------------------------------------------------------- differentiable op

@@ -8,14 +8,23 @@ fused path's records over the sparse scene and on path B's over the
 blocked varcol scene (``varcol_``), and of the Taichi pairing's separable
 K2 (``forces_sep``) and its backward (``forces_sep_bwd``; a tree whose
 wrappers take a bucket has two passes, ``forces_sep_bwd_rows`` and ``_slab``,
-timed together) on G = V M of the same two scenes, at the ~112k stretch
-scene on one CUDA card, and the steps they sit in, for this checkout or
-another one (``--tree``), so that two versions can be compared on one card
-in one sitting:
+timed together) on G = V M of the same two scenes, and of the
+mid-section kernels (``mid_records``, ``mid_records_bwd``, and in a tree
+that has them their ring forms ``mid_records_ring``,
+``mid_records_bwd_ring``, with their launch plans ``ring_plan``) on both
+scenes' strained rows (``chip_smoke.py`` phase 44's operands: the stretched body
+after 5 steps, f32, seeded random cotangents; ``varcol_`` with the raw-dot
+correction), at the ~112k stretch scene on one CUDA card, and the steps
+they sit in, for this checkout or another one (``--tree``), so that two
+versions can be compared on one card in one sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
+    python softbody_tpu_torch/pair_times.py --kernels 'mid_records' --no-steps
+    python softbody_tpu_torch/pair_times.py --against /path/to/parent --rounds 5 \
+        --kernels 'mid_records' --no-steps
 
-Run it for each version in turns (A, B, B, A).  The scene and the
+Run it for each version in turns (A, B, B, A); ``--against`` does so
+itself and summarizes the rounds.  The scene and the
 operands are those of ``chip_smoke.py`` phases 3, 14 and 25
 (``fit_body(100000)``, STRETCH, f32, a stretched and jittered body, the
 plain path's F, S, R, M, and the fused path's and path B's fmT / srT), and
@@ -35,20 +44,31 @@ take them), and each kernel's SASS instructions per pair in f32
 (``cuobjdump -sass`` of the built libraries: the innermost loop around the
 pair's one ``MUFU.RSQ`` that reads shared memory, its instructions over
 its ``MUFU`` count; ``_tail`` names a kernel's ragged-tail
-instantiation).  Needs
-a card.
+instantiation), the mid-section kernels' SASS instructions per row
+(``sass_per_row``: a one-wave kernel thread's body with its Jacobi sweep
+loop counted ``SWEEPS`` times; ``_corr`` names the raw-dot correction's instantiation) and the issue
+floor they set (``issue_floor_ms``: instructions x rows / 32 / (SMs x 4
+schedulers) / the card's highest SM clock), and a digest of
+``moments_mid``'s and the mid-section kernels' outputs (``digest``: equal
+digests from two trees mean bitwise equal outputs; the ring kernels'
+digests equal the one-wave kernels' when their outputs do).  ``--kernels``
+times only the kernels whose key matches its regular expression,
+``--no-steps`` skips the steps.  Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+MID_STEPS = 5          # steps from the stretched body to its strained rows
 
 def cuda_ms(torch, fn, reps):
     fn()
@@ -122,25 +142,15 @@ def sass_per_pair(lib_path, names):
     holding a MUFU and a shared-memory load (the pair loop; not the
     mid-section's Jacobi sweeps), its length over its MUFU count (one
     rsqrt per pair)."""
-    import re
-
-    from softbody_tpu_torch.ops import _build
-
-    tool = Path(_build.nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
-                          text=True).stdout
     out = {}
-    for fn in text.split("Function : ")[1:]:
-        name = next((n for n in names if f"{len(n) + 7}{n}_kernelIf" in fn.split()[0]),
-                    None)
+    for sym, ins in sass_functions(lib_path).items():
+        name = next((n for n in names if f"{len(n) + 7}{n}_kernelIf" in sym), None)
         if name is None:
             continue
-        if "_kernelIfLb1E" in fn.split()[0]:   # the ragged-tail instantiation
+        if "_kernelIfLb1E" in sym:             # the ragged-tail instantiation
             name += "_tail"
-        if "bfloat16" in fn.split()[0]:        # the bf16 K2 slab's
+        if "bfloat16" in sym:                  # the bf16 K2 slab's
             name += "_bf16"
-        ins = [(int(a, 16), op) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         loops = []
         for a, op in ins:
             tgt = re.search(r"BRA\s.*?0x([0-9a-f]+)", op)
@@ -155,13 +165,119 @@ def sass_per_pair(lib_path, names):
     return out
 
 
+def sass_functions(lib_path):
+    """{mangled name: [(address, instruction)]} of a built library."""
+    from softbody_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    return {fn.split()[0]: [(int(a, 16), op) for a, op in
+                            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+            for fn in text.split("Function : ")[1:]}
+
+
+def sass_per_row(functions, names, sweeps):
+    """{name[_corr]: SASS instructions a thread issues per row} of the f32
+    kernels ``<name>_kernel<float, corr>``: the body before its closing
+    self-branch, with its longest loop that runs a MUFU (the Jacobi sweep
+    loop, where it is not unrolled) counted ``sweeps`` times."""
+    out = {}
+    for sym, ins in functions.items():
+        name = next((n for n in names if f"{len(n) + 7}{n}_kernelIf" in sym), None)
+        if name is None:
+            continue
+        end = next((i for i, (a, op) in enumerate(ins)
+                    if re.fullmatch(rf"BRA\s+0x{a:x}", op.strip())), len(ins))
+        body = ins[:end]
+        sweep = 0
+        for a, op in body:
+            tgt = re.search(r"BRA\s.*?0x([0-9a-f]+)", op)
+            if tgt and int(tgt.group(1), 16) < a:
+                loop = [o for x, o in body if int(tgt.group(1), 16) <= x <= a]
+                if any("MUFU" in o for o in loop):
+                    sweep = max(sweep, len(loop))
+        out[name + ("_corr" if "_kernelIfLb1E" in sym else "")] = (
+            len(body) + (sweeps - 1) * sweep)
+    return out
+
+
+def digest(torch, res):
+    """A short hash of a kernel call's outputs (a tensor or a tuple)."""
+    res = res if isinstance(res, (tuple, list)) else (res,)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in res:
+        if t is not None:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def compare(args):
+    """``--against``: run this script on the other checkout (A) and on
+    ``--tree`` (B) in turns A, B, B, A, ``--rounds`` times, each run its
+    own process with the other options, printing each run's JSON line
+    (with ``side``), then :func:`summarize`'s line."""
+    opts = ["--particles", str(args.particles), "--reps", str(args.reps)]
+    opts += ["--kernels", args.kernels] if args.kernels else []
+    opts += ["--no-steps"] if args.no_steps else []
+    runs = []
+    for _ in range(args.rounds):
+        for side in "ABBA":
+            tree = args.against if side == "A" else args.tree
+            res = subprocess.run([sys.executable, __file__, "--tree", tree, *opts],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                sys.exit(f"run {side} on {tree} failed:\n{res.stderr[-4000:]}")
+            runs.append({"side": side} | json.loads(res.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
+    print(json.dumps(summarize(runs)), flush=True)
+
+
+def summarize(runs):
+    """The rounds' summary: for every number ending in ``_ms`` its quartiles
+    [q1, median, q3] on each side and, where both sides have it, the
+    fraction of runs in which B took less than the A run beside it (the
+    pairs A1 B1 and B2 A2 of each round), and whether each digest both
+    sides print was the same in every run.  ``runs``: the JSON lines in the
+    order they ran, each with its ``side``."""
+    import statistics
+
+    side = {s: [r for r in runs if r["side"] == s] for s in "AB"}
+    a_runs, b_runs = side["A"], side["B"]
+    out = {"card": b_runs[0]["card"], "rounds": len(b_runs) // 2}
+    for key in sorted(k for k, v in b_runs[0].items()
+                      if k.endswith("_ms") and isinstance(v, float)):
+        b = [r[key] for r in b_runs]
+        row = {"B": statistics.quantiles(b, n=4, method="inclusive")}
+        if key in a_runs[0]:
+            a = [r[key] for r in a_runs]
+            row["A"] = statistics.quantiles(a, n=4, method="inclusive")
+            row["B_faster"] = sum(y < x for x, y in zip(a, b)) / len(a)
+        out[key] = row
+    shared = set(a_runs[0]["digest"]) & set(b_runs[0]["digest"])
+    out["digests_equal"] = {k: len({r["digest"][k] for r in runs}) == 1
+                            for k in sorted(shared)}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
                     help="root of the checkout whose softbody_tpu_torch is timed")
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernels", default="",
+                    help="time only the kernels whose key matches this regular "
+                         "expression")
+    ap.add_argument("--no-steps", action="store_true", help="skip the steps")
+    ap.add_argument("--against", default="",
+                    help="another checkout (A): time it and --tree (B) in turns "
+                         "A, B, B, A, --rounds times, one process each, then summarize")
+    ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
+    if args.against:
+        return compare(args)
     sys.path.insert(0, str(Path(args.tree).resolve()))
 
     import numpy as np
@@ -344,16 +460,72 @@ def main():
         for name, fns in (("forces_sep", fwd), ("forces_sep_bwd", bwd)):
             evals[label + name] = lambda fns=fns: [f() for f in fns]
             per_launch[label + name] = fns
+    # the mid-section kernels on both scenes' strained rows (phase 44's)
+    from softbody_tpu_torch.ops import mid_kernels as mk
+    from softbody_tpu_torch.sim.rollout import initial_state, step
+
+    with torch.no_grad():
+        st = initial_state(scene, ratio, cfg)._replace(position=posT.T.contiguous())
+        for _ in range(MID_STEPS):
+            st = step(st, ratio, scene, cfg)
+    strained = st.position
+    strained_b = scene_b.rest_position.clone()
+    strained_b[scene_b.slot_of_particle] = strained[scene.slot_of_particle]
+    mid_ops, ring_plans = {}, {}
+    for label, sc_, rat, pos_s in (("", scene, ratio, strained),
+                                   ("varcol_", scene_b, ratio_b, strained_b)):
+        b_ = sc_.blocked
+        m_s = b_.n_tiles * b_.rows
+        pT = pos_s.T.contiguous()
+        raw = label == "varcol_"
+        ay = (fk.moments_raw_all(pT, b_, h, pk.PLAIN) if raw
+              else pk.moments_all(pT, pT[:, :m_s], b_, h, pk.PLAIN))
+        mid_ops[label] = (ay, mk.row_static(b_, sc_.materials, sc_.rest_corr),
+                          cfg.stiffness_scale(rat[:m_s]), cfg.corotated, b_.n_slots,
+                          pT[:, :m_s] if raw else None, b_.rs6T if raw else None,
+                          torch.as_tensor(rng.normal(size=(19, m_s)), dtype=torch.float32,
+                                          device=dev),
+                          torch.as_tensor(rng.normal(size=(15, m_s)), dtype=torch.float32,
+                                          device=dev))
+        ay, rs_, sc_s, corot, n_sr, p, r6, dfm, dsr = mid_ops[label]
+        evals[label + "mid_records"] = (lambda a=(ay, rs_, sc_s, corot, n_sr, p, r6):
+                                        mk.mid_records(*a))
+        evals[label + "mid_records_bwd"] = (
+            lambda a=(ay, rs_, sc_s, corot, dfm, dsr, p, r6): mk.mid_records_bwd(*a))
+        if hasattr(mk, "ring_plan"):        # a tree with the ring kernels
+            evals[label + "mid_records_ring"] = (
+                lambda a=(ay, rs_, sc_s, corot, n_sr, p, r6): mk.mid_records_ring(*a))
+            evals[label + "mid_records_bwd_ring"] = (
+                lambda a=(ay, rs_, sc_s, corot, dfm, dsr, p, r6): mk.mid_records_bwd_ring(*a))
+            ring_plans.update({label + name: mk.ring_plan(name, torch.float32, m_s)
+                               for name in (mk.INSTANCES[1:4:2] if raw
+                                            else mk.INSTANCES[0:4:2])})
     out = {"tree": str(Path(args.tree).resolve()),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True).stdout.strip().splitlines()[0],
+           "sm_clock_max_mhz": float(subprocess.run(
+               ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+               capture_output=True, text=True).stdout.split()[0]),
            "buckets": [[b.slab_len, b.n_tiles] for b in sb.buckets]}
+    # digests of outputs that must not change bitwise between two trees (and
+    # the ring kernels', which must equal the one-wave kernels')
+    out["digest"] = {key: digest(torch, evals[key]()) for key in (
+        "moments_mid", "mid_records", "mid_records_bwd", "varcol_mid_records",
+        "varcol_mid_records_bwd") + tuple(k for k in evals if k.endswith("_ring"))}
+    out["ring_plan"] = ring_plans
+    if args.kernels:
+        evals = {k: v for k, v in evals.items() if re.search(args.kernels, k)}
+    ring_fns = [getattr(mk, n) for n in ("mid_records_ring", "mid_records_bwd_ring")
+                if hasattr(mk, n)]
     for key, fn in evals.items():
         pk.reset_launch_counts()
+        for f in ring_fns:
+            f.launches = 0
         fn()
         torch.cuda.synchronize()
-        out[f"{key}_launches"] = sum(pk.launch_counts().values())
+        out[f"{key}_launches"] = (sum(pk.launch_counts().values())
+                                  + sum(f.launches for f in ring_fns))
         out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
         if key in per_launch:
             out[f"{key}_sum_of_launches_ms"] = sum(
@@ -367,8 +539,19 @@ def main():
                                               "forces_sep", "forces_sep_bwd",
                                               "forces_sep_bwd_rows",
                                               "forces_sep_bwd_slab")))
+    rows = sass_per_row(sass_functions(_build.library_path("mid_kernels")),
+                        ("mid_records", "mid_records_bwd"), mk.SWEEPS)
+    out["sass_per_row"] = rows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out["issue_floor_ms"] = {
+        key: n * rows_m / 32 / (sms * 4) / (out["sm_clock_max_mhz"] * 1e6) * 1e3
+        for key, n in rows.items()
+        for rows_m in [m_b if "_corr" in key else m]}
     out["buckets_varcol"] = [[b.slab_len, b.n_tiles] for b in blk.buckets]
-    del fmT, srT_f, fmT_b, srT_b, gT, gT_b
+    del fmT, srT_f, fmT_b, srT_b, gT, gT_b, mid_ops
+    if args.no_steps:
+        print(json.dumps(out), flush=True)
+        return
     out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))
     out.update({f"j_{k}": v for k, v in step_numbers(
         torch, scene, cfg.replace(pair_def_grad="j"), ratio, x_star, dev).items()})

@@ -927,3 +927,167 @@ def test_mid_kernels_refuse_bad_operands():
         mk.mid_records(ayT, rs, scale, True, ayT.shape[1] - 1)
     with pytest.raises(ValueError, match="19"):
         mk.mid_records_bwd(ayT, rs, scale, True, dfmT[:18], dsrT)
+
+
+def _mid_cols(ops, k):
+    """The first k rows of _mid_operands' operands (views: the row strides
+    stay the full scene's)."""
+    ayT, rs, scale, (p, r6), dfmT, dsrT = ops
+    c = slice(0, k)
+    corr = (None, None) if p is None else (p[:, c], r6[:, c])
+    return ayT[:, c], rs.cols(c), scale[c], corr, dfmT[:, c], dsrT[:, c]
+
+
+def _mid_run(ops, corotated, n_sr):
+    ayT, rs, scale, corr, dfmT, dsrT = ops
+    return (mk.mid_records(ayT, rs, scale, corotated, n_sr, *corr)
+            + mk.mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, *corr))
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mid_kernels_ragged_row_counts(dtype, blocked):
+    """Row counts that are not a multiple of a block's 128 rows (nor of a
+    warp's 32), fewer rows than one block, and srT wider than the rows: one
+    launch each, against the plain versions (the f32 forward bit for bit,
+    as on the full scene), srT's padding zero."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked)
+    m = scene.blocked.n_tiles * scene.blocked.rows
+    full = _mid_operands(scene, cfg, pos, ratio, blocked, 5)
+    tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
+    threads = mk.kernel_info()["mid_records", dtype]["threads"]   # rows a block
+    assert m - 77 > threads and (m - 77) % threads and (m - 77) % 32
+    for k, n_sr in ((m - 77, m - 77), (threads - 28, threads - 28),
+                    (m - 77, m + 1000), (threads - 28, 1000)):
+        ops = _mid_cols(full, k)
+        pk.reset_launch_counts()
+        got = _mid_run(ops, True, n_sr)
+        counts = pk.launch_counts()
+        assert counts == dict.fromkeys(counts, 0) | {"mid_records": 1, "mid_records_bwd": 1}
+        ayT, rs, scale, corr, dfmT, dsrT = ops
+        want = (mk.mid_records_plain(ayT, rs, scale, True, n_sr, *corr)
+                + mk.mid_records_bwd_plain(ayT, rs, scale, True, dfmT, dsrT, *corr))
+        for i, (g, w) in enumerate(zip(got, want)):
+            if w is None:
+                assert g is None
+                continue
+            assert g.shape == w.shape and bool(torch.isfinite(g).all()), (k, n_sr, i)
+            if dtype == "float32" and i < 2:
+                assert torch.equal(g, w), (k, n_sr, i, _rel(g, w))
+            assert _rel(g, w) <= tol, (k, n_sr, i, _rel(g, w))
+        assert not got[1][:, k:].any()
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_mid_kernels_repeat_bitwise_and_rows_stand_alone(blocked):
+    """A second launch repeats the first bit for bit, and a launch over the
+    rows from an odd offset on (other blocks, other lanes) gives those rows'
+    outputs bit for bit: no row's arithmetic depends on where it runs."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene("float32", dev, blocked)
+    ops = _mid_operands(scene, cfg, pos, ratio, blocked, 6)
+    n_sr = scene.blocked.n_slots
+    first = _mid_run(ops, True, n_sr)
+    assert all(torch.equal(x, y) for x, y in zip(first, _mid_run(ops, True, n_sr))
+               if x is not None)
+    ayT, rs, scale, (p, r6), dfmT, dsrT = ops
+    m = ayT.shape[1]
+    c = slice(37, m)
+    shifted = _mid_run((ayT[:, c], rs.cols(c), scale[c],
+                        (None, None) if p is None else (p[:, c], r6[:, c]),
+                        dfmT[:, c], dsrT[:, c]), True, m - 37)
+    assert all(torch.equal(x[..., c], y) for x, y in zip(first, shifted) if x is not None)
+
+
+def _odd_stride(x, extra=2, offset=1):
+    """x (k, n) as a view with row stride n + extra + offset, starting
+    ``offset`` elements into its buffer (not 16-byte aligned)."""
+    buf = torch.full((x.shape[0], x.shape[1] + extra + offset), float("nan"),
+                     dtype=x.dtype, device=x.device)
+    buf[:, offset:offset + x.shape[1]] = x
+    return buf[:, offset:offset + x.shape[1]]
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mid_kernels_take_any_row_stride(dtype, blocked):
+    """Every lane-major operand with a row stride that is not a multiple of
+    4 and a base that is not 16-byte aligned (vectors one element into
+    their buffer): the same records and cotangents, bit for bit, as from
+    contiguous operands."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked)
+    ayT, rs, scale, (p, r6), dfmT, dsrT = _mid_operands(scene, cfg, pos, ratio, blocked, 7)
+    n_sr = scene.blocked.n_slots
+    want = _mid_run((ayT, rs, scale, (p, r6), dfmT, dsrT), True, n_sr)
+
+    def vec(v):
+        return _odd_stride(v[None])[0]
+
+    odd = (_odd_stride(ayT), mk.RowStatic(vec(rs.mu), vec(rs.lam), vec(rs.vol),
+                                          _odd_stride(rs.rcT)),
+           vec(scale), (None, None) if p is None else (_odd_stride(p), _odd_stride(r6)),
+           _odd_stride(dfmT), _odd_stride(dsrT))
+    assert odd[0].stride(0) % 4 and odd[0].data_ptr() % 16
+    got = _mid_run(odd, True, n_sr)
+    assert all(torch.equal(x, y) for x, y in zip(got, want) if y is not None)
+
+
+def _mid_run_ring(ops, corotated, n_sr):
+    ayT, rs, scale, corr, dfmT, dsrT = ops
+    return (mk.mid_records_ring(ayT, rs, scale, corotated, n_sr, *corr)
+            + mk.mid_records_bwd_ring(ayT, rs, scale, corotated, dfmT, dsrT, *corr))
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mid_ring_kernels_match_the_one_wave_kernels(dtype, blocked):
+    """The ring kernels (persistent blocks, rows staged by cp.async) give
+    the one-wave kernels' outputs bit for bit, one launch each: on the
+    scene's rows (a block for every tile, one stage), on those rows
+    repeated past every SM's resident blocks (blocks walking several tiles
+    through two stages), on a ragged row count with srT wider than the
+    rows, and at a row stride that is not a multiple of 4."""
+    dev = _card()
+    cfg, scene, pos, ratio = _scene(dtype, dev, blocked)
+    ayT, rs, scale, corr, dfmT, dsrT = _mid_operands(scene, cfg, pos, ratio, blocked, 8)
+    m = ayT.shape[1]
+    names = mk.INSTANCES[int(blocked)::2]       # forward, backward
+    grid = max(mk.ring_plan(i, ayT.dtype, 1 << 30)["grid"] for i in names)
+    r = 3 * grid * 128 // m + 1       # rows for three tiles a block and more
+
+    def rep(x):
+        return None if x is None else x.repeat(*(x.dim() - 1) * (1,), r)
+
+    big = (rep(ayT), mk.RowStatic(*(rep(v) for v in rs)), rep(scale),
+           tuple(rep(v) for v in corr), rep(dfmT), rep(dsrT))
+    assert all(mk.ring_plan(i, ayT.dtype, m * r)["stages"] == 2 for i in names)
+    # the plan: a block a tile up to every SM's resident blocks, one stage
+    # where that covers the tiles, the ring sized for the staged fields
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads = mk.kernel_info()[names[0], dtype]["threads"]
+    for name, fields in zip(names, (31 + 9 * blocked, 63 + 9 * blocked)):
+        for rows in (100, m, m * r):
+            p = mk.ring_plan(name, ayT.dtype, rows)
+            tiles = -(-rows // threads)
+            assert p["grid"] == min(tiles, sms * p["blocks_per_sm"]) > 0, (name, rows, p)
+            assert (p["stages"] == 1) == (tiles <= p["grid"]), (name, rows, p)
+            assert p["smem_bytes"] == p["stages"] * fields * threads * ayT.element_size()
+    k = m * r - 77
+    ragged = (big[0][:, :k], big[1].cols(slice(0, k)), big[2][:k],
+              tuple(None if v is None else v[:, :k] for v in big[3]), big[4][:, :k],
+              big[5][:, :k])
+    odd = (_odd_stride(ayT), mk.RowStatic(*(_odd_stride(v[None])[0] for v in rs[:3]),
+                                          _odd_stride(rs.rcT)),
+           _odd_stride(scale[None])[0], tuple(None if v is None else _odd_stride(v)
+                                              for v in corr),
+           _odd_stride(dfmT), _odd_stride(dsrT))
+    for ops, n_sr in (((ayT, rs, scale, corr, dfmT, dsrT), scene.blocked.n_slots),
+                      (big, m * r), (ragged, k + 1000), (odd, scene.blocked.n_slots)):
+        want = _mid_run(ops, True, n_sr)
+        mk.mid_records_ring.launches = mk.mid_records_bwd_ring.launches = 0
+        got = _mid_run_ring(ops, True, n_sr)
+        assert mk.mid_records_ring.launches == mk.mid_records_bwd_ring.launches == 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want) if w is not None), n_sr
+        assert not got[1][:, ops[0].shape[1]:].any()

@@ -17,6 +17,11 @@ package, on the CPU in f64.
   Taichi pairing (path A), the blocked layout (path B, its raw dots
   corrected in the op) and the fused path's backward.
 
+* The kernels' source is built without contracted multiply-adds, the
+  Givens step's sign / x written as sign * (1 / x) (csrc/mid.cuh) gives
+  the same bits in every case it can meet, in f32 and f64, and the ring
+  kernels' wrappers run the plain versions on the CPU.
+
 The kernels themselves run only on the card: tests/test_torch_cuda.py
 (``-k mid``) and chip_smoke.py phase 44 hold them against these plain
 versions.
@@ -31,6 +36,7 @@ import torch
 from softbody_tpu.ops.pallas.packed import _mid_xla
 from softbody_tpu_torch import warp_parity
 from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
+from softbody_tpu_torch.ops import _build
 from softbody_tpu_torch.ops import mid_kernels as mk
 from softbody_tpu_torch.ops import pair_kernels as pk
 from softbody_tpu_torch.ops.elasticity import compute_ratio
@@ -216,3 +222,48 @@ def test_every_path_runs_the_mid_section_through_its_ops(small_scenes, path):
     assert seen == want
     assert all(torch.equal(a, b) for a, b in zip(got, run(pk.PLAIN)))
     assert float(got[2].abs().max()) > 0
+
+
+# ------------------------------------------------------------ the kernels' source
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_givens_reciprocal_form_is_exact(dtype):
+    """t = sign(theta) / x as sign(theta) * (1 / x), x = |theta| +
+    sqrt(1 + theta^2) (csrc/mid.cuh :: givens): bit for bit the same,
+    signed zeros included, for theta from 0 through the overflow of
+    theta^2 to inf and NaN."""
+    rng = np.random.default_rng(14)
+    mags = np.concatenate([rng.uniform(0, 4, 4000), 10.0 ** rng.uniform(-30, 38, 4000),
+                           [0.0, 1e-30, 1.0, 3.0e19, 1.9e19, 1e38, np.inf, np.nan]])
+    theta = torch.as_tensor(np.concatenate([mags, -mags]), dtype=dtype)
+    sign = torch.sign(theta).nan_to_num(0.0)
+    x = theta.abs() + torch.sqrt(1 + theta * theta)
+    div, rcp = sign / x, sign * (1 / x)
+    assert torch.equal(div.isnan(), rcp.isnan())
+    keep = ~div.isnan()
+    assert torch.equal(div[keep], rcp[keep])
+    assert torch.equal(torch.signbit(div[keep]), torch.signbit(rcp[keep]))
+
+
+def test_mid_kernels_build_without_contraction():
+    """csrc/mid_kernels.cu is built with --fmad=false (every multiply and
+    add rounds on its own, as the plain version's do); the other sources
+    keep contraction."""
+    assert "--fmad=false" in _build.flags("mid_kernels")
+    assert all("--fmad=false" not in _build.flags(s) for s in _build.SOURCES
+               if s != "mid_kernels")
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["centered", "raw_dots"])
+def test_ring_wrappers_run_the_plain_versions_on_the_cpu(raw):
+    """On CPU tensors the ring kernels' wrappers run the plain versions,
+    as the one-wave wrappers do, and count no launch."""
+    t, rs = _torch(_rows(2))
+    corr = (t["pos"], t["rs6"]) if raw else (None, None)
+    args = (t["ayT"], rs, t["scale"], True)
+    mk.mid_records_ring.launches = mk.mid_records_bwd_ring.launches = 0
+    got = (mk.mid_records_ring(*args, M + 8, *corr)
+           + mk.mid_records_bwd_ring(*args, t["dfm"], t["dsr"], *corr))
+    want = (mk.mid_records_plain(*args, M + 8, *corr)
+            + mk.mid_records_bwd_plain(*args, t["dfm"], t["dsr"], *corr))
+    assert mk.mid_records_ring.launches == mk.mid_records_bwd_ring.launches == 0
+    assert all((g is None and w is None) or torch.equal(g, w) for g, w in zip(got, want))
