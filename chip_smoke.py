@@ -8,8 +8,8 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
 
   1  the card (nvidia-smi name and power limit)
   2  kernel build (nvcc, from csrc/ in this checkout: one process per
-     source, pair_kernels.cu, fused_kernels.cu and mid_kernels.cu, all
-     started together); the whole-scene kernels' (K1/K2 v4 forward and
+     source, pair_kernels.cu, fused_kernels.cu, mid_kernels.cu and
+     gather_kernels.cu, all started together); the whole-scene kernels' (K1/K2 v4 forward and
      their backwards, K2 v2 and its backward passes, the fused K1 +
      mid-section, the raw K1 backward, the separable K2 and its backward)
      registers, shared memory, spills and resident blocks per SM, f32 and
@@ -119,18 +119,22 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      evaluation on both): no kernel of another path runs
 
  30  the gather backend (build_scene, its (N, K) tables; no K-nearest
-     truncation): build seconds, K, real pairs, table bytes; one
-     evaluation against the sparse kernel path at the same positions,
-     <= 1e-4 of max |f| in f32 and <= 1e-9 in f64
+     truncation), which runs gather_moments, mid_records and gather_forces
+     per evaluation and their backward kernels: build seconds, K, real
+     pairs, table bytes; one evaluation against the sparse kernel path at
+     the same positions, <= 1e-4 of max |f| in f32 and <= 1e-9 in f64, and
+     the device's busy time and activities for it (profiler)
  31  the gather forward episode and quiet body, as phase 23 (cut to
-     NEW_BUDGET_S; no pair kernel may launch); 300 steps against phase 6's
-     sparse kernel rollout (<= 1e-3 max |pos - rest|); the CLI's
-     configuration (warp_parity: trapezoidal, dt 1e-6, the ground with its
-     damper), set through update_materials, finite
+     NEW_BUDGET_S), its launches exactly one of each forward kernel per
+     evaluation and no other kernel; 300 steps against phase 6's sparse
+     kernel rollout (<= 1e-3 max |pos - rest|); the CLI's configuration
+     (warp_parity: trapezoidal, dt 1e-6, the ground with its damper), set
+     through update_materials, finite, one of each per evaluation
  32  the gather gradient, as phase 24 (bitwise repeat, peak memory,
-     profile); its f64 gradient over PREFIX_STEPS steps against the
-     sparse kernel path's: loss <= 1e-9 relative, max |dg| <= 1e-6 of
-     max |g|
+     profile; the forward kernels 3 times per step, the backward ones
+     once, no other kernel); its f64 gradient over PREFIX_STEPS steps
+     against the sparse kernel path's: loss <= 1e-9 relative, max |dg| <=
+     1e-6 of max |g|
  33  the DROP scenario (drop_gap, scale_mass_for_resolution) on the sparse
      kernel path with a sphere, a box and a plane obstacle and a dynamic
      contact grid excluding the rest table in slot space (contact_check
@@ -156,8 +160,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      its loss is rounding noise and scipy may stop at iteration 0), two
      Adam steps and a --resume to 3 (history.json 3 finite losses, the
      printed last loss; --debug and Adam on pallas and gather only); each
-     flow's launches as the trapezoidal path implies on pallas, none on
-     gather, and the blocked build's one raw K1;
+     flow's launches as the trapezoidal path implies on pallas and, with
+     the gather kernels in place of K1, K2 and their backward passes and
+     scatter, on gather, and the blocked build's one raw K1;
      pallas vs gather targets <= 1e-3 of the displacement (+ 32 f32 ulps
      of the coordinates) and, with --dtype float64 at CLI_F64_N, <= 1e-9
  36  examples/inflate_demo on --backend pallas (path B's kernels) at its
@@ -194,7 +199,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      layout (positions 1e-6 of the displacement, losses 1e-5, gradient
      1e-3 of max |g|: f32, other summation orders), launches per rank per
      evaluation, ms/step, peak memory per rank; no scaling is measured
- 43  parallel.dryrun_multichip(2) on the card (gloo)
+ 43  parallel.dryrun_multichip(2) on the card (gloo); its gather step
+     launches the gather and mid-section kernels, forward and backward, on
+     every rank, and no other kernel
  44  the mid-section kernels (csrc/mid_kernels.cu): mid_records and
      mid_records_bwd, one launch each over every row, against their plain
      versions (the eager mid-section, autograd through it) on the sparse
@@ -206,6 +213,14 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      of a block's 128 rows, under one block, srT wider than the rows, a
      row stride that is not a multiple of 4); ms per launch, the plain
      version's ms and the bound
+ 45  the gather kernels (csrc/gather_kernels.cu): gather_moments,
+     gather_forces (both pairings) and their backward kernels, and
+     mid_records / mid_records_bwd on the gather rows, each against its
+     plain version on phase 30's stretched body, f32 (<= 1e-4 of max
+     |plain|) and f64 (<= 1e-10), corotated on and off, one launch
+     counted per call, a bitwise repeat; a shard-like source (a ragged
+     run of rows reading every particle, the inverse over the source);
+     ms per call, the plain version's ms and the bound
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
@@ -213,10 +228,11 @@ product loop, for the v4 path's kernels, the mid-section kernels and the
 scatter; from phase 19, one
 fused gradient evaluation, for the fused path's; from phases 24 and 28, one
 gradient each, for the separable K2 and the raw K1; from phases 39 and
-41, one bf16 gradient each, for the bf16 K2 kernels; ms per force
+41, one bf16 gradient each, for the bf16 K2 kernels; from phase 32, the
+gather gradient, for the gather kernels; ms per force
 evaluation on the sparse scene, one launch each, but the raw K1's, per
 launch on the varcol scene; the mid-section kernels' on the sparse scene's
-stepped rows),
+stepped rows; the gather kernels' per call on the gather scene),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
@@ -284,6 +300,18 @@ MID_FLOPS_PER_ROW = 2250
 # polar's VJP (216) (~2,690; the correction adds 72)
 MID_RECORDS_FLOPS = {"mid_records": (2090, 36), "mid_records_bwd": (2690, 72)}
 MID_STEPS = 5              # phase 44: steps from the stretched body to its strained rows
+# the gather kernels (csrc/gather_kernels.cu), flops per real pair as the
+# kernels do them (a multiply-add counts 2; the per-row warp sums and
+# epilogues add ~1 per pair at K = 80): gather_moments p_j - p_i (3), c and
+# vj times it (6), 18 multiply-adds; its VJP's row pass c dA X + vj dY nW
+# and the row sum (42), its source pass 3 adds; gather_forces (Warp) V_j S_j
+# nW (18), F_i times it (15), R_j times that, added (18); its VJP's row
+# pass V S nW, R^T h and dF (51), its source pass those, F (V S nW), F^T
+# R^T h, dR and dVS (99)
+GATHER_FLOPS = {"gather_moments": 45, "gather_moments_bwd": 45,
+                "gather_forces": 51, "gather_forces_bwd": 150}
+GATHER_SEP_FLOPS = {"gather_forces": 21, "gather_forces_bwd": 18}   # Taichi pairing
+GATHER_KERNELS = tuple(GATHER_FLOPS) + ("mid_records",)   # the gather path's kernels
 T_START = time.perf_counter()
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time, longer than any timed batch's enqueue
 
@@ -479,7 +507,7 @@ def main():
     stats = {k: {"ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
                  "max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None}
              for k in list(FLOPS_PER_PAIR) + ["slab_to_slots", "slab_to_slots_bf16"]
-             + list(MID_RECORDS_FLOPS)}
+             + list(MID_RECORDS_FLOPS) + list(GATHER_FLOPS)}
     f32 = 4
     k1 = pk.moments_v4(sb, posT, posT[:, :m], cfg.h)
     k2 = pk.forces_warp_v4(sb, f9T, srT, cfg.h)
@@ -654,10 +682,9 @@ def main():
                            stats, body, ctx)
     phase_counts(path_a, path_b)
     path_b_raw = path_b["grad"]["moments_raw"]
-    scene_g = phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star,
-                           body, ctx)
-    phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg)
-    del scene_g
+    gather = phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star,
+                          body, ctx)
+    phase_drop(torch, np, dev, tag, pts, out_num, gather["scene"], cfg)
     phase_adam(torch, np, dev, tag, scene, x_star, ctx)
     phase_cli(torch, np, dev, tag)
     phase_inflate(torch, np, dev, tag)
@@ -669,11 +696,13 @@ def main():
         x_star_bands(pts, ns, s), dtype=torch.float32, device=dev))
     phase_dryrun(torch, tag, staged)
     phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats)
+    phase_gather_kernels(torch, np, dev, tag, gather, stats)
     fused_path = ("moments_mid", "forces_warp_v2", "moments_raw_bwd",
                   "forces_warp_v2_bwd_rows", "forces_warp_v2_bwd_slab")
     launches = {**ctx["counts_opt"], **{k: counts_fused[k] for k in fused_path},
                 **{k: path_a["grad"][k] for k in ("forces_sep", "forces_sep_bwd")},
-                "moments_raw": path_b_raw, **bf16_launches}
+                "moments_raw": path_b_raw, **bf16_launches,
+                **{k: gather["counts"][k] for k in GATHER_KERNELS if k in GATHER_FLOPS}}
     kernels = kernel_json(stats, launches)
     say(f"    total {time.perf_counter() - T_START:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1878,8 +1907,12 @@ def phase_blocked(torch, np, dev, tag, pts, out_num, scene, cfg, x_star, stats,
 
 def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, body, ctx):
     """Phases 30-32: the gather backend (``build_scene``'s (N, K) tables,
-    ``ops/elasticity``) at full width, against the sparse kernel path.
-    Returns its f32 scene (phase 33 takes the rest table from it)."""
+    ``ops/elasticity``: the gather kernels and the mid-section kernel) at
+    full width, against the sparse kernel path.  Returns its f32 and f64
+    scenes and configs, the stretched body's positions, x* and the
+    gradient's launch counts (phase 33 takes the rest table from the f32
+    scene, phase 45 holds the kernels against their plain versions on
+    both)."""
     from softbody_tpu_torch import warp_parity
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
@@ -1915,12 +1948,16 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
     pos_g = torch.as_tensor(body, dtype=torch.float32, device=dev)
     f_s = elastic_forces_sparse(ctx["pos"], ratio_s, scene.materials, scene, cfg)[sop]
     f_g = elastic_forces(pos_g, compute_ratio(x_g, cfg_g), scene_g, cfg_g)
-    # the gather forces issue ~2,500 small launches (the polar on
-    # components), more than a sleep kernel covers: the profiler's busy
-    # time, not CUDA events
-    busy_g, acts_g, _ = profile_card(
-        torch, lambda: elastic_forces(pos_g, compute_ratio(x_g, cfg_g), scene_g, cfg_g),
-        (), 1)
+    # the device's busy time and activities per evaluation (its three
+    # kernels and the stiffness scale), from the profiler over 20 of them (it
+    # saw none in a window of one)
+    ratio_g = compute_ratio(x_g, cfg_g)
+
+    def evals():
+        for _ in range(20):
+            elastic_forces(pos_g, ratio_g, scene_g, cfg_g)
+
+    busy_g, acts_g, _ = profile_card(torch, evals, (), 20)
     err32 = rel_err(f_g, f_s)
     scene64, cfg64 = ctx["scene64"], ctx["cfg64"]
     t0 = time.perf_counter()
@@ -1937,16 +1974,20 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
     say(f"    one gather evaluation vs the sparse kernel path at the same positions: "
         f"f32 {err32:.3e} of max |f| (tol 1e-4), f64 {err64:.3e} (tol 1e-9; f64 "
         f"scene build {t_build64:.1f} s); one gather evaluation keeps the device "
-        f"busy {busy_g:.3f} ms in {acts_g:.0f} activities (profiler) {tag}")
+        + (f"busy {busy_g:.3f} ms in {acts_g:.0f} activities (profiler) {tag}"
+           if busy_g > 0 else "busy for a time the profiler did not see: not measured"))
     if not (err32 <= 1e-4 and err64 <= 1e-9 and bool(torch.isfinite(f_g).all())):
         fail("the gather forces disagree with the sparse kernel path")
 
     # ---- 31 the gather forward episode, its quiet body, 300 steps against the
     # sparse kernel path, and the CLI's configuration
     counts_fwd, steps, ms = forward_phase(torch, np, dev, tag, 31, "gather", scene_g,
-                                          cfg_g, x_g, NEW_BUDGET_S, 1e-6, ())
-    if any(counts_fwd.values()):
-        fail(f"a pair kernel ran on the gather path: {counts_fwd}")
+                                          cfg_g, x_g, NEW_BUDGET_S, 1e-6, GATHER_KERNELS)
+    # symplectic: one force evaluation per step, two episodes
+    want = dict.fromkeys(("gather_moments", "mid_records", "gather_forces"), 2 * steps)
+    say(f"    launches of the two episodes: {nonzero(counts_fwd)} (expected {want}: "
+        f"one of each forward kernel per force evaluation, no other kernel)")
+    gate_counts("the gather forward episodes", counts_fwd, want)
     _, fin_g, _ = rollout(x_g, scene_g, cfg_g, n_steps=300, device=dev)
     fin_k = ctx["fin_k"]
     dpos = float(torch.max(torch.abs(fin_g.position - fin_k.position[sop])))
@@ -1970,17 +2011,22 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
     shift = torch.tensor([0.0, float(scene_g.rest_position[:, 1].min()) - 5e-5, 0.0],
                          device=dev)
     scene_w = scene_w._replace(rest_position=scene_g.rest_position - shift)
+    pk.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, fin_w, _ = rollout(torch.zeros(n), scene_w, cfg_w, n_steps=steps, device=dev)
     torch.cuda.synchronize()
     ms_w = (time.perf_counter() - t0) * 1e3 / steps
+    counts_w = pk.launch_counts()
     low = float(fin_w.position[:, 1].min())
     say(f"    warp_parity (the CLI's configuration: trapezoidal, dt 1e-6, ground "
         f"contact with the damper) on the gather path: {steps} steps, {ms_w:.3f} "
-        f"ms/step, lowest particle {low:.3e} m {tag}")
+        f"ms/step, lowest particle {low:.3e} m; launches {nonzero(counts_w)} "
+        f"(trapezoidal: one evaluation per step and one at the start) {tag}")
     if not bool(torch.isfinite(fin_w.position).all()):
         fail("the warp_parity gather episode is not finite")
+    gate_counts("the warp_parity gather episode", counts_w, dict.fromkeys(
+        ("gather_moments", "mid_records", "gather_forces"), steps + 1))
 
     # ---- 32 the gather episode gradient; f64 prefix against the sparse path
     S, P = PATH_GRAD_STEPS, PREFIX_STEPS
@@ -2009,9 +2055,17 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
         f"= {ms_grad:.3f} ms/step, {n * S / t_grad:.4g} particle-steps/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; second gradient bitwise equal: {repeat} {tag}")
     if not (math.isfinite(loss1) and loss1 > 0 and gmax > 0 and repeat
-            and bool(torch.isfinite(g1).all()) and not any(counts.values())):
-        fail("the gather gradient is not finite, is zero, does not repeat, or ran "
-             f"a pair kernel ({counts})")
+            and bool(torch.isfinite(g1).all())):
+        fail("the gather gradient is not finite, is zero, or does not repeat")
+    # as phase 24's: the forward kernels three times per step (the no-grad
+    # forward, each chunk's recompute and its checkpointed steps'), the
+    # backward ones once
+    want = {**dict.fromkeys(("gather_moments", "mid_records", "gather_forces"), 3 * S),
+            **dict.fromkeys(("gather_moments_bwd", "mid_records_bwd",
+                             "gather_forces_bwd"), S)}
+    say(f"    launches of one gradient: {nonzero(counts)} (expected {want}, no other "
+        f"kernel)")
+    gate_counts("the gather gradient", counts, want)
     n_tp = P // every
     tp64, tv64 = ctx["tp64"][:n_tp], ctx["tv64"][:n_tp]
     x64 = torch.zeros(scene64.rest_position.shape[0], dtype=torch.float64, device=dev)
@@ -2026,15 +2080,17 @@ def phase_gather(torch, np, dev, tag, pts, out_num, scene, sop, cfg, x_star, bod
     if not (dl <= 1e-9 and dg <= 1e-6):
         fail("the gather gradient disagrees with the sparse kernel path in f64")
     short = episode_value_and_grad_chunked(scene_g, cfg_gg, 1, 10)
-    busy, acts, _ = profile_card(torch, lambda: short(x0, tp[:3], tv[:3]), (), 10)
+    busy, acts, ours = profile_card(torch, lambda: short(x0, tp[:3], tv[:3]),
+                                    GATHER_KERNELS, 10)
     if busy > 0:
         say(f"    profile: device busy {busy:.3f} ms/step of fwd+bwd in {acts:.0f} "
-            f"device activities per step; idle share {1 - busy / ms_grad:.3f} of the "
-            f"gradient's {ms_grad:.3f} ms/step {tag}")
+            f"device activities per step, of which the gather and mid-section kernels "
+            f"{ours:.3f} ms; idle share {1 - busy / ms_grad:.3f} of the gradient's "
+            f"{ms_grad:.3f} ms/step {tag}")
     else:
         say("    profile: the profiler saw no device time; idle share not measured")
-    del scene_g64
-    return scene_g
+    return dict(scene=scene_g, cfg=cfg_g, scene64=scene_g64,
+                cfg64=cfg_g.replace(dtype="float64"), pos=pos_g, x=x_g, counts=counts)
 
 
 def phase_drop(torch, np, dev, tag, pts, out_num, scene_g, cfg):
@@ -2270,6 +2326,23 @@ def added(*counts):
     return out
 
 
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+ON_GATHER = {"moments_v4": "gather_moments", "mid_records": "mid_records",
+             "forces_warp_v4": "gather_forces", "moments_v4_bwd": "gather_moments_bwd",
+             "mid_records_bwd": "mid_records_bwd",
+             "forces_warp_v4_bwd_rows": "gather_forces_bwd"}
+
+
+def on_gather(counts):
+    """The sparse kernel path's launches (one evaluation's kernels and its
+    VJP's) as the gather path makes them: one gather kernel for each, no
+    slab pass and no scatter."""
+    return {ON_GATHER[k]: v for k, v in counts.items() if k in ON_GATHER}
+
+
 def gate_counts(label, got, want):
     """Fail unless ``got`` has ``want``'s launches and 0 for every other kernel."""
     bad = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
@@ -2354,7 +2427,11 @@ def phase_cli(torch, np, dev, tag):
                         driver.optimize_adam = real_adam
                     return buf.getvalue(), pk.launch_counts(), time.perf_counter() - t0
 
-                kernels = backend == "pallas"
+                # blocked (the plain reference, small bodies only) launches no
+                # kernel but its build's raw K1, and the flows that
+                # differentiate run on pallas and gather
+                full = backend != "blocked"
+                path = (lambda c: c) if backend == "pallas" else on_gather
                 secs = {}
                 text, counts, secs["set_target+render"] = run("--set_target", "--render")
                 tdir = f"{out}/target/sphere"
@@ -2370,19 +2447,15 @@ def phase_cli(torch, np, dev, tag):
                 targets[backend] = (pos, rest)
                 # the blocked build computes its static row sums with one raw K1
                 gate_counts(f"{backend} --set_target --render", counts,
-                            scaled(fwd, 2) if kernels else
-                            {"moments_raw": 1} if backend == "blocked" else {})
+                            path(scaled(fwd, 2)) if full else {"moments_raw": 1})
 
                 text, counts, secs["init"] = run("--init")
                 mean = [float(v) for v in re.findall(r"[-+0-9.e]+",
                                                      text.split("mean:")[-1])]
                 if not (len(mean) == 3 and all(math.isfinite(v) for v in mean)):
                     fail(f"{backend}: --init printed no finite mean: {text[-200:]!r}")
-                gate_counts(f"{backend} --init", counts, fwd if kernels else {})
+                gate_counts(f"{backend} --init", counts, path(fwd) if full else {})
 
-                # blocked (the plain reference, small bodies only): the flows that
-                # differentiate run on pallas and gather
-                full = backend != "blocked"
                 pairs = ["not run"] * 3
                 if full:
                     text, counts, secs["debug"] = run("--debug")
@@ -2392,7 +2465,7 @@ def phase_cli(torch, np, dev, tag):
                                     for a, b in pairs)):
                         fail(f"{backend}: --debug lines {pairs} are not 5 finite pairs")
                     gate_counts(f"{backend} --debug", counts,
-                                added(per_eval, scaled(fwd, 10)) if kernels else {})
+                                path(added(per_eval, scaled(fwd, 10))))
 
                 zeros = f"{out}/zeros.npy"
                 np.save(zeros, np.zeros(n_p))
@@ -2411,7 +2484,7 @@ def phase_cli(torch, np, dev, tag):
                     fail(f"{backend}: the L-BFGS flow failed (evaluations {evals}, "
                          f"losses.json {logged}, {text[-300:]!r})")
                 gate_counts(f"{backend} L-BFGS", counts,
-                            scaled(per_eval, len(evals)) if kernels else {})
+                            path(scaled(per_eval, len(evals))) if full else {})
 
                 hist = {"losses": "not run"}
                 if full:
@@ -2429,10 +2502,8 @@ def phase_cli(torch, np, dev, tag):
                             and all(math.isfinite(v) for v in hist["losses"])):
                         fail(f"{backend}: Adam + --resume: step {meta['step']}, losses "
                              f"{hist['losses']}, printed {last}")
-                    gate_counts(f"{backend} Adam", counts_a,
-                                scaled(per_eval, 2) if kernels else {})
-                    gate_counts(f"{backend} Adam --resume", counts_r,
-                                per_eval if kernels else {})
+                    gate_counts(f"{backend} Adam", counts_a, path(scaled(per_eval, 2)))
+                    gate_counts(f"{backend} Adam --resume", counts_r, path(per_eval))
                 say(f"    {backend}: N={n_p}; L-BFGS evaluations {evals} -> "
                     f"losses.json {logged} (scipy: {done.group(1)}); --debug "
                     f"(analytic, numeric) {pairs[2]}; "
@@ -2954,12 +3025,21 @@ def phase_dryrun(torch, tag, staged):
 
     t0 = time.perf_counter()
     out = dryrun_multichip(2, device="cuda", backend="gloo", host=staged)
+    launches = [r.pop("launches") for r in out]
     say(f"[43] dryrun_multichip(2) on the card (gloo, staged {staged or 'none'}): "
         + "; ".join(f"{k} loss {v[0]:.6g}" for k, v in out[0].items())
         + f", finite losses and gradients on every rank, halo vs all-gather gradient "
-        f"within rtol 1e-4 in {time.perf_counter() - t0:.1f} s {tag}")
+        f"within rtol 1e-4 in {time.perf_counter() - t0:.1f} s; the gather step's "
+        f"launches per rank {[nonzero(c) for c in launches]} {tag}")
     if set(out[0]) != {"gather", "sparse", "halo"}:
         fail("dryrun_multichip did not run every path")
+    # its gather training step: the gather kernels and the mid-section's,
+    # forward and backward, on every rank, and no other kernel
+    for c in launches:
+        if (set(nonzero(c)) != set(GATHER_KERNELS) | {"mid_records_bwd"}
+                or len({c[k] for k in ("gather_moments", "mid_records",
+                                       "gather_forces")}) != 1):
+            fail(f"dryrun_multichip's gather step did not run the gather kernels: {c}")
 
 
 def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
@@ -3086,6 +3166,184 @@ def phase_mid(torch, np, dev, tag, scene, cfg, ctx, scene_b, x_b, stats):
     mid_ragged(torch, ragged, cfg.corotated, tols)
 
 
+def gather_bytes(key, n, K, T, sep=False):
+    """The bytes a gather kernel's function must move (each input read
+    once, each output written once) at n rows of K table entries and T-byte
+    values, the source being the rows: the table's int64 idx and its c, vj
+    (n, K) and xji, nw (n, K, 3) as each kernel reads them, the positions,
+    the rows' records fmT (19 rows; the Taichi pairing's forward reads M and
+    V, its backward V), the Warp pairing's [S_6 | R^T_9] source record, the
+    CSR inverse (int64) backward, and the outputs."""
+    nk = n * K
+    if key == "gather_moments":
+        return nk * (8 + 8 * T) + (3 * n + 18 * n) * T
+    if key == "gather_moments_bwd":
+        return nk * (8 + 8 * T) + 8 * (n + 1) + (18 * n + 3 * n) * T
+    src = 0 if sep else 15 * n
+    if key == "gather_forces":
+        return nk * (8 + 3 * T) + (3 * n + (10 if sep else 19) * n + src + 3 * n) * T
+    return (nk * ((8 if sep else 16) + 3 * T) + 8 * (n + 1)
+            + (3 * n + (1 if sep else 19) * n + src + 3 * n + 19 * n + src) * T)
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def phase_gather_kernels(torch, np, dev, tag, g, stats):
+    """Phase 45: the gather kernels (csrc/gather_kernels.cu) and
+    mid_records / mid_records_bwd on the gather scene's rows, each against
+    its plain version on the same operands: the stretched body of phase 30
+    on the f32 and the f64 scene (f32 within TOL of max |plain|, f64
+    within 1e-10), both pairings, corotated on and off, one launch counted
+    per call, a second call bit for bit the first; and a shard-like case:
+    a ragged run of rows (not a multiple of a block's 8) whose table reads
+    a source of every particle, its CSR inverse over the source (as
+    parallel/sharding.shard_scene builds it).  Then each kernel's ms on
+    the f32 scene's operands, the plain version's and the bound (the Warp
+    pairing's into ``stats``, the Taichi pairing's printed)."""
+    from softbody_tpu_torch.core.types import Topology
+    from softbody_tpu_torch.ops import gather_kernels as gk
+    from softbody_tpu_torch.ops import mid_kernels as mk
+    from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+
+    say(f"[45] the gather kernels (csrc/gather_kernels.cu) and the mid-section kernels "
+        f"on the gather rows, kernel vs plain {tag}")
+    rng = np.random.default_rng(45)
+    tols = {torch.float32: TOL, torch.float64: 1e-10}
+
+    def held(name, kern, plain, args, dt, what, into=None):
+        """One call of ``kern`` (one launch counted on ``name``), its outputs
+        vs ``plain``'s and a second call's; returns the max error."""
+        pk.reset_launch_counts()
+        got = [t for t in _tuple(kern(*args)) if t is not None]
+        torch.cuda.synchronize()
+        counts = nonzero(pk.launch_counts())
+        want = [t for t in _tuple(plain(*args)) if t is not None]
+        again = [t for t in _tuple(kern(*args)) if t is not None]
+        if counts != {name: 1} or len(got) != len(want):
+            fail(f"{what}: launches {counts}, {len(got)} outputs vs {len(want)}")
+        errs = []
+        for k, w in zip(got, want):
+            if not (k.shape == w.shape and bool(torch.isfinite(k).all())):
+                fail(f"{what}: output {tuple(k.shape)} vs {tuple(w.shape)} or not finite")
+            errs.append(rel_err(k, w))
+            if into is not None and dt == torch.float32:
+                st = stats[into]
+                st["max_abs_err"] = max(st["max_abs_err"],
+                                        float(torch.max(torch.abs(k - w))))
+                st["max_rel_err"] = max(st["max_rel_err"], errs[-1])
+        if not (max(errs) <= tols[dt]
+                and all(torch.equal(a, b) for a, b in zip(got, again))):
+            fail(f"{what}: kernel vs plain {max(errs):.3e} (tol {tols[dt]:g}) or no "
+                 f"bitwise repeat")
+        return max(errs)
+
+    timed = {}
+    for scene, cfg in ((g["scene"], g["cfg"]), (g["scene64"], g["cfg64"])):
+        dt = scene.dtype
+        topo = scene.topology
+        n, K = topo.idx.shape
+        pos = g["pos"].to(dt)
+        ratio = compute_ratio(g["x"].to(dt), cfg)
+        dayT, df, dfm, dsr = (torch.as_tensor(rng.normal(size=shape), dtype=dt, device=dev)
+                              for shape in ((18, n), (n, 3), (19, n), (15, n)))
+        ayT = gk.gather_moments_plain(pos, None, topo)
+        rs = mk.gather_row_static(scene.materials, topo)
+        scale = cfg.stiffness_scale(ratio)
+        rows = slice(7, 7 + n // 2 + 5)                 # the shard-like rows
+        fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
+        shard = Topology(**fields, **gk.inverse_fields(fields["idx"], n),
+                         rcT=gk.rest_corr_lanes(fields["rest_corr"]))
+        p_rows, day_rows = pos[rows].contiguous(), dayT[:, rows].contiguous()
+        errs = {
+            "gather_moments": held(
+                "gather_moments", gk.gather_moments, gk.gather_moments_plain,
+                (pos, None, topo), dt, f"gather_moments {dt}", "gather_moments"),
+            "gather_moments_bwd": held(
+                "gather_moments_bwd", gk.gather_moments_bwd, gk.gather_moments_bwd_plain,
+                (pos, None, topo, dayT), dt, f"gather_moments_bwd {dt}",
+                "gather_moments_bwd"),
+            "shard moments": max(
+                held("gather_moments", gk.gather_moments, gk.gather_moments_plain,
+                     (p_rows, pos, shard), dt, f"gather_moments on a shard {dt}"),
+                held("gather_moments_bwd", gk.gather_moments_bwd,
+                     gk.gather_moments_bwd_plain, (p_rows, pos, shard, day_rows), dt,
+                     f"gather_moments_bwd on a shard {dt}")),
+        }
+        for corot in (True, False):
+            args = (ayT, rs, scale, corot)
+            errs[f"mid_records corotated={corot}"] = max(
+                held("mid_records", mk.mid_records, mk.mid_records_plain, args + (n,), dt,
+                     f"mid_records on the gather rows {dt}"),
+                held("mid_records_bwd", mk.mid_records_bwd, mk.mid_records_bwd_plain,
+                     args + (dfm, dsr), dt, f"mid_records_bwd on the gather rows {dt}"))
+            fmT, srT = mk.mid_records_plain(*args, n)
+            for sep in (False, True):
+                label = f"{'taichi' if sep else 'warp'} corotated={corot}"
+                rec, vol = (None, None) if sep else (srT.T, fmT[18])
+                into = None if sep else "gather_forces"
+                f_args = (fmT, rec, vol, topo, sep)
+                errs[f"gather_forces {label}"] = held(
+                    "gather_forces", gk.gather_forces, gk.gather_forces_plain, f_args, dt,
+                    f"gather_forces {label} {dt}", into)
+                errs[f"gather_forces_bwd {label}"] = held(
+                    "gather_forces_bwd", gk.gather_forces_bwd, gk.gather_forces_bwd_plain,
+                    f_args + (df,), dt, f"gather_forces_bwd {label} {dt}",
+                    into and "gather_forces_bwd")
+                if not corot:
+                    continue
+                if dt == torch.float32:
+                    timed[sep] = (f_args, df)
+                s_rec = (fmT[9:18].T if sep else srT.T).contiguous()
+                s_args = (fmT[:, rows].contiguous(), s_rec, fmT[18], shard, sep)
+                errs[f"shard forces {label}"] = max(
+                    held("gather_forces", gk.gather_forces, gk.gather_forces_plain, s_args,
+                         dt, f"gather_forces on a shard {label} {dt}"),
+                    held("gather_forces_bwd", gk.gather_forces_bwd,
+                         gk.gather_forces_bwd_plain, s_args + (df[rows].contiguous(),), dt,
+                         f"gather_forces_bwd on a shard {label} {dt}"))
+        say(f"    {str(dt)[6:]} (N = {n}, K = {K}; the shard-like rows {rows.start}:"
+            f"{rows.stop} of a source of {n}): max error / max |plain| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {tols[dt]:g}); one launch per call, each repeats bit for bit")
+        if dt == torch.float32:
+            timed["moments"] = (pos, topo, dayT)
+
+    pos, topo, dayT = timed["moments"]
+    n, K = topo.idx.shape
+    pairs = int(topo.mask.sum())
+    work = {("gather_moments", False): (lambda: gk.gather_moments(pos, None, topo),
+                                        lambda: gk.gather_moments_plain(pos, None, topo)),
+            ("gather_moments_bwd", False): (
+                lambda: gk.gather_moments_bwd(pos, None, topo, dayT),
+                lambda: gk.gather_moments_bwd_plain(pos, None, topo, dayT))}
+    for sep in (False, True):
+        f_args, df = timed[sep]
+        work["gather_forces", sep] = (lambda a=f_args: gk.gather_forces(*a),
+                                      lambda a=f_args: gk.gather_forces_plain(*a))
+        work["gather_forces_bwd", sep] = (
+            lambda a=f_args, d=df: gk.gather_forces_bwd(*a, d),
+            lambda a=f_args, d=df: gk.gather_forces_bwd_plain(*a, d))
+    say(f"    per call on the f32 scene ({pairs} real pairs of {n * K} table entries; "
+        f"a backward call is two launches, its row pass and its source pass):")
+    for (name, sep), (kern, plain) in work.items():
+        flops = (GATHER_SEP_FLOPS if sep else GATHER_FLOPS)[name] * pairs
+        nbytes = gather_bytes(name, n, K, 4, sep)
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 3)
+        if not sep:
+            st = stats[name]
+            st.update(ms=ms, launch_ms=host_ms(kern, 50), plain_ms=plain_ms, flops=flops,
+                      bytes=nbytes)
+            summarize(name, st, 2 if name.endswith("_bwd") else 1, tag)
+        else:
+            bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+            say(f"    {name} (Taichi pairing): {ms:.4f} ms device per call vs bound "
+                f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); plain "
+                f"{plain_ms:.3f} ms {tag}")
+
+
 def odd_stride(torch, x):
     """x (k, n) as a view with row stride n + 3 starting one element into
     its buffer (not a multiple of 4, not 16-byte aligned)."""
@@ -3173,34 +3431,41 @@ def phase_counts(a, b):
                 fail(f"{run}: {k} launched {v} times, expected {want[run].get(k, 0)}")
 
 
-REPLACES = {   # kernel -> (its source here, the Pallas body it replaces)
-    "moments_v4": ("pair_kernels", "pair_kernels.py:505"),
-    "forces_warp_v4": ("pair_kernels", "pair_kernels.py:879"),
-    "moments_v4_bwd": ("pair_kernels", "pair_kernels.py:564"),
-    "forces_warp_v4_bwd_rows": ("pair_kernels", "pair_kernels.py:1038"),
-    "forces_warp_v4_bwd_slab": ("pair_kernels", "pair_kernels.py:1038"),
-    "slab_to_slots": ("pair_kernels", "packed.py:212"),
-    "moments_mid": ("pair_kernels", "pair_kernels.py:602"),
-    "forces_warp_v2": ("pair_kernels", "pair_kernels.py:822"),
-    "moments_raw_bwd": ("pair_kernels", "pair_kernels.py:335"),
-    "forces_warp_v2_bwd_rows": ("pair_kernels", "pair_kernels.py:936"),
-    "forces_warp_v2_bwd_slab": ("pair_kernels", "pair_kernels.py:936"),
-    "forces_sep": ("pair_kernels", "pair_kernels.py:690"),
-    "forces_sep_bwd": ("pair_kernels", "pair_kernels.py:716"),
-    "moments_raw": ("fused_kernels", "pair_kernels.py:307"),
+PALLAS = "softbody_tpu/ops/pallas/"
+REPLACES = {   # kernel -> (its source here, the TPU code it replaces)
+    "moments_v4": ("pair_kernels", PALLAS + "pair_kernels.py:505"),
+    "forces_warp_v4": ("pair_kernels", PALLAS + "pair_kernels.py:879"),
+    "moments_v4_bwd": ("pair_kernels", PALLAS + "pair_kernels.py:564"),
+    "forces_warp_v4_bwd_rows": ("pair_kernels", PALLAS + "pair_kernels.py:1038"),
+    "forces_warp_v4_bwd_slab": ("pair_kernels", PALLAS + "pair_kernels.py:1038"),
+    "slab_to_slots": ("pair_kernels", PALLAS + "packed.py:212"),
+    "moments_mid": ("pair_kernels", PALLAS + "pair_kernels.py:602"),
+    "forces_warp_v2": ("pair_kernels", PALLAS + "pair_kernels.py:822"),
+    "moments_raw_bwd": ("pair_kernels", PALLAS + "pair_kernels.py:335"),
+    "forces_warp_v2_bwd_rows": ("pair_kernels", PALLAS + "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_slab": ("pair_kernels", PALLAS + "pair_kernels.py:936"),
+    "forces_sep": ("pair_kernels", PALLAS + "pair_kernels.py:690"),
+    "forces_sep_bwd": ("pair_kernels", PALLAS + "pair_kernels.py:716"),
+    "moments_raw": ("fused_kernels", PALLAS + "pair_kernels.py:307"),
     # the bf16 K2 slab (cfg.pair_dtype): the same bodies on a bf16 slab
     # (pair_kernels.py:856-858, :962), and its cotangent's scatter
-    "forces_warp_v4_bf16": ("pair_kernels", "pair_kernels.py:879"),
-    "forces_warp_v4_bwd_rows_bf16": ("pair_kernels", "pair_kernels.py:1038"),
-    "forces_warp_v4_bwd_slab_bf16": ("pair_kernels", "pair_kernels.py:1038"),
-    "forces_warp_v2_bf16": ("pair_kernels", "pair_kernels.py:822"),
-    "forces_warp_v2_bwd_rows_bf16": ("pair_kernels", "pair_kernels.py:936"),
-    "forces_warp_v2_bwd_slab_bf16": ("pair_kernels", "pair_kernels.py:936"),
-    "slab_to_slots_bf16": ("pair_kernels", "packed.py:931"),
+    "forces_warp_v4_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:879"),
+    "forces_warp_v4_bwd_rows_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:1038"),
+    "forces_warp_v4_bwd_slab_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:1038"),
+    "forces_warp_v2_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:822"),
+    "forces_warp_v2_bwd_rows_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:936"),
+    "forces_warp_v2_bwd_slab_bf16": ("pair_kernels", PALLAS + "pair_kernels.py:936"),
+    "slab_to_slots_bf16": ("pair_kernels", PALLAS + "packed.py:931"),
     # the mid-section and its VJP (the XLA reference _mid_xla and jax.vjp of
     # it in _fused_vjp_bwd, where the TPU path has no Pallas body)
-    "mid_records": ("mid_kernels", "packed.py:533"),
-    "mid_records_bwd": ("mid_kernels", "packed.py:634"),
+    "mid_records": ("mid_kernels", PALLAS + "packed.py:533"),
+    "mid_records_bwd": ("mid_kernels", PALLAS + "packed.py:634"),
+    # the gather backend: what XLA compiles from its gathers and einsums (no
+    # Pallas body) and their VJPs
+    "gather_moments": ("gather_kernels", "softbody_tpu/ops/elasticity.py:41"),
+    "gather_moments_bwd": ("gather_kernels", "softbody_tpu/ops/elasticity.py:41"),
+    "gather_forces": ("gather_kernels", "softbody_tpu/ops/elasticity.py:70"),
+    "gather_forces_bwd": ("gather_kernels", "softbody_tpu/ops/elasticity.py:70"),
 }
 
 
@@ -3208,7 +3473,7 @@ def kernel_json(stats, launches):
     """The kernels line: each kernel's numbers, ``launches`` from its path's
     gradient runs (phase 12's L-BFGS loop for the v4 path, phase 19's
     gradient for the fused path, phase 24's for the separable K2, phase
-    28's for the raw K1)."""
+    28's for the raw K1, phase 32's for the gather kernels)."""
     kernels = []
     for key, s in stats.items():
         source, body = REPLACES[key]
@@ -3216,7 +3481,7 @@ def kernel_json(stats, launches):
             "name": key,
             "route": "cuda",
             "source": f"softbody_tpu_torch/csrc/{source}.cu",
-            "replaces": f"softbody_tpu/ops/pallas/{body}",
+            "replaces": body,
             "launches": launches[key],
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],

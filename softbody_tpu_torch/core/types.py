@@ -45,11 +45,15 @@ class Topology(NamedTuple):
 
     A padded (N, K) index table; padding entries point at the particle
     itself (``idx[i, k] = i``) with ``mask = 0``, so gathers stay in
-    bounds and masked terms vanish.  ``inv_order`` / ``inv_lengths`` are
-    the CSR inverse of ``idx`` (host-built): the flat positions i K + k
-    that read row r are ``inv_order[sum(inv_lengths[:r]) :][:inv_lengths[r]]``,
-    ascending — the fixed order in which the gather's backward adds them
-    (``ops/elasticity.gather``)."""
+    bounds and masked terms vanish.  ``inv_order`` / ``inv_ptr`` are the
+    CSR inverse of ``idx`` over the rows it reads (the particles, or on a
+    shard its source's rows): the flat positions i K + k that read row r
+    are ``inv_order[inv_ptr[r]:inv_ptr[r + 1]]``, ascending — the fixed
+    order in which the gather's backward adds them
+    (``ops/gather_kernels``).  ``rcT`` is ``rest_corr`` lane-major, (9, N)
+    with row 3a+b = rc[a][b], the mid-section kernels' operand.  The three
+    are built with the tables (``ops.gather_kernels.inverse_fields`` and
+    ``rest_corr_lanes``), so an evaluation builds none of them."""
 
     idx: torch.Tensor          # (N, K) int64 neighbour indices
     mask: torch.Tensor         # (N, K) {0, 1} validity
@@ -62,7 +66,8 @@ class Topology(NamedTuple):
     rest_corr: torch.Tensor    # (N, 3, 3) sum_j V_j X_ji (x) nw_ij
     sum_v_nw: torch.Tensor     # (N, 3) sum_j V_j nw_ij
     inv_order: torch.Tensor    # (N K,) int64
-    inv_lengths: torch.Tensor  # (N,) int64
+    inv_ptr: torch.Tensor      # (n_src + 1,) int64
+    rcT: torch.Tensor          # (9, N)
 
     @property
     def n_particles(self) -> int:

@@ -4,9 +4,10 @@ forward and backward, the fused path's K1 + mid-section, K2 v2 of the
 fused path and the blocked layout and its backward, the raw K1's backward,
 the Taichi pairing's separable K2 and its backward, and the fixed-order
 scatter), csrc/fused_kernels.cu (the raw K1 of the blocked layout) and
-csrc/mid_kernels.cu (the mid-section and its VJP as their own launches),
-each including csrc/common.cuh (pair_kernels.cu and mid_kernels.cu also
-csrc/mid.cuh).
+csrc/mid_kernels.cu (the mid-section and its VJP as their own launches)
+and csrc/gather_kernels.cu (the gather backend's moments and forces and
+their VJPs), each including csrc/common.cuh (pair_kernels.cu and
+mid_kernels.cu also csrc/mid.cuh).
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 (and ``--fmad=false`` for mid_kernels.cu), one library per source, into the package's git-ignored build directory at
@@ -31,7 +32,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pair_kernels", "fused_kernels", "mid_kernels")
+SOURCES = ("pair_kernels", "fused_kernels", "mid_kernels", "gather_kernels")
 HEADERS = ("common.cuh", "mid.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ROWS = 32      # tile rows the kernels take (one lane per row)
@@ -87,6 +88,17 @@ SIGNATURES = {
         "mid_records_bwd": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P,
                             _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _I32, _I32,
                             _P],
+    },
+    "gather_kernels": {
+        "gather_moments": [_P, _P, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _I64,
+                           _I64, _P, _I64, _P],
+        "gather_moments_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P, _I64, _P, _I64,
+                               _P, _P, _I32, _P, _I64, _I64, _P],
+        "gather_forces": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _I64, _P, _I64,
+                          _P, _I32, _P],
+        "gather_forces_bwd": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _I64, _P,
+                              _I64, _P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
+                              _I32, _I32, _P],
     },
 }
 # the ring kernels (csrc/mid_kernels.cu): the one-wave entry points' arguments

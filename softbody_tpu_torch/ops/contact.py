@@ -14,7 +14,7 @@ the candidate order, the order of summation and the candidates dropped on
 an overfull cell match the JAX package's.  Gradients flow through the
 gathered position values (the sort is piecewise constant); the position
 gather's backward adds each particle's readers in a fixed order
-(``ops/elasticity.gather``), so gradients repeat bit for bit.  Each
+(``ops/gather_kernels.gather``), so gradients repeat bit for bit.  Each
 unordered pair is enumerated from both sides, so the force field is
 antisymmetric.
 
@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .elasticity import gather
+from .gather_kernels import gather
 
 @dataclasses.dataclass(frozen=True)
 class ContactGrid:

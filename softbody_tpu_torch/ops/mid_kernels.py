@@ -1,6 +1,7 @@
 """The mid-section and its VJP as kernels of their own: every path that
 does not fuse the mid-section into K1 (the default path, the Taichi
-pairing, the blocked layout and the SPMD episode) and the fused path's
+pairing, the blocked layout, the SPMD episode and the gather backend,
+between ``ops/gather_kernels``' moments and forces) and the fused path's
 backward.
 
 Counterpart of ``softbody_tpu/ops/pallas/packed.py`` :: ``_mid_xla`` (the
@@ -79,6 +80,13 @@ def row_static(sb, mats, rest_corr) -> RowStatic:
     (3, 3, m)."""
     m = sb.n_tiles * sb.rows
     return RowStatic(mats.mu[:m], mats.lam[:m], mats.volume[:m], rest_corr.reshape(9, m))
+
+
+def gather_row_static(mats, topo) -> RowStatic:
+    """The :class:`RowStatic` of a gather scene's rows (every particle, or a
+    shard's): ``mats`` its Materials, ``topo`` its Topology (``rcT`` built
+    with the tables)."""
+    return RowStatic(mats.mu, mats.lam, mats.volume, topo.rcT)
 
 
 # ------------------------------------------------------------- plain versions

@@ -61,8 +61,9 @@ the Taichi pairing's separable K2 and its backward
 (``ops/separable_kernels.py``, whole-scene kernels of the same file) and
 the mid-section and its VJP (``ops/mid_kernels.py``, csrc/mid_kernels.cu,
 one launch each per evaluation on every path that does not fuse the
-mid-section into K1), and :func:`launch_counts` counts every path's
-kernels.  The kernels read their slab operands
+mid-section into K1) and the gather backend's moments and forces and
+their VJPs (``ops/gather_kernels.py``, csrc/gather_kernels.cu), and
+:func:`launch_counts` counts every path's kernels.  The kernels read their slab operands
 themselves through ``gidx8`` (slot = gidx8[tile, g] * group + k), so the
 (t, 3, slab) / (t, 16, slab) gathered copies the TPU path materialised
 (``packed.gather_packed_T``) do not exist here.
@@ -80,6 +81,7 @@ from torch.autograd.function import once_differentiable
 from ..core.types import DevBucket, SparseBlocked
 from . import _build
 from . import fused_kernels as fk
+from . import gather_kernels as gk
 from . import mid_kernels as mk
 from . import separable_kernels as sk
 from .pair_common import (BWD_CHUNK, RAGGED_CHUNK, SR_FIELDS, aligned, bf16_counted,
@@ -614,8 +616,9 @@ def slab_cotangent(ops, dsr, sb, srT):
                              sb.n_slots, sb.group)
 
 
-COUNTED = (moments_v4, forces_warp_v4, moments_v4_bwd, forces_warp_v4_bwd_rows,
+COUNTED = ((moments_v4, forces_warp_v4, moments_v4_bwd, forces_warp_v4_bwd_rows,
            forces_warp_v4_bwd_slab, slab_to_slots) + fk.COUNTED + sk.COUNTED + mk.COUNTED
+           + gk.COUNTED)
 # the six K2 kernels on a bfloat16 slab (cfg.pair_dtype), counted apart
 BF16_COUNTED = tuple(fn.bf16 for fn in (forces_warp_v4, forces_warp_v4_bwd_rows,
                                         forces_warp_v4_bwd_slab, fk.forces_warp_v2,
@@ -642,9 +645,10 @@ class PairOps(NamedTuple):
     """The pair functions an evaluation goes through (each over the whole
     scene but the raw K1, per bucket), of the v4 path, the fused path and
     the blocked layout's raw K1 and K2 v2 (``ops/fused_kernels.py``), the
-    Taichi pairing's separable K2 (``ops/separable_kernels.py``) and the
-    mid-section and its VJP between K1 and K2 (``ops/mid_kernels.py``):
-    :data:`KERNELS` (device dispatch) or
+    Taichi pairing's separable K2 (``ops/separable_kernels.py``), the
+    mid-section and its VJP between K1 and K2 (``ops/mid_kernels.py``) and
+    the gather backend's moments and forces and their VJPs
+    (``ops/gather_kernels.py``): :data:`KERNELS` (device dispatch) or
     :data:`PLAIN` (the plain versions on any device, the yardstick the
     kernels are held against on the card)."""
 
@@ -663,13 +667,18 @@ class PairOps(NamedTuple):
     to_slots_bf16: Callable
     mid_records: Callable
     mid_records_bwd: Callable
+    gather_moments: Callable
+    gather_moments_bwd: Callable
+    gather_forces: Callable
+    gather_forces_bwd: Callable
 
 
 KERNELS = PairOps(moments_v4, forces_warp_v4, moments_v4_bwd,
                   forces_warp_v4_bwd, slab_to_slots, fk.moments_mid,
                   fk.forces_warp_v2, fk.moments_raw_bwd, fk.forces_warp_v2_bwd,
                   fk.moments_raw, sk.forces_sep, sk.forces_sep_bwd, slab_to_slots_bf16,
-                  mk.mid_records, mk.mid_records_bwd)
+                  mk.mid_records, mk.mid_records_bwd, gk.gather_moments,
+                  gk.gather_moments_bwd, gk.gather_forces, gk.gather_forces_bwd)
 PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 moments_v4_bwd_scene_plain, forces_warp_v4_bwd_scene_plain,
                 slab_to_slots_plain,
@@ -677,7 +686,9 @@ PLAIN = PairOps(moments_v4_scene_plain, forces_warp_v4_scene_plain,
                 fk.moments_raw_bwd_scene_plain, fk.forces_warp_v2_bwd_scene_plain,
                 fk.moments_raw_plain, sk.forces_sep_scene_plain,
                 sk.forces_sep_bwd_scene_plain, slab_to_slots_bf16_plain,
-                mk.mid_records_plain, mk.mid_records_bwd_plain)
+                mk.mid_records_plain, mk.mid_records_bwd_plain, gk.gather_moments_plain,
+                gk.gather_moments_bwd_plain, gk.gather_forces_plain,
+                gk.gather_forces_bwd_plain)
 
 
 class _MomentsV4(torch.autograd.Function):

@@ -14,14 +14,24 @@ that has them their ring forms ``mid_records_ring``,
 ``mid_records_bwd_ring``, with their launch plans ``ring_plan``) on both
 scenes' strained rows (``chip_smoke.py`` phase 44's operands: the stretched body
 after 5 steps, f32, seeded random cotangents; ``varcol_`` with the raw-dot
-correction), at the ~112k stretch scene on one CUDA card, and the steps
-they sit in, for this checkout or another one (``--tree``), so that two
-versions can be compared on one card in one sitting:
+correction), and of the gather backend's kernels (``gather_moments``,
+``gather_forces`` and their backwards, ``j_gather_forces*`` the Taichi
+pairing's) on the same body's (N, K) tables (``chip_smoke.py`` phase 45's
+operands), at the ~112k stretch scene on one CUDA card, and the steps
+they sit in (``g_`` the gather path's), for this checkout or another one
+(``--tree``), so that two versions can be compared on one card in one
+sitting:
 
     python softbody_tpu_torch/pair_times.py --tree /path/to/other/checkout
     python softbody_tpu_torch/pair_times.py --kernels 'mid_records' --no-steps
     python softbody_tpu_torch/pair_times.py --against /path/to/parent --rounds 5 \
         --kernels 'mid_records' --no-steps
+    python softbody_tpu_torch/pair_times.py --against /path/to/parent --rounds 2 \
+        --gather-only
+
+(``--gather-only``: the gather backend alone, its kernels where the tree
+has them and its steps: a tree without the kernels runs the path's eager
+ops.)
 
 Run it for each version in turns (A, B, B, A); ``--against`` does so
 itself and summarizes the rounds.  The scene and the
@@ -202,6 +212,57 @@ def sass_per_row(functions, names, sweeps):
     return out
 
 
+def gather_numbers(torch, np, args, dev, pts, out_num, body, steps):
+    """The gather backend on its (N, K) tables of the same body
+    (``build_scene``, no K-nearest truncation, f32, STRETCH): in a tree
+    that has them, its kernels' ms per call on chip_smoke.py phase 45's
+    operands (the stretched body, the plain mid-section's records, seeded
+    random cotangents; ``gather_*`` the Warp pairing, ``j_gather_*`` the
+    Taichi pairing's forces) and their outputs' digests; with ``steps``
+    the gather path's forward and gradient step (``g_``), in any tree."""
+    import importlib.util
+
+    from softbody_tpu_torch import warp_parity
+    from softbody_tpu_torch.geometry.shapes import suggest_h
+    from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.scenarios import STRETCH, dirichlet_mask, x_star_bands
+    from softbody_tpu_torch.sim.scene import build_scene
+
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype="float32", backend="gather",
+                                max_neighbors=0, **STRETCH)
+    scene = build_scene(pts, cfg, out_num=out_num,
+                        dirichlet_mask=dirichlet_mask(pts, "stretch"), device=dev)
+    n = len(pts)
+    x = torch.as_tensor(x_star_bands(pts, n, np.arange(n)), dtype=torch.float32,
+                        device=dev)
+    ratio = compute_ratio(x, cfg)
+    out, evals = {"gather_K": int(scene.topology.idx.shape[1])}, {}
+    if importlib.util.find_spec("softbody_tpu_torch.ops.gather_kernels"):
+        from softbody_tpu_torch.ops import gather_kernels as gk
+        from softbody_tpu_torch.ops import mid_kernels as mk
+
+        topo = scene.topology
+        pos = torch.as_tensor(body, dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(45)
+        dayT, df = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                                    device=dev) for shape in ((18, n), (n, 3)))
+        fmT, srT = mk.mid_records_plain(gk.gather_moments_plain(pos, None, topo),
+                                        mk.gather_row_static(scene.materials, topo),
+                                        cfg.stiffness_scale(ratio), cfg.corotated, n)
+        evals = {"gather_moments": lambda: gk.gather_moments(pos, None, topo),
+                 "gather_moments_bwd": lambda: gk.gather_moments_bwd(pos, None, topo,
+                                                                     dayT)}
+        for label, a in (("", (fmT, srT.T, fmT[18], topo, False)),
+                         ("j_", (fmT, None, None, topo, True))):
+            evals[label + "gather_forces"] = lambda a=a: gk.gather_forces(*a)
+            evals[label + "gather_forces_bwd"] = lambda a=a: gk.gather_forces_bwd(*a, df)
+        out["digest"] = {k: digest(torch, fn()) for k, fn in evals.items()}
+    if steps:
+        out.update({f"g_{k}": v for k, v in step_numbers(
+            torch, scene, cfg, ratio, x, dev).items()})
+    return out, evals
+
+
 def digest(torch, res):
     """A short hash of a kernel call's outputs (a tensor or a tuple)."""
     res = res if isinstance(res, (tuple, list)) else (res,)
@@ -221,6 +282,7 @@ def compare(args):
     opts = ["--particles", str(args.particles), "--reps", str(args.reps)]
     opts += ["--kernels", args.kernels] if args.kernels else []
     opts += ["--no-steps"] if args.no_steps else []
+    opts += ["--gather-only"] if args.gather_only else []
     runs = []
     for _ in range(args.rounds):
         for side in "ABBA":
@@ -275,6 +337,9 @@ def main():
                     help="another checkout (A): time it and --tree (B) in turns "
                          "A, B, B, A, --rounds times, one process each, then summarize")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--gather-only", action="store_true",
+                    help="only the gather backend: its kernels (in a tree that has "
+                         "them) and, without --no-steps, its steps")
     args = ap.parse_args()
     if args.against:
         return compare(args)
@@ -297,6 +362,17 @@ def main():
     assert Path(pk.__file__).resolve().is_relative_to(Path(args.tree).resolve())
     dev = torch.device("cuda", torch.cuda.current_device())
     pts, out_num = fit_body(args.particles)
+    if args.gather_only:
+        rng = np.random.default_rng(0)
+        body = pts + 0.05 * suggest_h(pts, 32) * rng.normal(size=pts.shape)
+        body[:, 1] = body[:, 1].mean() + 1.05 * (body[:, 1] - body[:, 1].mean())
+        out, evals = gather_numbers(torch, np, args, dev, pts, out_num, body,
+                                    not args.no_steps)
+        out = {"tree": str(Path(args.tree).resolve()), "card": card_line(),
+               "digest": {}} | out
+        time_evals(torch, pk, args, out, evals, {}, [])
+        print(json.dumps(out), flush=True)
+        return
     cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype="float32",
                                 backend="pallas", **STRETCH)
     scene, sop = build_sparse_scene(pts, cfg, out_num=out_num,
@@ -500,10 +576,9 @@ def main():
             ring_plans.update({label + name: mk.ring_plan(name, torch.float32, m_s)
                                for name in (mk.INSTANCES[1:4:2] if raw
                                             else mk.INSTANCES[0:4:2])})
-    out = {"tree": str(Path(args.tree).resolve()),
-           "card": subprocess.run(
-               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-               capture_output=True, text=True).stdout.strip().splitlines()[0],
+    g_out, g_evals = gather_numbers(torch, np, args, dev, pts, out_num, body, False)
+    evals.update(g_evals)
+    out = {"tree": str(Path(args.tree).resolve()), "card": card_line(),
            "sm_clock_max_mhz": float(subprocess.run(
                ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                capture_output=True, text=True).stdout.split()[0]),
@@ -513,23 +588,12 @@ def main():
     out["digest"] = {key: digest(torch, evals[key]()) for key in (
         "moments_mid", "mid_records", "mid_records_bwd", "varcol_mid_records",
         "varcol_mid_records_bwd") + tuple(k for k in evals if k.endswith("_ring"))}
+    out["digest"].update(g_out.pop("digest", {}))
+    out.update(g_out)
     out["ring_plan"] = ring_plans
-    if args.kernels:
-        evals = {k: v for k, v in evals.items() if re.search(args.kernels, k)}
     ring_fns = [getattr(mk, n) for n in ("mid_records_ring", "mid_records_bwd_ring")
                 if hasattr(mk, n)]
-    for key, fn in evals.items():
-        pk.reset_launch_counts()
-        for f in ring_fns:
-            f.launches = 0
-        fn()
-        torch.cuda.synchronize()
-        out[f"{key}_launches"] = (sum(pk.launch_counts().values())
-                                  + sum(f.launches for f in ring_fns))
-        out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
-        if key in per_launch:
-            out[f"{key}_sum_of_launches_ms"] = sum(
-                cuda_ms(torch, f, args.reps) for f in per_launch[key])
+    time_evals(torch, pk, args, out, evals, per_launch, ring_fns)
     from softbody_tpu_torch.ops import _build
     out["sass_per_pair"] = {}
     for source in _build.SOURCES:           # the tree's own sources
@@ -559,7 +623,34 @@ def main():
         torch, scene, cfg.replace(fused_mid=True), ratio, x_star, dev).items()})
     out.update({f"b_{k}": v for k, v in step_numbers(
         torch, scene_b, cfg, ratio_b, x_b, dev).items()})
+    out.update(gather_numbers(torch, np, args, dev, pts, out_num, body, True)[0])
     print(json.dumps(out), flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def time_evals(torch, pk, args, out, evals, per_launch, ring_fns):
+    """Each kernel of ``evals`` (those matching ``--kernels``): its launches
+    per evaluation and its ms (``<key>_launches``, ``<key>_ms``; a per-bucket
+    kernel's launches one by one too)."""
+    if args.kernels:
+        evals = {k: v for k, v in evals.items() if re.search(args.kernels, k)}
+    for key, fn in evals.items():
+        pk.reset_launch_counts()
+        for f in ring_fns:
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        out[f"{key}_launches"] = (sum(pk.launch_counts().values())
+                                  + sum(f.launches for f in ring_fns))
+        out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
+        if key in per_launch:
+            out[f"{key}_sum_of_launches_ms"] = sum(
+                cuda_ms(torch, f, args.reps) for f in per_launch[key])
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.pair_kernels import launch_counts, reset_launch_counts
 from .sharding import (pad_scene, pad_targets, pad_x, shard_rows, shard_scene,
                        sharded_value_and_grad, spawn)
 from .sparse_shard import sparse_sharded_value_and_grad
@@ -39,8 +40,10 @@ def _rank(group):
     padded, n0 = pad_scene(scene, group.world, cfg)
     tp_p, tv_p = pad_targets(tp, tv, padded, n0, cfg)
     rows = shard_rows(padded.rest_position.shape[0], group)
+    reset_launch_counts()
     loss, grad = sharded_value_and_grad(shard_scene(padded, group), cfg, group, 8)(
         pad_x(x, padded, n0)[rows], tp_p[:, rows], tv_p[:, rows])
+    out["launches"] = launch_counts()
     assert np.isfinite(loss), "multichip dryrun produced non-finite loss"
     assert bool(torch.isfinite(grad).all()), "multichip dryrun produced non-finite grad"
     out["gather"] = (loss, grad)
@@ -77,7 +80,8 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None, host=()) -> li
     gradient on the gather backend and, with two ranks or more, on the
     sparse SPMD path, whose halo gradient matches its all-gather one
     (rtol 1e-4, atol 1e-7, f32).  Returns each rank's {path: (loss,
-    gradient)}."""
+    gradient)} and under "launches" the rank's kernel launch counts of its
+    gather step (``pair_kernels.launch_counts``; all zero on the CPU)."""
     if torch.device(device).type == "cuda":
         resolve_device(None)                 # raises without a card
     return spawn(_rank, n_devices, device=device, backend=backend, host=host)

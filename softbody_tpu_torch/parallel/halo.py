@@ -15,7 +15,7 @@ are known before the episode, so the plan is built on the host:
 
 :func:`build_halo_plan` gives JAX's tables bit for bit.  :func:`exchange`
 builds the (ext, F) local + halo block: each round's send buffer is a
-fixed-order ``ops.elasticity.gather`` of the rank's rows and the transfer
+fixed-order ``ops.gather_kernels.gather`` of the rank's rows and the transfer
 is ``Group.p2p``, so the backward sends the cotangents back along the ring
 and sums them into the rows in a fixed order.
 """
@@ -29,7 +29,8 @@ import torch
 
 from ..config import SimConfig
 from ..core.types import Scene
-from ..ops.elasticity import elastic_forces, gather, index_inverse
+from ..ops.elasticity import forces_and_records
+from ..ops.gather_kernels import gather, inverse_fields
 from .sharding import Group, group_episode, shard_rows, shard_scene
 
 
@@ -160,20 +161,21 @@ def halo_scene(scene: Scene, plan: HaloPlan, group: Group) -> Scene:
     loc = shard_scene(scene, group)
     idx = torch.as_tensor(plan.local_idx[group.rank], dtype=torch.int64,
                           device=group.device)
-    order, lengths = index_inverse(idx, plan.ext)
     return loc._replace(topology=loc.topology._replace(
-        idx=idx, inv_order=order, inv_lengths=lengths))
+        idx=idx, **inverse_fields(idx, plan.ext)))
 
 
 def elastic_forces_halo(pos_loc, ratio_loc, scene_loc: Scene, plan: HaloPlan,
                         group: Group, cfg: SimConfig):
     """This rank's (shard, 3) elastic forces with explicit halo exchanges:
-    the gather physics (``ops/elasticity.elastic_forces``) with two exchanges
-    per evaluation, positions before the moments and the pair operands (V S
-    | R, or G in the Taichi pairing) before the pair contraction.
+    the gather physics (``ops/elasticity.forces_and_records``, its kernels
+    on the card) with two exchanges per evaluation, positions before the
+    moments and the pair records ([S_6 | R^T_9 | V], or [M_9 | V] in the
+    Taichi pairing) before the forces.
     ``scene_loc`` from :func:`halo_scene`.  Numerically the dense path's."""
-    return elastic_forces(pos_loc, ratio_loc, scene_loc.materials, scene_loc.topology,
-                          cfg, exchange=lambda a: exchange(a, plan, group))[0]
+    return forces_and_records(pos_loc, ratio_loc, scene_loc.materials,
+                              scene_loc.topology, cfg,
+                              exchange=lambda a: exchange(a, plan, group))[0]
 
 
 def halo_rollout(x_loc, scene_loc: Scene, plan: HaloPlan, group: Group, cfg: SimConfig,

@@ -29,7 +29,7 @@ on one device), and the collectives are explicit:
   backend's episode over the group.  Each rank steps its own rows with the
   port's own ``sim.rollout.step`` through its ``elastic_fn`` hook; the
   forces of its rows take two all-gathers per evaluation (positions, then
-  the pair operands: ``ops/elasticity.elastic_forces``' ``exchange``).  The
+  the pair records: ``ops/elasticity.elastic_forces``' ``exchange``).  The
   loss is summed over the ranks once per episode, in rank order.
 """
 
@@ -44,7 +44,8 @@ import torch.distributed as dist
 
 from ..config import SimConfig
 from ..core.types import Materials, Scene, Topology
-from ..ops.elasticity import compute_ratio, elastic_forces, index_inverse
+from ..ops.elasticity import compute_ratio, forces_and_records
+from ..ops.gather_kernels import inverse_fields, rest_corr_lanes
 from ..ops.pair_kernels import KERNELS
 from ..sim.rollout import (_run_steps, _step_fn, _to_scene, acc_init, acc_scalar,
                            initial_state)
@@ -286,14 +287,13 @@ def pad_scene(scene: Scene, multiple: int, cfg: SimConfig):
                      external=cat(m.external, 0.0, (3,)))
     own = torch.arange(n, n + pad, device=t.idx.device)[:, None].expand(pad, K)
     idx = torch.cat([t.idx, own.to(t.idx.dtype)])
-    order, lengths = index_inverse(idx, n + pad)
+    rest_corr = cat(t.rest_corr, 0.0, (3, 3))
     topo = Topology(idx=idx, mask=cat(t.mask, 0.0, (K,)), w=cat(t.w, 0.0, (K,)),
                     nw=cat(t.nw, 0.0, (K, 3)), xji=cat(t.xji, 0.0, (K, 3)),
                     c=cat(t.c, 0.0, (K,)), vj=cat(t.vj, 0.0, (K,)),
-                    sum_c_xji=cat(t.sum_c_xji, 0.0, (3,)),
-                    rest_corr=cat(t.rest_corr, 0.0, (3, 3)),
+                    sum_c_xji=cat(t.sum_c_xji, 0.0, (3,)), rest_corr=rest_corr,
                     sum_v_nw=cat(t.sum_v_nw, 0.0, (3,)),
-                    inv_order=order, inv_lengths=lengths)
+                    **inverse_fields(idx, n + pad), rcT=rest_corr_lanes(rest_corr))
     return Scene(rest, mats, scene.out_num, obstacles=scene.obstacles,
                  contact=scene.contact, topology=topo), n
 
@@ -348,10 +348,9 @@ def shard_scene(scene: Scene, group: Group) -> Scene:
         return a[rows].to(dev)
 
     t = scene.topology
-    idx = put(t.idx)
-    order, lengths = index_inverse(idx, n)
-    topo = Topology(*(put(getattr(t, f)) for f in Topology._fields[:10]),
-                    inv_order=order, inv_lengths=lengths)
+    fields = {f: put(getattr(t, f)) for f in Topology._fields[:10]}
+    topo = Topology(**fields, **inverse_fields(fields["idx"], n),
+                    rcT=rest_corr_lanes(fields["rest_corr"]))
     return Scene(
         rest_position=put(scene.rest_position),
         materials=Materials(*(put(a) for a in scene.materials)),
@@ -385,8 +384,8 @@ def group_episode(x_loc, scene_loc: Scene, cfg: SimConfig, group: Group, elastic
 
 def _gather_elastic(scene_loc: Scene, cfg: SimConfig, group: Group):
     def elastic(pos, ratio):
-        return elastic_forces(pos, ratio, scene_loc.materials, scene_loc.topology, cfg,
-                              exchange=group.all_gather)[0]
+        return forces_and_records(pos, ratio, scene_loc.materials, scene_loc.topology,
+                                  cfg, exchange=group.all_gather)[0]
     return elastic
 
 

@@ -47,7 +47,7 @@ import torch
 from ..config import SimConfig
 from ..core.types import Materials, Scene, SparseBlocked
 from ..ops.contact import contact_forces_query
-from ..ops.elasticity import gather
+from ..ops.gather_kernels import gather
 from ..ops.mid_kernels import mid_records_all, row_static
 from ..ops.pair_kernels import KERNELS, PairOps, forces_all, moments_all, sparse_blocked
 from ..ops.separable_kernels import forces_sep_all

@@ -42,8 +42,7 @@ from ..config import SimConfig, resolve_device
 from ..core.types import Blocked, Materials, ParticleState, Scene
 from ..ops.collision import ground_penalty
 from ..ops.contact import contact_forces
-from ..ops.elasticity import compute_ratio
-from ..ops.elasticity import elastic_forces as gather_elastic_forces
+from ..ops.elasticity import compute_ratio, forces_and_records
 from ..ops.obstacles import penalty_force
 from ..ops.pair_kernels import KERNELS, PairOps
 from .blocked import elastic_forces_blocked, elastic_forces_pallas
@@ -53,10 +52,10 @@ def elastic_forces(pos, ratio, scene: Scene, cfg: SimConfig,
                    pair_ops: PairOps = KERNELS):
     """Backend dispatch of the elastic-force evaluation
     (``softbody_tpu/sim/rollout.py:29-42``): ``"gather"`` runs the (N, K)
-    table forces of ``ops/elasticity`` on a ``build_scene`` scene,
-    ``"pallas"`` the pair kernels on a sparse or a blocked scene,
-    ``"blocked"`` the plain torch reference on a blocked scene (``pair_ops``
-    unused but by ``"pallas"``)."""
+    table forces of ``ops/elasticity`` (the gather kernels) on a
+    ``build_scene`` scene, ``"pallas"`` the pair kernels on a sparse or a
+    blocked scene, ``"blocked"`` the plain torch reference on a blocked
+    scene (``pair_ops`` unused there)."""
     if cfg.backend == "pallas":
         return elastic_forces_pallas(pos, ratio, scene.materials, scene, cfg,
                                      pair_ops)
@@ -67,8 +66,8 @@ def elastic_forces(pos, ratio, scene: Scene, cfg: SimConfig,
     if cfg.backend == "gather":
         if scene.topology is None:
             raise ValueError('backend="gather" needs a scene from build_scene')
-        return gather_elastic_forces(pos, ratio, scene.materials, scene.topology,
-                                     cfg)[0]
+        return forces_and_records(pos, ratio, scene.materials, scene.topology, cfg,
+                                  pair_ops=pair_ops)[0]
     raise ValueError(f"unknown backend {cfg.backend!r}")
 
 

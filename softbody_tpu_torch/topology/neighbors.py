@@ -20,7 +20,7 @@ import torch
 from ..config import SimConfig
 from ..core.types import Topology
 from ..native import hashgrid as _native
-from ..ops.elasticity import index_inverse
+from ..ops.gather_kernels import inverse_fields, rest_corr_lanes
 
 
 def W(xij: np.ndarray, h: float) -> np.ndarray:
@@ -146,21 +146,23 @@ def build_topology(rest: np.ndarray, mass: np.ndarray, cfg: SimConfig,
         rest_corr=np.einsum("ij,ija,ijb->iab", vj, xji, nw),
         sum_v_nw=np.einsum("ij,ija->ia", vj, nw),
         inv_order=None,
-        inv_lengths=None,
+        inv_ptr=None,
+        rcT=None,
     )
     return topo, rho, volume
 
 
 def topology_to_torch(topo: Topology, dtype: torch.dtype, device) -> Topology:
     """Move a host-built (numpy f64) Topology to ``device`` in ``dtype``,
-    with the CSR inverse of its index table."""
+    with the CSR inverse of its index table and the lane-major rest
+    correction."""
     def cast(a):
         return torch.from_numpy(np.array(a, np.float64)).to(device=device, dtype=dtype)
 
     idx = torch.from_numpy(np.asarray(topo.idx, np.int64)).to(device)
-    order, lengths = index_inverse(idx, idx.shape[0])
-    return Topology(idx=idx, **{f: cast(getattr(topo, f)) for f in Topology._fields[1:10]},
-                    inv_order=order, inv_lengths=lengths)
+    fields = {f: cast(getattr(topo, f)) for f in Topology._fields[1:10]}
+    return Topology(idx=idx, **fields, **inverse_fields(idx, idx.shape[0]),
+                    rcT=rest_corr_lanes(fields["rest_corr"]))
 
 
 def neighbor_csr(rest: np.ndarray, radius: float):

@@ -10,9 +10,10 @@ full width are chip_smoke.py phases 3-4 (forward), 9-11 (backward),
 14-19 (the fused path, ``cfg.fused_mid``), 21-24 (the Taichi pairing's
 separable K2) and 25-28 (the blocked layout's raw K1, K2 v2 and the
 separable K2), 38-41 (the K2 kernels on a bf16 slab, ``cfg.pair_dtype``),
-44 (the mid-section kernels ``mid_records`` / ``mid_records_bwd``);
-the gather backend's fixed-order backward and the contact forces, which
-have no hand-written kernel, are phases 30-33."""
+44 (the mid-section kernels ``mid_records`` / ``mid_records_bwd``), 45
+(the gather backend's kernels, ``ops/gather_kernels``); the gather
+backend's paths are phases 30-32, the contact forces, which have no
+hand-written kernel, phase 33."""
 
 import dataclasses
 
@@ -23,6 +24,7 @@ import torch
 from softbody_tpu_torch import warp_parity
 from softbody_tpu_torch.geometry.shapes import inflatable_sphere, suggest_h
 from softbody_tpu_torch.ops import fused_kernels as fk
+from softbody_tpu_torch.ops import gather_kernels as gk
 from softbody_tpu_torch.ops import mid_kernels as mk
 from softbody_tpu_torch.ops import pair_kernels as pk
 from softbody_tpu_torch.ops import separable_kernels as sk
@@ -266,7 +268,8 @@ def test_episode_gradient_is_bitwise_repeatable():
     counts = pk.launch_counts()
     loss2, g2 = _episode_grad("float32", dev, pk.KERNELS)
     assert loss1 == loss2 and torch.equal(g1, g2)   # fixed-order sums only
-    others = {fn.__name__ for fn in fk.COUNTED + sk.COUNTED + pk.BF16_COUNTED}
+    others = {fn.__name__
+              for fn in fk.COUNTED + sk.COUNTED + gk.COUNTED + pk.BF16_COUNTED}
     assert all(v > 0 for k, v in counts.items() if k not in others), counts
     assert all(counts[k] == 0 for k in others), counts
 
@@ -692,9 +695,10 @@ def test_new_paths_episode_gradient_matches_plain_f64_and_repeats(path):
 
 
 def test_gather_backward_repeats_bitwise_on_the_card():
-    """The gather backend's row gather adds each row's readers in the CSR
-    order of its table (ops/elasticity.gather), so a gradient through the
-    gather forces repeats bit for bit on the card, and matches the CPU."""
+    """The gather backend's backward kernels add each source row's readers
+    in the CSR order of its table (ops/gather_kernels), so a gradient
+    through the gather forces repeats bit for bit on the card, and matches
+    the CPU."""
     from softbody_tpu_torch.sim.scene import build_scene
     from softbody_tpu_torch.sim.rollout import elastic_forces
 
@@ -1091,3 +1095,144 @@ def test_mid_ring_kernels_match_the_one_wave_kernels(dtype, blocked):
         assert mk.mid_records_ring.launches == mk.mid_records_bwd_ring.launches == 1
         assert all(torch.equal(g, w) for g, w in zip(got, want) if w is not None), n_sr
         assert not got[1][:, ops[0].shape[1]:].any()
+
+
+# ------------------------------------------------------------ the gather backend
+GATHER = ("gather_moments", "gather_moments_bwd", "gather_forces", "gather_forces_bwd")
+
+
+def _gather_case(dtype, dev, pairing="i", corotated=True):
+    from softbody_tpu_torch.sim.scene import build_scene
+
+    pts, out_num = inflatable_sphere(n_outer=600)
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype=dtype, backend="gather",
+                                max_neighbors=0, pair_def_grad=pairing,
+                                corotated=corotated)
+    scene = build_scene(pts, cfg, out_num=out_num, device=dev)
+    rng = np.random.default_rng(31)
+    F = np.eye(3) + 0.05 * rng.normal(size=(3, 3))
+    pos = (pts - pts.mean(0)) @ F.T + pts.mean(0) + 0.05 * cfg.h * rng.normal(size=pts.shape)
+    as_t = (lambda a: torch.as_tensor(a, dtype=scene.dtype, device=dev))
+    x = rng.normal(scale=0.5, size=len(pts))
+    return (cfg, scene, as_t(pos), compute_ratio(as_t(x), cfg),
+            as_t(rng.normal(size=(18, len(pts)))), as_t(rng.normal(size=pts.shape)))
+
+
+def _gather_shard(topo, rows):
+    """The rows' part of a table that keeps reading every particle (as
+    parallel/sharding.shard_scene builds a shard's)."""
+    from softbody_tpu_torch.core.types import Topology
+
+    fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0]),
+                    rcT=gk.rest_corr_lanes(fields["rest_corr"]))
+
+
+def _gather_calls(pos, src, topo, fmT, rec, vol, sep, dayT, df):
+    """Each gather kernel's call on these operands, and its plain version's."""
+    args = {"gather_moments": (pos, src, topo),
+            "gather_moments_bwd": (pos, src, topo, dayT),
+            "gather_forces": (fmT, rec, vol, topo, sep),
+            "gather_forces_bwd": (fmT, rec, vol, topo, sep, df)}
+    return {k: (getattr(gk, k), getattr(gk, k + "_plain"), a) for k, a in args.items()}
+
+
+def _outs(x):
+    return [t for t in (x if isinstance(x, tuple) else (x,)) if t is not None]
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("pairing,corotated", [("i", True), ("i", False), ("j", True),
+                                               ("j", False)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_kernels_match_plain(dtype, pairing, corotated, shard):
+    """Each gather kernel against its plain version on the same operands
+    (1e-4 of max |plain| in f32, 1e-10 in f64), one launch counted per
+    call, a second call bit for bit the first; on one device and on a
+    shard-like source (a ragged run of rows reading every particle)."""
+    dev = _card()
+    cfg, scene, pos, ratio, dayT, df = _gather_case(dtype, dev, pairing, corotated)
+    topo, n = scene.topology, pos.shape[0]
+    sep = pairing == "j"
+    ayT = gk.gather_moments_plain(pos, None, topo)
+    fmT, srT = mk.mid_records_plain(ayT, mk.gather_row_static(scene.materials, topo),
+                                    cfg.stiffness_scale(ratio), corotated, n)
+    if shard:
+        rows = slice(9, 9 + n // 2 + 5)
+        topo = _gather_shard(topo, rows)
+        src, rec = pos, (fmT[9:18].T if sep else srT.T).contiguous()
+        pos, vol = pos[rows], fmT[18]
+        fmT, dayT, df = fmT[:, rows].contiguous(), dayT[:, rows].contiguous(), df[rows]
+    else:
+        src, (rec, vol) = None, ((None, None) if sep else (srT.T, fmT[18]))
+    tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
+    for name, (kern, plain, args) in _gather_calls(pos, src, topo, fmT, rec, vol, sep,
+                                                   dayT, df).items():
+        pk.reset_launch_counts()
+        got = _outs(kern(*args))
+        torch.cuda.synchronize()
+        counts = pk.launch_counts()
+        assert counts == dict.fromkeys(counts, 0) | {name: 1}, (name, counts)
+        want = _outs(plain(*args))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+            assert _rel(g, w) <= tol, (name, _rel(g, w))
+        assert all(torch.equal(a, b) for a, b in zip(got, _outs(kern(*args)))), name
+
+
+def test_one_launch_of_each_gather_kernel_per_evaluation():
+    """One gather force evaluation and its VJP, through the backend dispatch:
+    gather_moments, mid_records and gather_forces once forward,
+    gather_forces_bwd, mid_records_bwd and gather_moments_bwd once
+    backward, in both pairings; no other kernel; the plain path none."""
+    from softbody_tpu_torch.sim.rollout import elastic_forces
+
+    dev = _card()
+    for pairing in ("i", "j"):
+        cfg, scene, pos, ratio, _, df = _gather_case("float32", dev, pairing)
+        for ops in (pk.KERNELS, pk.PLAIN):
+            p = pos.clone().requires_grad_()
+            pk.reset_launch_counts()
+            f = elastic_forces(p, ratio, scene, cfg, ops)
+            fwd = pk.launch_counts()
+            pk.reset_launch_counts()
+            torch.autograd.grad(f, p, df)
+            bwd = pk.launch_counts()
+            kern = int(ops is pk.KERNELS)
+            zero = dict.fromkeys(fwd, 0)
+            assert fwd == zero | dict.fromkeys(
+                ("gather_moments", "mid_records", "gather_forces"), kern), fwd
+            assert bwd == zero | dict.fromkeys(
+                ("gather_moments_bwd", "mid_records_bwd", "gather_forces_bwd"), kern), bwd
+
+
+def test_gather_kernels_refuse_bad_operands():
+    dev = _card()
+    cfg, scene, pos, ratio, dayT, df = _gather_case("float32", dev)
+    topo = scene.topology
+    fmT, srT = mk.mid_records_plain(gk.gather_moments_plain(pos, None, topo),
+                                    mk.gather_row_static(scene.materials, topo),
+                                    cfg.stiffness_scale(ratio), True, pos.shape[0])
+    with pytest.raises(TypeError, match="dtype"):
+        gk.gather_moments(pos.double(), None, topo)
+    with pytest.raises(ValueError, match="pos must be"):
+        gk.gather_moments(pos[:-1], None, topo)
+    with pytest.raises(ValueError, match="src must be"):
+        gk.gather_moments(pos, pos[:, :2], topo)
+    with pytest.raises(ValueError, match="dayT"):
+        gk.gather_moments_bwd(pos, None, topo, dayT[:17])
+    with pytest.raises(ValueError, match="inv_ptr"):
+        gk.gather_moments_bwd(pos, pos[:-1], topo, dayT)
+    with pytest.raises(ValueError, match="xji"):
+        gk.gather_moments(pos, None, topo._replace(xji=topo.xji.transpose(0, 1)))
+    with pytest.raises(ValueError, match="srT.T"):
+        gk.gather_forces(fmT, None, None, topo, False)
+    with pytest.raises(ValueError, match="src must be"):
+        gk.gather_forces(fmT, srT.T[:, :9], fmT[18], topo, False)
+    with pytest.raises(ValueError, match="vsrc"):
+        gk.gather_forces(fmT, srT.T, fmT[18, :-1], topo, False)
+    with pytest.raises(ValueError, match="df must be"):
+        gk.gather_forces_bwd(fmT, srT.T, fmT[18], topo, False, df.T)
+    with pytest.raises(ValueError, match="is on"):
+        gk.gather_forces(fmT, srT.T.cpu(), fmT[18], topo, False)

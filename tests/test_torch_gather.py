@@ -120,8 +120,9 @@ def test_gather_backward_is_the_fixed_order_row_sum():
     assert torch.equal(tel.gather_topo(a, topo), a[topo.idx])
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
     assert _rel(grads[0], g_ref) <= 1e-15
-    order, lengths = tel.index_inverse(topo.idx, len(pts))
-    assert torch.equal(order, topo.inv_order) and torch.equal(lengths, topo.inv_lengths)
+    order, ptr = tel.index_inverse(topo.idx, len(pts))
+    assert torch.equal(order, topo.inv_order) and torch.equal(ptr, topo.inv_ptr)
+    assert torch.equal(ptr.diff(), torch.bincount(topo.idx.reshape(-1), minlength=len(pts)))
 
 
 @pytest.mark.parametrize("pairing", ["i", "j"])
