@@ -219,8 +219,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      plain version on phase 30's stretched body, f32 (<= 1e-4 of max
      |plain|) and f64 (<= 1e-10), corotated on and off, one launch
      counted per call, a bitwise repeat; a shard-like source (a ragged
-     run of rows reading every particle, the inverse over the source);
-     ms per call, the plain version's ms and the bound
+     run of half the rows reading every particle, the inverse over the
+     source); ms per call, each backward's passes, the plain version's ms,
+     the bound and the kernel's share of it
 
 Each phase's first line ends with the seconds since the start.  Then one
 JSON line with every kernel's numbers (``launches`` from phase 12, the
@@ -232,8 +233,8 @@ gradient each, for the separable K2 and the raw K1; from phases 39 and
 gather gradient, for the gather kernels; ms per force
 evaluation on the sparse scene, one launch each, but the raw K1's, per
 launch on the varcol scene; the mid-section kernels' on the sparse scene's
-stepped rows; the gather kernels' per call on the gather scene),
-the card line, and the last line
+stepped rows; the gather kernels' per call on the gather scene;
+``bound_share`` the bound over the ms), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line; without a CUDA device it exits 1 at once.  Imports nothing
 of JAX.
@@ -3172,18 +3173,31 @@ def gather_bytes(key, n, K, T, sep=False):
     values, the source being the rows: the table's int64 idx and its c, vj
     (n, K) and xji, nw (n, K, 3) as each kernel reads them, the positions,
     the rows' records fmT (19 rows; the Taichi pairing's forward reads M and
-    V, its backward V), the Warp pairing's [S_6 | R^T_9] source record, the
-    CSR inverse (int64) backward, and the outputs."""
+    V, its backward V; the Warp pairing's backward F and V), the packed
+    source record (16 values a row, Taichi 12), sum_v_nw, and the outputs;
+    backward the CSR inverse: gather_moments_bwd its int64 inv_order;
+    gather_forces_bwd each table once, nw and (Warp pairing) idx, and the
+    inverse as one index an entry at the narrowest width the kernel reads
+    (inv_row's int32) with the int64 inv_ptr, and the record's cotangent.
+    The bytes gather_forces_bwd's design moves besides (inv_nw, a reordered
+    copy of nw) are :func:`gather_bwd_design_bytes`'s, not the bound's."""
     nk = n * K
     if key == "gather_moments":
         return nk * (8 + 8 * T) + (3 * n + 18 * n) * T
     if key == "gather_moments_bwd":
         return nk * (8 + 8 * T) + 8 * (n + 1) + (18 * n + 3 * n) * T
-    src = 0 if sep else 15 * n
+    rec = (12 if sep else 16) * n
     if key == "gather_forces":
-        return nk * (8 + 3 * T) + (3 * n + (10 if sep else 19) * n + src + 3 * n) * T
-    return (nk * ((8 if sep else 16) + 3 * T) + 8 * (n + 1)
-            + (3 * n + (1 if sep else 19) * n + src + 3 * n + 19 * n + src) * T)
+        return nk * (8 + 3 * T) + (3 * n + (10 if sep else 19) * n + rec + 3 * n) * T
+    return (nk * ((0 if sep else 8) + 4 + 3 * T) + 8 * (n + 1)
+            + ((1 if sep else 10) * n + 3 * n + rec + 3 * n + 19 * n + rec) * T)
+
+
+def gather_bwd_design_bytes(n, K, T, sep=False):
+    """The bytes gather_forces_bwd's two passes move as designed: its bound's
+    (:func:`gather_bytes`) and the second copy of nw that the source pass
+    streams (inv_nw, (n K, 3)); the Warp pairing's row pass reads nw too."""
+    return gather_bytes("gather_forces_bwd", n, K, T, sep) + (0 if sep else n * K * 3 * T)
 
 
 def _tuple(x):
@@ -3207,6 +3221,7 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
     from softbody_tpu_torch.ops import mid_kernels as mk
     from softbody_tpu_torch.ops import pair_kernels as pk
     from softbody_tpu_torch.ops.elasticity import compute_ratio
+    from softbody_tpu_torch.pair_times import pass_ms
 
     say(f"[45] the gather kernels (csrc/gather_kernels.cu) and the mid-section kernels "
         f"on the gather rows, kernel vs plain {tag}")
@@ -3252,9 +3267,11 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
         ayT = gk.gather_moments_plain(pos, None, topo)
         rs = mk.gather_row_static(scene.materials, topo)
         scale = cfg.stiffness_scale(ratio)
-        rows = slice(7, 7 + n // 2 + 5)                 # the shard-like rows
+        # the shard-like rows: half the source, as a 2-rank all-gather's (its
+        # source pass at a mean of K / 2 readers), a ragged run
+        rows = slice(7, 7 + n // 2)
         fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-        shard = Topology(**fields, **gk.inverse_fields(fields["idx"], n),
+        shard = Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields["nw"]),
                          rcT=gk.rest_corr_lanes(fields["rest_corr"]))
         p_rows, day_rows = pos[rows].contiguous(), dayT[:, rows].contiguous()
         errs = {
@@ -3282,9 +3299,14 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
             fmT, srT = mk.mid_records_plain(*args, n)
             for sep in (False, True):
                 label = f"{'taichi' if sep else 'warp'} corotated={corot}"
-                rec, vol = (None, None) if sep else (srT.T, fmT[18])
+                # the packed record as the gather path's mid_records writes it
+                errs[f"mid_records packed {label}"] = held(
+                    "mid_records", mk.mid_records, mk.mid_records_plain,
+                    args + (n, None, None, gk.REC_W[sep]), dt,
+                    f"mid_records' packed record {label} {dt}")
+                rec = gk.packed_record(fmT, srT, sep)
                 into = None if sep else "gather_forces"
-                f_args = (fmT, rec, vol, topo, sep)
+                f_args = (fmT, rec, topo, sep)
                 errs[f"gather_forces {label}"] = held(
                     "gather_forces", gk.gather_forces, gk.gather_forces_plain, f_args, dt,
                     f"gather_forces {label} {dt}", into)
@@ -3295,15 +3317,14 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
                 if not corot:
                     continue
                 if dt == torch.float32:
-                    timed[sep] = (f_args, df)
-                s_rec = (fmT[9:18].T if sep else srT.T).contiguous()
-                s_args = (fmT[:, rows].contiguous(), s_rec, fmT[18], shard, sep)
+                    timed[sep] = (f_args, (df,))
+                s_args = (fmT[:, rows].contiguous(), rec, shard, sep)
                 errs[f"shard forces {label}"] = max(
                     held("gather_forces", gk.gather_forces, gk.gather_forces_plain, s_args,
                          dt, f"gather_forces on a shard {label} {dt}"),
                     held("gather_forces_bwd", gk.gather_forces_bwd,
-                         gk.gather_forces_bwd_plain, s_args + (df[rows].contiguous(),), dt,
-                         f"gather_forces_bwd on a shard {label} {dt}"))
+                         gk.gather_forces_bwd_plain, s_args + (df[rows].contiguous(),),
+                         dt, f"gather_forces_bwd on a shard {label} {dt}"))
         say(f"    {str(dt)[6:]} (N = {n}, K = {K}; the shard-like rows {rows.start}:"
             f"{rows.stop} of a source of {n}): max error / max |plain| "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
@@ -3320,28 +3341,41 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
                 lambda: gk.gather_moments_bwd(pos, None, topo, dayT),
                 lambda: gk.gather_moments_bwd_plain(pos, None, topo, dayT))}
     for sep in (False, True):
-        f_args, df = timed[sep]
+        f_args, b_args = timed[sep]
         work["gather_forces", sep] = (lambda a=f_args: gk.gather_forces(*a),
                                       lambda a=f_args: gk.gather_forces_plain(*a))
         work["gather_forces_bwd", sep] = (
-            lambda a=f_args, d=df: gk.gather_forces_bwd(*a, d),
-            lambda a=f_args, d=df: gk.gather_forces_bwd_plain(*a, d))
+            lambda a=f_args + b_args: gk.gather_forces_bwd(*a),
+            lambda a=f_args + b_args: gk.gather_forces_bwd_plain(*a))
     say(f"    per call on the f32 scene ({pairs} real pairs of {n * K} table entries; "
-        f"a backward call is two launches, its row pass and its source pass):")
+        f"a backward call is two launches, its row pass and its source pass, timed "
+        f"apart by the profiler):")
     for (name, sep), (kern, plain) in work.items():
         flops = (GATHER_SEP_FLOPS if sep else GATHER_FLOPS)[name] * pairs
         nbytes = gather_bytes(name, n, K, 4, sep)
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 3)
+        passes = (", passes " + " + ".join(f"{k} {v:.4f}" for k, v in
+                                            pass_ms(torch, kern, 50).items())
+                  if name.endswith("_bwd") else "")
+        moved = (f"; the design moves {gather_bwd_design_bytes(n, K, 4, sep) / 1e6:.1f} MB"
+                 if name == "gather_forces_bwd" else "")
         if not sep:
             st = stats[name]
             st.update(ms=ms, launch_ms=host_ms(kern, 50), plain_ms=plain_ms, flops=flops,
                       bytes=nbytes)
             summarize(name, st, 2 if name.endswith("_bwd") else 1, tag)
+            say(f"      {name}: {st['bound_ms'] / ms:.2f} of its bound{passes}{moved} "
+                f"{tag}")
         else:
             bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
-            say(f"    {name} (Taichi pairing): {ms:.4f} ms device per call vs bound "
-                f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); plain "
-                f"{plain_ms:.3f} ms {tag}")
+            say(f"    {name} (Taichi pairing): {ms:.4f} ms device per call{passes} vs "
+                f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
+                f"{bound / ms:.2f} of it{moved}); plain {plain_ms:.3f} ms {tag}")
+    for (name, pairing, dt), a in gk.kernel_info(K).items():
+        say(f"    {name} {pairing} {dt}: {a['registers']} registers, {a['local_bytes']} B "
+            f"local, {a['lanes']} lanes a row, {a['blocks_per_sm']} blocks of "
+            f"{a['threads']} threads ({a['threads'] // 32 * a['blocks_per_sm']} of 64 "
+            f"warps) resident per SM")
 
 
 def odd_stride(torch, x):
@@ -3488,6 +3522,7 @@ def kernel_json(stats, launches):
             "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"],
+            "bound_share": s["bound_ms"] / s["ms"],
             "library_ms": s["library_ms"],
         })
     return kernels

@@ -57,7 +57,8 @@ def scene_from_numpy(d: dict, device):
     x = dev("x") if "x" in d else None
     if "topology.idx" in d:
         topo = Topology(**{f: d[f"topology.{f}"] for f in _TOPOLOGY},
-                        inv_order=None, inv_ptr=None, rcT=None)
+                        inv_order=None, inv_ptr=None, inv_row=None, inv_nw=None,
+                        rcT=None)
         return Scene(rest_position=dev("rest_position"),
                      materials=Materials(*(dev(k) for k in _MATERIALS)),
                      out_num=int(d["out_num"]),

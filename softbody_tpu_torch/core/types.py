@@ -50,10 +50,14 @@ class Topology(NamedTuple):
     shard its source's rows): the flat positions i K + k that read row r
     are ``inv_order[inv_ptr[r]:inv_ptr[r + 1]]``, ascending — the fixed
     order in which the gather's backward adds them
-    (``ops/gather_kernels``).  ``rcT`` is ``rest_corr`` lane-major, (9, N)
-    with row 3a+b = rc[a][b], the mid-section kernels' operand.  The three
-    are built with the tables (``ops.gather_kernels.inverse_fields`` and
-    ``rest_corr_lanes``), so an evaluation builds none of them."""
+    (``ops/gather_kernels``); ``inv_row`` (int32, ``inv_order // K``) and
+    ``inv_nw`` (``nw.reshape(-1, 3)[inv_order]``) are the reader row and its
+    entry's nw in that same order, which the forces backward's source pass
+    streams (16 B per entry in f32) instead of dividing and reading ``nw``
+    at random.  ``rcT`` is ``rest_corr`` lane-major, (9, N) with row 3a+b =
+    rc[a][b], the mid-section kernels' operand.  They are built with the
+    tables (``ops.gather_kernels.inverse_fields`` and ``rest_corr_lanes``),
+    so an evaluation builds none of them."""
 
     idx: torch.Tensor          # (N, K) int64 neighbour indices
     mask: torch.Tensor         # (N, K) {0, 1} validity
@@ -67,6 +71,8 @@ class Topology(NamedTuple):
     sum_v_nw: torch.Tensor     # (N, 3) sum_j V_j nw_ij
     inv_order: torch.Tensor    # (N K,) int64
     inv_ptr: torch.Tensor      # (n_src + 1,) int64
+    inv_row: torch.Tensor      # (N K,) int32 reader row, in inv_order's order
+    inv_nw: torch.Tensor       # (N K, 3) the reader entry's nw, in that order
     rcT: torch.Tensor          # (9, N)
 
     @property

@@ -1,6 +1,8 @@
 // What the pair-kernel sources share (pair_kernels.cu, the whole-scene
 // kernels; fused_kernels.cu, the raw K1): the tile geometry, the
-// cubic-spline pair coefficients, and the raw K1's per-tile loop.
+// cubic-spline pair coefficients, and the raw K1's per-tile loop; and the
+// packed records' vector loads and stores (gather_kernels.cu,
+// mid_kernels.cu).
 //
 // The per-bucket kernel (fused_kernels.cu) runs one block per tile of ROWS
 // slot rows, one lane per row, NWARPS warps splitting the tile's candidate
@@ -27,6 +29,37 @@ template <> __device__ __forceinline__ float rsqrt_t<float>(float x) { return rs
 template <> __device__ __forceinline__ double rsqrt_t<double>(double x) { return rsqrt(x); }
 
 template <typename T> __device__ __forceinline__ T relu(T x) { return x > T(0) ? x : T(0); }
+
+// W values of a packed row-major record at p (16-byte aligned), moved with
+// W * sizeof(T) / 16 vector loads or stores (float4, or double2 in f64).
+__device__ __forceinline__ void unpack(const float4& x, float* y) {
+  y[0] = x.x; y[1] = x.y; y[2] = x.z; y[3] = x.w;
+}
+__device__ __forceinline__ void unpack(const double2& x, double* y) {
+  y[0] = x.x; y[1] = x.y;
+}
+__device__ __forceinline__ float4 pack(const float* y) {
+  return make_float4(y[0], y[1], y[2], y[3]);
+}
+__device__ __forceinline__ double2 pack(const double* y) { return make_double2(y[0], y[1]); }
+
+template <typename T, int W>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, T (&v)[W]) {
+  using V = decltype(pack((const T*)nullptr));
+  constexpr int PER = 16 / sizeof(T);
+  static_assert(W % PER == 0, "a record is whole 16-byte pieces");
+#pragma unroll
+  for (int k = 0; k < W / PER; ++k) unpack(__ldg(reinterpret_cast<const V*>(p) + k), v + PER * k);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const T (&v)[W]) {
+  using V = decltype(pack((const T*)nullptr));
+  constexpr int PER = 16 / sizeof(T);
+  static_assert(W % PER == 0, "a record is whole 16-byte pieces");
+#pragma unroll
+  for (int k = 0; k < W / PER; ++k) reinterpret_cast<V*>(p)[k] = pack(v + PER * k);
+}
 
 // K1 slab entry: rest_3, mass, volume, pos (8 values).
 template <typename T> struct alignas(16) K1Entry { T v[8]; };

@@ -18,48 +18,72 @@
 // gather_forces_kernel<SEP>  replaces elastic_forces' gathers and einsums
 //                            (:70-100): force_i = 0.5 V_i (term_j + M_i
 //                            sum_v_nw_i), with the Warp pairing (SEP false)
-//                            term_j = sum_k R_j F_i (V_j S_j) nW_ik, R_j and
-//                            S_j read from the source's [S_6 | R^T_9]
+//                            term_j = sum_k R_j F_i (V_j S_j) nW_ik, R_j,
+//                            S_j and V_j read from the source's packed
 //                            record, and the Taichi pairing (SEP true)
 //                            term_j = sum_k V_j M_j nW_ik
 // gather_moments_bwd and gather_forces_bwd (entry points, two launches
 //                            each: a row pass, then a source pass) replace
 //                            XLA's VJPs of the same
 //
-// The neighbours are read from a source of n_src rows, given as a pointer
-// and two strides (field f of row r at p[r * rs + f * fs]): the rows
+// gather_moments reads its source (the positions) through a pointer and
+// two strides (field f of row r at p[r * rs + f * fs]): the rows
 // themselves on one device, the all-gathered or halo-exchanged array on a
-// shard of the particle mesh (parallel/).  A backward gives the cotangent
-// of the rows' own terms and of the source (the readers' terms).
+// shard of the particle mesh (parallel/).  The forces read each source
+// row's packed record, row-major and 16-byte aligned, with vector loads
+// (float4, double2): Warp [S_6 | R^T_9 | V] (16 values: 64 bytes, two
+// sectors, in f32), Taichi [M_9 | V | 0 | 0] (12).  On one device
+// mid_records writes it beside fmT (csrc/mid_kernels.cu, the same values
+// as srT's and fmT's, srT then a view of the Warp record); on a shard the
+// exchange moves the same record.  A backward gives the cotangent of the
+// rows' own terms and of the source (the readers' terms); the forces
+// backward's record cotangent dsrc is lane-major, field f of source row r
+// at dsrc[f * ld_src + r], so its first 15 rows are the dsrT (15, n)
+// that mid_records_bwd reads (its V row zero; the Taichi pairing's M rows
+// are added into dfmT's by ops/mid_kernels.py, the record being made
+// from fmT).
 //
-// Design: one warp per row (forward and row passes) or per source row
-// (source passes).  The tables are row-major, K entries per row (K = 80
-// at the ~112k stretch scene): one thread per row would read them with a
-// stride of K x 12 bytes, so the warp's lanes walk k instead and each load
-// of a table field is coalesced.  Each lane keeps partial sums in
-// registers and a fixed butterfly of shuffles adds them (every lane ends
-// with the same bits), so a row's result does not depend on timing.  The
-// source passes add the readers' terms of source row r in the CSR order of
-// the table's inverse (Topology.inv_order at inv_ptr[r] .. inv_ptr[r + 1]),
-// lanes strided over that segment, then the same butterfly: no float
-// atomics, so gradients repeat bit for bit.  gather_moments_bwd's row pass
-// keeps each entry's term g_ik (3 values) in a scratch buffer that its
-// source pass sums; gather_forces_bwd's row pass keeps each row's
-// [F_i | h_i] (12 values, h_i = 0.5 V_i df_i) and its source pass
-// recomputes each reader's terms from it, the entry's nW and the source
-// row's own record, so no (n, K, 15) buffer is written.
+// Design.  gather_moments and its backward: one warp per row (or source
+// row), lanes walking k, so each load of a table field is coalesced; a
+// fixed shuffle butterfly adds the lanes' partial sums.  The forces: a
+// group of 8, 16 or 32 lanes per row, sized to K, walking RUN consecutive
+// rows one after another, each lane loading a trip of U entries' table
+// values (idx, nW: read once, evict-first) and then their records before
+// any arithmetic; the Warp pairing's forward and row pass fetch the next
+// trip's table values while a trip's records are in flight (the constants
+// below, measured on the H100: PERF.md §6).  The source passes add the
+// readers' terms of source row r in the CSR order of the table's inverse
+// (inv_ptr[r] .. inv_ptr[r + 1]), lanes strided over that segment, then
+// the butterfly: no float atomics, so gradients repeat bit for bit.
+// gather_moments_bwd's row pass keeps each entry's term g_ik (3 values)
+// in a scratch buffer that its source pass reads through inv_order;
+// gather_forces_bwd's row pass keeps each row's rowrec ([F_i | h_i], h_i =
+// 0.5 V_i df_i) and its source pass streams the Topology's inv_row /
+// inv_nw (the reader row and its entry's nW, in CSR order: no division by
+// K, no random read of nw) and recomputes each reader's terms from its
+// rowrec and the source row's own record, so no (n, K, 15) buffer is
+// written.
 //
-// What bounds them on an H100 SXM (3.35 TB/s): the table bytes.  At the
-// ~112k scene in f32 gather_moments reads idx (8 B), c, vj (4 B each),
-// xji and nw (12 B each) per entry, 40 B x 8.95 M entries = 358 MB, 0.107 ms;
-// its ~42 flops per entry take 0.006 ms at 67 TFLOP/s.  gather_forces
-// reads idx and nw (20 B per entry); the source records (64 B per row)
-// stay in the 50 MB L2.  chip_smoke.py computes each bound from the run's
-// shapes.  Arithmetic is true f32 (or f64): plain FMAs, no tensor cores.
+// What bounds them on an H100 SXM (3.35 TB/s): chip_smoke.py computes
+// each bound from the run's shapes (the bytes each function must move;
+// their flops are far under the FP32 peak).  At the ~112k scene in f32
+// gather_moments streams idx (8 B), c, vj (4 B each), xji and nw (12 B
+// each) per entry, 40 B x 8.95 M entries = 358 MB, 0.107 ms;
+// gather_forces idx and nw (20 B per entry, 0.059 ms); gather_forces_bwd
+// each table once, idx, nw and the inverse as one int32 index (24 B per
+// entry, 0.073 ms), where the design moves 36 B (inv_nw, a second copy of
+// nw in CSR order, buys the streamed source pass).  The records (7.2 MB)
+// and rowrec (5.4 MB) stay in the 50 MB L2, but each entry's gathered
+// record (64 B Warp, 48 B rowrec) still crosses from L2 to the SM:
+// measured, the forces and the source pass run near those bytes over an
+// L2 rate of ~6 TB/s, not the DRAM bound (PERF.md §6-7).  Arithmetic is
+// true f32 (or f64): plain FMAs, no tensor cores.
 //
 // Entry points have a plain C interface for ctypes; each returns
 // cudaGetLastError() of its launches.  Kernels launch on the caller's
 // stream and allocate nothing: scratch comes from the wrapper.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -161,60 +185,6 @@ gather_moments_kernel(Table<T> tb, Rec<T> pos, Rec<T> src, T* __restrict__ ayT,
   if (lane < 18) ayT[lane * ld_ay + i] = pick(acc, lane);
 }
 
-// fmT (19, ld_fm) = [F_9 | M_9 | V] of the rows (row 3a+b = [a][b]); the
-// source record: Warp [S_6 | R^T_9] (field 6 + 3c + a = R[a][c]), Taichi
-// M_9; vsrc the source's volumes.
-template <typename T, bool SEP>
-__global__ void __launch_bounds__(GT)
-gather_forces_kernel(const int64_t* __restrict__ idx, const T* __restrict__ nw,
-                     int64_t n, int K, const T* __restrict__ svnw,
-                     const T* __restrict__ fmT, int64_t ld_fm, Rec<T> src, Rec<T> vsrc,
-                     T* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i = warp_row();
-  if (i >= n) return;
-  T F[3][3];
-  if (!SEP) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) F[a][b] = fmT[(3 * a + b) * ld_fm + i];
-  }
-  T t[3] = {T(0), T(0), T(0)};
-  const int64_t row = i * K;
-  for (int k = lane; k < K; k += 32) {
-    const int64_t e = row + k;
-    const int64_t j = idx[e];
-    const T w[3] = {nw[3 * e], nw[3 * e + 1], nw[3 * e + 2]};
-    const T vj = vsrc(j, 0);
-    if (SEP) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        t[a] += vj * (src(j, 3 * a) * w[0] + src(j, 3 * a + 1) * w[1]
-                      + src(j, 3 * a + 2) * w[2]);
-    } else {
-      T vs[3], y[3];
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        vs[b] = vj * (src(j, sym6(b, 0)) * w[0] + src(j, sym6(b, 1)) * w[1]
-                      + src(j, sym6(b, 2)) * w[2]);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) y[a] = F[a][0] * vs[0] + F[a][1] * vs[1] + F[a][2] * vs[2];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        t[a] += src(j, 6 + a) * y[0] + src(j, 9 + a) * y[1] + src(j, 12 + a) * y[2];
-    }
-  }
-  warp_sum(t);
-  if (lane < 3) {
-    const int a = lane;
-    const T ti = fmT[(9 + 3 * a) * ld_fm + i] * svnw[3 * i]
-                 + fmT[(10 + 3 * a) * ld_fm + i] * svnw[3 * i + 1]
-                 + fmT[(11 + 3 * a) * ld_fm + i] * svnw[3 * i + 2];
-    out[3 * i + a] = T(0.5) * fmT[18 * ld_fm + i] * (pick(t, a) + ti);
-  }
-}
-
 // ------------------------------------------------------------ backward
 // Row pass of gather_moments' VJP: g_ik = c dA_i X_ji + vj dY_i nW_ik into
 // g (n K, 3), and the rows' own term -sum_k g_ik into drow (n, 3).
@@ -278,152 +248,387 @@ gather_moments_bwd_src(Inverse inv, const T* __restrict__ g,
   }
 }
 
+// ------------------------------------------------------------ the forces
+// The forces read each neighbour's packed source record, row-major, one
+// per source row, 16-byte aligned: Warp [S_6 | R^T_9 | V] (16 values,
+// field 6 + 3c + a = R[a][c]), Taichi [M_9 | V | 0 | 0] (12, field 3a + b
+// = M[a][b]).  The forces backward's per-row scratch rowrec: Warp
+// [F_9 | h_3] (12 values), Taichi [h_3 | 0] (4).
+template <bool SEP> constexpr int REC_W = SEP ? 12 : 16;
+template <bool SEP> constexpr int ROW_W = SEP ? 4 : 12;
+template <bool SEP> constexpr int VOL = SEP ? 9 : 15;   // V's field
+
+// How a kernel walks its rows (measured on the H100, PERF.md): a group of
+// G lanes (8, 16 or 32, aligned in its warp; GT / G groups a block) takes
+// RUN consecutive rows (or source rows) one after another, lane l taking
+// the entries l, l + G, ... of a row, U a trip: their table entries, then
+// their records, are loaded before any arithmetic on them.  G is the
+// fewest lanes whose trip covers a row (lanes_for).  The Warp pairing's
+// forward takes U = 1 (32 lanes at K = 80) and RUN = 1, its row pass U = 1
+// and RUN = 8, both fetching the next trip's table entries (of the row, or
+// of the next row in the run) while a trip's records are in flight
+// (AHEAD); the Taichi forward U = 5 (16 lanes) and RUN = 4, the Taichi row
+// pass (no table) RUN = 1, the source passes U = 5 and RUN = 4; f64 U = 2.
+template <typename T, int U32>
+constexpr int UNROLL = sizeof(T) == 4 ? U32 : 2;
+template <typename T, bool SEP> constexpr int ROWS_U = UNROLL<T, SEP ? 5 : 1>;
+template <bool SEP> constexpr int FWD_RUN = SEP ? 4 : 1;
+template <bool SEP> constexpr int ROWS_RUN = SEP ? 1 : 8;
+template <bool SEP> constexpr bool AHEAD = !SEP;
+template <typename T> constexpr int SRC_U = UNROLL<T, 5>;
+constexpr int SRC_RUN = 4;
+// f32: at most 128 registers, so two blocks (16 warps) reside per SM; the
+// Warp forward at most 64, so four (32 warps: at 65 registers, three
+// blocks, it ran 9% slower on the H100)
+#define FORCES_BOUNDS __launch_bounds__(GT, sizeof(T) == 4 ? 2 : 1)
+#define FWD_BOUNDS __launch_bounds__(GT, sizeof(T) == 4 ? (SEP ? 2 : 4) : 1)
+
+// The first of the RUN rows of this thread's group.
+template <int G, int RUN>
+__device__ __forceinline__ int64_t group_first() {
+  return ((int64_t)blockIdx.x * (GT / G) + threadIdx.x / G) * RUN;
+}
+
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) return FULL;
+  else return ((1u << G) - 1) << (threadIdx.x & 31 & ~(G - 1));
+}
+
+// Every lane of the group ends with the group's sum of v, in one fixed
+// order (a butterfly of log2 G rounds).
+template <int G, typename T, int NV>
+__device__ __forceinline__ void group_sum(T (&v)[NV]) {
+  const unsigned mask = group_mask<G>();
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int f = 0; f < NV; ++f) v[f] += __shfl_xor_sync(mask, v[f], off);
+}
+
+// A table value read once, marked evict-first (ld.global.cs).
+__device__ __forceinline__ int64_t ld_once(const int64_t* p) {
+  return (int64_t)__ldcs(reinterpret_cast<const long long*>(p));
+}
+template <typename X>
+__device__ __forceinline__ X ld_once(const X* p) { return __ldcs(p); }
+
+// One trip's table entries of a lane, e = e0 + G u for u < U while
+// e < end: the row (or reader row) each reads and its nW; ok[u] says
+// whether entry u exists.
+template <typename T, int U>
+struct Trip {
+  int64_t j[U];
+  T w[U][3];
+  bool ok[U];
+};
+
+template <typename T, int U, int G, typename Ix>
+__device__ __forceinline__ void fetch(Trip<T, U>& tr, const Ix* __restrict__ rows_of,
+                                      const T* __restrict__ nws, int64_t e0, int64_t end) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    tr.ok[u] = e0 + G * u < end;
+    if (tr.ok[u]) tr.j[u] = ld_once(rows_of + e0 + G * u);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (tr.ok[u]) {
+      const int64_t e = e0 + G * u;
+      tr.w[u][0] = ld_once(nws + 3 * e);
+      tr.w[u][1] = ld_once(nws + 3 * e + 1);
+      tr.w[u][2] = ld_once(nws + 3 * e + 2);
+    }
+}
+
+// The trip's records: row j's W values of rec for each entry.
+template <typename T, int U, int W>
+__device__ __forceinline__ void records(const Trip<T, U>& tr, const T* __restrict__ rec,
+                                        T (&r)[U][W]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (tr.ok[u]) load_vec<T, W>(rec + tr.j[u] * W, r[u]);
+}
+
+// Trip ``trip`` of row i (of ``trips``; rows up to ``last`` in the group's
+// run) into cur and its records into r.  With AHEAD its table entries are
+// those fetched into ``next`` during the trip before, and the next trip's
+// (the row's, or the next row's first) are fetched into ``next`` while
+// the records load.
+template <typename T, int U, int W, int G, bool AHEAD>
+__device__ __forceinline__ void take_trip(Trip<T, U>& cur, Trip<T, U>& next,
+                                          const int64_t* __restrict__ idx,
+                                          const T* __restrict__ nw, const T* __restrict__ rec,
+                                          int64_t i, int trip, int trips, int64_t last, int K,
+                                          int l, T (&r)[U][W]) {
+  constexpr int STEP = G * U;
+  const int64_t e0 = i * K + trip * STEP + l;
+  if (AHEAD) cur = next;
+  else fetch<T, U, G>(cur, idx, nw, e0, i * K + K);
+  records<T, U, W>(cur, rec, r);
+  if (AHEAD) {
+    if (trip + 1 < trips) fetch<T, U, G>(next, idx, nw, e0 + STEP, i * K + K);
+    else if (i + 1 < last) fetch<T, U, G>(next, idx, nw, (i + 1) * K + l, (i + 1) * K + K);
+  }
+}
+
+// Forces of n rows from fmT (19, ld_fm) = [F_9 | M_9 | V] of the rows (row
+// 3a+b = [a][b]) and the source's packed records: lane l of a row's group
+// takes its entries k = l, l + G, ..., U a trip.
+template <typename T, bool SEP, int G>
+__global__ void FWD_BOUNDS
+gather_forces_kernel(const int64_t* __restrict__ idx, const T* __restrict__ nw,
+                     int64_t n, int K, const T* __restrict__ svnw,
+                     const T* __restrict__ fmT, int64_t ld_fm, const T* __restrict__ rec,
+                     T* __restrict__ out) {
+  constexpr int RUN = FWD_RUN<SEP>, W = REC_W<SEP>, U = ROWS_U<T, SEP>;
+  const int l = threadIdx.x % G;
+  const int64_t first = group_first<G, RUN>();
+  const int64_t last = first + RUN < n ? first + RUN : n;
+  const int trips = (K + G * U - 1) / (G * U);
+  Trip<T, U> cur, next;
+  if (AHEAD<SEP> && first < last) fetch<T, U, G>(next, idx, nw, first * K + l, first * K + K);
+  for (int64_t i = first; i < last; ++i) {          // the group's lanes stay together
+    // the epilogue's operands first: lane a < 3 ends with force_i[a]
+    const int a_out = l < 3 ? l : 0;
+    const T m_a[3] = {fmT[(9 + 3 * a_out) * ld_fm + i], fmT[(10 + 3 * a_out) * ld_fm + i],
+                      fmT[(11 + 3 * a_out) * ld_fm + i]};
+    const T sv[3] = {svnw[3 * i], svnw[3 * i + 1], svnw[3 * i + 2]};
+    const T vi = fmT[18 * ld_fm + i];
+    T F[9];
+    if (!SEP) {
+#pragma unroll
+      for (int f = 0; f < 9; ++f) F[f] = fmT[f * ld_fm + i];
+    }
+    T t[3] = {T(0), T(0), T(0)};
+    for (int trip = 0; trip < trips; ++trip) {
+      T r[U][W];
+      take_trip<T, U, W, G, AHEAD<SEP>>(cur, next, idx, nw, rec, i, trip, trips, last, K,
+                                        l, r);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!cur.ok[u]) continue;
+        const T* w = cur.w[u];
+        if (SEP) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            t[a] += r[u][9] * (r[u][3 * a] * w[0] + r[u][3 * a + 1] * w[1]
+                               + r[u][3 * a + 2] * w[2]);
+        } else {
+          T vs[3], y[3];
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            vs[b] = r[u][15] * (r[u][sym6(b, 0)] * w[0] + r[u][sym6(b, 1)] * w[1]
+                                + r[u][sym6(b, 2)] * w[2]);
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            y[a] = F[3 * a] * vs[0] + F[3 * a + 1] * vs[1] + F[3 * a + 2] * vs[2];
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            t[a] += r[u][6 + a] * y[0] + r[u][9 + a] * y[1] + r[u][12 + a] * y[2];
+        }
+      }
+    }
+    group_sum<G>(t);
+    if (l < 3) {
+      const T ti = m_a[0] * sv[0] + m_a[1] * sv[1] + m_a[2] * sv[2];
+      out[3 * i + l] = T(0.5) * vi * (pick(t, l) + ti);
+    }
+  }
+}
+
 // Row pass of gather_forces' VJP, h_i = 0.5 V_i df_i: dfmT's rows 0-8 the
 // Warp pairing's dF_i = sum_k (R_j^T h_i) (x) (V_j S_j nW_ik) (zero in the
-// Taichi pairing), rows 9-17 dM_i = h_i (x) sum_v_nw_i, row 18 zero; and the
-// row's [F_i | h_i] into rowrec (n, 12) for the source pass.
-template <typename T, bool SEP>
-__global__ void __launch_bounds__(GT)
+// Taichi pairing, which reads no record here), rows 9-17 dM_i = h_i (x)
+// sum_v_nw_i, row 18 zero; and the row's rowrec for the source pass.
+template <typename T, bool SEP, int G>
+__global__ void FORCES_BOUNDS
 gather_forces_bwd_rows(const int64_t* __restrict__ idx, const T* __restrict__ nw,
                        int64_t n, int K, const T* __restrict__ svnw,
-                       const T* __restrict__ fmT, int64_t ld_fm, Rec<T> src, Rec<T> vsrc,
+                       const T* __restrict__ fmT, int64_t ld_fm, const T* __restrict__ rec,
                        const T* __restrict__ df, T* __restrict__ dfmT, int64_t ld_dfm,
                        T* __restrict__ rowrec) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i = warp_row();
-  if (i >= n) return;
-  const T vi = T(0.5) * fmT[18 * ld_fm + i];
-  const T h[3] = {vi * df[3 * i], vi * df[3 * i + 1], vi * df[3 * i + 2]};
-  T dF[9];
+  constexpr int RUN = ROWS_RUN<SEP>, W = REC_W<SEP>, RW = ROW_W<SEP>, U = ROWS_U<T, SEP>;
+  const int l = threadIdx.x % G;
+  const int64_t first = group_first<G, RUN>();
+  const int64_t last = first + RUN < n ? first + RUN : n;
+  const int trips = SEP ? 0 : (K + G * U - 1) / (G * U);
+  Trip<T, U> cur, next;
+  if (AHEAD<SEP> && first < last) fetch<T, U, G>(next, idx, nw, first * K + l, first * K + K);
+  for (int64_t i = first; i < last; ++i) {
+    const T vi = T(0.5) * fmT[18 * ld_fm + i];
+    const T h[3] = {vi * df[3 * i], vi * df[3 * i + 1], vi * df[3 * i + 2]};
+    // the epilogue's operands first: rows 9-17 of dfmT are h (x) sum_v_nw,
+    // rowrec Warp [F_9 | h_3], Taichi [h_3 | 0]
+    const T sv[3] = {svnw[3 * i], svnw[3 * i + 1], svnw[3 * i + 2]};
+    T F[9];
+    if (!SEP) {
 #pragma unroll
-  for (int f = 0; f < 9; ++f) dF[f] = T(0);
-  if (!SEP) {
-    const int64_t row = i * K;
-    for (int k = lane; k < K; k += 32) {
-      const int64_t e = row + k;
-      const int64_t j = idx[e];
-      const T w[3] = {nw[3 * e], nw[3 * e + 1], nw[3 * e + 2]};
-      const T vj = vsrc(j, 0);
-      T vs[3], dy[3];
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        vs[b] = vj * (src(j, sym6(b, 0)) * w[0] + src(j, sym6(b, 1)) * w[1]
-                      + src(j, sym6(b, 2)) * w[2]);
-      // dy = R_j^T h: R^T_9 field 6 + 3c + a = R[a][c]
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        dy[c] = src(j, 6 + 3 * c) * h[0] + src(j, 7 + 3 * c) * h[1]
-                + src(j, 8 + 3 * c) * h[2];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b) dF[3 * a + b] += dy[a] * vs[b];
+      for (int f = 0; f < 9; ++f) F[f] = fmT[f * ld_fm + i];
     }
-    warp_sum(dF);
-  }
-  if (lane < 19) {
-    T v = T(0);
-    if (lane < 9) {
-      v = pick(dF, lane);
-    } else if (lane < 18) {
-      const int a = (lane - 9) / 3, b = (lane - 9) % 3;
-      v = (a == 0 ? h[0] : (a == 1 ? h[1] : h[2])) * svnw[3 * i + b];
+    T dF[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) dF[f] = T(0);
+    for (int trip = 0; trip < trips; ++trip) {
+      T r[U][W];
+      take_trip<T, U, W, G, AHEAD<SEP>>(cur, next, idx, nw, rec, i, trip, trips, last, K,
+                                        l, r);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!cur.ok[u]) continue;
+        const T* w = cur.w[u];
+        T vs[3], dy[3];
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          vs[b] = r[u][15] * (r[u][sym6(b, 0)] * w[0] + r[u][sym6(b, 1)] * w[1]
+                              + r[u][sym6(b, 2)] * w[2]);
+        // dy = R_j^T h: R^T_9 field 6 + 3c + a = R[a][c]
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          dy[c] = r[u][6 + 3 * c] * h[0] + r[u][7 + 3 * c] * h[1] + r[u][8 + 3 * c] * h[2];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b) dF[3 * a + b] += dy[a] * vs[b];
+      }
     }
-    dfmT[lane * ld_dfm + i] = v;
+    if (!SEP) group_sum<G>(dF);
+    for (int f = l; f < 19; f += G) {
+      T v = T(0);
+      if (f < 9)
+        v = pick(dF, f);
+      else if (f < 18)
+        v = pick(h, (f - 9) / 3) * pick(sv, (f - 9) % 3);
+      dfmT[f * ld_dfm + i] = v;
+    }
+    for (int f = l; f < RW; f += G)
+      rowrec[RW * i + f] =
+          SEP ? (f < 3 ? pick(h, f) : T(0)) : (f < 9 ? pick(F, f) : pick(h, f - 9));
   }
-  if (lane < 12)
-    rowrec[12 * i + lane] =
-        lane < 9 ? (SEP ? T(0) : fmT[lane * ld_fm + i])
-                 : (lane == 9 ? h[0] : (lane == 10 ? h[1] : h[2]));
 }
 
 // Source pass of gather_forces' VJP: source row r's cotangent from its
-// readers e = (i, k) in CSR order, each recomputed from rowrec[i], nW_e
-// and r's own record.  Warp: dR_r += h_i (x) y, y = F_i (V_r S_r nW),
-// dVS_r += (F_i^T R_r^T h_i) (x) nW, then dS_6 = V_r (dVS + dVS^T) folded
-// onto the six fields and dR^T_9; Taichi: dM_r = V_r sum h_i (x) nW, with
-// ``merge`` added into dfmT's rows 9-17 (the source is the rows' own fmT).
-template <typename T, bool SEP>
-__global__ void __launch_bounds__(GT)
-gather_forces_bwd_src(Inverse inv, int K, const T* __restrict__ nw, Rec<T> src,
-                      Rec<T> vsrc, const T* __restrict__ rowrec, int merge,
-                      T* __restrict__ dsrc, int64_t rs, int64_t fs,
-                      T* __restrict__ dfmT, int64_t ld_dfm) {
-  constexpr int NV = SEP ? 9 : 18;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = warp_row();
-  if (r >= inv.n_src) return;
-  const T vr = vsrc(r, 0);
-  T S[3][3], R[3][3];
-  if (!SEP) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        S[a][b] = src(r, sym6(a, b));
-        R[a][b] = src(r, 6 + 3 * b + a);
-      }
-  }
+// readers in CSR order, streamed: at q in [ptr[r], ptr[r + 1]) the reader
+// row inv_row[q] and its entry's nW inv_nw[q], whose terms are recomputed
+// from the reader's rowrec and r's own record.  Warp: dR_r += h_i (x) y,
+// y = F_i (V_r S_r nW), dVS_r += (F_i^T R_r^T h_i) (x) nW, then dS_6 =
+// V_r (dVS + dVS^T) folded onto the six fields and dR^T_9; Taichi: dM_r =
+// V_r sum h_i (x) nW.  dsrc is lane-major: field f of source row r at
+// dsrc[f * ld_src + r], the record's V field (and the Taichi pairing's
+// padding) zero.
+template <typename T, bool SEP, int G>
+__device__ __forceinline__ void bwd_src_row(int64_t r, const int64_t* __restrict__ ptr,
+                                            const int32_t* __restrict__ inv_row,
+                                            const T* __restrict__ inv_nw,
+                                            const T* __restrict__ rec,
+                                            const T* __restrict__ rowrec,
+                                            T* __restrict__ dsrc, int64_t ld_src) {
+  constexpr int W = REC_W<SEP>, RW = ROW_W<SEP>, NV = SEP ? 9 : 18, U = SRC_U<T>;
+  const int l = threadIdx.x % G;
+  T own[W];
+  load_vec<T, W>(rec + r * W, own);
+  const T vr = own[VOL<SEP>];
   T acc[NV];                   // Warp: dR [a][b] at 3a+b, then dVS [b][c]
 #pragma unroll
   for (int f = 0; f < NV; ++f) acc[f] = T(0);
-  const int64_t end = inv.ptr[r + 1];
-  for (int64_t q = inv.ptr[r] + lane; q < end; q += 32) {
-    const int64_t e = inv.order[q];
-    const T* rec = rowrec + 12 * (e / K);
-    const T w[3] = {nw[3 * e], nw[3 * e + 1], nw[3 * e + 2]};
-    const T h[3] = {rec[9], rec[10], rec[11]};
-    if (SEP) {
+  const int64_t end = ptr[r + 1];
+  for (int64_t q0 = ptr[r] + l; q0 < end; q0 += G * U) {
+    Trip<T, U> tr;
+    T rr[U][RW];
+    fetch<T, U, G>(tr, inv_row, inv_nw, q0, end);
+    records<T, U, RW>(tr, rowrec, rr);
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+    for (int u = 0; u < U; ++u) {
+      if (!tr.ok[u]) continue;
+      const T* w = tr.w[u];
+      if (SEP) {
 #pragma unroll
-        for (int b = 0; b < 3; ++b) acc[3 * a + b] += h[a] * w[b];
-    } else {
-      T F[3][3], vs[3], y[3], dy[3], u[3];
+        for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+          for (int b = 0; b < 3; ++b) acc[3 * a + b] += rr[u][a] * w[b];
+      } else {
+        const T h[3] = {rr[u][9], rr[u][10], rr[u][11]};
+        T vs[3], y[3], dy[3], uu[3];
 #pragma unroll
-        for (int b = 0; b < 3; ++b) F[a][b] = rec[3 * a + b];
+        for (int b = 0; b < 3; ++b)
+          vs[b] = vr * (own[sym6(b, 0)] * w[0] + own[sym6(b, 1)] * w[1]
+                        + own[sym6(b, 2)] * w[2]);
 #pragma unroll
-      for (int b = 0; b < 3; ++b)
-        vs[b] = vr * (S[b][0] * w[0] + S[b][1] * w[1] + S[b][2] * w[2]);
+        for (int a = 0; a < 3; ++a)
+          y[a] = rr[u][3 * a] * vs[0] + rr[u][3 * a + 1] * vs[1] + rr[u][3 * a + 2] * vs[2];
+        // R[a][c] = own[6 + 3c + a]
 #pragma unroll
-      for (int a = 0; a < 3; ++a) y[a] = F[a][0] * vs[0] + F[a][1] * vs[1] + F[a][2] * vs[2];
+        for (int c = 0; c < 3; ++c)
+          dy[c] = own[6 + 3 * c] * h[0] + own[7 + 3 * c] * h[1] + own[8 + 3 * c] * h[2];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) dy[c] = R[0][c] * h[0] + R[1][c] * h[1] + R[2][c] * h[2];
+        for (int b = 0; b < 3; ++b)
+          uu[b] = rr[u][b] * dy[0] + rr[u][3 + b] * dy[1] + rr[u][6 + b] * dy[2];
 #pragma unroll
-      for (int b = 0; b < 3; ++b) u[b] = F[0][b] * dy[0] + F[1][b] * dy[1] + F[2][b] * dy[2];
+        for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          acc[3 * a + b] += h[a] * y[b];
-          acc[9 + 3 * a + b] += u[a] * w[b];
-        }
+          for (int b = 0; b < 3; ++b) {
+            acc[3 * a + b] += h[a] * y[b];
+            acc[9 + 3 * a + b] += uu[a] * w[b];
+          }
+      }
     }
   }
-  warp_sum(acc);
-  if (SEP) {
-    if (lane < 9) {
-      const T v = vr * pick(acc, lane);
-      if (merge)
-        dfmT[(9 + lane) * ld_dfm + r] += v;
-      else
-        dsrc[r * rs + lane * fs] = v;
-    }
-  } else if (lane < 15) {
-    T v;
-    if (lane < 6) {
-      const int a = lane < 3 ? 0 : (lane < 5 ? 1 : 2);
-      const int b = lane < 3 ? lane : (lane < 5 ? lane - 2 : 2);
+  group_sum<G>(acc);
+  for (int f = l; f < W; f += G) {
+    T v = T(0);
+    if (SEP) {
+      if (f < 9) v = vr * pick(acc, f);
+    } else if (f < 6) {
+      const int a = f < 3 ? 0 : (f < 5 ? 1 : 2);
+      const int b = f < 3 ? f : (f < 5 ? f - 2 : 2);
       v = a == b ? vr * pick(acc, 9 + 4 * a)
                  : vr * (pick(acc, 9 + 3 * a + b) + pick(acc, 9 + 3 * b + a));
-    } else {
-      const int c = (lane - 6) / 3, a = (lane - 6) % 3;   // R^T_9: R[a][c]
+    } else if (f < 15) {
+      const int c = (f - 6) / 3, a = (f - 6) % 3;   // R^T_9: R[a][c]
       v = pick(acc, 3 * a + c);
     }
-    dsrc[r * rs + lane * fs] = v;
+    dsrc[f * ld_src + r] = v;
   }
+}
+
+template <typename T, bool SEP, int G>
+__global__ void FORCES_BOUNDS
+gather_forces_bwd_src(const int64_t* __restrict__ ptr, const int32_t* __restrict__ inv_row,
+                      const T* __restrict__ inv_nw, int64_t n_src, const T* __restrict__ rec,
+                      const T* __restrict__ rowrec, T* __restrict__ dsrc, int64_t ld_src) {
+  const int64_t first = group_first<G, SRC_RUN>();
+  const int64_t last = first + SRC_RUN < n_src ? first + SRC_RUN : n_src;
+  for (int64_t r = first; r < last; ++r)
+    bwd_src_row<T, SEP, G>(r, ptr, inv_row, inv_nw, rec, rowrec, dsrc, ld_src);
+}
+
+// Lanes a row for rows of (mean) length len taken u entries a lane a trip:
+// 8, 16 or 32, the fewest whose trip covers the row.
+int lanes_for(double len, int u) { return len <= 8 * u ? 8 : (len <= 16 * u ? 16 : 32); }
+
+// ... for the forward and the row pass at K entries a row, and for the
+// source pass at a mean of len readers a source row
+template <typename T>
+int rows_lanes(double K, bool sep) { return lanes_for(K, sep ? ROWS_U<T, true> : ROWS_U<T, false>); }
+template <typename T>
+int src_lanes(double len) { return lanes_for(len, SRC_U<T>); }
+
+// Blocks for rows walked run at a time by groups of g lanes.
+unsigned groups_for(int64_t rows, int g, int run) {
+  const int64_t per = (int64_t)(GT / g) * run;
+  return (unsigned)((rows + per - 1) / per);
+}
+
+// f(pairing, lanes) with both as compile-time constants
+template <typename F>
+void with_lanes(bool sep, int g, F&& f) {
+  auto go = [&](auto s) {
+    if (g == 8) f(s, std::integral_constant<int, 8>{});
+    else if (g == 16) f(s, std::integral_constant<int, 16>{});
+    else f(s, std::integral_constant<int, 32>{});
+  };
+  if (sep) go(std::true_type{});
+  else go(std::false_type{});
 }
 
 unsigned blocks_for(int64_t rows) { return (unsigned)((rows + GW - 1) / GW); }
@@ -465,40 +670,77 @@ int launch_moments_bwd(const void* idx, const void* c, const void* vj, const voi
 
 template <typename T>
 int launch_forces(const void* idx, const void* nw, int64_t n, int K, const void* svnw,
-                  const void* fmT, int64_t ld_fm, const void* src, int64_t src_rs,
-                  int64_t src_fs, const void* vsrc, int64_t v_rs, void* out, int sep,
+                  const void* fmT, int64_t ld_fm, const void* rec, void* out, int sep,
                   void* stream) {
   if (n == 0) return 0;
-  const Rec<T> s{(const T*)src, src_rs, src_fs}, v{(const T*)vsrc, v_rs, 0};
-  auto* kernel = sep ? gather_forces_kernel<T, true> : gather_forces_kernel<T, false>;
-  kernel<<<blocks_for(n), GT, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)idx, (const T*)nw, n, K, (const T*)svnw, (const T*)fmT, ld_fm, s,
-      v, (T*)out);
+  with_lanes(sep != 0, rows_lanes<T>(K, sep != 0), [&](auto s, auto gc) {
+    constexpr bool SEP = decltype(s)::value;
+    constexpr int G = decltype(gc)::value;
+    gather_forces_kernel<T, SEP, G><<<groups_for(n, G, FWD_RUN<SEP>), GT, 0,
+                                      (cudaStream_t)stream>>>(
+        (const int64_t*)idx, (const T*)nw, n, K, (const T*)svnw, (const T*)fmT, ld_fm,
+        (const T*)rec, (T*)out);
+  });
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_forces_bwd(const void* idx, const void* nw, int64_t n, int K,
-                      const void* svnw, const void* fmT, int64_t ld_fm, const void* src,
-                      int64_t src_rs, int64_t src_fs, const void* vsrc, int64_t v_rs,
-                      const void* df, const void* order, const void* ptr, int64_t n_src,
-                      void* dfmT, int64_t ld_dfm, void* rowrec, void* dsrc, int64_t rs,
-                      int64_t fs, int sep, int merge, void* stream) {
-  const Rec<T> s{(const T*)src, src_rs, src_fs}, v{(const T*)vsrc, v_rs, 0};
+                      const void* svnw, const void* fmT, int64_t ld_fm, const void* rec,
+                      int64_t n_src, const void* df, const void* ptr, const void* inv_row,
+                      const void* inv_nw, void* dfmT, int64_t ld_dfm, void* rowrec,
+                      void* dsrc, int64_t ld_src, int sep, void* stream) {
   if (n > 0) {
-    auto* rows = sep ? gather_forces_bwd_rows<T, true> : gather_forces_bwd_rows<T, false>;
-    rows<<<blocks_for(n), GT, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)idx, (const T*)nw, n, K, (const T*)svnw, (const T*)fmT, ld_fm,
-        s, v, (const T*)df, (T*)dfmT, ld_dfm, (T*)rowrec);
+    with_lanes(sep != 0, rows_lanes<T>(K, sep != 0), [&](auto s, auto gc) {
+      constexpr bool SEP = decltype(s)::value;
+      constexpr int G = decltype(gc)::value;
+      gather_forces_bwd_rows<T, SEP, G><<<groups_for(n, G, ROWS_RUN<SEP>), GT, 0,
+                                          (cudaStream_t)stream>>>(
+          (const int64_t*)idx, (const T*)nw, n, K, (const T*)svnw, (const T*)fmT, ld_fm,
+          (const T*)rec, (const T*)df, (T*)dfmT, ld_dfm, (T*)rowrec);
+    });
     if (int e = (int)cudaGetLastError()) return e;
   }
   if (n_src > 0) {
-    auto* pass = sep ? gather_forces_bwd_src<T, true> : gather_forces_bwd_src<T, false>;
-    pass<<<blocks_for(n_src), GT, 0, (cudaStream_t)stream>>>(
-        Inverse{(const int64_t*)order, (const int64_t*)ptr, n_src}, K, (const T*)nw, s,
-        v, (const T*)rowrec, merge, (T*)dsrc, rs, fs, (T*)dfmT, ld_dfm);
+    with_lanes(sep != 0, src_lanes<T>((double)n * K / n_src), [&](auto s, auto gc) {
+      constexpr bool SEP = decltype(s)::value;
+      constexpr int G = decltype(gc)::value;
+      gather_forces_bwd_src<T, SEP, G><<<groups_for(n_src, G, SRC_RUN), GT, 0,
+                                         (cudaStream_t)stream>>>(
+          (const int64_t*)ptr, (const int32_t*)inv_row, (const T*)inv_nw, n_src,
+          (const T*)rec, (const T*)rowrec, (T*)dsrc, ld_src);
+    });
   }
   return (int)cudaGetLastError();
+}
+
+// registers, local bytes (stack and spills), threads per block and
+// resident blocks per SM of one forces kernel at K entries a row (which: 0
+// gather_forces, 1 its backward's row pass, 2 its source pass, at a mean
+// of K readers a source row; the Warp pairing's, or with sep the Taichi
+// one's) and its lanes a row
+template <typename T>
+int forces_info(int which, int sep, double K, int* out) {
+  const void* kernel = nullptr;
+  const int g = which == 2 ? src_lanes<T>(K) : rows_lanes<T>(K, sep != 0);
+  with_lanes(sep != 0, g, [&](auto s, auto gc) {
+    constexpr bool SEP = decltype(s)::value;
+    constexpr int G = decltype(gc)::value;
+    kernel = which == 0   ? (const void*)gather_forces_kernel<T, SEP, G>
+             : which == 1 ? (const void*)gather_forces_bwd_rows<T, SEP, G>
+                          : (const void*)gather_forces_bwd_src<T, SEP, G>;
+  });
+  cudaFuncAttributes a;
+  if (cudaError_t e = cudaFuncGetAttributes(&a, kernel)) return (int)e;
+  int blocks = 0;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, GT, 0))
+    return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = GT;
+  out[3] = blocks;
+  out[4] = g;
+  return 0;
 }
 
 }  // namespace
@@ -527,26 +769,29 @@ int sb_rows() { return ROWS; }
   }                                                                              \
   int sb_gather_forces_##SUF(const void* idx, const void* nw, int64_t n, int K,  \
                              const void* svnw, const void* fmT, int64_t ld_fm,   \
-                             const void* src, int64_t src_rs, int64_t src_fs,    \
-                             const void* vsrc, int64_t v_rs, void* out, int sep, \
-                             void* stream) {                                     \
-    return launch_forces<T>(idx, nw, n, K, svnw, fmT, ld_fm, src, src_rs, src_fs, \
-                            vsrc, v_rs, out, sep, stream);                       \
+                             const void* rec, void* out, int sep, void* stream) { \
+    return launch_forces<T>(idx, nw, n, K, svnw, fmT, ld_fm, rec, out, sep,      \
+                            stream);                                             \
   }                                                                              \
   int sb_gather_forces_bwd_##SUF(                                                \
       const void* idx, const void* nw, int64_t n, int K, const void* svnw,       \
-      const void* fmT, int64_t ld_fm, const void* src, int64_t src_rs,           \
-      int64_t src_fs, const void* vsrc, int64_t v_rs, const void* df,            \
-      const void* order, const void* ptr, int64_t n_src, void* dfmT,             \
-      int64_t ld_dfm, void* rowrec, void* dsrc, int64_t rs, int64_t fs, int sep, \
-      int merge, void* stream) {                                                 \
-    return launch_forces_bwd<T>(idx, nw, n, K, svnw, fmT, ld_fm, src, src_rs,    \
-                                src_fs, vsrc, v_rs, df, order, ptr, n_src, dfmT, \
-                                ld_dfm, rowrec, dsrc, rs, fs, sep, merge,        \
-                                stream);                                         \
+      const void* fmT, int64_t ld_fm, const void* rec, int64_t n_src,            \
+      const void* df, const void* ptr, const void* inv_row, const void* inv_nw,  \
+      void* dfmT, int64_t ld_dfm, void* rowrec, void* dsrc, int64_t ld_src,      \
+      int sep, void* stream) {                                                   \
+    return launch_forces_bwd<T>(idx, nw, n, K, svnw, fmT, ld_fm, rec, n_src, df, \
+                                ptr, inv_row, inv_nw, dfmT, ld_dfm, rowrec, dsrc, \
+                                ld_src, sep, stream);                            \
   }
 
 SB_GATHER_ENTRIES(f32, float)
 SB_GATHER_ENTRIES(f64, double)
+
+// forces_info of the f32 (mode 0) or f64 (mode 1) instantiation; out: 5 ints
+int sb_gather_info(int which, int sep, double K, int mode, int* out) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  return mode ? forces_info<double>(which, sep, K, out)
+              : forces_info<float>(which, sep, K, out);
+}
 
 }  // extern "C"

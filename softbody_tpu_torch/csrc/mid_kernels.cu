@@ -118,6 +118,7 @@ struct FwdOut {
   T* fmT;     // (19, ld_fm)
   T* srT;     // (15, ld_sr)
   int64_t ld_fm, ld_sr;
+  T* rec;     // the gather path's packed source record (m, REC), row-major
 };
 
 template <typename T>
@@ -164,7 +165,10 @@ __device__ __forceinline__ void load_rc(const Rows<T>& o, int64_t src, T (&rc)[3
 }
 
 // The forward of one row: its operands at src, its records at column col.
-template <typename T, bool CORR>
+// With REC 16 (the gather path's Warp pairing) the row's srT fields and V
+// go to its packed record [S_6 | R^T_9 | V] in place of srT; with REC 12
+// (its Taichi pairing) srT is written and the record is [M_9 | V | 0 | 0].
+template <typename T, bool CORR, int REC = 0>
 __device__ __forceinline__ void fwd_row(const Rows<T>& o, int64_t src, const FwdOut<T>& out,
                                         int64_t col, bool corotated, int sweeps) {
   T A[3][3], Y[3][3], p[3], rs[6], rc[3][3];
@@ -181,15 +185,32 @@ __device__ __forceinline__ void fwd_row(const Rows<T>& o, int64_t src, const Fwd
     for (int j = 0; j < 3; ++j) {
       fmT[(3 * i + j) * ld_fm + col] = F[i][j];
       fmT[(9 + 3 * i + j) * ld_fm + col] = M[i][j];
-      srT[(6 + 3 * j + i) * ld_sr + col] = R[i][j];   // R^T_9: [3c + a] = R[a][c]
     }
-  fmT[18 * ld_fm + col] = o.vol[src];
+  const T vol = o.vol[src];
+  fmT[18 * ld_fm + col] = vol;
+  if constexpr (REC == 16) {
+    const T rec[16] = {S[0][0], S[0][1], S[0][2], S[1][1], S[1][2], S[2][2],
+                       R[0][0], R[1][0], R[2][0], R[0][1], R[1][1], R[2][1],
+                       R[0][2], R[1][2], R[2][2], vol};
+    store_vec<T, 16>(out.rec + col * 16, rec);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)   // R^T_9: [3c + a] = R[a][c]
+      srT[(6 + 3 * j + i) * ld_sr + col] = R[i][j];
   srT[0 * ld_sr + col] = S[0][0];
   srT[1 * ld_sr + col] = S[0][1];
   srT[2 * ld_sr + col] = S[0][2];
   srT[3 * ld_sr + col] = S[1][1];
   srT[4 * ld_sr + col] = S[1][2];
   srT[5 * ld_sr + col] = S[2][2];
+  if constexpr (REC == 12) {
+    const T rec[12] = {M[0][0], M[0][1], M[0][2], M[1][0], M[1][1], M[1][2],
+                       M[2][0], M[2][1], M[2][2], vol, T(0), T(0)};
+    store_vec<T, 12>(out.rec + col * 12, rec);
+  }
 }
 
 // The backward of one row: its operands at src, its cotangents at col.
@@ -273,8 +294,19 @@ __global__ void __launch_bounds__(MID_THREADS) mid_records_kernel(MID_FWD_PARAMS
     for (int k = 0; k < 15; ++k) srT[k * ld_sr + col] = T(0);
     return;
   }
-  fwd_row<T, CORR>(MID_FWD_ROWS, col, FwdOut<T>{fmT, srT, ld_fm, ld_sr}, col,
+  fwd_row<T, CORR>(MID_FWD_ROWS, col, FwdOut<T>{fmT, srT, ld_fm, ld_sr, nullptr}, col,
                    corotated != 0, sweeps);
+}
+
+// The gather path's forward: every row's fmT and its packed source record
+// (REC 16 or 12, see fwd_row), no raw-dot correction, no padding columns.
+template <typename T, int REC>
+__global__ void __launch_bounds__(MID_THREADS)
+mid_records_rec_kernel(MID_FWD_PARAMS, T* __restrict__ rec) {
+  const int64_t col = (int64_t)blockIdx.x * MID_THREADS + threadIdx.x;
+  if (col >= m) return;
+  fwd_row<T, false, REC>(MID_FWD_ROWS, col, FwdOut<T>{fmT, srT, ld_fm, ld_sr, rec}, col,
+                         corotated != 0, sweeps);
 }
 
 template <typename T, bool CORR>
@@ -386,7 +418,7 @@ mid_records_ring_kernel(MID_FWD_PARAMS) {
        c += (int64_t)gridDim.x * MID_THREADS)
 #pragma unroll
     for (int k = 0; k < 15; ++k) srT[k * ld_sr + c] = T(0);
-  const FwdOut<T> out{fmT, srT, ld_fm, ld_sr};
+  const FwdOut<T> out{fmT, srT, ld_fm, ld_sr, nullptr};
   walk_ring<T, false, CORR, STAGES>(MID_FWD_ROWS, m, [&](const Rows<T>& s, int64_t col) {
     fwd_row<T, CORR>(s, 0, out, col, corotated != 0, sweeps);
   });
@@ -496,6 +528,21 @@ int launch_mid_records(const void* ayT, int64_t ld_ay, const void* posT_rows,
 }
 
 template <typename T>
+int launch_mid_records_rec(const void* ayT, int64_t ld_ay, const void* mu, const void* lam,
+                           const void* vol, const void* rcT, int64_t ld_rc,
+                           const void* scale, void* fmT, int64_t ld_fm, void* srT,
+                           int64_t ld_sr, void* rec, int rec_w, int64_t m, int corotated,
+                           int sweeps, void* stream) {
+  if (rec_w != 16 && rec_w != 12) return (int)cudaErrorInvalidValue;
+  auto* kernel = rec_w == 16 ? mid_records_rec_kernel<T, 16> : mid_records_rec_kernel<T, 12>;
+  kernel<<<blocks_for(m), MID_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)ayT, ld_ay, nullptr, 0, nullptr, 0, (const T*)mu, (const T*)lam,
+      (const T*)vol, (const T*)rcT, ld_rc, (const T*)scale, (T*)fmT, ld_fm, (T*)srT, ld_sr,
+      m, m, corotated, sweeps, (T*)rec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_mid_records_bwd(const void* ayT, int64_t ld_ay, const void* posT_rows,
                            int64_t ld_pos, const void* rs6T, int64_t ld_rs6,
                            const void* mu, const void* lam, const void* rcT,
@@ -590,6 +637,21 @@ int sb_mid_ring_plan(int which, int mode, int64_t m, int* out) {
                                      sweeps, RING, stream);                    \
   }
 
+// sb_mid_records_rec_<SUF>: the gather path's forward with its packed
+// source record rec (m, rec_w), rec_w 16 (srT unwritten) or 12
+#define SB_MID_REC_ENTRY(SUF, T)                                                \
+  int sb_mid_records_rec_##SUF(                                                \
+      const void* ayT, int64_t ld_ay, const void* mu, const void* lam,         \
+      const void* vol, const void* rcT, int64_t ld_rc, const void* scale,      \
+      void* fmT, int64_t ld_fm, void* srT, int64_t ld_sr, void* rec, int rec_w, \
+      int64_t m, int corotated, int sweeps, void* stream) {                    \
+    return launch_mid_records_rec<T>(ayT, ld_ay, mu, lam, vol, rcT, ld_rc,     \
+                                     scale, fmT, ld_fm, srT, ld_sr, rec, rec_w, \
+                                     m, corotated, sweeps, stream);            \
+  }
+
+SB_MID_REC_ENTRY(f32, float)
+SB_MID_REC_ENTRY(f64, double)
 SB_MID_ENTRIES(_, f32, float, false)
 SB_MID_ENTRIES(_, f64, double, false)
 SB_MID_ENTRIES(_ring_, f32, float, true)

@@ -88,17 +88,17 @@ SIGNATURES = {
         "mid_records_bwd": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I64, _P, _P,
                             _I64, _P, _I64, _P, _I64, _P, _P, _I64, _I64, _I32, _I32,
                             _P],
+        "mid_records_rec": [_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P,
+                            _I32, _I64, _I32, _I32, _P],
     },
     "gather_kernels": {
         "gather_moments": [_P, _P, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _I64,
                            _I64, _P, _I64, _P],
         "gather_moments_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P, _I64, _P, _I64,
                                _P, _P, _I32, _P, _I64, _I64, _P],
-        "gather_forces": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _I64, _P, _I64,
-                          _P, _I32, _P],
-        "gather_forces_bwd": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _I64, _P,
-                              _I64, _P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _I64,
-                              _I32, _I32, _P],
+        "gather_forces": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I32, _P],
+        "gather_forces_bwd": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _P, _P, _P,
+                              _P, _P, _I64, _P, _P, _I64, _I32, _P],
     },
 }
 # the ring kernels (csrc/mid_kernels.cu): the one-wave entry points' arguments
@@ -191,6 +191,9 @@ def library(source: str = "pair_kernels") -> ctypes.CDLL:
             lib.sb_mid_info.restype = _I32
             lib.sb_mid_ring_plan.argtypes = [_I32, _I32, _I64, _P]
             lib.sb_mid_ring_plan.restype = _I32
+        if source == "gather_kernels":
+            lib.sb_gather_info.argtypes = [_I32, _I32, _F64, _I32, _P]
+            lib.sb_gather_info.restype = _I32
         for name, args in SIGNATURES[source].items():
             suffixes = ("f32", "f64", "bf16") if name in BF16 else ("f32", "f64")
             for suffix in suffixes:

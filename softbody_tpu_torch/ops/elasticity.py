@@ -115,24 +115,21 @@ def forces_and_records(pos, ratio, mats: Materials, topo: Topology, cfg: SimConf
     ``topo.idx`` indexes: on a shard of the particle mesh the rows are the
     rank's and the neighbours come from an all-gather or a halo exchange
     (``parallel/``), two per evaluation (positions, then the pair records:
-    the kernels' [S_6 | R^T_9 | V] or [M_9 | V], the batched ops' [V S | R]
-    or V M); None on one device."""
+    the kernels' packed record [S_6 | R^T_9 | V] or [M_9 | V | 0 | 0] as
+    ``mid_records`` writes it, the batched ops' [V S | R] or V M); None on
+    one device."""
     n = pos.shape[0]
     src = None if exchange is None else exchange(pos)
     scale = cfg.stiffness_scale(ratio)
     if pair_ops is KERNELS and pos.device.type == "cpu":
         return _forces_batched(pos, src, scale, mats, topo, cfg, exchange)
-    ayT = gk.moments_all(pos, src, topo, pair_ops)
-    fmT, srT = mid_records_all(ayT, scale, gather_row_static(mats, topo), cfg.corotated, n,
-                               pair_ops)
     sep = cfg.pair_def_grad == "j"
-    if exchange is None:
-        rec, vol = (None, None) if sep else (srT.T, fmT[18])
-    else:
-        own = fmT[9:19].T if sep else torch.cat([srT.T, fmT[18:19].T], dim=1)
-        ext = exchange(own.contiguous())
-        rec, vol = ext[:, :-1], ext[:, -1]
-    return gk.forces_all(fmT, rec, vol, topo, sep, pair_ops), fmT, srT
+    ayT = gk.moments_all(pos, src, topo, pair_ops)
+    fmT, srT, rec = mid_records_all(ayT, scale, gather_row_static(mats, topo),
+                                    cfg.corotated, n, pair_ops, rec=gk.REC_W[sep])
+    if exchange is not None:
+        rec = exchange(rec)
+    return gk.forces_all(fmT, rec, topo, sep, pair_ops), fmT, srT
 
 
 def elastic_forces(pos, ratio, mats: Materials, topo: Topology, cfg: SimConfig,

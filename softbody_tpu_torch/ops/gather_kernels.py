@@ -10,22 +10,31 @@ inside the jitted step (the JAX gather backend has no Pallas kernel):
   and Y_i = sum_k vj_ik p_ji (x) nW_ik, p_ji = p_j - p_i, j = idx[i, k],
   into ayT (18, N) in ``mid_kernels.mid_records``' layout (row 3b+a =
   A[a][b], then Y the same way).  ``mid_records`` then gives the records
-  fmT (19, N) = [F_9 | M_9 | V] and srT (15, N) = [S_6 | R^T_9].
+  fmT (19, N) = [F_9 | M_9 | V] and, with its ``rec`` option, each row's
+  packed source record (:func:`packed_record`): Warp [S_6 | R^T_9 | V]
+  (16 values, srT (15, N) = [S_6 | R^T_9] a view of it), Taichi
+  [M_9 | V | 0 | 0] (12), row-major, 16-byte aligned.
 * :func:`gather_forces` replaces ``elastic_forces``' gathers and einsums
   (``elasticity.py:70-100``): force_i = 0.5 V_i (term_j + M_i sum_v_nw_i),
   term_j = sum_k R_j F_i (V_j S_j) nW_ik in the Warp pairing and
-  sum_k V_j M_j nW_ik in the Taichi pairing (``sep``).
+  sum_k V_j M_j nW_ik in the Taichi pairing (``sep``), each neighbour's
+  record read with vector loads.
 * :func:`gather_moments_bwd` and :func:`gather_forces_bwd` replace XLA's
   VJPs of the same: the cotangents of the rows' own terms and of the
   source (the readers' terms, summed per source row in the fixed CSR
   order of the table's inverse: no float atomics, bitwise repeatable).
+  The forces backward's source pass streams the Topology's ``inv_row`` /
+  ``inv_nw`` (the reader row and its nW in that order); its record
+  cotangent is lane-major, (REC_W, n_src) transposed, so its first 15
+  rows are the dsrT that ``mid_records_bwd`` reads.
 
-The neighbours come from a *source*: the rows themselves on one device
-(``src=None``), or on a shard of the particle mesh the all-gathered or
-halo-exchanged array (``parallel/``).  A source is any (n_src, fields)
-tensor, read through its two strides, so srT's transpose (a view) and a
-row-major exchanged record both serve; the volumes of the source rows
-``vsrc`` likewise.
+The neighbours come from a *source*: the rows themselves on one device,
+or on a shard of the particle mesh the all-gathered or halo-exchanged
+array (``parallel/``).  ``gather_moments`` reads any (n_src, 3) position
+tensor through its two strides; the forces read the packed record, the
+rows' own on one device or the exchanged records on a shard (the record's
+cotangent flows back through ``mid_kernels.mid_records_all``, which adds
+the Taichi record's M fields into fmT's).
 
 On the card each wrapper launches csrc/gather_kernels.cu (the forward
 kernels once, a backward its row pass and its source pass) and counts one
@@ -42,17 +51,23 @@ them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as tnf
 from torch.autograd.function import once_differentiable
 
-from .pair_common import (SR_FIELDS, SYM6, _no_tf32, check, check_lane_major, entry, on,
-                          raise_on, stream)
+from . import _build
+from .pair_common import SYM6, _no_tf32, check, check_lane_major, entry, on, raise_on, stream
 
 # R_9[3a+b] = R[a][b] from the record's R^T_9 fields (field 6 + 3b + a)
 R9 = tuple(6 + 3 * b + a for a in range(3) for b in range(3))
-ROWREC = 12        # the forces backward's per-row scratch: F_9 | h_3
-M_FIELDS = 9       # the Taichi pairing's source record: M_9
+# the packed source record's width in each pairing (sep): Warp [S_6 | R^T_9
+# | V], Taichi [M_9 | V | 0 | 0]; V's field
+REC_W = {False: 16, True: 12}
+VOL = {False: 15, True: 9}
+# the forces backward's per-row scratch: Warp F_9 | h_3, Taichi h_3 | 0
+ROW_W = {False: 12, True: 4}
 
 
 # ------------------------------------------------------------ the row gather
@@ -66,12 +81,18 @@ def index_inverse(idx: torch.Tensor, n: int):
     return torch.argsort(flat, stable=True), tnf.pad(torch.cumsum(lengths, 0), (1, 0))
 
 
-def inverse_fields(idx: torch.Tensor, n: int) -> dict:
+def inverse_fields(idx: torch.Tensor, n: int, nw: torch.Tensor) -> dict:
     """A Topology's inverse fields of the (rows, K) table ``idx`` over ``n``
-    source rows: inv_order and inv_ptr (:func:`index_inverse`), which the
-    gather's backward and the kernels' source passes walk."""
+    source rows, with the table's ``nw`` (rows, K, 3): inv_order and
+    inv_ptr (:func:`index_inverse`), which the gather's backward walks, and
+    in the same CSR order the reader row inv_row (int32, inv_order // K)
+    and its entry's nW inv_nw (rows K, 3), which the forces backward's
+    source pass streams."""
     order, ptr = index_inverse(idx, n)
-    return dict(inv_order=order, inv_ptr=ptr)
+    return dict(inv_order=order, inv_ptr=ptr,
+                inv_row=torch.div(order, max(idx.shape[1], 1),
+                                  rounding_mode="floor").to(torch.int32),
+                inv_nw=nw.reshape(-1, 3)[order].contiguous())
 
 
 def rest_corr_lanes(rest_corr: torch.Tensor) -> torch.Tensor:
@@ -156,14 +177,13 @@ def gather_moments_bwd_plain(pos, src, topo, dayT):
     return grads[0], grads[1] if src is not None else None
 
 
-def _source(fmT, src, vsrc, sep):
-    """The source record and volumes: the rows' own (M_9 of fmT and its V
-    row) when ``src`` is None."""
-    if src is None:
-        if not sep:
-            raise ValueError("the Warp pairing reads [S_6 | R^T_9]: pass srT.T")
-        return fmT[9:18].T, fmT[18]
-    return src, vsrc
+def packed_record(fmT, srT, sep: bool):
+    """The rows' packed source record (n, REC_W[sep]) from their records fmT
+    (19, n) and srT (15, n): Warp [S_6 | R^T_9 | V], Taichi [M_9 | V | 0 |
+    0] (what ``mid_kernels.mid_records(..., rec=...)`` writes)."""
+    if sep:
+        return torch.cat([fmT[9:19].T, fmT.new_zeros((fmT.shape[1], 2))], dim=1)
+    return torch.cat([srT.T, fmT[18:19].T], dim=1)
 
 
 def pair_forces(F, M, V, rec, topo, sep: bool):
@@ -185,38 +205,33 @@ def pair_forces(F, M, V, rec, topo, sep: bool):
     return 0.5 * V[:, None] * (term_j + term_i)
 
 
-def gather_forces_plain(fmT, src, vsrc, topo, sep: bool):
+def gather_forces_plain(fmT, rec, topo, sep: bool):
     """Forces (N, 3) from the rows' records fmT (19, N) = [F_9 | M_9 | V] and
-    the source's record ``src`` (n_src, 15) = [S_6 | R^T_9] (Warp) or
-    (n_src, 9) = M_9 (``sep``: Taichi; None: the rows' own) with the source
-    volumes ``vsrc`` (n_src,): :func:`pair_forces`."""
+    the source's packed record ``rec`` (n_src, REC_W[sep]) (see
+    :func:`packed_record`): :func:`pair_forces`.  Its V field is a material
+    constant: no cotangent flows into it."""
     n = fmT.shape[1]
-    src, vsrc = _source(fmT, src, vsrc, sep)
+    vsrc = rec[:, VOL[sep]].detach()
     if sep:
-        rec = vsrc[:, None] * src
+        g = vsrc[:, None] * rec[:, :9]
     else:
-        rec = torch.cat([vsrc[:, None] * src[:, list(SYM6)], src[:, list(R9)]], dim=1)
+        g = torch.cat([vsrc[:, None] * rec[:, list(SYM6)], rec[:, list(R9)]], dim=1)
     # contiguous (N, 3, 3): a batched product of a strided view runs row by
     # row on the CPU
     F, M = (fmT[r].T.contiguous().reshape(n, 3, 3) for r in (slice(0, 9), slice(9, 18)))
-    return pair_forces(F, M, fmT[18], rec, topo, sep)
+    return pair_forces(F, M, fmT[18], g, topo, sep)
 
 
-def gather_forces_bwd_plain(fmT, src, vsrc, topo, sep: bool, df):
-    """VJP of :func:`gather_forces_plain` wrt fmT and the source record: df
-    (N, 3) -> (dfmT (19, N), its V row zero, dsrc or None when the source
-    is the rows: dfmT then holds the readers' terms too), by autograd
-    through it.  Volumes are material constants: no cotangent."""
+def gather_forces_bwd_plain(fmT, rec, topo, sep: bool, df):
+    """VJP of :func:`gather_forces_plain` wrt fmT and the record: df (N, 3)
+    -> (dfmT (19, N), its V row zero, drec (n_src, REC_W[sep]), its V field
+    and padding zero), by autograd through it."""
     with torch.enable_grad():
-        ins = [fmT.detach().requires_grad_()]
-        if src is not None:
-            ins.append(src.detach().requires_grad_())
-        f = gather_forces_plain(ins[0], ins[1] if src is not None else None,
-                                None if vsrc is None else vsrc.detach(), topo, sep)
-        grads = torch.autograd.grad(f, ins, df)
-    dfmT = grads[0]
+        ins = [fmT.detach().requires_grad_(), rec.detach().requires_grad_()]
+        f = gather_forces_plain(*ins, topo, sep)
+        dfmT, drec = torch.autograd.grad(f, ins, df)
     dfmT[18] = 0
-    return dfmT, grads[1] if src is not None else None
+    return dfmT, drec
 
 
 # ------------------------------------------------------------ kernel launches
@@ -238,15 +253,20 @@ def _check_table(topo, dtype, device):
     return n, K
 
 
-def _check_inverse(topo, device, n_src):
-    check("inv_order", topo.inv_order, torch.int64, device, 1)
-    check("inv_ptr", topo.inv_ptr, torch.int64, device, 1)
-    if topo.inv_order.shape[0] != topo.idx.numel() or not topo.inv_order.is_contiguous():
-        raise ValueError(f"inv_order must be a contiguous ({topo.idx.numel()},)")
-    if topo.inv_ptr.shape[0] != n_src + 1 or not topo.inv_ptr.is_contiguous():
-        raise ValueError(f"inv_ptr must be a contiguous ({n_src + 1},): the "
-                         f"inverse over the source's {n_src} rows, got "
-                         f"{tuple(topo.inv_ptr.shape)}")
+def _check_inverse(topo, device, n_src, streamed=False):
+    """The table's CSR inverse over n_src source rows (with ``streamed``,
+    also inv_row and inv_nw, which the forces backward's source pass
+    reads)."""
+    nk = topo.idx.numel()
+    fields = [("inv_order", torch.int64, (nk,)), ("inv_ptr", torch.int64, (n_src + 1,))]
+    if streamed:
+        fields += [("inv_row", torch.int32, (nk,)), ("inv_nw", topo.nw.dtype, (nk, 3))]
+    for name, dtype, shape in fields:
+        x = getattr(topo, name)
+        check(name, x, dtype, device, len(shape))
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} (the inverse over "
+                             f"the source's {n_src} rows), got {tuple(x.shape)}")
 
 
 def _check_rec(name, x, dtype, device, fields, rows=None):
@@ -255,12 +275,6 @@ def _check_rec(name, x, dtype, device, fields, rows=None):
     if x.shape[1] != fields or (rows is not None and x.shape[0] != rows):
         raise ValueError(f"{name} must be ({rows or 'n_src'}, {fields}), got "
                          f"{tuple(x.shape)}")
-
-
-def _check_vol(name, x, dtype, device, rows):
-    check(name, x, dtype, device, 1)
-    if x.shape[0] != rows:
-        raise ValueError(f"{name} must be ({rows},), got {tuple(x.shape)}")
 
 
 def _table_args(topo):
@@ -310,60 +324,72 @@ def _launch_gather_moments_bwd(pos, src, topo, dayT):
     return dpos, None if src is None else dsrc
 
 
-def _forces_operands(fmT, src, vsrc, topo, sep):
-    """Checks of the forces' operands; returns (n, K, source, volumes)."""
+def _forces_operands(fmT, rec, topo, sep):
+    """Checks of the forces' operands; returns (n, K)."""
     device, dtype = fmT.device, fmT.dtype
     n, K = _check_table(topo, dtype, device)
     check_lane_major("fmT", fmT, dtype, device, 19, n)
-    source, vol = _source(fmT, src, vsrc, sep)
-    _check_rec("src", source, dtype, device, M_FIELDS if sep else SR_FIELDS)
-    _check_vol("vsrc", vol, dtype, device, source.shape[0])
-    if n and K and int(source.shape[0]) == 0:
+    _check_rec("rec", rec, dtype, device, REC_W[sep])
+    if not rec.is_contiguous() or rec.data_ptr() % 16:
+        raise ValueError("rec must be a contiguous row-major record on a 16-byte "
+                         "boundary (the kernels read it in 16-byte pieces)")
+    if n and K and int(rec.shape[0]) == 0:
         raise ValueError("an empty source for a non-empty table")
-    return n, K, source, vol
+    return n, K
 
 
-def _launch_gather_forces(fmT, src, vsrc, topo, sep):
-    n, K, source, vol = _forces_operands(fmT, src, vsrc, topo, sep)
+def _launch_gather_forces(fmT, rec, topo, sep):
+    n, K = _forces_operands(fmT, rec, topo, sep)
     out = torch.empty((n, 3), dtype=fmT.dtype, device=fmT.device)
     rc = entry("gather_kernels", "gather_forces", fmT.dtype)(
         topo.idx.data_ptr(), topo.nw.data_ptr(), n, K, topo.sum_v_nw.data_ptr(),
-        fmT.data_ptr(), fmT.stride(0), *_strided(source), vol.data_ptr(), vol.stride(0),
-        out.data_ptr(), int(sep), stream())
+        fmT.data_ptr(), fmT.stride(0), rec.data_ptr(), out.data_ptr(), int(sep), stream())
     raise_on(rc, "gather_forces")
     gather_forces.launches += 1
     return out
 
 
-def _like(x):
-    """An empty tensor of ``x``'s shape laid out as ``x`` is: lane-major for
-    a transposed lane-major view (srT.T), else row-major."""
-    if x.dim() == 2 and x.stride(0) == 1 and x.shape[1] > 1:
-        return torch.empty(x.shape[::-1], dtype=x.dtype, device=x.device).T
-    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
-
-
-def _launch_gather_forces_bwd(fmT, src, vsrc, topo, sep, df):
-    n, K, source, vol = _forces_operands(fmT, src, vsrc, topo, sep)
+def _launch_gather_forces_bwd(fmT, rec, topo, sep, df):
+    n, K = _forces_operands(fmT, rec, topo, sep)
     device, dtype = fmT.device, fmT.dtype
     check("df", df, dtype, device, 2)
     if tuple(df.shape) != (n, 3) or not df.is_contiguous():
         raise ValueError(f"df must be a contiguous ({n}, 3), got {tuple(df.shape)}")
-    n_src = source.shape[0]
-    _check_inverse(topo, device, n_src)
+    n_src = rec.shape[0]
+    _check_inverse(topo, device, n_src, streamed=True)
     dfmT = torch.empty((19, n), dtype=dtype, device=device)
-    rowrec = torch.empty((n, ROWREC), dtype=dtype, device=device)
-    dsrc = None if src is None else _like(source)
+    rowrec = torch.empty((n, ROW_W[sep]), dtype=dtype, device=device)
+    # the record's cotangent, lane-major (what mid_records_bwd reads as dsrT)
+    dsrc = torch.empty((REC_W[sep], n_src), dtype=dtype, device=device)
     rc = entry("gather_kernels", "gather_forces_bwd", dtype)(
         topo.idx.data_ptr(), topo.nw.data_ptr(), n, K, topo.sum_v_nw.data_ptr(),
-        fmT.data_ptr(), fmT.stride(0), *_strided(source), vol.data_ptr(), vol.stride(0),
-        df.data_ptr(), topo.inv_order.data_ptr(), topo.inv_ptr.data_ptr(), n_src,
-        dfmT.data_ptr(), dfmT.stride(0), rowrec.data_ptr(),
-        *(_strided(dsrc) if dsrc is not None else (None, 0, 0)), int(sep),
-        int(src is None), stream())
+        fmT.data_ptr(), fmT.stride(0), rec.data_ptr(), n_src, df.data_ptr(),
+        topo.inv_ptr.data_ptr(), topo.inv_row.data_ptr(), topo.inv_nw.data_ptr(),
+        dfmT.data_ptr(), dfmT.stride(0), rowrec.data_ptr(), dsrc.data_ptr(),
+        dsrc.stride(0), int(sep), stream())
     raise_on(rc, "gather_forces_bwd")
     gather_forces_bwd.launches += 1
-    return dfmT, dsrc
+    return dfmT, dsrc.T
+
+
+def kernel_info(K: float) -> dict:
+    """What the card gives each forces kernel on rows of K entries (and
+    source rows of K readers): {(kernel, pairing, dtype): {registers,
+    local_bytes, threads, blocks_per_sm, lanes}} (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; ``lanes`` a row).
+    Needs a card."""
+    lib = _build.library("gather_kernels")
+    keys = ("registers", "local_bytes", "threads", "blocks_per_sm", "lanes")
+    out = {}
+    for which, name in enumerate(("gather_forces", "gather_forces_bwd_rows",
+                                  "gather_forces_bwd_src")):
+        for sep, pairing in ((0, "warp"), (1, "taichi")):
+            for mode, dtype in enumerate(("float32", "float64")):
+                buf = (ctypes.c_int * len(keys))()
+                raise_on(lib.sb_gather_info(which, sep, float(K), mode, buf),
+                         f"{name} attributes")
+                out[name, pairing, dtype] = dict(zip(keys, buf))
+    return out
 
 
 # ------------------------------------------------------------ device dispatch
@@ -382,19 +408,19 @@ def gather_moments_bwd(pos, src, topo, dayT):
     return fn(pos, src, topo, dayT)
 
 
-def gather_forces(fmT, src, vsrc, topo, sep):
-    """Forces (N, 3) from fmT (19, N) and the source record ``src`` with its
-    volumes ``vsrc`` (see :func:`gather_forces_plain`); one launch on the
-    card."""
+def gather_forces(fmT, rec, topo, sep):
+    """Forces (N, 3) from fmT (19, N) and the source's packed record ``rec``
+    (see :func:`gather_forces_plain`); one launch on the card."""
     fn = on("gather_forces", fmT, gather_forces_plain, _launch_gather_forces)
-    return fn(fmT, src, vsrc, topo, sep)
+    return fn(fmT, rec, topo, sep)
 
 
-def gather_forces_bwd(fmT, src, vsrc, topo, sep, df):
-    """VJP of :func:`gather_forces`: (dfmT (19, N), dsrc or None); a row
-    pass and a source pass on the card."""
+def gather_forces_bwd(fmT, rec, topo, sep, df):
+    """VJP of :func:`gather_forces`: (dfmT (19, N), drec (n_src, REC_W[sep])),
+    see :func:`gather_forces_bwd_plain`; a row pass and a source pass on the
+    card, drec a transposed lane-major buffer."""
     fn = on("gather_forces_bwd", df, gather_forces_bwd_plain, _launch_gather_forces_bwd)
-    return fn(fmT, src, vsrc, topo, sep, df)
+    return fn(fmT, rec, topo, sep, df)
 
 
 COUNTED = (gather_moments, gather_moments_bwd, gather_forces, gather_forces_bwd)
@@ -419,22 +445,21 @@ class _GatherMoments(torch.autograd.Function):
 
 
 class _GatherForces(torch.autograd.Function):
-    """(fmT (19, N), src or None, vsrc) -> forces (N, 3); the volumes get no
-    cotangent."""
+    """(fmT (19, N), rec (n_src, REC_W[sep])) -> forces (N, 3)."""
 
     @staticmethod
-    def forward(ctx, fmT, src, vsrc, topo, sep, ops):
+    def forward(ctx, fmT, rec, topo, sep, ops):
         ctx.topo, ctx.sep, ctx.ops = topo, sep, ops
-        ctx.save_for_backward(fmT, src, vsrc)
-        return ops.gather_forces(fmT, src, vsrc, topo, sep)
+        ctx.save_for_backward(fmT, rec)
+        return ops.gather_forces(fmT, rec, topo, sep)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, df):
-        fmT, src, vsrc = ctx.saved_tensors
-        dfmT, dsrc = ctx.ops.gather_forces_bwd(fmT, src, vsrc, ctx.topo, ctx.sep,
+        fmT, rec = ctx.saved_tensors
+        dfmT, drec = ctx.ops.gather_forces_bwd(fmT, rec, ctx.topo, ctx.sep,
                                                df.contiguous())
-        return dfmT, dsrc, None, None, None, None
+        return dfmT, drec, None, None, None
 
 
 def moments_all(pos, src, topo, ops):
@@ -445,7 +470,7 @@ def moments_all(pos, src, topo, ops):
     return _GatherMoments.apply(pos, src, topo, ops)
 
 
-def forces_all(fmT, src, vsrc, topo, sep, ops):
+def forces_all(fmT, rec, topo, sep, ops):
     """Differentiable :func:`gather_forces`: forces (N, 3), one launch on the
     card; its backward one :func:`gather_forces_bwd`."""
-    return _GatherForces.apply(fmT, src, vsrc, topo, sep, ops)
+    return _GatherForces.apply(fmT, rec, topo, sep, ops)

@@ -49,6 +49,7 @@ from torch.autograd.function import once_differentiable
 
 from ..sim.blocked import mid_rows
 from . import _build
+from .gather_kernels import REC_W, packed_record
 from .pair_common import (SR_FIELDS, check_lane_major, check_vector, entry, on, raise_on,
                           stream)
 
@@ -91,11 +92,14 @@ def gather_row_static(mats, topo) -> RowStatic:
 
 # ------------------------------------------------------------- plain versions
 def mid_records_plain(ayT, rs: RowStatic, scale, corotated: bool, n_sr: int,
-                      posT_rows=None, rs6T=None):
+                      posT_rows=None, rs6T=None, rec: int = 0):
     """The mid-section from K1's A | Y rows ayT (18, k): (fmT (19, k),
     srT (15, n_sr) with its columns [k, n_sr) zero).  With ``posT_rows``
-    (3, k) and ``rs6T`` (6, k): A, Y = dots - pos_i * rs6.  Differentiable
-    (the polar through its clamped VJP)."""
+    (3, k) and ``rs6T`` (6, k): A, Y = dots - pos_i * rs6.  With ``rec``
+    (16 or 12; n_sr = k, no correction): (fmT, srT, the gather path's
+    packed source record (k, rec), ``gather_kernels.packed_record``), srT
+    then a view of the record's first 15 fields in the Warp pairing's 16.
+    Differentiable (the polar through its clamped VJP)."""
     if posT_rows is None:
         A = [[ayT[3 * b + a] for b in range(3)] for a in range(3)]
         Y = [[ayT[9 + 3 * b + a] for b in range(3)] for a in range(3)]
@@ -112,7 +116,10 @@ def mid_records_plain(ayT, rs: RowStatic, scale, corotated: bool, n_sr: int,
                       + [R[a][c] for c in range(3) for a in range(3)])
     if n_sr > srT.shape[1]:
         srT = torch.cat([srT, srT.new_zeros((SR_FIELDS, n_sr - srT.shape[1]))], dim=1)
-    return fmT, srT
+    if not rec:
+        return fmT, srT
+    packed = packed_record(fmT, srT, rec == REC_W[True])
+    return fmT, packed[:, :SR_FIELDS].T if rec == REC_W[False] else srT, packed
 
 
 def mid_records_bwd_plain(ayT, rs: RowStatic, scale, corotated: bool, dfmT, dsrT,
@@ -185,11 +192,14 @@ def _corr(posT_rows, rs6T):
 
 
 def _launch_mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None,
-                        ring=False):
+                        rec=0, ring=False):
     """(fmT (19, m), srT (15, n_sr)): one thread per column of srT, the
     columns past the m rows only zeroing their record (with ``ring``, the
-    ring kernel: one thread per row of each tile it walks)."""
+    ring kernel: one thread per row of each tile it walks; with ``rec``,
+    see :func:`mid_records_plain`)."""
     device, dtype, m = _check(ayT, rs, scale, posT_rows, rs6T)
+    if rec:
+        return _launch_mid_records_rec(ayT, rs, scale, corotated, n_sr, posT_rows, rec)
     if n_sr < m:
         raise ValueError(f"srT has {n_sr} columns, fewer than the {m} rows")
     fmT = torch.empty((FM_FIELDS, m), dtype=dtype, device=device)
@@ -205,6 +215,29 @@ def _launch_mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=No
     raise_on(rc, name)
     (mid_records_ring if ring else mid_records).launches += 1
     return fmT, srT
+
+
+def _launch_mid_records_rec(ayT, rs, scale, corotated, n_sr, posT_rows, rec):
+    """(fmT, srT, the packed record (m, rec)): one thread per row; in the
+    Warp pairing's record (16) srT is a view of it."""
+    device, dtype, m = ayT.device, ayT.dtype, ayT.shape[1]
+    if rec not in REC_W.values() or n_sr != m or posT_rows is not None:
+        raise ValueError(f"the packed record takes rec 16 or 12, n_sr = m and no "
+                         f"raw-dot correction, got rec {rec}, n_sr {n_sr} of {m} rows")
+    fmT = torch.empty((FM_FIELDS, m), dtype=dtype, device=device)
+    packed = torch.empty((m, rec), dtype=dtype, device=device)
+    srT = (packed[:, :SR_FIELDS].T if rec == REC_W[False]
+           else torch.empty((SR_FIELDS, m), dtype=dtype, device=device))
+    if m == 0:
+        return fmT, srT, packed
+    rc = entry("mid_kernels", "mid_records_rec", dtype)(
+        ayT.data_ptr(), ayT.stride(0), rs.mu.data_ptr(), rs.lam.data_ptr(),
+        rs.vol.data_ptr(), rs.rcT.data_ptr(), rs.rcT.stride(0), scale.data_ptr(),
+        fmT.data_ptr(), fmT.stride(0), srT.data_ptr(), srT.stride(0), packed.data_ptr(),
+        rec, m, int(corotated), SWEEPS, stream())
+    raise_on(rc, "mid_records")
+    mid_records.launches += 1
+    return fmT, srT, packed
 
 
 def _launch_mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=None,
@@ -233,11 +266,13 @@ def _launch_mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=Non
 
 
 # ------------------------------------------------------------ device dispatch
-def mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None):
-    """The mid-section of every row: (fmT (19, m), srT (15, n_sr)); one
-    launch on the card, :func:`mid_records_plain` on the CPU."""
+def mid_records(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None, rec=0):
+    """The mid-section of every row: (fmT (19, m), srT (15, n_sr)), with
+    ``rec`` also the gather path's packed source record (see
+    :func:`mid_records_plain`); one launch on the card,
+    :func:`mid_records_plain` on the CPU."""
     fn = on("mid_records", ayT, mid_records_plain, _launch_mid_records)
-    return fn(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T)
+    return fn(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T, rec)
 
 
 def mid_records_bwd(ayT, rs, scale, corotated, dfmT, dsrT, posT_rows=None, rs6T=None):
@@ -257,7 +292,7 @@ def mid_records_ring(ayT, rs, scale, corotated, n_sr, posT_rows=None, rs6T=None)
     bit; on no path, so not in :data:`COUNTED` (its own ``launches``
     count)."""
     fn = on("mid_records_ring", ayT, mid_records_plain,
-            functools.partial(_launch_mid_records, ring=True))
+            functools.partial(_launch_mid_records, rec=0, ring=True))
     return fn(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T)
 
 
@@ -273,32 +308,61 @@ mid_records_ring.launches = mid_records_bwd_ring.launches = 0
 
 
 # ------------------------------------------------------- differentiable op
+def add_record_m(dfmT, drec):
+    """dfmT (19, m) plus the cotangent of the Taichi pairing's packed record
+    [M_9 | V | 0 | 0] (drec (m, 12)) on its M rows: the record is made from
+    fmT, so its M fields' cotangent is M's.  A new tensor."""
+    out = dfmT.clone()
+    out[9:18] += drec[:, :9].T
+    return out
+
+
 class _MidRecords(torch.autograd.Function):
     """(ayT (18, m), scale (m,), posT_rows (3, m) or None) -> (fmT (19, m),
-    srT (15, n_sr)).  ``posT_rows`` (with the scene's ``rs6T``) only on the
-    uncentered dots of the blocked layout; it is a view of the positions,
-    so autograd adds its cotangent to theirs."""
+    srT (15, n_sr)); with ``rec`` 16 (fmT, the packed record), with 12
+    (fmT, srT, the packed record).  ``posT_rows`` (with the scene's
+    ``rs6T``) only on the uncentered dots of the blocked layout; it is a
+    view of the positions, so autograd adds its cotangent to theirs."""
 
     @staticmethod
-    def forward(ctx, ayT, scale, posT_rows, rs, rs6T, corotated, n_sr, ops):
-        ctx.rs, ctx.rs6T, ctx.corotated, ctx.ops = rs, rs6T, corotated, ops
+    def forward(ctx, ayT, scale, posT_rows, rs, rs6T, corotated, n_sr, ops, rec):
+        ctx.rs, ctx.rs6T, ctx.corotated, ctx.ops, ctx.rec = rs, rs6T, corotated, ops, rec
         ctx.save_for_backward(ayT, scale, posT_rows)
-        return ops.mid_records(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T)
+        ctx.set_materialize_grads(False)
+        out = ops.mid_records(ayT, rs, scale, corotated, n_sr, posT_rows, rs6T, rec=rec)
+        return (out[0], out[2]) if rec == REC_W[False] else out
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dfmT, dsrT):
+    def backward(ctx, dfmT, *grads):
         ayT, scale, posT_rows = ctx.saved_tensors
         m = ayT.shape[1]
+        if dfmT is None:
+            dfmT = ayT.new_zeros((FM_FIELDS, m))
+        if ctx.rec == REC_W[False]:      # dsrT: the record's first 15 fields
+            drec = grads[0]
+            dsrT = (ayT.new_zeros((SR_FIELDS, m)) if drec is None
+                    else drec.T[:SR_FIELDS])
+        else:
+            dsrT = grads[0]
+            if dsrT is None:
+                dsrT = ayT.new_zeros((SR_FIELDS, m))
+            if ctx.rec and grads[1] is not None:
+                dfmT = add_record_m(dfmT, grads[1])
         dayT, dscale, dpos = ctx.ops.mid_records_bwd(
             ayT, ctx.rs, scale, ctx.corotated, dfmT.contiguous(),
             dsrT.contiguous()[:, :m], posT_rows, ctx.rs6T)
-        return dayT, dscale, dpos, None, None, None, None, None
+        return dayT, dscale, dpos, None, None, None, None, None, None
 
 
 def mid_records_all(ayT, scale, rs: RowStatic, corotated: bool, n_sr: int, ops,
-                    posT_rows=None, rs6T=None):
+                    posT_rows=None, rs6T=None, rec=0):
     """Differentiable mid-section of every row: (fmT (19, m), srT
     (15, n_sr)), one launch on the card, its backward one launch.  With
-    ``posT_rows`` and ``rs6T``, on raw dots (see :func:`mid_records`)."""
-    return _MidRecords.apply(ayT, scale, posT_rows, rs, rs6T, corotated, n_sr, ops)
+    ``posT_rows`` and ``rs6T``, on raw dots (see :func:`mid_records`); with
+    ``rec`` (16 or 12) also the gather path's packed source record (fmT,
+    srT, rec), srT a view of the Warp pairing's record."""
+    out = _MidRecords.apply(ayT, scale, posT_rows, rs, rs6T, corotated, n_sr, ops, rec)
+    if rec == REC_W[False]:
+        return out[0], out[1][:, :SR_FIELDS].T, out[1]
+    return out

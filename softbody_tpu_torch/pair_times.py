@@ -15,9 +15,15 @@ that has them their ring forms ``mid_records_ring``,
 scenes' strained rows (``chip_smoke.py`` phase 44's operands: the stretched body
 after 5 steps, f32, seeded random cotangents; ``varcol_`` with the raw-dot
 correction), and of the gather backend's kernels (``gather_moments``,
-``gather_forces`` and their backwards, ``j_gather_forces*`` the Taichi
-pairing's) on the same body's (N, K) tables (``chip_smoke.py`` phase 45's
-operands), at the ~112k stretch scene on one CUDA card, and the steps
+``gather_forces`` and their backwards, each backward's row pass and source
+pass also apart (``*_bwd_rows_ms``, ``*_bwd_src_ms``, from
+``torch.profiler``), ``gather_mid_records`` the mid-section on the gather
+rows (with the packed source record in a tree that has it),
+``j_gather_*`` the Taichi pairing's, ``j_gather_record_merge`` the add
+of its record's cotangent into dfmT that its backward makes on one
+device) on the same body's (N, K) tables
+(``chip_smoke.py`` phase 45's operands), at the ~112k stretch scene on
+one CUDA card, and the steps
 they sit in (``g_`` the gather path's), for this checkout or another one
 (``--tree``), so that two versions can be compared on one card in one
 sitting:
@@ -92,6 +98,28 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def pass_ms(torch, fn, reps):
+    """{kernel: device ms per call of ``fn``} of each kernel ``fn`` launches
+    (a gather backward's row pass ``*_rows`` and source pass ``*_src``
+    apart; each launches them once a call), the mean of its launches in
+    ``torch.profiler`` over ``reps`` calls, warm."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"gather_\w+?_(?:rows|src)", e.name)   # demangled or not
+            spans.setdefault(m.group(0) if m else e.name, []).append(
+                e.time_range.elapsed_us())
+    # the mean launch: the profiler may drop events when a process traces a lot
+    return {name: sum(us) / len(us) / 1e3 for name, us in spans.items()}
 
 
 def host_ms(torch, fn, reps):
@@ -246,16 +274,31 @@ def gather_numbers(torch, np, args, dev, pts, out_num, body, steps):
         rng = np.random.default_rng(45)
         dayT, df = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
                                     device=dev) for shape in ((18, n), (n, 3)))
-        fmT, srT = mk.mid_records_plain(gk.gather_moments_plain(pos, None, topo),
-                                        mk.gather_row_static(scene.materials, topo),
-                                        cfg.stiffness_scale(ratio), cfg.corotated, n)
+        mid = (gk.gather_moments_plain(pos, None, topo),
+               mk.gather_row_static(scene.materials, topo), cfg.stiffness_scale(ratio),
+               cfg.corotated, n)
+        fmT, srT = mk.mid_records_plain(*mid)
         evals = {"gather_moments": lambda: gk.gather_moments(pos, None, topo),
                  "gather_moments_bwd": lambda: gk.gather_moments_bwd(pos, None, topo,
                                                                      dayT)}
-        for label, a in (("", (fmT, srT.T, fmT[18], topo, False)),
-                         ("j_", (fmT, None, None, topo, True))):
+        packed = hasattr(gk, "packed_record")     # a tree whose forces read it
+        for label, sep in (("", False), ("j_", True)):
+            if packed:          # the packed record, the rows' own on one device
+                a = (fmT, gk.packed_record(fmT, srT, sep), topo, sep)
+                b = a + (df,)
+                evals[label + "gather_mid_records"] = (
+                    lambda sep=sep: mk.mid_records(*mid, rec=gk.REC_W[sep]))
+                if sep:         # the Taichi record's cotangent added into dfmT
+                    drec = torch.empty((gk.REC_W[sep], n), device=dev).normal_().T
+                    evals["j_gather_record_merge"] = (
+                        lambda d=torch.randn_like(fmT): mk.add_record_m(d, drec))
+            else:               # the strided source: srT.T, or the rows' own
+                a = (fmT, None, None, topo, True) if sep else (
+                    fmT, srT.T, fmT[18], topo, False)
+                b = a + (df,)
+                evals[label + "gather_mid_records"] = lambda: mk.mid_records(*mid)
             evals[label + "gather_forces"] = lambda a=a: gk.gather_forces(*a)
-            evals[label + "gather_forces_bwd"] = lambda a=a: gk.gather_forces_bwd(*a, df)
+            evals[label + "gather_forces_bwd"] = lambda b=b: gk.gather_forces_bwd(*b)
         out["digest"] = {k: digest(torch, fn()) for k, fn in evals.items()}
     if steps:
         out.update({f"g_{k}": v for k, v in step_numbers(
@@ -648,6 +691,11 @@ def time_evals(torch, pk, args, out, evals, per_launch, ring_fns):
         out[f"{key}_launches"] = (sum(pk.launch_counts().values())
                                   + sum(f.launches for f in ring_fns))
         out[f"{key}_ms"] = cuda_ms(torch, fn, args.reps)
+        if key.endswith("gather_moments_bwd") or key.endswith("gather_forces_bwd"):
+            label = key[:-len("gather_forces_bwd")] if key.endswith("forces_bwd") else (
+                key[:-len("gather_moments_bwd")])
+            for name, ms in pass_ms(torch, fn, args.reps).items():
+                out[f"{label}{name}_ms"] = ms
         if key in per_launch:
             out[f"{key}_sum_of_launches_ms"] = sum(
                 cuda_ms(torch, f, args.reps) for f in per_launch[key])

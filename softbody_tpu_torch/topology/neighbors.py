@@ -147,6 +147,8 @@ def build_topology(rest: np.ndarray, mass: np.ndarray, cfg: SimConfig,
         sum_v_nw=np.einsum("ij,ija->ia", vj, nw),
         inv_order=None,
         inv_ptr=None,
+        inv_row=None,
+        inv_nw=None,
         rcT=None,
     )
     return topo, rho, volume
@@ -161,7 +163,7 @@ def topology_to_torch(topo: Topology, dtype: torch.dtype, device) -> Topology:
 
     idx = torch.from_numpy(np.asarray(topo.idx, np.int64)).to(device)
     fields = {f: cast(getattr(topo, f)) for f in Topology._fields[1:10]}
-    return Topology(idx=idx, **fields, **inverse_fields(idx, idx.shape[0]),
+    return Topology(idx=idx, **fields, **inverse_fields(idx, idx.shape[0], fields["nw"]),
                     rcT=rest_corr_lanes(fields["rest_corr"]))
 
 

@@ -1101,12 +1101,12 @@ def test_mid_ring_kernels_match_the_one_wave_kernels(dtype, blocked):
 GATHER = ("gather_moments", "gather_moments_bwd", "gather_forces", "gather_forces_bwd")
 
 
-def _gather_case(dtype, dev, pairing="i", corotated=True):
+def _gather_case(dtype, dev, pairing="i", corotated=True, max_neighbors=0):
     from softbody_tpu_torch.sim.scene import build_scene
 
     pts, out_num = inflatable_sphere(n_outer=600)
     cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype=dtype, backend="gather",
-                                max_neighbors=0, pair_def_grad=pairing,
+                                max_neighbors=max_neighbors, pair_def_grad=pairing,
                                 corotated=corotated)
     scene = build_scene(pts, cfg, out_num=out_num, device=dev)
     rng = np.random.default_rng(31)
@@ -1124,21 +1124,54 @@ def _gather_shard(topo, rows):
     from softbody_tpu_torch.core.types import Topology
 
     fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0]),
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0],
+                                                  fields["nw"]),
                     rcT=gk.rest_corr_lanes(fields["rest_corr"]))
 
 
-def _gather_calls(pos, src, topo, fmT, rec, vol, sep, dayT, df):
+def _padded(topo, K):
+    """The table with pad entries appended up to K a row (each pointing at
+    its own row, all its weights zero), its inverse rebuilt."""
+    from softbody_tpu_torch.core.types import Topology
+
+    n, k0 = topo.idx.shape
+    own = torch.arange(n, device=topo.idx.device)[:, None].expand(n, K - k0)
+    fields = {f: getattr(topo, f) for f in Topology._fields[:10]}
+    fields["idx"] = torch.cat([topo.idx, own], dim=1).contiguous()
+    for f in ("mask", "w", "c", "vj", "nw", "xji"):
+        x = fields[f]
+        fields[f] = torch.cat([x, x.new_zeros((n, K - k0) + x.shape[2:])], dim=1).contiguous()
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields["nw"]),
+                    rcT=topo.rcT)
+
+
+def _gather_calls(pos, src, topo, fmT, rec, sep, dayT, df):
     """Each gather kernel's call on these operands, and its plain version's."""
     args = {"gather_moments": (pos, src, topo),
             "gather_moments_bwd": (pos, src, topo, dayT),
-            "gather_forces": (fmT, rec, vol, topo, sep),
-            "gather_forces_bwd": (fmT, rec, vol, topo, sep, df)}
+            "gather_forces": (fmT, rec, topo, sep),
+            "gather_forces_bwd": (fmT, rec, topo, sep, df)}
     return {k: (getattr(gk, k), getattr(gk, k + "_plain"), a) for k, a in args.items()}
 
 
 def _outs(x):
     return [t for t in (x if isinstance(x, tuple) else (x,)) if t is not None]
+
+
+def _held(name, kern, plain, args, tol):
+    """One call of ``kern`` (one launch counted on ``name``) against its
+    plain version and a second call bit for bit."""
+    pk.reset_launch_counts()
+    got = _outs(kern(*args))
+    torch.cuda.synchronize()
+    counts = pk.launch_counts()
+    assert counts == dict.fromkeys(counts, 0) | {name: 1}, (name, counts)
+    want = _outs(plain(*args))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+    assert all(torch.equal(a, b) for a, b in zip(got, _outs(kern(*args)))), name
 
 
 @pytest.mark.parametrize("shard", [False, True])
@@ -1148,8 +1181,9 @@ def _outs(x):
 def test_gather_kernels_match_plain(dtype, pairing, corotated, shard):
     """Each gather kernel against its plain version on the same operands
     (1e-4 of max |plain| in f32, 1e-10 in f64), one launch counted per
-    call, a second call bit for bit the first; on one device and on a
-    shard-like source (a ragged run of rows reading every particle)."""
+    call, a second call bit for bit the first; on one device (the record
+    the rows' own) and on a shard-like source (a ragged run of rows reading
+    every particle's packed record)."""
     dev = _card()
     cfg, scene, pos, ratio, dayT, df = _gather_case(dtype, dev, pairing, corotated)
     topo, n = scene.topology, pos.shape[0]
@@ -1157,28 +1191,87 @@ def test_gather_kernels_match_plain(dtype, pairing, corotated, shard):
     ayT = gk.gather_moments_plain(pos, None, topo)
     fmT, srT = mk.mid_records_plain(ayT, mk.gather_row_static(scene.materials, topo),
                                     cfg.stiffness_scale(ratio), corotated, n)
+    rec = gk.packed_record(fmT, srT, sep)
+    src = None
     if shard:
         rows = slice(9, 9 + n // 2 + 5)
         topo = _gather_shard(topo, rows)
-        src, rec = pos, (fmT[9:18].T if sep else srT.T).contiguous()
-        pos, vol = pos[rows], fmT[18]
+        src, pos = pos, pos[rows]
         fmT, dayT, df = fmT[:, rows].contiguous(), dayT[:, rows].contiguous(), df[rows]
-    else:
-        src, (rec, vol) = None, ((None, None) if sep else (srT.T, fmT[18]))
     tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
-    for name, (kern, plain, args) in _gather_calls(pos, src, topo, fmT, rec, vol, sep,
-                                                   dayT, df).items():
+    for name, (kern, plain, args) in _gather_calls(pos, src, topo, fmT, rec, sep, dayT,
+                                                   df).items():
+        _held(name, kern, plain, args, tol)
+
+
+# lanes a row of the forward and the row pass (f32 Warp, f32 Taichi, f64)
+# and of the source pass (f32, f64) at K entries a row, K readers a source
+# row on average
+RAGGED_LANES = {20: ((32, 8, 16), (8, 16)), 37: ((32, 8, 32), (8, 32)),
+                100: ((32, 32, 32), (32, 32))}
+
+
+@pytest.mark.parametrize("pairing", ["i", "j"])
+@pytest.mark.parametrize("K", [20, 37, 100])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_forces_ragged_lane_groups(dtype, pairing, K):
+    """The forces kernels where K is not a multiple of their lane group:
+    a table cut to its 20 or 37 nearest and one padded to 100 entries a
+    row, each against its plain version (1e-4 of max |plain| in f32, 1e-10
+    in f64); the padded table's forces and cotangents equal the unpadded
+    plain version's (pad entries add nothing).  Between them the cases run
+    every lane group of 8, 16 and 32 (RAGGED_LANES, as kernel_info gives
+    them): the 8-lane forward and row pass in the f32 Taichi pairing, the
+    8-lane source pass in f32."""
+    dev = _card()
+    mx = 0 if K == 100 else K
+    cfg, scene, pos, ratio, _, df = _gather_case(dtype, dev, pairing, True, mx)
+    topo, n = scene.topology, pos.shape[0]
+    sep = pairing == "j"
+    if K == 100:
+        assert topo.idx.shape[1] < K
+        topo = _padded(topo, K)
+    assert topo.idx.shape[1] == K
+    ayT = gk.gather_moments_plain(pos, None, scene.topology)
+    fmT, srT = mk.mid_records_plain(ayT, mk.gather_row_static(scene.materials, topo),
+                                    cfg.stiffness_scale(ratio), True, n)
+    rec = gk.packed_record(fmT, srT, sep)
+    rows, src = RAGGED_LANES[K]
+    f64 = dtype == "float64"
+    info = gk.kernel_info(K)
+    pairing_name = "taichi" if sep else "warp"
+    for kernel, lanes in (("gather_forces", rows[2 if f64 else int(sep)]),
+                          ("gather_forces_bwd_rows", rows[2 if f64 else int(sep)]),
+                          ("gather_forces_bwd_src", src[int(f64)])):
+        assert info[kernel, pairing_name, dtype]["lanes"] == lanes, (kernel, info)
+    tol = 1e-10 if f64 else 1e-4
+    for name, (kern, plain, args) in _gather_calls(pos, None, topo, fmT, rec, sep, None,
+                                                   df).items():
+        if name.startswith("gather_forces"):
+            _held(name, kern, plain, args, tol)
+            if K == 100:
+                ref = _outs(plain(*((args[0], args[1], scene.topology) + args[3:])))
+                assert all(_rel(g, w) <= tol for g, w in zip(_outs(kern(*args)), ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mid_records_writes_the_packed_record(dtype):
+    """mid_records with the gather path's packed record: one launch, fmT and
+    srT bit for bit the plain record's call's, and the record's fields
+    bitwise srT's and fmT's ([S_6 | R^T_9 | V] and [M_9 | V | 0 | 0])."""
+    dev = _card()
+    cfg, scene, pos, ratio, _, _ = _gather_case(dtype, dev)
+    topo, n = scene.topology, pos.shape[0]
+    args = (gk.gather_moments_plain(pos, None, topo),
+            mk.gather_row_static(scene.materials, topo), cfg.stiffness_scale(ratio), True, n)
+    fmT, srT = mk.mid_records(*args)
+    for sep, width in ((False, 16), (True, 12)):
         pk.reset_launch_counts()
-        got = _outs(kern(*args))
-        torch.cuda.synchronize()
-        counts = pk.launch_counts()
-        assert counts == dict.fromkeys(counts, 0) | {name: 1}, (name, counts)
-        want = _outs(plain(*args))
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
-            assert _rel(g, w) <= tol, (name, _rel(g, w))
-        assert all(torch.equal(a, b) for a, b in zip(got, _outs(kern(*args)))), name
+        fm, sr, rec = mk.mid_records(*args, rec=width)
+        assert pk.launch_counts()["mid_records"] == 1
+        assert rec.shape == (n, width) and rec.is_contiguous()
+        assert torch.equal(fm, fmT) and torch.equal(sr, srT)
+        assert torch.equal(rec, gk.packed_record(fmT, srT, sep))
 
 
 def test_one_launch_of_each_gather_kernel_per_evaluation():
@@ -1214,6 +1307,7 @@ def test_gather_kernels_refuse_bad_operands():
     fmT, srT = mk.mid_records_plain(gk.gather_moments_plain(pos, None, topo),
                                     mk.gather_row_static(scene.materials, topo),
                                     cfg.stiffness_scale(ratio), True, pos.shape[0])
+    rec = gk.packed_record(fmT, srT, False)
     with pytest.raises(TypeError, match="dtype"):
         gk.gather_moments(pos.double(), None, topo)
     with pytest.raises(ValueError, match="pos must be"):
@@ -1226,13 +1320,15 @@ def test_gather_kernels_refuse_bad_operands():
         gk.gather_moments_bwd(pos, pos[:-1], topo, dayT)
     with pytest.raises(ValueError, match="xji"):
         gk.gather_moments(pos, None, topo._replace(xji=topo.xji.transpose(0, 1)))
-    with pytest.raises(ValueError, match="srT.T"):
-        gk.gather_forces(fmT, None, None, topo, False)
-    with pytest.raises(ValueError, match="src must be"):
-        gk.gather_forces(fmT, srT.T[:, :9], fmT[18], topo, False)
-    with pytest.raises(ValueError, match="vsrc"):
-        gk.gather_forces(fmT, srT.T, fmT[18, :-1], topo, False)
+    with pytest.raises(ValueError, match="rec must be"):
+        gk.gather_forces(fmT, rec[:, :15], topo, False)
+    with pytest.raises(ValueError, match="rec must be"):
+        gk.gather_forces(fmT, rec, topo, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        gk.gather_forces(fmT, torch.cat([rec, rec[:, :1]], 1)[:, :16], topo, False)
     with pytest.raises(ValueError, match="df must be"):
-        gk.gather_forces_bwd(fmT, srT.T, fmT[18], topo, False, df.T)
+        gk.gather_forces_bwd(fmT, rec, topo, False, df.T)
+    with pytest.raises(TypeError, match="inv_row"):
+        gk.gather_forces_bwd(fmT, rec, topo._replace(inv_row=topo.inv_row.long()), False, df)
     with pytest.raises(ValueError, match="is on"):
-        gk.gather_forces(fmT, srT.T.cpu(), fmT[18], topo, False)
+        gk.gather_forces(fmT, rec.cpu(), topo, False)

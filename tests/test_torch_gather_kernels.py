@@ -10,7 +10,12 @@ tests/test_torch_gather.py's; the two sides sum in other orders).  The
 cases cover both pairings, ``corotated`` on and off, and a shard-like
 source: a ragged run of rows whose table reads a source of every
 particle, with its CSR inverse over the source (as
-``parallel/sharding.shard_scene`` builds it)."""
+``parallel/sharding.shard_scene`` builds it).  The forces read the packed
+source record ``mid_records`` writes (its fields bitwise srT's and
+fmT's); the forces backward's source pass, which streams the Topology's
+``inv_row`` / ``inv_nw`` in CSR order, is emulated in plain torch and
+held to the plain VJP, and every Topology builder's streamed inverse to
+its definition."""
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +67,8 @@ def _scenes(body, pairing="i", corotated=True):
 def _shard(topo: Topology, rows: slice) -> Topology:
     """The rows' part of a table that keeps reading every particle."""
     fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0]),
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0],
+                                                  fields["nw"]),
                     rcT=gk.rest_corr_lanes(fields["rest_corr"]))
 
 
@@ -184,10 +190,11 @@ def test_gather_chain_matches_jax_elastic_forces(body, pairing, corotated):
 @pytest.mark.parametrize("pairing,corotated", CASES[::2] + [("i", False)])
 def test_gather_forces_plain_matches_jax(body, pairing, corotated, shard):
     """gather_forces and its VJP from the records against JAX's pair
-    contraction and jax.vjp of it; the VJP's source cotangent folds the
-    full 3x3 V_j S_j into the six S fields times V_j, and R_j's into R^T_9.
-    On a shard-like source the records are every particle's, the rows a
-    ragged run of them."""
+    contraction and jax.vjp of it; the VJP's cotangent of the packed record
+    folds the full 3x3 V_j S_j into the six S fields times V_j, and R_j's
+    into R^T_9, its V field zero.  On a shard-like source the record is
+    every particle's, the rows a ragged run of them; on one device it is
+    the rows' own."""
     cfg, scene_j, scene_t = _scenes(body, pairing, corotated)
     sep = pairing == "j"
     fmT, srT = _records(body, scene_t, cfg)
@@ -195,12 +202,8 @@ def test_gather_forces_plain_matches_jax(body, pairing, corotated, shard):
     tt = _shard(scene_t.topology, rows) if shard else scene_t.topology
     tj = _jrows(scene_j.topology, rows)
     fm = fmT[:, rows].contiguous()
-    vol = fmT[18]
-    if shard:
-        rec = (fmT[9:18].T if sep else srT.T).contiguous()
-    else:
-        rec, vol = (None, None) if sep else (srT.T, vol)
-    f_t = gk.gather_forces_plain(fm, rec, vol, tt, sep)
+    rec = gk.packed_record(fmT, srT, sep)
+    f_t = gk.gather_forces_plain(fm, rec, tt, sep)
 
     F, M = jnp.asarray(_m33(fm[:9])), jnp.asarray(_m33(fm[9:18]))
     V, vsrc = jnp.asarray(fm[18].numpy()), jnp.asarray(fmT[18].numpy())
@@ -212,26 +215,125 @@ def test_gather_forces_plain_matches_jax(body, pairing, corotated, shard):
 
     df = torch.as_tensor(body["df"][rows]).contiguous()
     dF_j, dM_j, *drec_j = vjp(jnp.asarray(df.numpy()))
-    dfm, dsrc = gk.gather_forces_bwd_plain(fm, rec, vol, tt, sep, df)
+    dfm, dsrc = gk.gather_forces_bwd_plain(fm, rec, tt, sep, df)
     assert torch.equal(dfm[18], torch.zeros_like(dfm[18]))
     if not sep:
         assert _rel(_m33(dfm[:9]), dF_j) <= OPS_TOL
-    if sep:       # dM_src = V_j dG_j; on one device it lands in dfmT's M rows
-        dMsrc_j = np.asarray(drec_j[0])
-        if shard:
-            assert _rel(_m33(dfm[9:18]), dM_j) <= OPS_TOL
-            assert _rel(dsrc.numpy().reshape(-1, 3, 3), dMsrc_j) <= OPS_TOL
-        else:
-            assert dsrc is None
-            assert _rel(_m33(dfm[9:18]), np.asarray(dM_j) + dMsrc_j) <= OPS_TOL
-        return
     assert _rel(_m33(dfm[9:18]), dM_j) <= OPS_TOL
+    if sep:       # dM_src = V_j dG_j
+        assert dsrc.shape == (len(body["pts"]), 12) and not dsrc[:, 9:].any()
+        assert _rel(dsrc[:, :9].numpy().reshape(-1, 3, 3), np.asarray(drec_j[0])) <= OPS_TOL
+        return
     dS, dR = np.asarray(drec_j[0]), np.asarray(drec_j[1])      # dS = V_j dVS
     dS6 = np.stack([dS[:, a, b] + (dS[:, b, a] if a != b else 0)
                     for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))], 1)
     dRT9 = np.stack([dR[:, a, c] for c in range(3) for a in range(3)], 1)
-    assert dsrc.shape == (len(body["pts"]), 15)
-    assert _rel(dsrc.numpy(), np.concatenate([dS6, dRT9], 1)) <= OPS_TOL
+    assert dsrc.shape == (len(body["pts"]), 16) and not dsrc[:, 15].any()
+    assert _rel(dsrc[:, :15].numpy(), np.concatenate([dS6, dRT9], 1)) <= OPS_TOL
+
+
+def _streamed_bwd(fmT, rec, topo, sep, df):
+    """The forces backward as its two kernels compute it, in plain torch:
+    the row pass's dfmT and rowrec, then the source pass walking inv_row /
+    inv_nw in CSR order (each entry's term from the reader's rowrec and the
+    source row's own record, summed per source row in that order)."""
+    n, K = topo.idx.shape
+    n_src = rec.shape[0]
+    F = fmT[:9].T.reshape(n, 3, 3)
+    h = 0.5 * fmT[18][:, None] * df                                  # (n, 3)
+    rj = rec[topo.idx]                                               # (n, K, W)
+    dfm = torch.zeros_like(fmT)
+    if not sep:
+        S = rj[..., list(SYM6)].reshape(n, K, 3, 3)
+        R = rj[..., list(gk.R9)].reshape(n, K, 3, 3)
+        vs = rj[..., 15, None] * torch.einsum("ijbc,ijc->ijb", S, topo.nw)
+        dy = torch.einsum("ijac,ia->ijc", R, h)
+        dfm[:9] = torch.einsum("ija,ijb->iab", dy, vs).reshape(n, 9).T
+    dfm[9:18] = (h[:, :, None] * topo.sum_v_nw[:, None, :]).reshape(n, 9).T
+    seg = torch.repeat_interleave(torch.arange(n_src), topo.inv_ptr.diff())
+    i, w = topo.inv_row.long(), topo.inv_nw                          # CSR order
+    hi, own_r = h[i], rec[seg]
+    vr = own_r[:, gk.VOL[sep], None]
+    if sep:
+        terms = (hi[:, :, None] * w[:, None, :]).reshape(-1, 9)
+    else:
+        Fi = F[i]
+        S = own_r[:, list(SYM6)].reshape(-1, 3, 3)
+        R = own_r[:, list(gk.R9)].reshape(-1, 3, 3)
+        y = torch.einsum("qab,qb->qa", Fi, vr * torch.einsum("qbc,qc->qb", S, w))
+        u = torch.einsum("qab,qa->qb", Fi, torch.einsum("qac,qa->qc", R, hi))
+        terms = torch.cat([(hi[:, :, None] * y[:, None, :]).reshape(-1, 9),
+                           (u[:, :, None] * w[:, None, :]).reshape(-1, 9)], dim=1)
+    acc = torch.segment_reduce(terms, "sum", offsets=topo.inv_ptr, axis=0)
+    drec = torch.zeros_like(rec)
+    vsrc = rec[:, gk.VOL[sep], None]
+    if sep:
+        drec[:, :9] = vsrc * acc
+        return dfm, drec
+    dR, dVS = acc[:, :9].reshape(-1, 3, 3), acc[:, 9:].reshape(-1, 3, 3)
+    dS = vsrc[:, :, None] * (dVS + dVS.transpose(1, 2))
+    drec[:, :6] = torch.stack([dS[:, a, b] if a != b else dS[:, a, a] / 2
+                               for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))],
+                              dim=1)
+    drec[:, 6:15] = torch.stack([dR[:, a, c] for c in range(3) for a in range(3)], dim=1)
+    return dfm, drec
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("pairing", ["i", "j"])
+def test_streamed_source_pass_matches_plain(body, pairing, shard):
+    """The forces backward's two passes as the kernels compute them, the
+    source pass streaming inv_row / inv_nw in CSR order (``_streamed_bwd``),
+    against gather_forces_bwd_plain (autograd through the plain forces)
+    within 1e-12 of max |plain|: both pairings, on one device and on the
+    shard-like source."""
+    cfg, _, scene_t = _scenes(body, pairing)
+    sep = pairing == "j"
+    fmT, srT = _records(body, scene_t, cfg)
+    rec = gk.packed_record(fmT, srT, sep)
+    rows = ROWS if shard else slice(None)
+    tt = _shard(scene_t.topology, rows) if shard else scene_t.topology
+    fm = fmT[:, rows].contiguous()
+    df = torch.as_tensor(body["df"][rows]).contiguous()
+    dfm, drec = _streamed_bwd(fm, rec, tt, sep, df)
+    want_dfm, want_drec = gk.gather_forces_bwd_plain(fm, rec, tt, sep, df)
+    assert _rel(dfm, want_dfm) <= OPS_TOL
+    assert drec.shape == want_drec.shape and _rel(drec, want_drec) <= OPS_TOL
+
+
+@pytest.mark.parametrize("pairing", ["i", "j"])
+def test_mid_records_packed_record_is_srT_and_fmT(body, pairing):
+    """The gather path's packed source record from mid_records' plain path
+    holds srT's and fmT's fields bit for bit ([S_6 | R^T_9 | V], srT then a
+    view of it; [M_9 | V | 0 | 0] beside srT), and the differentiable op
+    gives both records' cotangents to mid_records_bwd."""
+    cfg, _, scene_t = _scenes(body, pairing)
+    sep = pairing == "j"
+    pos = torch.as_tensor(body["pos"])
+    ayT = gk.gather_moments_plain(pos, None, scene_t.topology)
+    rs = mk.gather_row_static(scene_t.materials, scene_t.topology)
+    scale = cfg.stiffness_scale(tel.compute_ratio(torch.as_tensor(body["x"]), cfg))
+    n = len(pos)
+    fmT, srT = mk.mid_records_plain(ayT, rs, scale, True, n)
+    fm, sr, rec = mk.mid_records_plain(ayT, rs, scale, True, n, rec=gk.REC_W[sep])
+    assert torch.equal(fm, fmT) and torch.equal(sr, srT)
+    assert rec.shape == (n, gk.REC_W[sep]) and rec.is_contiguous()
+    if sep:
+        assert torch.equal(rec[:, :9], fmT[9:18].T) and not rec[:, 10:].any()
+    else:
+        assert torch.equal(rec[:, :15], srT.T) and sr.data_ptr() == rec.data_ptr()
+    assert torch.equal(rec[:, gk.VOL[sep]], fmT[18])
+    # the cotangent of the record reaches the mid-section's VJP as srT's and
+    # fmT's would
+    rng = np.random.default_rng(3)
+    cot = torch.as_tensor(rng.normal(size=(n, gk.REC_W[sep])))
+    a = ayT.clone().requires_grad_()
+    _, _, r = mk.mid_records_all(a, scale, rs, True, n, pk.PLAIN, rec=gk.REC_W[sep])
+    (g_rec,) = torch.autograd.grad(r, a, cot)
+    b = ayT.clone().requires_grad_()
+    f2, s2 = mk.mid_records_all(b, scale, rs, True, n, pk.PLAIN)
+    (g_ref,) = torch.autograd.grad((gk.packed_record(f2, s2, sep) * cot).sum(), b)
+    assert _rel(g_rec, g_ref) <= OPS_TOL
 
 
 def test_gather_scene_carries_the_kernels_statics(body):
@@ -246,6 +348,46 @@ def test_gather_scene_carries_the_kernels_statics(body):
     assert int(t.inv_ptr[-1]) == t.idx.numel()
     rs = mk.gather_row_static(scene_t.materials, t)
     assert rs.rcT is t.rcT and rs.vol is scene_t.materials.volume
+
+
+def _streamed_inverse_ok(t, n_src):
+    """inv_row and inv_nw as their definition: the reader row and its
+    entry's nw, in inv_order's CSR order over n_src source rows."""
+    K = t.idx.shape[1]
+    assert t.inv_row.dtype == torch.int32 and t.inv_row.is_contiguous()
+    assert torch.equal(t.inv_row.long(), t.inv_order // K)
+    assert t.inv_nw.is_contiguous() and torch.equal(t.inv_nw, t.nw.reshape(-1, 3)[t.inv_order])
+    assert t.inv_ptr.shape == (n_src + 1,) and int(t.inv_ptr[-1]) == t.idx.numel()
+    assert torch.equal(t.idx.reshape(-1)[t.inv_order],
+                       torch.repeat_interleave(torch.arange(n_src), t.inv_ptr.diff()))
+
+
+@pytest.mark.parametrize("builder", ["scene", "pad_scene", "shard_scene", "halo_scene"])
+def test_every_builder_fills_the_streamed_inverse(body, builder):
+    """Every Topology builder gives the forces backward's streamed inverse
+    fields: build_scene (one device), pad_scene, shard_scene (3 shards of
+    a padded scene: ragged runs of rows reading every particle) and
+    halo_scene (its local + halo source)."""
+    from softbody_tpu_torch.parallel import halo, sharding
+
+    cfg, _, scene_t = _scenes(body)
+    n = scene_t.topology.idx.shape[0]
+    if builder == "scene":
+        return _streamed_inverse_ok(scene_t.topology, n)
+    padded, _ = sharding.pad_scene(scene_t, 3, cfg)
+    if builder == "pad_scene":
+        return _streamed_inverse_ok(padded.topology, padded.topology.idx.shape[0])
+    n_pad = padded.topology.idx.shape[0]
+    for rank in range(3):
+        group = sharding.Group(rank, 3, "cpu", "gloo")
+        if builder == "shard_scene":
+            loc = sharding.shard_scene(padded, group)
+            assert loc.topology.idx.shape[0] == n_pad // 3
+            _streamed_inverse_ok(loc.topology, n_pad)
+        else:
+            plan = halo.build_halo_plan(padded.topology.idx.cpu().numpy(), 3)
+            loc = halo.halo_scene(padded, plan, group)
+            _streamed_inverse_ok(loc.topology, plan.ext)
 
 
 @pytest.mark.parametrize("pairing", ["i", "j"])
