@@ -304,12 +304,12 @@ MID_STEPS = 5              # phase 44: steps from the stretched body to its stra
 # the gather kernels (csrc/gather_kernels.cu), flops per real pair as the
 # kernels do them (a multiply-add counts 2; the per-row warp sums and
 # epilogues add ~1 per pair at K = 80): gather_moments p_j - p_i (3), c and
-# vj times it (6), 18 multiply-adds; its VJP's row pass c dA X + vj dY nW
-# and the row sum (42), its source pass 3 adds; gather_forces (Warp) V_j S_j
-# nW (18), F_i times it (15), R_j times that, added (18); its VJP's row
-# pass V S nW, R^T h and dF (51), its source pass those, F (V S nW), F^T
-# R^T h, dR and dVS (99)
-GATHER_FLOPS = {"gather_moments": 45, "gather_moments_bwd": 45,
+# vj times it (6), 18 multiply-adds; its VJP's source pass dA (c X) + dY
+# (vj nW) added (36; its row pass 36 a row, ~0.5 a pair); gather_forces
+# (Warp) V_j S_j nW (18), F_i times it (15), R_j times that, added (18);
+# its VJP's row pass V S nW, R^T h and dF (51), its source pass those,
+# F (V S nW), F^T R^T h, dR and dVS (99)
+GATHER_FLOPS = {"gather_moments": 45, "gather_moments_bwd": 37,
                 "gather_forces": 51, "gather_forces_bwd": 150}
 GATHER_SEP_FLOPS = {"gather_forces": 21, "gather_forces_bwd": 18}   # Taichi pairing
 GATHER_KERNELS = tuple(GATHER_FLOPS) + ("mid_records",)   # the gather path's kernels
@@ -3175,17 +3175,17 @@ def gather_bytes(key, n, K, T, sep=False):
     the rows' records fmT (19 rows; the Taichi pairing's forward reads M and
     V, its backward V; the Warp pairing's backward F and V), the packed
     source record (16 values a row, Taichi 12), sum_v_nw, and the outputs;
-    backward the CSR inverse: gather_moments_bwd its int64 inv_order;
-    gather_forces_bwd each table once, nw and (Warp pairing) idx, and the
-    inverse as one index an entry at the narrowest width the kernel reads
-    (inv_row's int32) with the int64 inv_ptr, and the record's cotangent.
-    The bytes gather_forces_bwd's design moves besides (inv_nw, a reordered
-    copy of nw) are :func:`gather_bwd_design_bytes`'s, not the bound's."""
+    a backward the inverse as one index an entry at the narrowest width the
+    kernel reads (inv_row's int32) with the int64 inv_ptr: gather_moments_bwd
+    the products c X_ji, vj nW_ik it streams with it (6 an entry), dayT,
+    sum_c_xji and sum_v_nw; gather_forces_bwd each table once, nw and (Warp
+    pairing) idx, and the record's cotangent.  The bytes the backwards'
+    designs move besides are :func:`gather_bwd_design_bytes`'s."""
     nk = n * K
     if key == "gather_moments":
         return nk * (8 + 8 * T) + (3 * n + 18 * n) * T
     if key == "gather_moments_bwd":
-        return nk * (8 + 8 * T) + 8 * (n + 1) + (18 * n + 3 * n) * T
+        return nk * (4 + 6 * T) + 8 * (n + 1) + (18 + 6 + 3) * n * T
     rec = (12 if sep else 16) * n
     if key == "gather_forces":
         return nk * (8 + 3 * T) + (3 * n + (10 if sep else 19) * n + rec + 3 * n) * T
@@ -3193,11 +3193,24 @@ def gather_bytes(key, n, K, T, sep=False):
             + ((1 if sep else 10) * n + 3 * n + rec + 3 * n + 19 * n + rec) * T)
 
 
-def gather_bwd_design_bytes(n, K, T, sep=False):
-    """The bytes gather_forces_bwd's two passes move as designed: its bound's
-    (:func:`gather_bytes`) and the second copy of nw that the source pass
-    streams (inv_nw, (n K, 3)); the Warp pairing's row pass reads nw too."""
-    return gather_bytes("gather_forces_bwd", n, K, T, sep) + (0 if sep else n * K * 3 * T)
+def gather_bwd_design_bytes(key, n, K, T, sep=False):
+    """(DRAM bytes, L2 gather bytes) a gather backward's two passes move as
+    designed: its bound's (:func:`gather_bytes`) and what the design adds.
+    gather_moments_bwd: its row-major cotangent dayR (DAY_W values a row)
+    written and read, the rows' own term written and read back (the source
+    pass adds the readers' to it); each entry gathers its reader's dayR row
+    from L2.  gather_forces_bwd: the second copy of nw that the source pass
+    streams (inv_nw, (n K, 3)), and nw once more in the Warp pairing's row
+    pass; each entry gathers its reader's rowrec (and the row pass each
+    neighbour's packed record) from L2."""
+    from softbody_tpu_torch.ops import gather_kernels as gk
+
+    bound, nk = gather_bytes(key, n, K, T, sep), n * K
+    if key == "gather_moments_bwd":
+        return bound + (2 * gk.DAY_W + 2 * 3) * n * T, nk * gk.DAY_W * T
+    extra = 0 if sep else nk * 3 * T
+    rows = 0 if sep else nk * gk.REC_W[False] * T
+    return bound + extra, rows + nk * gk.ROW_W[sep] * T
 
 
 def _tuple(x):
@@ -3271,7 +3284,7 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
         # source pass at a mean of K / 2 readers), a ragged run
         rows = slice(7, 7 + n // 2)
         fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-        shard = Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields["nw"]),
+        shard = Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields),
                          rcT=gk.rest_corr_lanes(fields["rest_corr"]))
         p_rows, day_rows = pos[rows].contiguous(), dayT[:, rows].contiguous()
         errs = {
@@ -3289,6 +3302,12 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
                      gk.gather_moments_bwd_plain, (p_rows, pos, shard, day_rows), dt,
                      f"gather_moments_bwd on a shard {dt}")),
         }
+        # the shard's source rows that no row reads: their cotangent is zero
+        unread = shard.inv_ptr.diff() == 0
+        dsrc = gk.gather_moments_bwd(p_rows, pos, shard, day_rows)[1]
+        if not (bool(unread.any()) and not dsrc[unread].any()):
+            fail(f"gather_moments_bwd on a shard {dt}: {int(unread.sum())} unread source "
+                 f"rows, their cotangent not all zero")
         for corot in (True, False):
             args = (ayT, rs, scale, corot)
             errs[f"mid_records corotated={corot}"] = max(
@@ -3326,7 +3345,8 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
                          gk.gather_forces_bwd_plain, s_args + (df[rows].contiguous(),),
                          dt, f"gather_forces_bwd on a shard {label} {dt}"))
         say(f"    {str(dt)[6:]} (N = {n}, K = {K}; the shard-like rows {rows.start}:"
-            f"{rows.stop} of a source of {n}): max error / max |plain| "
+            f"{rows.stop} of a source of {n}, {int(unread.sum())} source rows read by "
+            f"none): max error / max |plain| "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
             + f" (tol {tols[dt]:g}); one launch per call, each repeats bit for bit")
         if dt == torch.float32:
@@ -3357,8 +3377,11 @@ def phase_gather_kernels(torch, np, dev, tag, g, stats):
         passes = (", passes " + " + ".join(f"{k} {v:.4f}" for k, v in
                                             pass_ms(torch, kern, 50).items())
                   if name.endswith("_bwd") else "")
-        moved = (f"; the design moves {gather_bwd_design_bytes(n, K, 4, sep) / 1e6:.1f} MB"
-                 if name == "gather_forces_bwd" else "")
+        moved = ""
+        if name.endswith("_bwd"):
+            dram, l2 = gather_bwd_design_bytes(name, n, K, 4, sep)
+            moved = (f"; the design moves {dram / 1e6:.1f} MB and gathers "
+                     f"{l2 / 1e6:.1f} MB from L2")
         if not sep:
             st = stats[name]
             st.update(ms=ms, launch_ms=host_ms(kern, 50), plain_ms=plain_ms, flops=flops,

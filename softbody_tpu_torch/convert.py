@@ -58,7 +58,7 @@ def scene_from_numpy(d: dict, device):
     if "topology.idx" in d:
         topo = Topology(**{f: d[f"topology.{f}"] for f in _TOPOLOGY},
                         inv_order=None, inv_ptr=None, inv_row=None, inv_nw=None,
-                        rcT=None)
+                        inv_cxw=None, rcT=None)
         return Scene(rest_position=dev("rest_position"),
                      materials=Materials(*(dev(k) for k in _MATERIALS)),
                      out_num=int(d["out_num"]),

@@ -50,11 +50,12 @@ class Topology(NamedTuple):
     shard its source's rows): the flat positions i K + k that read row r
     are ``inv_order[inv_ptr[r]:inv_ptr[r + 1]]``, ascending — the fixed
     order in which the gather's backward adds them
-    (``ops/gather_kernels``); ``inv_row`` (int32, ``inv_order // K``) and
-    ``inv_nw`` (``nw.reshape(-1, 3)[inv_order]``) are the reader row and its
-    entry's nw in that same order, which the forces backward's source pass
-    streams (16 B per entry in f32) instead of dividing and reading ``nw``
-    at random.  ``rcT`` is ``rest_corr`` lane-major, (9, N) with row 3a+b =
+    (``ops/gather_kernels``); ``inv_row`` (int32, ``inv_order // K``),
+    ``inv_nw`` (``nw.reshape(-1, 3)[inv_order]``) and ``inv_cxw`` ([c X_ji |
+    vj nW_ij], (N K, 6), in inv_order's order) are the reader row, its
+    entry's nw and its products in that same order, which the backwards'
+    source passes stream (the forces' 16 B per entry in f32, the moments'
+    28 B) instead of dividing and reading the table at random.  ``rcT`` is ``rest_corr`` lane-major, (9, N) with row 3a+b =
     rc[a][b], the mid-section kernels' operand.  They are built with the
     tables (``ops.gather_kernels.inverse_fields`` and ``rest_corr_lanes``),
     so an evaluation builds none of them."""
@@ -73,6 +74,7 @@ class Topology(NamedTuple):
     inv_ptr: torch.Tensor      # (n_src + 1,) int64
     inv_row: torch.Tensor      # (N K,) int32 reader row, in inv_order's order
     inv_nw: torch.Tensor       # (N K, 3) the reader entry's nw, in that order
+    inv_cxw: torch.Tensor      # (N K, 6) its [c X_ji | vj nw_ij], in that order
     rcT: torch.Tensor          # (9, N)
 
     @property

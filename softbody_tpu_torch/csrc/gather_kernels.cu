@@ -43,41 +43,43 @@
 // are added into dfmT's by ops/mid_kernels.py, the record being made
 // from fmT).
 //
-// Design.  gather_moments and its backward: one warp per row (or source
-// row), lanes walking k, so each load of a table field is coalesced; a
-// fixed shuffle butterfly adds the lanes' partial sums.  The forces: a
-// group of 8, 16 or 32 lanes per row, sized to K, walking RUN consecutive
-// rows one after another, each lane loading a trip of U entries' table
-// values (idx, nW: read once, evict-first) and then their records before
-// any arithmetic; the Warp pairing's forward and row pass fetch the next
-// trip's table values while a trip's records are in flight (the constants
-// below, measured on the H100: PERF.md §6).  The source passes add the
-// readers' terms of source row r in the CSR order of the table's inverse
-// (inv_ptr[r] .. inv_ptr[r + 1]), lanes strided over that segment, then
-// the butterfly: no float atomics, so gradients repeat bit for bit.
-// gather_moments_bwd's row pass keeps each entry's term g_ik (3 values)
-// in a scratch buffer that its source pass reads through inv_order;
-// gather_forces_bwd's row pass keeps each row's rowrec ([F_i | h_i], h_i =
-// 0.5 V_i df_i) and its source pass streams the Topology's inv_row /
-// inv_nw (the reader row and its entry's nW, in CSR order: no division by
-// K, no random read of nw) and recomputes each reader's terms from its
-// rowrec and the source row's own record, so no (n, K, 15) buffer is
-// written.
+// Design.  gather_moments: one warp per row, lanes walking k, so each load
+// of a table field is coalesced; a fixed shuffle butterfly adds the lanes'
+// partial sums.  The forces and the source passes: a group of 8, 16 or 32
+// lanes per row, sized to K, walking RUN consecutive rows one after
+// another, each lane loading a trip of U entries' table values (read once,
+// evict-first) and then their records before any arithmetic; the Warp
+// pairing's forward and row pass fetch the next trip's table values while
+// a trip's records are in flight (the constants below, measured on the
+// H100: PERF.md §6).  The source passes add the readers' terms of source
+// row r in the CSR order of the table's inverse (inv_ptr[r] .. inv_ptr[r
+// + 1]), lanes strided over that segment, then the butterfly: no float
+// atomics, so gradients repeat bit for bit.  They stream the Topology's
+// inv_row (the reader row, int32) and a per-entry static in that order
+// (no division by K, no random read of the table): gather_forces_bwd's
+// inv_nw (the entry's nW), recomputing each reader's terms from its rowrec
+// ([F_i | h_i], h_i = 0.5 V_i df_i, which its row pass writes) and the
+// source row's own record; gather_moments_bwd's inv_cxw ([c X_ji | vj
+// nW_ik]), each reader's term from its row of the row-major cotangent
+// dayR that the row pass writes.  Neither writes a per-entry buffer: the
+// moments' rows' own term comes from the scene's sum_c_xji and sum_v_nw.
 //
 // What bounds them on an H100 SXM (3.35 TB/s): chip_smoke.py computes
 // each bound from the run's shapes (the bytes each function must move;
 // their flops are far under the FP32 peak).  At the ~112k scene in f32
 // gather_moments streams idx (8 B), c, vj (4 B each), xji and nw (12 B
 // each) per entry, 40 B x 8.95 M entries = 358 MB, 0.107 ms;
+// gather_moments_bwd the inverse as one int32 index and the products
+// c X_ji, vj nW_ik (28 B per entry, 0.079 ms with the rows' operands);
 // gather_forces idx and nw (20 B per entry, 0.059 ms); gather_forces_bwd
 // each table once, idx, nw and the inverse as one int32 index (24 B per
 // entry, 0.073 ms), where the design moves 36 B (inv_nw, a second copy of
-// nw in CSR order, buys the streamed source pass).  The records (7.2 MB)
-// and rowrec (5.4 MB) stay in the 50 MB L2, but each entry's gathered
-// record (64 B Warp, 48 B rowrec) still crosses from L2 to the SM:
-// measured, the forces and the source pass run near those bytes over an
-// L2 rate of ~6 TB/s, not the DRAM bound (PERF.md §6-7).  Arithmetic is
-// true f32 (or f64): plain FMAs, no tensor cores.
+// nw in CSR order, buys the streamed source pass).  The records (7.2 MB),
+// rowrec (5.4 MB) and dayR (9.0 MB) stay in the 50 MB L2, but each entry's
+// gathered record (64 B Warp, 48 B rowrec, 80 B dayR) still crosses from
+// L2 to the SM: measured, the forces and the source passes run near those
+// bytes over an L2 rate of ~6 TB/s, not the DRAM bound (PERF.md §6-7).
+// Arithmetic is true f32 (or f64): plain FMAs, no tensor cores.
 //
 // Entry points have a plain C interface for ctypes; each returns
 // cudaGetLastError() of its launches.  Kernels launch on the caller's
@@ -113,13 +115,6 @@ struct Table {
   const T* nw;          // (n, K, 3)
   int64_t n;
   int K;
-};
-
-// The CSR inverse of idx over n_src source rows.
-struct Inverse {
-  const int64_t* order;   // (n K,) flat entries, grouped by the row they read
-  const int64_t* ptr;     // (n_src + 1,)
-  int64_t n_src;
 };
 
 // Every lane ends with the warp's sum of v, in one fixed order.
@@ -185,69 +180,6 @@ gather_moments_kernel(Table<T> tb, Rec<T> pos, Rec<T> src, T* __restrict__ ayT,
   if (lane < 18) ayT[lane * ld_ay + i] = pick(acc, lane);
 }
 
-// ------------------------------------------------------------ backward
-// Row pass of gather_moments' VJP: g_ik = c dA_i X_ji + vj dY_i nW_ik into
-// g (n K, 3), and the rows' own term -sum_k g_ik into drow (n, 3).
-template <typename T>
-__global__ void __launch_bounds__(GT)
-gather_moments_bwd_rows(Table<T> tb, const T* __restrict__ dayT, int64_t ld_ay,
-                        T* __restrict__ g, T* __restrict__ drow) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i = warp_row();
-  if (i >= tb.n) return;
-  T dA[3][3], dY[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      dA[a][b] = dayT[(3 * b + a) * ld_ay + i];
-      dY[a][b] = dayT[(9 + 3 * b + a) * ld_ay + i];
-    }
-  T s[3] = {T(0), T(0), T(0)};
-  const int64_t row = i * tb.K;
-  for (int k = lane; k < tb.K; k += 32) {
-    const int64_t e = row + k;
-    const T ce = tb.c[e], ve = tb.vj[e];
-    const T x[3] = {tb.xji[3 * e], tb.xji[3 * e + 1], tb.xji[3 * e + 2]};
-    const T w[3] = {tb.nw[3 * e], tb.nw[3 * e + 1], tb.nw[3 * e + 2]};
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const T ga = ce * (dA[a][0] * x[0] + dA[a][1] * x[1] + dA[a][2] * x[2])
-                   + ve * (dY[a][0] * w[0] + dY[a][1] * w[1] + dY[a][2] * w[2]);
-      g[3 * e + a] = ga;
-      s[a] += ga;
-    }
-  }
-  warp_sum(s);
-  if (lane < 3) drow[3 * i + lane] = -pick(s, lane);
-}
-
-// Source pass of gather_moments' VJP: source row r's cotangent, the sum of
-// its readers' g in CSR order (with ``merge``, plus the row's own term
-// drow[r]: the source is the rows).
-template <typename T>
-__global__ void __launch_bounds__(GT)
-gather_moments_bwd_src(Inverse inv, const T* __restrict__ g,
-                       const T* __restrict__ drow, int merge, T* __restrict__ dsrc,
-                       int64_t rs, int64_t fs) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = warp_row();
-  if (r >= inv.n_src) return;
-  T s[3] = {T(0), T(0), T(0)};
-  const int64_t end = inv.ptr[r + 1];
-  for (int64_t q = inv.ptr[r] + lane; q < end; q += 32) {
-    const int64_t e = inv.order[q];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) s[a] += g[3 * e + a];
-  }
-  warp_sum(s);
-  if (lane < 3) {
-    T v = pick(s, lane);
-    if (merge) v += drow[3 * r + lane];
-    dsrc[r * rs + lane * fs] = v;
-  }
-}
-
 // ------------------------------------------------------------ the forces
 // The forces read each neighbour's packed source record, row-major, one
 // per source row, 16-byte aligned: Warp [S_6 | R^T_9 | V] (16 values,
@@ -268,7 +200,8 @@ template <bool SEP> constexpr int VOL = SEP ? 9 : 15;   // V's field
 // and RUN = 8, both fetching the next trip's table entries (of the row, or
 // of the next row in the run) while a trip's records are in flight
 // (AHEAD); the Taichi forward U = 5 (16 lanes) and RUN = 4, the Taichi row
-// pass (no table) RUN = 1, the source passes U = 5 and RUN = 4; f64 U = 2.
+// pass (no table) RUN = 1, the forces' source pass U = 5 and RUN = 4
+// (the moments' source pass: below); f64 U = 2.
 template <typename T, int U32>
 constexpr int UNROLL = sizeof(T) == 4 ? U32 : 2;
 template <typename T, bool SEP> constexpr int ROWS_U = UNROLL<T, SEP ? 5 : 1>;
@@ -314,17 +247,18 @@ template <typename X>
 __device__ __forceinline__ X ld_once(const X* p) { return __ldcs(p); }
 
 // One trip's table entries of a lane, e = e0 + G u for u < U while
-// e < end: the row (or reader row) each reads and its nW; ok[u] says
-// whether entry u exists.
-template <typename T, int U>
+// e < end: the row (or reader row) each reads and its NW per-entry values
+// (nW; the moments' source pass [c X_ji | vj nW]); ok[u] says whether
+// entry u exists.
+template <typename T, int U, int NW = 3>
 struct Trip {
   int64_t j[U];
-  T w[U][3];
+  T w[U][NW];
   bool ok[U];
 };
 
-template <typename T, int U, int G, typename Ix>
-__device__ __forceinline__ void fetch(Trip<T, U>& tr, const Ix* __restrict__ rows_of,
+template <typename T, int U, int G, int NW, typename Ix>
+__device__ __forceinline__ void fetch(Trip<T, U, NW>& tr, const Ix* __restrict__ rows_of,
                                       const T* __restrict__ nws, int64_t e0, int64_t end) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -335,15 +269,14 @@ __device__ __forceinline__ void fetch(Trip<T, U>& tr, const Ix* __restrict__ row
   for (int u = 0; u < U; ++u)
     if (tr.ok[u]) {
       const int64_t e = e0 + G * u;
-      tr.w[u][0] = ld_once(nws + 3 * e);
-      tr.w[u][1] = ld_once(nws + 3 * e + 1);
-      tr.w[u][2] = ld_once(nws + 3 * e + 2);
+#pragma unroll
+      for (int f = 0; f < NW; ++f) tr.w[u][f] = ld_once(nws + NW * e + f);
     }
 }
 
 // The trip's records: row j's W values of rec for each entry.
-template <typename T, int U, int W>
-__device__ __forceinline__ void records(const Trip<T, U>& tr, const T* __restrict__ rec,
+template <typename T, int U, int W, int NW>
+__device__ __forceinline__ void records(const Trip<T, U, NW>& tr, const T* __restrict__ rec,
                                         T (&r)[U][W]) {
 #pragma unroll
   for (int u = 0; u < U; ++u)
@@ -602,6 +535,84 @@ gather_forces_bwd_src(const int64_t* __restrict__ ptr, const int32_t* __restrict
     bwd_src_row<T, SEP, G>(r, ptr, inv_row, inv_nw, rec, rowrec, dsrc, ld_src);
 }
 
+// ------------------------------------------------------------ the moments' VJP
+// gather_moments' VJP, g_ik = dA_i (c X_ji) + dY_i (vj nW_ik) the cotangent
+// of entry k's p_j (dA[a][b] = dayT row 3b+a, dY the same from row 9).
+// Its row pass writes each row's cotangent row-major, DAY_W values (dayT's
+// 18 and two zeros: whole 16-byte pieces), for the source pass's gathers,
+// and the row's own term -sum_k g_ik = -(dA_i sum_c_xji_i + dY_i
+// sum_v_nw_i) from the scene's two sums, reading no table.  Its source pass
+// streams inv_row and inv_cxw ([c X_ji | vj nW_ik] in CSR order) and
+// gathers each reader's row.  Its walk (measured on the H100, PERF.md
+// §6): U = 1 (32 lanes at K = 80), RUN = 4, at most 64 registers in f32
+// so four blocks (32 warps) reside per SM; wider trips (U = 2-5) and runs
+// of 1, 2 or 8 rows ran 5-42% slower.
+constexpr int DAY_W = 20;
+template <typename T> constexpr int MSRC_U = UNROLL<T, 1>;
+constexpr int MSRC_RUN = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(GT)
+gather_moments_bwd_rows(const T* __restrict__ dayT, int64_t ld_ay,
+                        const T* __restrict__ sum_cx, const T* __restrict__ sum_vw,
+                        int64_t n, T* __restrict__ dayR, T* __restrict__ drow) {
+  const int64_t i = (int64_t)blockIdx.x * GT + threadIdx.x;
+  if (i >= n) return;
+  T v[DAY_W];
+#pragma unroll
+  for (int f = 0; f < 18; ++f) v[f] = dayT[f * ld_ay + i];
+  v[18] = v[19] = T(0);
+  store_vec<T, DAY_W>(dayR + i * DAY_W, v);
+  const T sc[3] = {sum_cx[3 * i], sum_cx[3 * i + 1], sum_cx[3 * i + 2]};
+  const T sv[3] = {sum_vw[3 * i], sum_vw[3 * i + 1], sum_vw[3 * i + 2]};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    drow[3 * i + a] = -((v[a] * sc[0] + v[3 + a] * sc[1] + v[6 + a] * sc[2])
+                        + (v[9 + a] * sv[0] + v[12 + a] * sv[1] + v[15 + a] * sv[2]));
+}
+
+// Source row r's cotangent: the sum of its readers' g in CSR order, lane l
+// of r's group taking q = ptr[r] + l, + G, ..., U a trip (the reader rows
+// and their products, then the readers' rows, before any arithmetic); with
+// ``merge`` (the source is the rows) added to the row's own term, which
+// the row pass left in dsrc.
+template <typename T, int G>
+__global__ void __launch_bounds__(GT, sizeof(T) == 4 ? 4 : 1)
+gather_moments_bwd_src(const int64_t* __restrict__ ptr, const int32_t* __restrict__ inv_row,
+                       const T* __restrict__ inv_cxw, int64_t n_src,
+                       const T* __restrict__ dayR, int merge, T* __restrict__ dsrc,
+                       int64_t rs, int64_t fs) {
+  constexpr int U = MSRC_U<T>;
+  const int l = threadIdx.x % G;
+  const int64_t first = group_first<G, MSRC_RUN>();
+  const int64_t last = first + MSRC_RUN < n_src ? first + MSRC_RUN : n_src;
+  for (int64_t r = first; r < last; ++r) {      // the group's lanes stay together
+    T s[3] = {T(0), T(0), T(0)};
+    const int64_t end = ptr[r + 1];
+    for (int64_t q0 = ptr[r] + l; q0 < end; q0 += G * U) {
+      Trip<T, U, 6> tr;
+      T d[U][DAY_W];
+      fetch<T, U, G>(tr, inv_row, inv_cxw, q0, end);
+      records<T, U, DAY_W>(tr, dayR, d);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!tr.ok[u]) continue;
+        const T* p = tr.w[u];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          s[a] += (d[u][a] * p[0] + d[u][3 + a] * p[1] + d[u][6 + a] * p[2])
+                  + (d[u][9 + a] * p[3] + d[u][12 + a] * p[4] + d[u][15 + a] * p[5]);
+      }
+    }
+    group_sum<G>(s);
+    if (l < 3) {
+      T* out = dsrc + r * rs + l * fs;
+      const T v = pick(s, l);
+      *out = merge ? *out + v : v;
+    }
+  }
+}
+
 // Lanes a row for rows of (mean) length len taken u entries a lane a trip:
 // 8, 16 or 32, the fewest whose trip covers the row.
 int lanes_for(double len, int u) { return len <= 8 * u ? 8 : (len <= 16 * u ? 16 : 32); }
@@ -612,6 +623,8 @@ template <typename T>
 int rows_lanes(double K, bool sep) { return lanes_for(K, sep ? ROWS_U<T, true> : ROWS_U<T, false>); }
 template <typename T>
 int src_lanes(double len) { return lanes_for(len, SRC_U<T>); }
+template <typename T>
+int msrc_lanes(double len) { return lanes_for(len, MSRC_U<T>); }
 
 // Blocks for rows walked run at a time by groups of g lanes.
 unsigned groups_for(int64_t rows, int g, int run) {
@@ -619,14 +632,18 @@ unsigned groups_for(int64_t rows, int g, int run) {
   return (unsigned)((rows + per - 1) / per);
 }
 
+// f(lanes) with lanes as a compile-time constant
+template <typename F>
+void with_group(int g, F&& f) {
+  if (g == 8) f(std::integral_constant<int, 8>{});
+  else if (g == 16) f(std::integral_constant<int, 16>{});
+  else f(std::integral_constant<int, 32>{});
+}
+
 // f(pairing, lanes) with both as compile-time constants
 template <typename F>
 void with_lanes(bool sep, int g, F&& f) {
-  auto go = [&](auto s) {
-    if (g == 8) f(s, std::integral_constant<int, 8>{});
-    else if (g == 16) f(s, std::integral_constant<int, 16>{});
-    else f(s, std::integral_constant<int, 32>{});
-  };
+  auto go = [&](auto s) { with_group(g, [&](auto gc) { f(s, gc); }); };
   if (sep) go(std::true_type{});
   else go(std::false_type{});
 }
@@ -648,22 +665,25 @@ int launch_moments(const void* idx, const void* c, const void* vj, const void* x
 }
 
 template <typename T>
-int launch_moments_bwd(const void* idx, const void* c, const void* vj, const void* xji,
-                       const void* nw, int64_t n, int K, const void* order,
-                       const void* ptr, int64_t n_src, const void* dayT, int64_t ld_ay,
-                       void* g, void* drow, int merge, void* dsrc, int64_t rs,
-                       int64_t fs, void* stream) {
-  const Table<T> tb{(const int64_t*)idx, (const T*)c, (const T*)vj, (const T*)xji,
-                    (const T*)nw, n, K};
+int launch_moments_bwd(int64_t n, int K, const void* sum_cx, const void* sum_vw,
+                       const void* ptr, const void* inv_row, const void* inv_cxw,
+                       int64_t n_src, const void* dayT, int64_t ld_ay, void* dayR,
+                       void* drow, int merge, void* dsrc, int64_t rs, int64_t fs,
+                       void* stream) {
   if (n > 0) {
-    gather_moments_bwd_rows<T><<<blocks_for(n), GT, 0, (cudaStream_t)stream>>>(
-        tb, (const T*)dayT, ld_ay, (T*)g, (T*)drow);
+    gather_moments_bwd_rows<T><<<(unsigned)((n + GT - 1) / GT), GT, 0,
+                                 (cudaStream_t)stream>>>(
+        (const T*)dayT, ld_ay, (const T*)sum_cx, (const T*)sum_vw, n, (T*)dayR, (T*)drow);
     if (int e = (int)cudaGetLastError()) return e;
   }
   if (n_src > 0) {
-    gather_moments_bwd_src<T><<<blocks_for(n_src), GT, 0, (cudaStream_t)stream>>>(
-        Inverse{(const int64_t*)order, (const int64_t*)ptr, n_src}, (const T*)g,
-        (const T*)drow, merge, (T*)dsrc, rs, fs);
+    with_group(msrc_lanes<T>((double)n * K / n_src), [&](auto gc) {
+      constexpr int G = decltype(gc)::value;
+      gather_moments_bwd_src<T, G><<<groups_for(n_src, G, MSRC_RUN), GT, 0,
+                                     (cudaStream_t)stream>>>(
+          (const int64_t*)ptr, (const int32_t*)inv_row, (const T*)inv_cxw, n_src,
+          (const T*)dayR, merge, (T*)dsrc, rs, fs);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -715,20 +735,24 @@ int launch_forces_bwd(const void* idx, const void* nw, int64_t n, int K,
 }
 
 // registers, local bytes (stack and spills), threads per block and
-// resident blocks per SM of one forces kernel at K entries a row (which: 0
-// gather_forces, 1 its backward's row pass, 2 its source pass, at a mean
-// of K readers a source row; the Warp pairing's, or with sep the Taichi
-// one's) and its lanes a row
+// resident blocks per SM of one kernel at K entries a row (which: 0
+// gather_forces, 1 its backward's row pass, 2 its source pass, at a mean of
+// K readers a source row, the Warp pairing's or with sep the Taichi one's;
+// 3 gather_moments_bwd's source pass, at a mean of K readers) and its lanes
+// a row
 template <typename T>
-int forces_info(int which, int sep, double K, int* out) {
+int kernel_info(int which, int sep, double K, int* out) {
   const void* kernel = nullptr;
-  const int g = which == 2 ? src_lanes<T>(K) : rows_lanes<T>(K, sep != 0);
+  const int g = which == 3   ? msrc_lanes<T>(K)
+                : which == 2 ? src_lanes<T>(K)
+                             : rows_lanes<T>(K, sep != 0);
   with_lanes(sep != 0, g, [&](auto s, auto gc) {
     constexpr bool SEP = decltype(s)::value;
     constexpr int G = decltype(gc)::value;
     kernel = which == 0   ? (const void*)gather_forces_kernel<T, SEP, G>
              : which == 1 ? (const void*)gather_forces_bwd_rows<T, SEP, G>
-                          : (const void*)gather_forces_bwd_src<T, SEP, G>;
+             : which == 2 ? (const void*)gather_forces_bwd_src<T, SEP, G>
+                          : (const void*)gather_moments_bwd_src<T, G>;
   });
   cudaFuncAttributes a;
   if (cudaError_t e = cudaFuncGetAttributes(&a, kernel)) return (int)e;
@@ -759,13 +783,13 @@ int sb_rows() { return ROWS; }
                              src_rs, src_fs, ayT, ld_ay, stream);                \
   }                                                                              \
   int sb_gather_moments_bwd_##SUF(                                               \
-      const void* idx, const void* c, const void* vj, const void* xji,           \
-      const void* nw, int64_t n, int K, const void* order, const void* ptr,      \
-      int64_t n_src, const void* dayT, int64_t ld_ay, void* g, void* drow,       \
-      int merge, void* dsrc, int64_t rs, int64_t fs, void* stream) {             \
-    return launch_moments_bwd<T>(idx, c, vj, xji, nw, n, K, order, ptr, n_src,   \
-                                 dayT, ld_ay, g, drow, merge, dsrc, rs, fs,      \
-                                 stream);                                        \
+      int64_t n, int K, const void* sum_cx, const void* sum_vw, const void* ptr, \
+      const void* inv_row, const void* inv_cxw, int64_t n_src, const void* dayT, \
+      int64_t ld_ay, void* dayR, void* drow, int merge, void* dsrc, int64_t rs,  \
+      int64_t fs, void* stream) {                                                \
+    return launch_moments_bwd<T>(n, K, sum_cx, sum_vw, ptr, inv_row, inv_cxw,    \
+                                 n_src, dayT, ld_ay, dayR, drow, merge, dsrc,    \
+                                 rs, fs, stream);                                \
   }                                                                              \
   int sb_gather_forces_##SUF(const void* idx, const void* nw, int64_t n, int K,  \
                              const void* svnw, const void* fmT, int64_t ld_fm,   \
@@ -787,11 +811,11 @@ int sb_rows() { return ROWS; }
 SB_GATHER_ENTRIES(f32, float)
 SB_GATHER_ENTRIES(f64, double)
 
-// forces_info of the f32 (mode 0) or f64 (mode 1) instantiation; out: 5 ints
+// kernel_info of the f32 (mode 0) or f64 (mode 1) instantiation; out: 5 ints
 int sb_gather_info(int which, int sep, double K, int mode, int* out) {
-  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
-  return mode ? forces_info<double>(which, sep, K, out)
-              : forces_info<float>(which, sep, K, out);
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  return mode ? kernel_info<double>(which, sep, K, out)
+              : kernel_info<float>(which, sep, K, out);
 }
 
 }  // extern "C"

@@ -94,8 +94,8 @@ SIGNATURES = {
     "gather_kernels": {
         "gather_moments": [_P, _P, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _I64,
                            _I64, _P, _I64, _P],
-        "gather_moments_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P, _I64, _P, _I64,
-                               _P, _P, _I32, _P, _I64, _I64, _P],
+        "gather_moments_bwd": [_I64, _I32, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P,
+                               _I32, _P, _I64, _I64, _P],
         "gather_forces": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I32, _P],
         "gather_forces_bwd": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _I64, _P, _P, _P,
                               _P, _P, _I64, _P, _P, _I64, _I32, _P],

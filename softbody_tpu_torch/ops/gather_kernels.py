@@ -23,10 +23,15 @@ inside the jitted step (the JAX gather backend has no Pallas kernel):
   VJPs of the same: the cotangents of the rows' own terms and of the
   source (the readers' terms, summed per source row in the fixed CSR
   order of the table's inverse: no float atomics, bitwise repeatable).
-  The forces backward's source pass streams the Topology's ``inv_row`` /
-  ``inv_nw`` (the reader row and its nW in that order); its record
-  cotangent is lane-major, (REC_W, n_src) transposed, so its first 15
-  rows are the dsrT that ``mid_records_bwd`` reads.
+  Both source passes stream the Topology's ``inv_row`` (the reader row in
+  that order) and a per-entry static in the same order: the forces
+  backward ``inv_nw`` (the entry's nW), the moments backward ``inv_cxw``
+  ([c X_ji | vj nW_ik]), gathering each reader's row of what the row pass
+  wrote (the moments backward: the row-major cotangent, DAY_W values a
+  row), whose own term comes from ``sum_c_xji`` / ``sum_v_nw``.  The
+  forces backward's record cotangent is lane-major, (REC_W, n_src)
+  transposed, so its first 15 rows are the dsrT that ``mid_records_bwd``
+  reads.
 
 The neighbours come from a *source*: the rows themselves on one device,
 or on a shard of the particle mesh the all-gathered or halo-exchanged
@@ -68,6 +73,8 @@ REC_W = {False: 16, True: 12}
 VOL = {False: 15, True: 9}
 # the forces backward's per-row scratch: Warp F_9 | h_3, Taichi h_3 | 0
 ROW_W = {False: 12, True: 4}
+# the moments backward's per-row scratch: dayT's 18 values row-major | 0 | 0
+DAY_W = 20
 
 
 # ------------------------------------------------------------ the row gather
@@ -81,18 +88,22 @@ def index_inverse(idx: torch.Tensor, n: int):
     return torch.argsort(flat, stable=True), tnf.pad(torch.cumsum(lengths, 0), (1, 0))
 
 
-def inverse_fields(idx: torch.Tensor, n: int, nw: torch.Tensor) -> dict:
+def inverse_fields(idx: torch.Tensor, n: int, table) -> dict:
     """A Topology's inverse fields of the (rows, K) table ``idx`` over ``n``
-    source rows, with the table's ``nw`` (rows, K, 3): inv_order and
-    inv_ptr (:func:`index_inverse`), which the gather's backward walks, and
-    in the same CSR order the reader row inv_row (int32, inv_order // K)
-    and its entry's nW inv_nw (rows K, 3), which the forces backward's
-    source pass streams."""
+    source rows, with the table's ``nw``, ``xji`` (rows, K, 3), ``c`` and
+    ``vj`` (rows, K) (``table[name]``): inv_order and inv_ptr
+    (:func:`index_inverse`), which the plain row gather's backward walks,
+    and in the same CSR order the reader row inv_row (int32, inv_order //
+    K), its entry's nW inv_nw (rows K, 3) and its products inv_cxw (rows K,
+    6) = [c X_ji | vj nW_ik], which the backwards' source passes stream."""
     order, ptr = index_inverse(idx, n)
+    nw = table["nw"]
+    cxw = torch.cat([table["c"][..., None] * table["xji"], table["vj"][..., None] * nw], -1)
     return dict(inv_order=order, inv_ptr=ptr,
                 inv_row=torch.div(order, max(idx.shape[1], 1),
                                   rounding_mode="floor").to(torch.int32),
-                inv_nw=nw.reshape(-1, 3)[order].contiguous())
+                inv_nw=nw.reshape(-1, 3)[order].contiguous(),
+                inv_cxw=cxw.reshape(-1, 6)[order].contiguous())
 
 
 def rest_corr_lanes(rest_corr: torch.Tensor) -> torch.Tensor:
@@ -241,10 +252,11 @@ def _check_table(topo, dtype, device):
         raise TypeError(f"kernels take float32 or float64, got {dtype}")
     check("idx", topo.idx, torch.int64, device, 2)
     n, K = topo.idx.shape
-    for name, ndim in (("c", 2), ("vj", 2), ("xji", 3), ("nw", 3), ("sum_v_nw", 2)):
+    for name, ndim in (("c", 2), ("vj", 2), ("xji", 3), ("nw", 3), ("sum_c_xji", 2),
+                       ("sum_v_nw", 2)):
         check(name, getattr(topo, name), dtype, device, ndim)
     shapes = {"idx": (n, K), "c": (n, K), "vj": (n, K), "xji": (n, K, 3),
-              "nw": (n, K, 3), "sum_v_nw": (n, 3)}
+              "nw": (n, K, 3), "sum_c_xji": (n, 3), "sum_v_nw": (n, 3)}
     for name, shape in shapes.items():
         x = getattr(topo, name)
         if tuple(x.shape) != shape or not x.is_contiguous():
@@ -253,14 +265,14 @@ def _check_table(topo, dtype, device):
     return n, K
 
 
-def _check_inverse(topo, device, n_src, streamed=False):
-    """The table's CSR inverse over n_src source rows (with ``streamed``,
-    also inv_row and inv_nw, which the forces backward's source pass
-    reads)."""
+def _check_inverse(topo, device, n_src, static):
+    """The table's CSR inverse over n_src source rows, inv_row and the
+    per-entry ``static`` that a source pass streams with it (``inv_nw``,
+    ``inv_cxw``)."""
     nk = topo.idx.numel()
-    fields = [("inv_order", torch.int64, (nk,)), ("inv_ptr", torch.int64, (n_src + 1,))]
-    if streamed:
-        fields += [("inv_row", torch.int32, (nk,)), ("inv_nw", topo.nw.dtype, (nk, 3))]
+    fields = [("inv_order", torch.int64, (nk,)), ("inv_ptr", torch.int64, (n_src + 1,)),
+              ("inv_row", torch.int32, (nk,)),
+              (static, topo.nw.dtype, (nk, {"inv_nw": 3, "inv_cxw": 6}[static]))]
     for name, dtype, shape in fields:
         x = getattr(topo, name)
         check(name, x, dtype, device, len(shape))
@@ -308,17 +320,17 @@ def _launch_gather_moments_bwd(pos, src, topo, dayT):
     n, K = _check_table(topo, dtype, device)
     check_lane_major("dayT", dayT, dtype, device, 18, n)
     n_src = n if src is None else src.shape[0]
-    _check_inverse(topo, device, n_src)
+    _check_inverse(topo, device, n_src, "inv_cxw")
     dpos = torch.empty((n, 3), dtype=dtype, device=device)
-    g = torch.empty((n * K, 3), dtype=dtype, device=device)
-    if src is None:       # one output: the rows' term, then the readers' added
-        drow, dsrc = torch.empty((n, 3), dtype=dtype, device=device), dpos
-    else:
-        drow, dsrc = dpos, torch.empty((n_src, 3), dtype=dtype, device=device)
+    dayR = torch.empty((n, DAY_W), dtype=dtype, device=device)
+    # the row pass writes the rows' own term into dpos; with one output (the
+    # source is the rows) the source pass adds the readers' to it
+    dsrc = dpos if src is None else torch.empty((n_src, 3), dtype=dtype, device=device)
     rc = entry("gather_kernels", "gather_moments_bwd", dtype)(
-        *_table_args(topo), n, K, topo.inv_order.data_ptr(), topo.inv_ptr.data_ptr(),
-        n_src, dayT.data_ptr(), dayT.stride(0), g.data_ptr(), drow.data_ptr(),
-        int(src is None), *_strided(dsrc), stream())
+        n, K, topo.sum_c_xji.data_ptr(), topo.sum_v_nw.data_ptr(), topo.inv_ptr.data_ptr(),
+        topo.inv_row.data_ptr(), topo.inv_cxw.data_ptr(), n_src, dayT.data_ptr(),
+        dayT.stride(0), dayR.data_ptr(), dpos.data_ptr(), int(src is None),
+        *_strided(dsrc), stream())
     raise_on(rc, "gather_moments_bwd")
     gather_moments_bwd.launches += 1
     return dpos, None if src is None else dsrc
@@ -356,7 +368,7 @@ def _launch_gather_forces_bwd(fmT, rec, topo, sep, df):
     if tuple(df.shape) != (n, 3) or not df.is_contiguous():
         raise ValueError(f"df must be a contiguous ({n}, 3), got {tuple(df.shape)}")
     n_src = rec.shape[0]
-    _check_inverse(topo, device, n_src, streamed=True)
+    _check_inverse(topo, device, n_src, "inv_nw")
     dfmT = torch.empty((19, n), dtype=dtype, device=device)
     rowrec = torch.empty((n, ROW_W[sep]), dtype=dtype, device=device)
     # the record's cotangent, lane-major (what mid_records_bwd reads as dsrT)
@@ -373,17 +385,19 @@ def _launch_gather_forces_bwd(fmT, rec, topo, sep, df):
 
 
 def kernel_info(K: float) -> dict:
-    """What the card gives each forces kernel on rows of K entries (and
+    """What the card gives each lane-group kernel on rows of K entries (and
     source rows of K readers): {(kernel, pairing, dtype): {registers,
     local_bytes, threads, blocks_per_sm, lanes}} (cudaFuncGetAttributes,
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor; ``lanes`` a row).
-    Needs a card."""
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; ``lanes`` a row), the
+    forces kernels in each pairing, ``gather_moments_bwd_src`` under
+    ``"both"``.  Needs a card."""
     lib = _build.library("gather_kernels")
     keys = ("registers", "local_bytes", "threads", "blocks_per_sm", "lanes")
     out = {}
     for which, name in enumerate(("gather_forces", "gather_forces_bwd_rows",
-                                  "gather_forces_bwd_src")):
-        for sep, pairing in ((0, "warp"), (1, "taichi")):
+                                  "gather_forces_bwd_src", "gather_moments_bwd_src")):
+        pairings = ((0, "both"),) if which == 3 else ((0, "warp"), (1, "taichi"))
+        for sep, pairing in pairings:
             for mode, dtype in enumerate(("float32", "float64")):
                 buf = (ctypes.c_int * len(keys))()
                 raise_on(lib.sb_gather_info(which, sep, float(K), mode, buf),

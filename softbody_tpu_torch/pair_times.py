@@ -146,7 +146,8 @@ def busy(torch, fn, per):
 
 
 def step_numbers(torch, scene, cfg, ratio, x, dev):
-    """Forward and gradient step: wall ms, device busy ms, activities."""
+    """Forward and gradient step: wall ms, device busy ms, activities; the
+    gradient's peak device memory (GiB, the scene's tables included)."""
     from softbody_tpu_torch.sim.rollout import (episode_value_and_grad_chunked,
                                                 initial_state, rollout, step)
 
@@ -167,7 +168,9 @@ def step_numbers(torch, scene, cfg, ratio, x, dev):
     x0 = torch.zeros_like(x)
     short = episode_value_and_grad_chunked(scene, cfg_g, 1, 10)
     grad = lambda: short(x0, tp[:3], tv[:3])
+    torch.cuda.reset_peak_memory_stats()
     out["grad_step_ms"] = min(host_ms(torch, grad, 1) for _ in range(3)) / 10
+    out["grad_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["grad_busy_ms"], out["grad_activities"] = busy(torch, grad, 10)
     return out
 

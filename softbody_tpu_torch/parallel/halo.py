@@ -162,7 +162,7 @@ def halo_scene(scene: Scene, plan: HaloPlan, group: Group) -> Scene:
     idx = torch.as_tensor(plan.local_idx[group.rank], dtype=torch.int64,
                           device=group.device)
     return loc._replace(topology=loc.topology._replace(
-        idx=idx, **inverse_fields(idx, plan.ext, loc.topology.nw)))
+        idx=idx, **inverse_fields(idx, plan.ext, loc.topology._asdict())))
 
 
 def elastic_forces_halo(pos_loc, ratio_loc, scene_loc: Scene, plan: HaloPlan,

@@ -288,13 +288,13 @@ def pad_scene(scene: Scene, multiple: int, cfg: SimConfig):
     own = torch.arange(n, n + pad, device=t.idx.device)[:, None].expand(pad, K)
     idx = torch.cat([t.idx, own.to(t.idx.dtype)])
     rest_corr = cat(t.rest_corr, 0.0, (3, 3))
-    nw = cat(t.nw, 0.0, (K, 3))
-    topo = Topology(idx=idx, mask=cat(t.mask, 0.0, (K,)), w=cat(t.w, 0.0, (K,)),
-                    nw=nw, xji=cat(t.xji, 0.0, (K, 3)),
-                    c=cat(t.c, 0.0, (K,)), vj=cat(t.vj, 0.0, (K,)),
-                    sum_c_xji=cat(t.sum_c_xji, 0.0, (3,)), rest_corr=rest_corr,
-                    sum_v_nw=cat(t.sum_v_nw, 0.0, (3,)),
-                    **inverse_fields(idx, n + pad, nw), rcT=rest_corr_lanes(rest_corr))
+    table = dict(idx=idx, mask=cat(t.mask, 0.0, (K,)), w=cat(t.w, 0.0, (K,)),
+                 nw=cat(t.nw, 0.0, (K, 3)), xji=cat(t.xji, 0.0, (K, 3)),
+                 c=cat(t.c, 0.0, (K,)), vj=cat(t.vj, 0.0, (K,)),
+                 sum_c_xji=cat(t.sum_c_xji, 0.0, (3,)), rest_corr=rest_corr,
+                 sum_v_nw=cat(t.sum_v_nw, 0.0, (3,)))
+    topo = Topology(**table, **inverse_fields(idx, n + pad, table),
+                    rcT=rest_corr_lanes(rest_corr))
     return Scene(rest, mats, scene.out_num, obstacles=scene.obstacles,
                  contact=scene.contact, topology=topo), n
 
@@ -350,7 +350,7 @@ def shard_scene(scene: Scene, group: Group) -> Scene:
 
     t = scene.topology
     fields = {f: put(getattr(t, f)) for f in Topology._fields[:10]}
-    topo = Topology(**fields, **inverse_fields(fields["idx"], n, fields["nw"]),
+    topo = Topology(**fields, **inverse_fields(fields["idx"], n, fields),
                     rcT=rest_corr_lanes(fields["rest_corr"]))
     return Scene(
         rest_position=put(scene.rest_position),

@@ -149,6 +149,7 @@ def build_topology(rest: np.ndarray, mass: np.ndarray, cfg: SimConfig,
         inv_ptr=None,
         inv_row=None,
         inv_nw=None,
+        inv_cxw=None,
         rcT=None,
     )
     return topo, rho, volume
@@ -163,7 +164,7 @@ def topology_to_torch(topo: Topology, dtype: torch.dtype, device) -> Topology:
 
     idx = torch.from_numpy(np.asarray(topo.idx, np.int64)).to(device)
     fields = {f: cast(getattr(topo, f)) for f in Topology._fields[1:10]}
-    return Topology(idx=idx, **fields, **inverse_fields(idx, idx.shape[0], fields["nw"]),
+    return Topology(idx=idx, **fields, **inverse_fields(idx, idx.shape[0], fields),
                     rcT=rest_corr_lanes(fields["rest_corr"]))
 
 

@@ -1124,8 +1124,7 @@ def _gather_shard(topo, rows):
     from softbody_tpu_torch.core.types import Topology
 
     fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0],
-                                                  fields["nw"]),
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0], fields),
                     rcT=gk.rest_corr_lanes(fields["rest_corr"]))
 
 
@@ -1141,7 +1140,7 @@ def _padded(topo, K):
     for f in ("mask", "w", "c", "vj", "nw", "xji"):
         x = fields[f]
         fields[f] = torch.cat([x, x.new_zeros((n, K - k0) + x.shape[2:])], dim=1).contiguous()
-    return Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields["nw"]),
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], n, fields),
                     rcT=topo.rcT)
 
 
@@ -1254,6 +1253,55 @@ def test_gather_forces_ragged_lane_groups(dtype, pairing, K):
                 assert all(_rel(g, w) <= tol for g, w in zip(_outs(kern(*args)), ref))
 
 
+# gather_moments_bwd's cases: (K, the shard-like run's share of the rows or
+# None for one device) -> lanes a source row of its source pass (f32, f64)
+# at their mean readers a source row (K; on the shard-like runs of 1447
+# rows ~K / 4 and ~K / 2): between them every lane group of 8, 16 and 32
+MOMENTS_CASES = {(20, None): (32, 16), (37, None): (32, 32), (100, None): (32, 32),
+                 (20, 4): (8, 8), (20, 2): (16, 8), (37, 2): (32, 16), (100, 2): (32, 32)}
+
+
+@pytest.mark.parametrize("K,share", list(MOMENTS_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_moments_bwd_ragged_lane_groups(dtype, K, share):
+    """gather_moments_bwd where a source row's readers are not a multiple of
+    its source pass's lane group: tables cut to their 20 or 37 nearest and
+    one padded to 100 entries a row, on one device (one merged output) and
+    on shard-like sources (a ragged run of a quarter or a half of the rows
+    over every particle, some source rows read by none: their cotangent
+    exactly zero), each against its plain version (1e-4 of max |plain| in
+    f32, 1e-10 in f64), a second call bit for bit the first.  The padded
+    table's cotangents equal the unpadded plain version's; each case runs
+    the lane group of MOMENTS_CASES (kernel_info at its mean readers)."""
+    dev = _card()
+    f64 = dtype == "float64"
+    cfg, scene, pos, ratio, dayT, _ = _gather_case(dtype, dev, "i", True,
+                                                   0 if K == 100 else K)
+    topo, n = scene.topology, pos.shape[0]
+    if K == 100:
+        assert topo.idx.shape[1] < K
+        topo = _padded(topo, K)
+    assert topo.idx.shape[1] == K
+    src, tight = None, scene.topology
+    if share:
+        rows = slice(9, 9 + n // share + 5)
+        topo, tight = _gather_shard(topo, rows), _gather_shard(tight, rows)
+        src, pos, dayT = pos, pos[rows].contiguous(), dayT[:, rows].contiguous()
+    mean = topo.idx.numel() / (topo.inv_ptr.numel() - 1)
+    info = gk.kernel_info(mean)["gather_moments_bwd_src", "both", dtype]
+    assert info["lanes"] == MOMENTS_CASES[K, share][int(f64)], (mean, info)
+    tol = 1e-10 if f64 else 1e-4
+    args = (pos, src, topo, dayT)
+    _held("gather_moments_bwd", gk.gather_moments_bwd, gk.gather_moments_bwd_plain, args, tol)
+    got = gk.gather_moments_bwd(*args)
+    if share:
+        unread = topo.inv_ptr.diff() == 0
+        assert bool(unread.any()) and not got[1][unread].any()
+    if K == 100:
+        ref = gk.gather_moments_bwd_plain(pos, src, tight, dayT)
+        assert all(_rel(g, w) <= tol for g, w in zip(_outs(got), _outs(ref)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_mid_records_writes_the_packed_record(dtype):
     """mid_records with the gather path's packed record: one launch, fmT and
@@ -1318,6 +1366,8 @@ def test_gather_kernels_refuse_bad_operands():
         gk.gather_moments_bwd(pos, None, topo, dayT[:17])
     with pytest.raises(ValueError, match="inv_ptr"):
         gk.gather_moments_bwd(pos, pos[:-1], topo, dayT)
+    with pytest.raises(ValueError, match="inv_cxw"):
+        gk.gather_moments_bwd(pos, None, topo._replace(inv_cxw=topo.inv_cxw[:, :3]), dayT)
     with pytest.raises(ValueError, match="xji"):
         gk.gather_moments(pos, None, topo._replace(xji=topo.xji.transpose(0, 1)))
     with pytest.raises(ValueError, match="rec must be"):

@@ -12,10 +12,12 @@ source: a ragged run of rows whose table reads a source of every
 particle, with its CSR inverse over the source (as
 ``parallel/sharding.shard_scene`` builds it).  The forces read the packed
 source record ``mid_records`` writes (its fields bitwise srT's and
-fmT's); the forces backward's source pass, which streams the Topology's
-``inv_row`` / ``inv_nw`` in CSR order, is emulated in plain torch and
-held to the plain VJP, and every Topology builder's streamed inverse to
-its definition."""
+fmT's); the backwards' passes as the kernels compute them, their source
+passes streaming the Topology's ``inv_row`` with ``inv_nw`` (the forces)
+or ``inv_cxw`` (the moments) in CSR order, are emulated in plain torch
+and held to the plain VJPs, the moments' plain VJP also to ``jax.vjp`` of
+the JAX package's ``deformation``, and every Topology builder's streamed
+inverse to its definition."""
 
 import jax
 import jax.numpy as jnp
@@ -67,8 +69,7 @@ def _scenes(body, pairing="i", corotated=True):
 def _shard(topo: Topology, rows: slice) -> Topology:
     """The rows' part of a table that keeps reading every particle."""
     fields = {f: getattr(topo, f)[rows].contiguous() for f in Topology._fields[:10]}
-    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0],
-                                                  fields["nw"]),
+    return Topology(**fields, **gk.inverse_fields(fields["idx"], topo.idx.shape[0], fields),
                     rcT=gk.rest_corr_lanes(fields["rest_corr"]))
 
 
@@ -157,6 +158,27 @@ def test_gather_moments_plain_matches_jax(body, shard):
         assert ds_t.shape == pos.shape and _rel(ds_t, ds_j) <= OPS_TOL
     else:
         assert ds_t is None
+
+
+def test_gather_moments_bwd_plain_matches_jax_deformation(body):
+    """The plain moments VJP against jax.vjp of the JAX package's
+    ``deformation`` itself (not corotated: F = I + Y^T - rest_corr^T, so
+    its A and F carry A and Y), on the same seeded positions and
+    cotangents, within 1e-10 of max |JAX|; the forward's A and Y too."""
+    cfg, scene_j, scene_t = _scenes(body, corotated=False)
+    pos, jpos = torch.as_tensor(body["pos"]), jnp.asarray(body["pos"])
+    (A_j, R_j, F_j), vjp = jax.vjp(lambda p: jel.deformation(p, scene_j.topology, cfg),
+                                   jpos)
+    A_t, Y_t = _ay(gk.gather_moments_plain(pos, None, scene_t.topology))
+    Y_j = np.swapaxes(np.asarray(F_j) - np.eye(3), 1, 2) + np.asarray(
+        scene_j.topology.rest_corr)
+    assert _rel(A_t, A_j) <= 1e-10 and _rel(Y_t, Y_j) <= 1e-10
+    dayT = torch.as_tensor(body["dayT"])
+    dA, dY = _ay(dayT)
+    (dp_j,) = vjp((jnp.asarray(dA), jnp.zeros_like(R_j),
+                   jnp.asarray(np.swapaxes(dY, 1, 2))))
+    dp_t, ds_t = gk.gather_moments_bwd_plain(pos, None, scene_t.topology, dayT)
+    assert ds_t is None and _rel(dp_t, dp_j) <= 1e-10
 
 
 @pytest.mark.parametrize("pairing,corotated", CASES)
@@ -301,6 +323,48 @@ def test_streamed_source_pass_matches_plain(body, pairing, shard):
     assert drec.shape == want_drec.shape and _rel(drec, want_drec) <= OPS_TOL
 
 
+def _streamed_moments_bwd(topo, dayT, merged):
+    """The moments backward as its two kernels compute it, in plain torch:
+    the row pass's own term -(dA_i sum_c_xji_i + dY_i sum_v_nw_i) from the
+    scene's sums, then the source pass walking inv_row / inv_cxw in CSR
+    order (each reader's g = dA_i (c X_ji) + dY_i (vj nW_ik), summed per
+    source row in that order); ``merged``: the source is the rows, one
+    output."""
+    dA, dY = (torch.as_tensor(m) for m in _ay(dayT))               # (n, 3, 3)
+    drow = -(torch.einsum("iab,ib->ia", dA, topo.sum_c_xji)
+             + torch.einsum("iab,ib->ia", dY, topo.sum_v_nw))
+    i, p = topo.inv_row.long(), topo.inv_cxw                        # CSR order
+    terms = (torch.einsum("qab,qb->qa", dA[i], p[:, :3])
+             + torch.einsum("qab,qb->qa", dY[i], p[:, 3:]))
+    dsrc = torch.segment_reduce(terms, "sum", offsets=topo.inv_ptr, axis=0)
+    return (drow + dsrc, None) if merged else (drow, dsrc)
+
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_streamed_moments_bwd_matches_plain(body, shard):
+    """The moments backward's two passes as the kernels compute them
+    (``_streamed_moments_bwd``: no per-entry buffer, the rows' term from
+    the scene's statics, the source pass streaming inv_row / inv_cxw)
+    against gather_moments_bwd_plain within 1e-12 of max |plain|: on one
+    device (one merged output) and on the shard-like source (dpos and dsrc
+    apart, source rows with no reader among them)."""
+    _, _, scene_t = _scenes(body)
+    rows = ROWS if shard else slice(None)
+    tt = _shard(scene_t.topology, rows) if shard else scene_t.topology
+    pos = torch.as_tensor(body["pos"])
+    src = pos if shard else None
+    dayT = torch.as_tensor(body["dayT"][:, rows]).contiguous()
+    got = _streamed_moments_bwd(tt, dayT, not shard)
+    want = gk.gather_moments_bwd_plain(pos[rows], src, tt, dayT)
+    assert _rel(got[0], want[0]) <= OPS_TOL
+    if shard:
+        assert bool((tt.inv_ptr.diff() == 0).any())
+        assert got[1].shape == want[1].shape == pos.shape
+        assert _rel(got[1], want[1]) <= OPS_TOL
+    else:
+        assert got[1] is None and want[1] is None
+
+
 @pytest.mark.parametrize("pairing", ["i", "j"])
 def test_mid_records_packed_record_is_srT_and_fmT(body, pairing):
     """The gather path's packed source record from mid_records' plain path
@@ -351,12 +415,16 @@ def test_gather_scene_carries_the_kernels_statics(body):
 
 
 def _streamed_inverse_ok(t, n_src):
-    """inv_row and inv_nw as their definition: the reader row and its
-    entry's nw, in inv_order's CSR order over n_src source rows."""
+    """inv_row, inv_nw and inv_cxw as their definition: the reader row, its
+    entry's nw and its products [c X_ji | vj nW_ik] in the scene's dtype,
+    in inv_order's CSR order over n_src source rows."""
     K = t.idx.shape[1]
     assert t.inv_row.dtype == torch.int32 and t.inv_row.is_contiguous()
     assert torch.equal(t.inv_row.long(), t.inv_order // K)
     assert t.inv_nw.is_contiguous() and torch.equal(t.inv_nw, t.nw.reshape(-1, 3)[t.inv_order])
+    cxw = torch.cat([t.c[..., None] * t.xji, t.vj[..., None] * t.nw], dim=-1)
+    assert t.inv_cxw.dtype == t.nw.dtype and t.inv_cxw.is_contiguous()
+    assert torch.equal(t.inv_cxw, cxw.reshape(-1, 6)[t.inv_order])
     assert t.inv_ptr.shape == (n_src + 1,) and int(t.inv_ptr[-1]) == t.idx.numel()
     assert torch.equal(t.idx.reshape(-1)[t.inv_order],
                        torch.repeat_interleave(torch.arange(n_src), t.inv_ptr.diff()))
@@ -364,8 +432,8 @@ def _streamed_inverse_ok(t, n_src):
 
 @pytest.mark.parametrize("builder", ["scene", "pad_scene", "shard_scene", "halo_scene"])
 def test_every_builder_fills_the_streamed_inverse(body, builder):
-    """Every Topology builder gives the forces backward's streamed inverse
-    fields: build_scene (one device), pad_scene, shard_scene (3 shards of
+    """Every Topology builder gives the backwards' streamed inverse fields
+    (inv_row, inv_nw, inv_cxw): build_scene (one device), pad_scene, shard_scene (3 shards of
     a padded scene: ragged runs of rows reading every particle) and
     halo_scene (its local + halo source)."""
     from softbody_tpu_torch.parallel import halo, sharding
