@@ -179,6 +179,10 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      passes on a bf16 slab, one launch each, each bucket's columns vs its
      plain version on the same slab (1e-4), a bitwise repeat, ms next to
      the f32 rows; the bf16 cotangent scatter slab_to_slots_bf16 vs plain
+     (2^-7 of max |plain|, at most 5e-3 of the values a rounding apart), a
+     second launch bitwise the first, the slot groups without readers
+     exactly 0, timed with its bound beside index_add_ of the same 15 f32
+     fields
  39  the default path with the bf16 slab: one step's wall time vs f32, a
      300-step episode from x* vs phase 6's f32 one (drift <= 5% of the
      displacement), the quiet body over phase 7's steps through
@@ -188,8 +192,9 @@ path against its plain PyTorch version.  Phases, each printed as it runs:
      (tests/test_pair_dtype.py:91-92)
  40  that gradient's launches (the bf16 kernels' JSON launches)
  41  path B with the bf16 slab: K2 v2 and its passes on the varcol tiles vs
-     plain, then phase 39's checks at B_BF16_STEPS (quiet body at path B's
-     own 1e-4)
+     plain, and the bf16 scatter's checks and timing of phase 38 on its
+     buffer, then phase 39's checks at B_BF16_STEPS (quiet body at path
+     B's own 1e-4)
  42  the sparse SPMD episode (parallel/sparse_shard.py) in 2 gloo ranks on
      the one card, n_shards=2 layout of the same body: which collectives
      gloo takes on CUDA tensors (the refused ones staged through host
@@ -2722,6 +2727,7 @@ def bf16_kernels(torch, tag, label, sb, rec, srT, dfT, h, stats, v2):
     the bf16 cotangent scatter against its plain version: into ``stats``."""
     from softbody_tpu_torch.ops import fused_kernels as fk
     from softbody_tpu_torch.ops import pair_kernels as pk
+    from softbody_tpu_torch.ops.pair_common import slab_slots
 
     f32 = 4
     srb = srT.to(torch.bfloat16)
@@ -2768,25 +2774,40 @@ def bf16_kernels(torch, tag, label, sb, rec, srT, dfT, h, stats, v2):
     st = stats["slab_to_slots_bf16"]
     dsr = launch[names[2]]()
     args = (dsr, sb.slab_ptr, sb.slab_idx, sb.bucket_starts, sb.n_slots, sb.group)
-    got, want = pk.slab_to_slots_bf16(*args).float(), pk.slab_to_slots_bf16_plain(*args).float()
+    out = pk.slab_to_slots_bf16(*args)
+    got, want = out.float(), pk.slab_to_slots_bf16_plain(*args).float()
     flips = float((got != want).float().mean())
     err = float((got - want).abs().max() / want.abs().max())
+    same = torch.equal(out.view(torch.int16), pk.slab_to_slots_bf16(*args).view(torch.int16))
+    empty = out.view(15, -1, sb.group)[:, torch.diff(sb.slab_ptr) == 0].contiguous()
+    zero = empty.numel() > 0 and not bool(empty.view(torch.int16).any())
     say(f"      slab_to_slots_bf16 ({label}): kernel vs plain {err:.2e} of max "
         f"|plain|, {flips:.2e} of the values one bf16 rounding apart (tol 2^-7 and "
-        f"5e-3: another f32 order within a bucket)")
-    if not (err <= 2.0 ** -7 and flips <= 5e-3):
+        f"5e-3: another f32 order within a bucket); a second launch bitwise the "
+        f"first: {same}; the {empty.shape[1]} slot groups without readers exactly 0: "
+        f"{zero}")
+    if not (err <= 2.0 ** -7 and flips <= 5e-3 and same and zero):
         fail(f"slab_to_slots_bf16 disagrees with its plain version on the {label}")
     st["max_abs_err"] = max(st["max_abs_err"], float((got - want).abs().max()))
     st["max_rel_err"] = max(st["max_rel_err"], err)
+    # timed on both scenes (the kernels line keeps the sparse scene's, the
+    # default path's); beside it the f32 scatter's library counterpart on the
+    # same 15 fields
+    kept = sb.slab_idx.numel() * sb.group
+    slots = torch.cat([slab_slots(b.gidx8, b.slab_len).reshape(-1) for b in sb.buckets])
+    t = dict(ms=cuda_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
+             launch_ms=host_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
+             plain_ms=cuda_ms(lambda: pk.slab_to_slots_bf16_plain(*args), 2),
+             library_ms=cuda_ms(lambda: torch.zeros((15, sb.n_slots), device=dsr.device)
+                                .index_add_(1, slots, dsr), 20),
+             flops=15 * kept, bytes=15 * kept * f32 + 15 * sb.n_slots * 2
+             + (sb.slab_idx.numel() + sb.slab_ptr.numel()) * 4)
+    summarize(f"slab_to_slots_bf16 ({label})", t, 1, tag)
+    say(f"    slab_to_slots_bf16 library counterpart ({label}): index_add_ of the 15 "
+        f"f32 fields, {t['library_ms']:.4f} ms (f32 only: it rounds no bucket's sum to "
+        f"bf16, adds with float atomics and also adds the padding group's readers) {tag}")
     if not v2:
-        kept = sb.slab_idx.numel() * sb.group
-        st.update(ms=cuda_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
-                  launch_ms=host_ms(lambda: pk.slab_to_slots_bf16(*args), 20),
-                  plain_ms=cuda_ms(lambda: pk.slab_to_slots_bf16_plain(*args), 2),
-                  flops=15 * kept,
-                  bytes=15 * kept * f32 + 15 * sb.n_slots * 2
-                  + (sb.slab_idx.numel() + sb.slab_ptr.numel()) * 4)
-        summarize("slab_to_slots_bf16", st, 1, tag)
+        st.update(t)
 
 
 def bf16_path(torch, np, dev, tag, num, label, scene, cfg, x_star, fin_f32, steps_f32,

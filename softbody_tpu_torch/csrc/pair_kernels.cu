@@ -125,6 +125,7 @@
 
 #include <cuda_bf16.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
@@ -852,6 +853,10 @@ int launch_forces_v2(const void* sched, int n_sched, const void* rest_rows,
 //   n_entries) field-major, added into (k, n_slots): one thread per (field,
 //   slot) walks its slot group's CSR list of readers in ascending order.
 //   Byte-bound (each entry read once).
+// slab_to_slots_bf16_kernel: the same scatter into bf16 for the bf16 K2
+//   slab, rounded per bucket as the JAX package rounds.  Byte-bound too; a
+//   warp per slot group reads one reader's 15 fields with 16-byte loads and
+//   finds the bucket boundaries by ballots (its note, further down).
 
 constexpr int BCH = 128;          // slab entries per slab-side block
 constexpr int K1B_REC = 24;       // K1 bwd row record: x_3, ct_18, pad
@@ -1455,42 +1460,145 @@ slab_to_slots_kernel(const T* __restrict__ buf,          // (k, ld_buf)
   out[f * ld_out + slot] = acc;
 }
 
-// The bf16 K2 slab's cotangent (cfg.pair_dtype): bf16, rounded where the
-// JAX package rounds it.  Its K2 VJP returns each bucket's f32 slot sums as
-// bf16 (packed.py: dsr_packed.astype), and autograd adds the buckets' bf16
-// cotangents of the one slab in bf16, last bucket first.  So per (field,
-// slot): its readers walked last to first (bucket-major, as slab_idx lists
-// them), summed in f32 per bucket, each bucket's sum rounded to bf16 and
-// added to the running bf16 total.  bstart (n_b,): each bucket's first
-// group entry, in slab_idx's units.
-__global__ void __launch_bounds__(SCATTER_THREADS)
+// slab_to_slots_bf16_kernel: the bf16 K2 slab's cotangent (cfg.pair_dtype),
+// replacing the XLA scatter and cast inside JAX's K2 VJP (packed.py ::
+// scatter_packed_raw_T, dsr_packed.astype) and autograd's bf16 sum of the
+// buckets' cotangents.  It rounds where the JAX package rounds: per (field,
+// slot), each bucket's readers summed in f32 (ascending, slab_idx's order),
+// that sum rounded to bf16 and added to the running bf16 total, last bucket
+// first.  bstart (n_b,): each bucket's first group entry, in slab_idx's
+// units (readers below bstart[0] belong to no bucket and are left out).
+//   Byte-bound: each kept entry's 15 f32 fields are read once (127 MB at
+//   the ~112k sparse scene, ~18 readers a slot group; 385 MB and ~55 on
+//   varcol), a reader's field as one 32-byte piece of its own row, at
+//   random.  What keeps it from the bound is how many such pieces are in
+//   flight and how much of each DRAM fetch is used: a thread per (field,
+//   slot) reads each list 120 times with one 4-byte load in flight; the
+//   same pieces read in position order reach only ~0.68 of the bound on
+//   the card.  So:
+//   * A warp per slot group (per 8 of its slots: a group of 16 takes 2
+//     warps, of 4 half a warp's lanes): lane 2 f + h loads field f's slots
+//     [4 h, 4 h + 4) of a reader, one 16-byte load, so one warp instruction
+//     reads 15 whole 32-byte sectors of one reader.
+//   * The list is read 32 positions at a time into a lane register each and
+//     handed out by shuffles; lane b holds bstart[b] (n_b <= 32).
+//   * Buckets are walked last first, only those with readers: the bucket of
+//     the last reader not yet added is one ballot against the lanes'
+//     bstart, its first reader one ballot per 32 readers (readers below
+//     bstart[b] vs not: the list is ascending), so the sum over its readers
+//     has no branch, and is unrolled S2S_U readers deep (S2S_U loads in
+//     flight per lane).
+//   * L2 fetches whole 128-byte lines (ld4), which the neighbouring warps
+//     share.
+//   * The same adds in the same order every launch, no atomics: bitwise
+//     repeatable, and the plain version's order.  A group without readers
+//     writes exact zeros.
+constexpr int S2S_WARPS = 8;      // slot groups (warps) per block
+constexpr int S2S_U = 4;          // readers in flight per lane
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One reader's 4 slots of one field: a 16-byte load through the read-only
+// path that allocates nothing in L1 (each entry is read once) and has L2
+// fetch the whole 128-byte line: the line's other entries are the same
+// tile's next candidate groups, which the neighbouring warps read soon after.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void add4(float (&acc)[4], const float4 v) {
+  acc[0] += v.x;
+  acc[1] += v.y;
+  acc[2] += v.z;
+  acc[3] += v.w;
+}
+
+// The readers [lo, hi) of one bucket added into acc in ascending order.
+// The list is walked in the chunks of 32 that start at e0 (p0 the first
+// chunk, the others loaded), S2S_U readers at a time; a reader past hi adds
+// +0, which leaves every sum as it is (a sum of f32 values is never -0).
+// src points at this lane's 4 slots of reader 0.
+__device__ __forceinline__ void s2s_segment(
+    float (&acc)[4], const float* __restrict__ src, int group, bool on,
+    const int32_t* __restrict__ idx, int e0, int e1, int p0, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  for (int cb = e0 + ((lo - e0) & ~31); cb < hi; cb += 32) {
+    const int pc = cb == e0 ? p0 : (cb + lane < e1 ? __ldg(idx + cb + lane) : 0);
+    const int n = min(hi - cb, 32);
+    for (int u = max(lo - cb, 0); u < n; u += S2S_U) {
+      float4 v[S2S_U];
+#pragma unroll
+      for (int j = 0; j < S2S_U; ++j) {
+        const int p = __shfl_sync(FULL_MASK, pc, (u + j) & 31);
+        v[j] = on && u + j < n ? ld4(src + (int64_t)p * group)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < S2S_U; ++j) add4(acc, v[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(S2S_WARPS * 32)
 slab_to_slots_bf16_kernel(const float* __restrict__ buf, int64_t ld_buf,
                           const int32_t* __restrict__ ptr,
                           const int32_t* __restrict__ idx,
                           const int32_t* __restrict__ bstart, int n_b,
                           __nv_bfloat16* __restrict__ out, int64_t ld_out, int k,
-                          int n_slots, int group) {
-  const int64_t i = (int64_t)blockIdx.x * SCATTER_THREADS + threadIdx.x;
-  if (i >= (int64_t)k * n_slots) return;
-  const int f = (int)(i / n_slots);
-  const int slot = (int)(i % n_slots);
-  const int g = slot / group;
-  const float* b = buf + f * ld_buf + slot % group;
-  float total = 0.f, acc = 0.f;
-  int bk = n_b - 1;
-  for (int e = ptr[g + 1] - 1; e >= ptr[g]; --e) {
-    const int32_t p = idx[e];
-    if (p < bstart[bk]) {                    // an earlier bucket: round this one's
-      total = __bfloat162float(__float2bfloat16_rn(
-          total + __bfloat162float(__float2bfloat16_rn(acc))));
-      acc = 0.f;
-      while (p < bstart[bk]) --bk;
+                          int n_groups, int group) {
+  const int parts = (group + 7) / 8;       // warps per slot group
+  const int64_t w = (int64_t)blockIdx.x * S2S_WARPS + (threadIdx.x >> 5);
+  if (w >= (int64_t)n_groups * parts) return;                   // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = (int)(w / parts);
+  const int f = lane >> 1;
+  const int s0 = 8 * (int)(w % parts) + 4 * (lane & 1);        // first of 4 slots
+  const bool on = f < k && s0 < group;
+  const float* src = buf + (on ? f * ld_buf + s0 : 0);
+  const int e0 = ptr[g], e1 = ptr[g + 1];
+  // the list's first 32 positions (past its end above every bucket start),
+  // and lane b < n_b holds bucket b's first entry (the others above all)
+  const int p0 = e0 + lane < e1 ? __ldg(idx + e0 + lane) : INT_MAX;
+  const int bs = lane < n_b ? __ldg(bstart + lane) : INT_MAX;
+  float tot[4] = {0.f, 0.f, 0.f, 0.f};
+  int hi = e1;                             // the readers not yet added: [e0, hi)
+  while (hi > e0) {
+    // the bucket of the last reader not yet added: buckets past it are empty
+    const int last = hi - 1 - e0 < 32 ? __shfl_sync(FULL_MASK, p0, hi - 1 - e0)
+                                      : __ldg(idx + hi - 1);
+    const int b = __popc(__ballot_sync(FULL_MASK, bs <= last)) - 1;
+    if (b < 0) break;                      // readers below bucket 0's first entry
+    const int first = __shfl_sync(FULL_MASK, bs, b);
+    // lo: e0 + the readers below bucket b's first entry (ascending: a chunk
+    // with one not below ends the count)
+    int below = __popc(__ballot_sync(FULL_MASK, p0 < first));
+    int lo = e0 + below;
+    for (int cb = e0 + 32; below == 32 && cb < hi; cb += 32) {
+      const int p = cb + lane < e1 ? __ldg(idx + cb + lane) : INT_MAX;
+      below = __popc(__ballot_sync(FULL_MASK, p < first));
+      lo += below;
     }
-    acc += b[(int64_t)p * group];
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    s2s_segment(acc, src, group, on, idx, e0, e1, p0, lo, hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[i] = bf16_round(tot[i] + bf16_round(acc[i]));
+    hi = lo;
   }
-  total = __bfloat162float(__float2bfloat16_rn(
-      total + __bfloat162float(__float2bfloat16_rn(acc))));
-  out[f * ld_out + slot] = __float2bfloat16_rn(total);
+  if (on) {
+    __nv_bfloat162 lo2 = __floats2bfloat162_rn(tot[0], tot[1]);
+    __nv_bfloat162 hi2 = __floats2bfloat162_rn(tot[2], tot[3]);
+    uint2 v;
+    v.x = *reinterpret_cast<const unsigned*>(&lo2);
+    v.y = *reinterpret_cast<const unsigned*>(&hi2);
+    *reinterpret_cast<uint2*>(out + f * ld_out + (int64_t)g * group + s0) = v;
+  }
 }
 
 template <typename T>
@@ -1958,11 +2066,15 @@ int sb_slab_to_slots_bf16(const void* buf, int64_t ld_buf, const void* ptr,
                           const void* idx, const void* bstart, int n_b, void* out,
                           int64_t ld_out, int k, int n_slots, int group,
                           void* stream) {
-  const int64_t n = (int64_t)k * n_slots;
-  const int blocks = (int)((n + SCATTER_THREADS - 1) / SCATTER_THREADS);
-  slab_to_slots_bf16_kernel<<<blocks, SCATTER_THREADS, 0, (cudaStream_t)stream>>>(
+  // the wrapper checks: group a multiple of 4, k <= 16, n_b <= 32, buf
+  // 16-byte aligned with a row stride a multiple of 4 (out is its own
+  // contiguous (k, n_slots))
+  const int n_groups = n_slots / group;
+  const int64_t warps = (int64_t)n_groups * ((group + 7) / 8);
+  const int blocks = (int)((warps + S2S_WARPS - 1) / S2S_WARPS);
+  slab_to_slots_bf16_kernel<<<blocks, S2S_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const float*)buf, ld_buf, (const int32_t*)ptr, (const int32_t*)idx,
-      (const int32_t*)bstart, n_b, (bf16*)out, ld_out, k, n_slots, group);
+      (const int32_t*)bstart, n_b, (bf16*)out, ld_out, k, n_groups, group);
   return (int)cudaGetLastError();
 }
 

@@ -526,6 +526,17 @@ def _launch_slab_to_slots_bf16(buf, slab_ptr, slab_idx, bstart, n_slots, group):
     if not (slab_ptr.is_contiguous() and slab_idx.is_contiguous()
             and bstart.is_contiguous()) or bstart.shape[0] == 0:
         raise ValueError("slab_ptr, slab_idx and a non-empty bstart must be contiguous")
+    # the kernel reads 4 slots of a field with one 16-byte load, 16 fields
+    # at most (two lanes a field), and holds a bucket start a lane
+    if group % 4:
+        raise ValueError(f"the bf16 scatter takes slot groups of a multiple of 4, "
+                         f"got {group}")
+    if buf.shape[0] > 16 or bstart.shape[0] > 32:
+        raise ValueError(f"the bf16 scatter takes at most 16 fields and 32 buckets, "
+                         f"got {buf.shape[0]} and {bstart.shape[0]}")
+    if buf.data_ptr() % 16 or buf.stride(0) % 4:
+        raise ValueError("buf must be 16-byte aligned with a row stride that is a "
+                         "multiple of 4")
     k = buf.shape[0]
     out = torch.empty((k, n_slots), dtype=torch.bfloat16, device=device)
     if k == 0 or n_slots == 0:

@@ -22,8 +22,11 @@ rows (with the packed source record in a tree that has it),
 ``j_gather_*`` the Taichi pairing's, ``j_gather_record_merge`` the add
 of its record's cotangent into dfmT that its backward makes on one
 device) on the same body's (N, K) tables
-(``chip_smoke.py`` phase 45's operands), at the ~112k stretch scene on
-one CUDA card, and the steps
+(``chip_smoke.py`` phase 45's operands), and of the scatters of the
+backward's per-entry buffers on both scenes (``slab_to_slots``: K1's 3
+fields and K2's 15, its 2 launches an evaluation; ``slab_to_slots_bf16``:
+the bf16 K2 slab's 15; each on the slab pass's own output), at the ~112k
+stretch scene on one CUDA card, and the steps
 they sit in (``g_`` the gather path's), for this checkout or another one
 (``--tree``), so that two versions can be compared on one card in one
 sitting:
@@ -34,6 +37,8 @@ sitting:
         --kernels 'mid_records' --no-steps
     python softbody_tpu_torch/pair_times.py --against /path/to/parent --rounds 2 \
         --gather-only
+    python softbody_tpu_torch/pair_times.py --against /path/to/parent --rounds 3 \
+        --kernels slab_to_slots --no-steps
 
 (``--gather-only``: the gather backend alone, its kernels where the tree
 has them and its steps: a tree without the kernels runs the path's eager
@@ -51,8 +56,9 @@ launch); one whose wrapper takes the whole scene as its one launch.  CUDA events
 ``--reps`` evaluations queued behind a sleep kernel, warm.  Prints one JSON
 line: the tree, the card (``nvidia-smi`` name and power limit), the ms per
 evaluation and the launches per evaluation of each kernel, and for the
-default path, the Taichi pairing (``j_``), the fused path (``f_``) and
-path B (``b_``) one forward step's wall ms (fastest of 5 rounds of 5) and
+default path, the Taichi pairing (``j_``), the fused path (``f_``),
+path B (``b_``) and the default path and path B with the bf16 K2 slab
+(``bf16_``, ``b_bf16_``) one forward step's wall ms (fastest of 5 rounds of 5) and
 one gradient step's (a 10-step ``episode_value_and_grad_chunked``, fastest
 of 3), each with the device's busy ms and activities per step
 (``torch.profiler`` over 10 steps, as ``chip_smoke.py`` phases 8 and 11
@@ -65,11 +71,12 @@ instantiation), the mid-section kernels' SASS instructions per row
 loop counted ``SWEEPS`` times; ``_corr`` names the raw-dot correction's instantiation) and the issue
 floor they set (``issue_floor_ms``: instructions x rows / 32 / (SMs x 4
 schedulers) / the card's highest SM clock), and a digest of
-``moments_mid``'s and the mid-section kernels' outputs (``digest``: equal
+``moments_mid``'s, the mid-section kernels' and the f32 scatter's outputs (``digest``: equal
 digests from two trees mean bitwise equal outputs; the ring kernels'
 digests equal the one-wave kernels' when their outputs do).  ``--kernels``
 times only the kernels whose key matches its regular expression,
-``--no-steps`` skips the steps.  Needs a card.
+``--no-steps`` skips the steps, ``--steps`` runs only those whose prefix
+matches its regular expression.  Needs a card.
 """
 
 from __future__ import annotations
@@ -328,6 +335,7 @@ def compare(args):
     opts = ["--particles", str(args.particles), "--reps", str(args.reps)]
     opts += ["--kernels", args.kernels] if args.kernels else []
     opts += ["--no-steps"] if args.no_steps else []
+    opts += ["--steps", args.steps]
     opts += ["--gather-only"] if args.gather_only else []
     runs = []
     for _ in range(args.rounds):
@@ -379,6 +387,9 @@ def main():
                     help="time only the kernels whose key matches this regular "
                          "expression")
     ap.add_argument("--no-steps", action="store_true", help="skip the steps")
+    ap.add_argument("--steps", default="",
+                    help="run only the steps whose prefix matches this regular "
+                         "expression ('default' names the unprefixed default path)")
     ap.add_argument("--against", default="",
                     help="another checkout (A): time it and --tree (B) in turns "
                          "A, B, B, A, --rounds times, one process each, then summarize")
@@ -559,6 +570,28 @@ def main():
                for b in sc_.buckets]
         evals[label + "moments_raw_bwd"] = lambda fns=fns: [f() for f in fns]
         per_launch[label + "moments_raw_bwd"] = fns
+    # the scatters of one backward evaluation's per-entry buffers on both
+    # scenes: the f32 slab_to_slots of K1's 3 fields and K2's 15 (its 2
+    # launches), and slab_to_slots_bf16 of the bf16 K2 slab's 15
+    srT16, srT_b16 = srT.to(torch.bfloat16), srT_b.to(torch.bfloat16)
+    for label, sc_, bufs in (
+            ("", sb, lambda: (pk.moments_v4_bwd(sb, dayT, h)[0],
+                              pk.forces_warp_v4_bwd_slab(sb, f9T, srT, dfT, h),
+                              pk.forces_warp_v4_bwd_slab(sb, f9T, srT16, dfT, h))),
+            ("varcol_", blk, lambda: (fk.moments_raw_bwd(blk, dayT_b, h, False)[0],
+                                      fk.forces_warp_v2_bwd_slab(blk, fmT_b, srT_b,
+                                                                 dfT_b, h),
+                                      fk.forces_warp_v2_bwd_slab(blk, fmT_b, srT_b16,
+                                                                 dfT_b, h)))):
+        if not (raw_whole and v2_whole and hasattr(sc_, "chunks")):
+            break                               # a tree whose passes take a bucket
+        dps, dsr, dsr16 = bufs()
+        csr = (sc_.slab_ptr, sc_.slab_idx, sc_.n_slots, sc_.group)
+        evals[label + "slab_to_slots"] = (lambda dps=dps, dsr=dsr, csr=csr: (
+            pk.slab_to_slots(dps, *csr), pk.slab_to_slots(dsr, *csr)))
+        evals[label + "slab_to_slots_bf16"] = (
+            lambda a=(dsr16, sc_.slab_ptr, sc_.slab_idx, sc_.bucket_starts, sc_.n_slots,
+                      sc_.group): pk.slab_to_slots_bf16(*a))
     # the separable K2 and its backward on G = V M of both scenes
     from softbody_tpu_torch.ops import separable_kernels as sk
 
@@ -633,7 +666,8 @@ def main():
     # the ring kernels', which must equal the one-wave kernels')
     out["digest"] = {key: digest(torch, evals[key]()) for key in (
         "moments_mid", "mid_records", "mid_records_bwd", "varcol_mid_records",
-        "varcol_mid_records_bwd") + tuple(k for k in evals if k.endswith("_ring"))}
+        "varcol_mid_records_bwd") + tuple(k for k in evals if k.endswith("_ring")
+                                          or k.endswith("slab_to_slots"))}
     out["digest"].update(g_out.pop("digest", {}))
     out.update(g_out)
     out["ring_plan"] = ring_plans
@@ -662,14 +696,19 @@ def main():
     if args.no_steps:
         print(json.dumps(out), flush=True)
         return
-    out.update(step_numbers(torch, scene, cfg, ratio, x_star, dev))
-    out.update({f"j_{k}": v for k, v in step_numbers(
-        torch, scene, cfg.replace(pair_def_grad="j"), ratio, x_star, dev).items()})
-    out.update({f"f_{k}": v for k, v in step_numbers(
-        torch, scene, cfg.replace(fused_mid=True), ratio, x_star, dev).items()})
-    out.update({f"b_{k}": v for k, v in step_numbers(
-        torch, scene_b, cfg, ratio_b, x_b, dev).items()})
-    out.update(gather_numbers(torch, np, args, dev, pts, out_num, body, True)[0])
+    bf16 = cfg.replace(pair_dtype="bfloat16")
+    steps = {"": (scene, cfg, ratio, x_star),
+             "j_": (scene, cfg.replace(pair_def_grad="j"), ratio, x_star),
+             "f_": (scene, cfg.replace(fused_mid=True), ratio, x_star),
+             "b_": (scene_b, cfg, ratio_b, x_b),
+             "bf16_": (scene, bf16, ratio, x_star),
+             "b_bf16_": (scene_b, bf16, ratio_b, x_b)}
+    for label, (sc_, c, rat, x) in steps.items():
+        if re.search(args.steps, label or "default"):
+            out.update({f"{label}{k}": v for k, v in step_numbers(
+                torch, sc_, c, rat, x, dev).items()})
+    if re.search(args.steps, "g_"):
+        out.update(gather_numbers(torch, np, args, dev, pts, out_num, body, True)[0])
     print(json.dumps(out), flush=True)
 
 

@@ -798,11 +798,78 @@ def test_bf16_slab_kernels_match_plain(blocked):
     assert counts == dict.fromkeys(counts, 0) | {f"{n}_bf16": 1 for n in names}
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     args = (got[2], sb.slab_ptr, sb.slab_idx, sb.bucket_starts, sb.n_slots, sb.group)
+    _hold_bf16_scatter(args)
+
+
+def _hold_bf16_scatter(args):
+    """The bf16 cotangent scatter on ``args`` against its plain version (bf16
+    both: equal but where another f32 order tips a rounding, at most 1 in
+    200 values, by at most 2^-7 of the largest), one launch counted, a
+    second launch bit for bit the first, and every slot of a group without
+    readers exactly 0.  The kernel adds each bucket's readers in the CSR
+    order, as the plain version does on the CPU: bit for bit that too."""
     pk.reset_launch_counts()
-    k, p = pk.slab_to_slots_bf16(*args).float(), pk.slab_to_slots_bf16_plain(*args).float()
+    out = pk.slab_to_slots_bf16(*args)
     assert pk.launch_counts()["slab_to_slots_bf16"] == 1
+    k, p = out.float(), pk.slab_to_slots_bf16_plain(*args).float()
     assert (k != p).float().mean() < 5e-3
     assert float(torch.abs(k - p).max()) <= 2.0 ** -7 * float(torch.abs(p).max())
+    on_cpu = pk.slab_to_slots_bf16_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                           for a in args))
+    assert torch.equal(out.cpu().view(torch.int16), on_cpu.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), pk.slab_to_slots_bf16(*args).view(torch.int16))
+    buf, slab_ptr, _, _, n_slots, group = args
+    empty = out.view(buf.shape[0], n_slots // group, group)[:, torch.diff(slab_ptr) == 0]
+    assert empty.numel() and not empty.contiguous().view(torch.int16).any()
+
+
+@pytest.mark.parametrize("group", [4, 8, 12, 16])
+def test_bf16_scatter_edge_lists(group):
+    """The bf16 cotangent scatter on a synthetic CSR inverse over 8 buckets
+    (``tests/test_torch_scatter_bf16.py``): lists of 0, 1, 31, 32, 33 and
+    100 readers crossing every bucket boundary, a bucket without readers
+    inside a list, a group read only by the last bucket; slot groups of 4
+    to 16 (a warp per 8 slots)."""
+    from tests.test_torch_scatter_bf16 import synthetic_csr
+
+    dev = _card()
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in synthetic_csr(group))
+    _hold_bf16_scatter(args)
+
+
+def test_bf16_scatter_group16_scene():
+    """The scatter on a sparse scene built with slot groups of 16."""
+    dev = _card()
+    pts, out_num = inflatable_sphere(n_outer=600)
+    cfg = warp_parity().replace(h=suggest_h(pts, 32), dtype="float32", backend="pallas")
+    scene, _ = build_sparse_scene(pts, cfg, out_num=out_num, device=dev, group=16)
+    sb = scene.blocked
+    assert sb.group == 16 and len(sb.buckets) > 1
+    buf = torch.as_tensor(np.random.default_rng(16).normal(size=(15, pk.n_entries(sb))),
+                          dtype=torch.float32, device=dev)
+    _hold_bf16_scatter((buf, sb.slab_ptr, sb.slab_idx, sb.bucket_starts, sb.n_slots, 16))
+
+
+def test_bf16_scatter_refuses_what_it_does_not_take():
+    """Slot groups not a multiple of 4, more than 16 fields or 32 buckets, a
+    buffer not 16-byte aligned: the wrapper raises (no fallback on the
+    card)."""
+    from tests.test_torch_scatter_bf16 import synthetic_csr
+
+    dev = _card()
+    buf, ptr, idx, bst, n_slots, group = (a.to(dev) if torch.is_tensor(a) else a
+                                          for a in synthetic_csr(8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pk.slab_to_slots_bf16(buf[:, :buf.shape[1] // 8 * 6], ptr, idx // 2, bst // 2,
+                              n_slots // 8 * 6, 6)
+    with pytest.raises(ValueError, match="at most 16 fields"):
+        pk.slab_to_slots_bf16(torch.zeros((17, buf.shape[1]), device=dev), ptr, idx, bst,
+                              n_slots, group)
+    with pytest.raises(ValueError, match="32 buckets"):
+        pk.slab_to_slots_bf16(buf, ptr, idx, torch.arange(33, dtype=torch.int32, device=dev),
+                              n_slots, group)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.slab_to_slots_bf16(buf[:, 1:1 - group], ptr, idx, bst, n_slots, group)
 
 
 def test_bf16_path_launches_its_kernels():
