@@ -23,6 +23,13 @@ episode as ``cfg.remat_chunk`` says (sqrt-nested remat: chunks of c steps
 and a tail; one chunk for linear remat), so peak memory holds O(T/c)
 boundary states plus one chunk's per-step inputs.
 
+Spans.  Each step and each pass of a gradient evaluation is a
+``utils.profiling.span`` (``sim.step``; ``grad.forward``, the no-grad
+forward; ``grad.recompute``, a chunk's recompute; ``grad.backward``, a
+chunk's backward and the initial state's): without an active profiler one
+check, under one a host range on its timeline.  The checkpoint's recompute
+shows as ``sim.step`` spans inside ``grad.backward``.
+
 Contact overflow.  With ``cfg.contact_check`` and a contact grid on the
 scene, every step ORs the grid's overflow flag into a device-side
 :class:`ContactCheck`; the runners read it on the host once per episode
@@ -45,6 +52,7 @@ from ..ops.contact import contact_forces
 from ..ops.elasticity import compute_ratio, forces_and_records
 from ..ops.obstacles import penalty_force
 from ..ops.pair_kernels import KERNELS, PairOps
+from ..utils.profiling import span
 from .blocked import elastic_forces_blocked, elastic_forces_pallas
 
 
@@ -155,30 +163,31 @@ def step(state: ParticleState, ratio, scene: Scene, cfg: SimConfig,
     of the same name): the SPMD paths (``parallel/``) run their exchanged
     force evaluation through this same integrator body, so the step's
     semantics live in one place."""
-    mats = scene.materials
-    dt = cfg.dt
-    m = mats.mass[:, None]
-    pos, vel, f_el = state
+    with span("sim.step"):
+        mats = scene.materials
+        dt = cfg.dt
+        m = mats.mass[:, None]
+        pos, vel, f_el = state
 
-    def el(p):
-        if elastic_fn is not None:
-            return elastic_fn(p)
-        return elastic_forces(p, ratio, scene, cfg, pair_ops)
+        def el(p):
+            if elastic_fn is not None:
+                return elastic_fn(p)
+            return elastic_forces(p, ratio, scene, cfg, pair_ops)
 
-    if cfg.integrator == "trapezoidal":
-        force1 = total_force(pos, vel, f_el, mats, cfg, scene, check)
-        pos_n = pos + (dt * vel + 0.5 * dt * dt * force1 / m) * mats.free
-        f_el_n = el(pos_n)
-        # the velocity-damping term reuses v_t in both halves (sim.py:256-257)
-        force2 = total_force(pos_n, vel, f_el_n, mats, cfg, scene, check)
-        vel_n = vel + dt * (force1 + force2) / (2.0 * m) * mats.free
-        return ParticleState(pos_n, vel_n, f_el_n)
+        if cfg.integrator == "trapezoidal":
+            force1 = total_force(pos, vel, f_el, mats, cfg, scene, check)
+            pos_n = pos + (dt * vel + 0.5 * dt * dt * force1 / m) * mats.free
+            f_el_n = el(pos_n)
+            # the velocity-damping term reuses v_t in both halves (sim.py:256-257)
+            force2 = total_force(pos_n, vel, f_el_n, mats, cfg, scene, check)
+            vel_n = vel + dt * (force1 + force2) / (2.0 * m) * mats.free
+            return ParticleState(pos_n, vel_n, f_el_n)
 
-    f_el_now = el(pos)
-    force = total_force(pos, vel, f_el_now, mats, cfg, scene, check)
-    vel_n = vel + dt * force / m * mats.free
-    pos_n = pos + dt * vel_n * mats.free
-    return ParticleState(pos_n, vel_n, f_el_now)
+        f_el_now = el(pos)
+        force = total_force(pos, vel, f_el_now, mats, cfg, scene, check)
+        vel_n = vel + dt * force / m * mats.free
+        pos_n = pos + dt * vel_n * mats.free
+        return ParticleState(pos_n, vel_n, f_el_now)
 
 
 def initial_state(scene: Scene, ratio, cfg: SimConfig,
@@ -358,7 +367,7 @@ def _value_and_grad(x, tp, tv, scene: Scene, cfg: SimConfig, sizes,
     x = _to_scene(scene, x).detach()
     tp, tv = _to_scene(scene, tp), _to_scene(scene, tv)
     k0s = [sum(sizes[:i]) for i in range(len(sizes))]
-    with torch.no_grad():
+    with torch.no_grad(), span("grad.forward"):
         state = initial_state(scene, compute_ratio(x, cfg), cfg, pair_ops)
         states, loss = [], 0.0       # host f64 keeps the compensated precision
         for k0, length in zip(k0s, sizes):
@@ -374,14 +383,16 @@ def _value_and_grad(x, tp, tv, scene: Scene, cfg: SimConfig, sizes,
         leaves = [t.detach().requires_grad_() for t in s_in]
         x_leaf = x.detach().requires_grad_()
         with torch.enable_grad():
-            out, (hi, _) = _chunk_primal(ParticleState(*leaves), x_leaf, k0,
-                                         tp, tv, scene, cfg, length, n_steps,
-                                         pair_ops)
-            *cot, dx = _grad_of(list(out) + [hi], cot + [torch.ones_like(hi)],
-                                leaves + [x_leaf])
+            with span("grad.recompute"):
+                out, (hi, _) = _chunk_primal(ParticleState(*leaves), x_leaf, k0,
+                                             tp, tv, scene, cfg, length, n_steps,
+                                             pair_ops)
+            with span("grad.backward"):
+                *cot, dx = _grad_of(list(out) + [hi], cot + [torch.ones_like(hi)],
+                                    leaves + [x_leaf])
         grad = grad + dx
     x_leaf = x.detach().requires_grad_()
-    with torch.enable_grad():
+    with torch.enable_grad(), span("grad.backward"):
         state0 = initial_state(scene, compute_ratio(x_leaf, cfg), cfg, pair_ops)
         (dx,) = _grad_of(list(state0), cot, [x_leaf])
     return loss, grad + dx

@@ -1,17 +1,15 @@
 """Profiling / observability on torch (counterpart of
 ``softbody_tpu/utils/profiling.py``).
 
-Wall-clock throughput records (particle-steps/s, the BASELINE.md metric), a
-``torch.profiler`` trace context that writes a Chrome trace, and a step timer
-on CUDA events.  Kernels launch asynchronously on the current stream: a wall
-clock reads the device's work only after :func:`sync_point`.
+A ``torch.profiler`` trace context that writes a Chrome trace, and the
+program's spans (:func:`span`), which mark its passes on the profiler's
+timeline.  Kernels launch asynchronously on the current stream: a wall clock
+reads the device's work only after :func:`sync_point`.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import time
 from pathlib import Path
 
 import torch
@@ -26,33 +24,6 @@ def sync_point(device=None):
         return
     if torch.cuda.is_available():
         torch.cuda.synchronize(device)
-
-
-class Throughput:
-    """Particle-steps/sec counter around episode executions."""
-
-    def __init__(self, n_particles: int):
-        self.n = n_particles
-        self.records = []
-
-    @contextlib.contextmanager
-    def measure(self, n_steps: int, label: str = "episode"):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self.records.append({
-            "label": label,
-            "steps": n_steps,
-            "seconds": dt,
-            "particle_steps_per_sec": self.n * n_steps / dt,
-        })
-
-    @property
-    def best(self):
-        return max((r["particle_steps_per_sec"] for r in self.records), default=0.0)
-
-    def dump(self, path):
-        Path(path).write_text(json.dumps(self.records, indent=1))
 
 
 @contextlib.contextmanager
@@ -72,36 +43,19 @@ def trace(log_dir):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-class StepTimer:
-    """Per-step timing of a state -> state function."""
-
-    @staticmethod
-    def time_step_fn(step_fn, state, iters: int = 50):
-        """Seconds per call of ``step_fn(state) -> state`` over ``iters``
-        chained calls after one warm-up call: CUDA events on the card, the
-        host clock otherwise."""
-        state = step_fn(state)
-        cuda = torch.cuda.is_available() and _on_cuda(state)
-        if not cuda:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                state = step_fn(state)
-            return (time.perf_counter() - t0) / iters
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            state = step_fn(state)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
+_OFF = contextlib.nullcontext()
 
 
-def _on_cuda(state) -> bool:
-    """Whether a tensor of ``state`` lies on a CUDA device."""
-    if isinstance(state, torch.Tensor):
-        return state.is_cuda
-    if isinstance(state, (tuple, list)):
-        return any(_on_cuda(s) for s in state)
-    return False
+def span(name: str):
+    """A context marking a pass of the program as the host range ``name``
+    on the profiler's timeline, beside the device's activities.
+
+    Without an active profiler it is one check and returns a shared no-op
+    context.  Under one it is a FUNCTION-scope range
+    (``_RecordFunctionFast``): a plain host event.  A ``record_function``
+    range would be a user annotation, which the CUDA tracer mirrors as a
+    device interval over the kernels launched inside it, so it would show
+    among the device's activities."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
